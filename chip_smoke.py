@@ -12,15 +12,31 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 3. Hold each kernel against its plain PyTorch twin on the card, at a
    small random shape and at the bench shape (64 rows, npad 24576,
    MP 896; Viterbi T 6144, SP 256): integer outputs exactly equal, f32
-   outputs bit-equal (max_abs_err 0).  Print kernel and plain times.
+   outputs bit-equal (max_abs_err 0).  The two-pass kernels run at
+   B=8: N=4096, M=40, ckpt_steps 512 (cold and warm windows) and the
+   bench template at N=24576, ckpt_steps 16384; bottom taps, written
+   checkpoint slots and written pointer words equal.  The Viterbi pair
+   also runs at the ultra-long segment length (B=8, T 55296).  Print
+   kernel and plain times.
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
    the fused per-row-template wave route), with a seeded synthetic
-   6-mer pore model.  Every count must be exact, every kernel must have
-   launched in this phase, and the first 8 '+' results must equal the
-   port's plain CPU path.  Print reads/s beside the card's power limit.
-5. Print the kernel table as one JSON line, then the final
+   6-mer pore model.  Every count must be exact, every kernel of the
+   split path must have launched in this phase, and the first 8 '+'
+   results must equal the port's plain CPU path.  Print reads/s beside
+   the card's power limit.
+4b. The ultra-long route: 8 noisy '+' reads of ~1.1M samples with 1200
+   units through the same counter, once with ``STRIQUE_PTR_BUDGET_GB=2``
+   (the bucket's ~4.7 GB width-8 plane does not fit: the two-pass
+   kernels run, the one-pass wave kernel must not) and once with 8 (the
+   one-pass route at 8 rows a call).  Counts 8/8 exact on both routes,
+   and the two routes' result tuples equal.  Print each route's seconds.
+4c. One more pass of each path under torch.profiler: wall time, device
+   time by kernel and the busy share.
+5. Print the kernel table as one JSON line (per kernel: launches on its
+   path, max_abs_err against its twin, ms, plain_ms, the bound of
+   ``bound()`` and library_ms), then the final
    ``{"ok": true, "device": ...}`` line.
 """
 from __future__ import annotations
@@ -33,10 +49,44 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 REPEATS = 100
 BATCH = 64
+ULTRA_REPEATS = 1200
+ULTRA_T = 55296  # Viterbi segment length of an ultra-long read, padded to 512
+
+# published peaks of one H100 SXM (NVIDIA data sheet; dense, no sparsity)
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12  # FP32 outside the tensor cores
+F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores
+# f32 operations per DP cell, counted from wave_align.cu's expression
+# tree (pointer modes; the score-only pass drops the 6 of the pointer
+# code); the f64 |d|^1.2 counts as 2 FP64 operations (a log and an exp,
+# a lower bound of pow's cost)
+WAVE_F32_PER_CELL = 23
+CKPT_F32_PER_CELL = 17
+POW_F64_PER_CELL = 2
+
+SPLIT_KERNELS = ("align_forward_wave", "align_forward_wave_multi", "traceback_pointers",
+                 "viterbi_forward_factored", "viterbi_backward_batch")
+SOURCES = {
+    "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
+                           "strique_tpu/ops/align_pallas.py:639"),
+    "align_forward_wave_multi": ("strique_tpu_torch/csrc/wave_align.cu",
+                                 "strique_tpu/ops/align_pallas.py:684"),
+    "align_forward_ckpt": ("strique_tpu_torch/csrc/wave_align.cu",
+                           "strique_tpu/ops/align_pallas.py:788"),
+    "align_window_from_state": ("strique_tpu_torch/csrc/wave_align.cu",
+                                "strique_tpu/ops/align_pallas.py:834"),
+    "traceback_pointers": ("strique_tpu_torch/csrc/traceback.cu",
+                           "strique_tpu/ops/align.py:235"),
+    "viterbi_forward_factored": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                 "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
+                               "strique_tpu/ops/viterbi_pallas.py:308"),
+}
 
 
 def fail(msg: str) -> None:
@@ -67,6 +117,21 @@ def once_ms(fn):
     out = fn()
     torch.cuda.synchronize()
     return out, (time.perf_counter() - t0) * 1e3
+
+
+def bound(nbytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0) -> dict:
+    """The least time the card could take: bytes over HBM bandwidth or
+    operations over the peak rates of their types, whichever is larger
+    (no PyTorch call computes these functions: library_ms is null)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32_ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": None}
+
+
+def wave_cells(n_act, m_rows) -> float:
+    """DP cells the inputs need: sum over rows of n * m."""
+    return float((n_act.double() * m_rows.double()).sum())
 
 
 def valid_ptr_mask(n_act, m_rows, nwords):
@@ -125,7 +190,11 @@ def check_wave(pm_templates, shape_name, B, N, params, multi, rng, results):
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
     if not ok:
         fail(f"{name} disagrees with its plain twin at the {shape_name} shape")
-    results[name] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms}
+    cells = wave_cells(n_d, m_d)
+    nbytes = (4 * (sig.size + tmpl.size) + 8 * B + 4 * int(mask.sum()) * tmpl.shape[1]
+              + 4 * bot_k.numel())
+    results[name] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
     return ptr_k, bot_k, n_d, m_d
 
 
@@ -152,10 +221,14 @@ def check_traceback(ptr, bot, n_d, m_d, shape_name, results):
           f"plain {plain_ms:.1f} ms", flush=True)
     if err != 0:
         fail(f"traceback kernel disagrees with its plain twin at the {shape_name} shape")
-    results["traceback_pointers"] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms}
+    # the walk reads one pointer word per step: m + (j_end - j_begin) steps a row
+    steps = float((m_d.double() + (j_end - got["j_begin"]).double()).sum())
+    nbytes = 4 * steps + B * m_out * 5 + 4 * B + 8 * B
+    results["traceback_pointers"] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                                     **bound(nbytes, 10 * steps)}
 
 
-def check_viterbi(pm, chm, shape_name, B, T, rng, results):
+def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
     import numpy as np
     import torch
 
@@ -168,7 +241,7 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results):
     obs = np.zeros((B, T), np.float32)
     lens = np.zeros(B, np.int32)
     for b in range(B):
-        n = int(rng.integers(max(1, REPEATS // 2), REPEATS + 1))
+        n = int(rng.integers(max(1, repeats // 2), repeats + 1))
         s = pm.generate_signal(PREFIX[-50:] + REPEAT * n + SUFFIX[:50], samples=8, noise=True,
                                rng=rng).astype(np.float32)[:T]
         obs[b, : len(s)] = s
@@ -186,7 +259,16 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results):
           f"max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
     if err != 0.0:
         fail(f"factored forward kernel disagrees with its plain twin at the {shape_name} shape")
-    results["viterbi_forward_factored"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    sp = ph.sp
+    live_cells = float(l_d.double().sum()) * sp
+    diag_offs, chain_spec = ph.fspec
+    n_rolls = len(diag_offs) + sum(len(a) + len(b) for a, b in chain_spec)
+    # per (step, state): an add and a max per roll, 3 per chain (ramp in,
+    # cummax, ramp out), 8 for the emission and the row-max rescale
+    f32 = live_cells * (2 * n_rolls + 3 * len(chain_spec) + 8)
+    nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + len(chain_spec) + 5) * sp
+    results["viterbi_forward_factored"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                           **bound(nbytes, f32)}
 
     last = torch.argmax(fin_k + ph.end, dim=1)
     run_k = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
@@ -199,8 +281,115 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results):
           f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
     if perr != 0:
         fail(f"backward kernel disagrees with its plain twin at the {shape_name} shape")
+    # one score row and one transition row per visited step; 3 f32 ops a state
+    nbytes = 4 * (live_cells + sp * sp + B * T + 2 * B)
     results["viterbi_backward_batch"] = {"max_abs_err": float(perr), "ms": ms,
-                                         "plain_ms": plain_ms}
+                                         "plain_ms": plain_ms, **bound(nbytes, 3 * live_cells)}
+
+
+def written_slots(n_act, m: int, nd: int, ckpt_steps: int):
+    """(n_ck, B) mask of the checkpoint slots a row's pass 1 writes (it
+    stops at round_up(n + m, 8))."""
+    import torch
+
+    stop = torch.clamp_max((n_act.to(torch.int64) + m + 7) // 8 * 8, nd)
+    g = torch.arange(nd // ckpt_steps, device=n_act.device)[:, None]
+    return (g + 1) * ckpt_steps <= stop[None, :]
+
+
+def check_longread(template, shape_name, B, N, params, ckpt_steps, cold_rows, rng, results):
+    """Kernel rows 5 and 6 against their twins on one pass-1 state.
+
+    Rows < ``cold_rows`` carry the template near the signal's start
+    (their pass-2 window starts cold when the span bound allows it), the
+    others in its second half.
+    """
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    dev = torch.device("cuda")
+    m = len(template)
+    sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
+    for b in range(B):
+        lo, hi = (0, min(600, N - m)) if b < cold_rows else (N // 2, N - m)
+        st = int(rng.integers(lo, max(lo + 1, hi)))
+        sig[b, st : st + m] = template + rng.normal(0, 1.0, m).astype(np.float32)
+    n_d = torch.from_numpy(rng.integers(N - N // 8, N + 1, B).astype(np.int32)).to(dev)
+    st = AL._longread_pass1(torch.from_numpy(sig).to(dev), n_d, template, params, ckpt_steps)
+    cks, mp, nd = st["ckpt_steps"], st["mp"], st["N"] + st["mp"]
+    m_rows = torch.full((B,), st["m"], dtype=torch.int32, device=dev)
+    run_k = lambda: AC.align_forward_ckpt(st["sig"], n_d, st["tmpl"], params, st["m"],
+                                          cks // AC.CHUNK)
+    (bot_k, ck_k), _ = once_ms(run_k)
+    (bot_p, ck_p), plain_ms = once_ms(
+        lambda: AC._ckpt_plain(st["sig"], st["tmpl"], n_d, m_rows, params, cks))
+    slots = written_slots(n_d, st["m"], nd, cks)
+    bot_err = float((bot_k.double() - bot_p.double()).abs().max())
+    ck_eq = all(torch.equal(a[slots], b[slots]) for a, b in zip(ck_k, ck_p))
+    ms = cuda_ms(run_k, 3)
+    _build.LAUNCHES["align_forward_ckpt"] = 0
+    print(f"  align_forward_ckpt [{shape_name} B={B} N={st['N']} MP={mp} ckpt_steps={cks}]: "
+          f"{int(slots.sum())} written slots {'equal' if ck_eq else 'DIFFER'}, bottom "
+          f"max_abs_err {bot_err}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+    if not (ck_eq and bot_err == 0.0):
+        fail(f"align_forward_ckpt disagrees with its plain twin at the {shape_name} shape")
+    cells = wave_cells(n_d, m_rows)
+    nbytes = 4 * (st["sig"].numel() + mp + 2 * B + bot_k.numel() + 4 * int(slots.sum()) * mp)
+    results["align_forward_ckpt"] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
+                                     **bound(nbytes, CKPT_F32_PER_CELL * cells,
+                                             POW_F64_PER_CELL * cells)}
+
+    w = AL.window_inputs(st)
+    n_cold = int(w["cold"].sum())
+    args = (w["sig_win"], w["r_init"], w["state4"], w["cold"], w["steps_needed"], st["tmpl"],
+            params)
+    run_k = lambda: AC.align_window_from_state(*args, st["m"])
+    ptr_k, _ = once_ms(run_k)
+    ptr_p, plain_ms = once_ms(lambda: AC._window_plain(*args))
+    words = valid_ptr_mask(w["steps_needed"], torch.zeros_like(n_d), ptr_k.shape[0])
+    ptr_eq = bool(torch.equal(ptr_k[words], ptr_p[words]))
+    ms = cuda_ms(run_k, 3)
+    _build.LAUNCHES["align_window_from_state"] = 0
+    print(f"  align_window_from_state [{shape_name} B={B} W={w['sig_win'].shape[1]} MP={mp}, "
+          f"{n_cold} cold / {B - n_cold} warm rows]: pointers "
+          f"{'equal' if ptr_eq else 'DIFFER'}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms",
+          flush=True)
+    if not ptr_eq:
+        fail(f"align_window_from_state disagrees with its plain twin at the {shape_name} shape")
+    if 0 < cold_rows < B and not 0 < n_cold < B:
+        fail(f"the {shape_name} shape was meant to cover cold and warm windows, got {n_cold} cold")
+    cells = wave_cells(w["steps_needed"], m_rows)
+    nbytes = (4 * (w["sig_win"].numel() + 5 * B * mp + mp + 2 * B)
+              + 4 * int(words.sum()) * mp)
+    results["align_window_from_state"] = {
+        "max_abs_err": 0.0 if ptr_eq else float("inf"), "ms": ms, "plain_ms": plain_ms,
+        **bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
+
+
+def profile_pass(label: str, fn, card: str) -> None:
+    """Run ``fn`` once under torch.profiler; print wall time, device time
+    by kernel and the device's busy share (kernel time over wall)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and str(e.device_type).endswith("CUDA")]
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    print(f"profile [{label}]: wall {wall_ms:.2f} ms, device kernels {total:.2f} ms, busy share "
+          f"{total / wall_ms:.3f}; card: {card}", flush=True)
+    for key, ms, n in rows[:8]:
+        print(f"  {ms:10.3f} ms  {n:4d} x  {key[:90]}", flush=True)
 
 
 def run_pipeline(counter, sigs, strand):
@@ -235,15 +424,15 @@ def main() -> int:
     try:
         import numpy as np
 
-        from strique_tpu.pore_model import PoreModel
-        from strique_tpu_torch import _build
+        from strique_tpu_torch import _build, native
         from strique_tpu_torch.detect.counter import RepeatCounter
+        from strique_tpu_torch.pore_model import PoreModel
         from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, smoke_workload,
-                                                 write_pore_model)
+                                                 ultralong_workload, write_pore_model)
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    if "jax" in sys.modules or "strique_tpu" in sys.modules:
+        fail("jax or the JAX package was imported")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -257,15 +446,20 @@ def main() -> int:
 
     # -- phase 2: build -----------------------------------------------------
     t0 = time.perf_counter()
+    host_prep = threading.Thread(target=native.available)  # g++ beside the nvcc builds
+    host_prep.start()
     try:
         _build.build(force=True)
         _build.lib()
     except Exception as e:  # noqa: BLE001 - any build failure is fatal here
         fail(f"kernel build failed: {e}")
+    host_prep.join()
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)})", flush=True)
+    print(f"build: {build_s:.1f} s (nvcc {' '.join(_build.NVCC_FLAGS)}, one process per "
+          f"source; native host prep {'built' if native.available() else 'UNAVAILABLE'})",
+          flush=True)
     for line in _build.BUILD_INFO.get("ptxas", "").splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or ("spill" in line and not line.strip().startswith("0 bytes")):
             print(f"  ptxas: {line.strip()}", flush=True)
 
     # -- phase 3: every kernel against its plain twin -----------------------
@@ -293,6 +487,12 @@ def main() -> int:
                 torch.cuda.empty_cache()
         for shape_name, B, T in (("small", 8, 512), ("bench", 64, 6144)):
             check_viterbi(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
+        # the ultra-long route's segments: ~9x the bench T (rescale and acc)
+        check_viterbi(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
+        check_longread(small[0], "small", 8, 4096, params, 512, 4, rng, results)
+        # the bench template's span bound (29,581 steps) exceeds ND: all windows cold
+        check_longread(tc.prefix_ext, "bench", 8, 24576, params, 16384, 0, rng, results)
+        torch.cuda.empty_cache()
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001
@@ -327,8 +527,8 @@ def main() -> int:
     if ok_plus != len(plus) or ok_minus != len(minus):
         fail("inexact repeat counts: " + str([r[0] for r in res_plus + res_minus
                                                if r[0] != REPEATS][:10]))
-    for name, n in launches.items():
-        if n <= 0:
+    for name in SPLIT_KERNELS:
+        if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the counting path")
     if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and np.isfinite(r[3])
                for r in res_plus + res_minus):
@@ -340,26 +540,68 @@ def main() -> int:
         fail("the first 8 '+' results differ from the plain CPU path")
     print("first 8 '+' result tuples equal the plain CPU path", flush=True)
 
+    # -- phase 4b: the ultra-long two-pass route -----------------------------
+    ultra = ultralong_workload(pm, args.seed, repeats=ULTRA_REPEATS)
+    print(f"ultra-long workload: {len(ultra)} '+' reads of {len(ultra[0])} samples, "
+          f"{ULTRA_REPEATS} repeat units", flush=True)
+    runs = {}
+    try:
+        # 2 GiB: the bucket's ~4.7 GB width-8 plane does not fit (two-pass);
+        # 8 GiB: it does at 8 rows a call (the one-pass route)
+        for route, budget in (("two-pass", "2"), ("one-pass", "8")):
+            os.environ["STRIQUE_PTR_BUDGET_GB"] = budget
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = counter.detect_many("c9orf72", ultra, "+")
+            torch.cuda.synchronize()
+            runs[route] = (res, time.perf_counter() - t0, dict(_build.LAUNCHES))
+    except Exception as e:  # noqa: BLE001
+        fail(f"ultra-long path raised {type(e).__name__}: {e}")
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
+    for route, (res, dt, lc) in runs.items():
+        ok = sum(int(r[0] == ULTRA_REPEATS) for r in res)
+        print(f"ultra-long {route}: {ok}/{len(res)} exact in {dt:.3f} s "
+              f"(STRIQUE_PTR_BUDGET_GB={'2' if route == 'two-pass' else '8'}); card: {card}; "
+              f"launches {json.dumps({k: v for k, v in lc.items() if v})}", flush=True)
+        if ok != len(res):
+            fail(f"inexact ultra-long counts on the {route} route: {[r[0] for r in res]}")
+        if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and np.isfinite(r[3]) for r in res):
+            fail(f"non-finite scores or log_p on the {route} route")
+    two_launches = runs["two-pass"][2]
+    if (two_launches["align_forward_ckpt"] <= 0 or two_launches["align_window_from_state"] <= 0
+            or two_launches["align_forward_wave"] or two_launches["align_forward_wave_multi"]):
+        fail("the two-pass run did not go through the checkpoint and window kernels alone")
+    if runs["one-pass"][2]["align_forward_ckpt"]:
+        fail("the one-pass run took the two-pass route")
+    if [tuple(r) for r in runs["two-pass"][0]] != [tuple(r) for r in runs["one-pass"][0]]:
+        fail("two-pass result tuples differ from the one-pass route's")
+    print("ultra-long two-pass result tuples equal the one-pass route's", flush=True)
+    for name in ("align_forward_ckpt", "align_window_from_state"):
+        launches[name] = two_launches[name]
+
+    # -- phase 4c: where the device time goes --------------------------------
+    try:
+        profile_pass("split path, 128 '+' reads", lambda: run_pipeline(counter, plus, "+"), card)
+        os.environ["STRIQUE_PTR_BUDGET_GB"] = "2"
+        profile_pass("ultra-long two-pass, 8 reads",
+                     lambda: counter.detect_many("c9orf72", ultra, "+"), card)
+    except Exception as e:  # noqa: BLE001
+        fail(f"profiled pass raised {type(e).__name__}: {e}")
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
+
     # -- phase 5: report ----------------------------------------------------
-    sources = {
-        "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
-                               "strique_tpu/ops/align_pallas.py:639"),
-        "align_forward_wave_multi": ("strique_tpu_torch/csrc/wave_align.cu",
-                                     "strique_tpu/ops/align_pallas.py:684"),
-        "traceback_pointers": ("strique_tpu_torch/csrc/traceback.cu",
-                               "strique_tpu/ops/align.py:235"),
-        "viterbi_forward_factored": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
-                                     "strique_tpu/ops/viterbi_pallas.py:470"),
-        "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
-                                   "strique_tpu/ops/viterbi_pallas.py:308"),
-    }
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
-               for name, (src, rep) in sources.items()]
+               for name, (src, rep) in SOURCES.items()]
     if args.out:
         with open(args.out, "w") as fp:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "reads_per_sec": rps,
-                       "plus_s": dt_plus, "minus_s": dt_minus, "kernels": kernels}, fp, indent=1)
+                       "plus_s": dt_plus, "minus_s": dt_minus,
+                       "ultra_s": {k: v[1] for k, v in runs.items()}, "kernels": kernels},
+                      fp, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

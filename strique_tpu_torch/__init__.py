@@ -7,9 +7,11 @@ Pallas TPU kernels rewritten as hand-written CUDA kernels
 kernel has a plain PyTorch twin in the same module; a wrapper takes the
 twin only for tensors on the CPU.
 
-The package imports ``torch`` and never ``jax``; it reuses the
-jax-free host modules of :mod:`strique_tpu` (pore model, HMM builders,
-native host prep).
+The package imports ``torch`` and never ``jax``, and nothing of
+:mod:`strique_tpu`: it keeps its own copies of the jax-free host
+modules it needs (pore model, HMM builders and factorizer, NumPy
+signal ops, native host prep, ``AlignParams``), under the same names;
+tests/test_torch_copies.py pins each copy to its original.
 """
 
 __version__ = "0.1.0"

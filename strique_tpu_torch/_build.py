@@ -1,8 +1,9 @@
 """Build and bind the package's hand-written CUDA kernels.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` into ONE shared library
-with a plain C interface, loaded through ``ctypes`` (pointers and the
-CUDA stream travel as ``c_void_p``).  No PyTorch headers are included,
+Every ``csrc/*.cu`` file compiles with ``nvcc`` (one process per file,
+all started together) and links into ONE shared library with a plain C
+interface, loaded through ``ctypes`` (pointers and the CUDA stream
+travel as ``c_void_p``).  No PyTorch headers are included,
 so a cold build takes seconds, not the minutes of
 ``torch.utils.cpp_extension.load``.
 
@@ -30,11 +31,13 @@ import threading
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-fmad=false", "-shared", "-Xcompiler", "-fPIC"]
+              "-fmad=false", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {
     "align_forward_wave": 0,
     "align_forward_wave_multi": 0,
+    "align_forward_ckpt": 0,
+    "align_window_from_state": 0,
     "traceback_pointers": 0,
     "viterbi_forward_factored": 0,
     "viterbi_backward_batch": 0,
@@ -53,6 +56,12 @@ _SIGNATURES = {
     # sig, tmpl, nact, mrow, ptr, bottom; B, N, MP, tmpl_stride, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_align_launch": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P],
+    # sig, tmpl, nact, mrow, bottom, ck_s1, ck_s2, ck_ih, ck_c; B, N, MP,
+    # ckpt_steps, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "wave_ckpt_launch": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],
+    # sig_win, r_init, tmpl, steps, s1, s2, ih, c, cold, ptr; B, W, MP,
+    # neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "wave_window_launch": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out; stream
     "traceback_diag_launch": [_P] * 6 + [_I] * 3 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, weights, spec, sc, fin,
@@ -83,20 +92,38 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> str:
-    """Compile csrc/*.cu into the shared library if stale; return its path."""
+    """Compile csrc/*.cu into the shared library if stale; return its path.
+
+    One ``nvcc -c`` per source, all started together, then one link.
+    """
     out_dir = build_dir()
     lib_path = os.path.join(out_dir, "libstrique_torch_kernels.so")
     srcs = _sources()
     newest = max(os.path.getmtime(p) for p in srcs + _headers())
     if force or not os.path.exists(lib_path) or os.path.getmtime(lib_path) < newest:
         os.makedirs(out_dir, exist_ok=True)
-        tmp = f"{lib_path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp, *srcs]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        BUILD_INFO["ptxas"] = proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, lib_path)
+        tag = f"{os.getpid()}.tmp"
+        objs = [os.path.join(out_dir, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", o, s],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BUILD_INFO["ptxas"] = "".join(logs)
+        failed = [(s, p.returncode, log) for s, p, log in zip(srcs, procs, logs) if p.returncode]
+        if not failed:
+            tmp = f"{lib_path}.{tag}"
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS, "-shared", "-o", tmp, *objs], capture_output=True,
+                                  text=True)
+            if link.returncode:
+                failed = [("link", link.returncode, link.stderr)]
+            else:
+                os.replace(tmp, lib_path)
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(s)} ({rc}):\n{log}" for s, rc, log in failed))
         BUILD_INFO["built"] = True
     else:
         BUILD_INFO.setdefault("built", False)

@@ -3,7 +3,7 @@
 Counterpart of ``strique_tpu/detect/counter.py``'s default "split"
 path, in three phases a caller can overlap across batches:
 
-  1. :meth:`RepeatCounter.detect_submit` -- host prep (the shared
+  1. :meth:`RepeatCounter.detect_submit` -- host prep (the port's
      native library, or NumPy), upload of 1 byte per sample (u8 morph
      bins plus a 256-entry f32 level table per read), the u8 -> f32
      decode as a device gather, both flank alignments
@@ -19,8 +19,17 @@ path, in three phases a caller can overlap across batches:
 
 Results are ``(n, score_prefix, score_suffix, log_p, offset, ticks,
 mod)`` tuples, as the reference returns them.  Not ported yet, and
-raising ``NotImplementedError``: the mod model, the fused single
-dispatch (``STRIQUE_SPLIT=0``) and the ultra-long two-pass alignment.
+raising ``NotImplementedError``: the mod model and the fused single
+dispatch (``STRIQUE_SPLIT=0``).
+
+Ultra-long reads (a bucket whose width-8 pointer plane exceeds
+``ops.align_cuda.ptr_budget_bytes``; ``STRIQUE_PTR_BUDGET_GB``
+overrides it) reach the checkpointed two-pass alignment through the
+same calls: ``align_fused_pair`` declines fusion past the budget and
+``align_core`` routes the bucket to ``align_longread_sharded``.  The
+reference needs an eager twin of its jitted bounds pipeline for that
+route (its ``_bounds_eager``); the port runs eagerly throughout, so
+it has none.
 """
 from __future__ import annotations
 
@@ -31,18 +40,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from strique_tpu import native as native_lib
-from strique_tpu.hmm.models import build_flanked_repeat
-from strique_tpu.ops import signal as signal_ops
-from strique_tpu.ops.prep import model_const
-from strique_tpu.ops.reference import AlignParams
-from strique_tpu.pore_model import PoreModel, mean_abs_dev
-
+from .. import native as native_lib
+from ..hmm.models import build_flanked_repeat
+from ..ops import signal as signal_ops
 from ..ops import viterbi as viterbi_ops
 from ..ops.align import align_fused_pair
 from ..ops.align_cuda import CHUNK as ALIGN_CHUNK
 from ..ops.bounds import segment_bounds
+from ..ops.prep import model_const
+from ..ops.reference import AlignParams
 from ..ops.viterbi_cuda import CHUNK_T, PaddedHMM, viterbi_batch
+from ..pore_model import PoreModel, mean_abs_dev
 from .packed import pack_meta, path_itemsize, unpack_meta
 
 DEFAULT_ALIGN_CONFIG = {

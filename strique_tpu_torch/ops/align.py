@@ -1,19 +1,28 @@
 """Semi-global affine flank alignment: batching, end columns, traceback.
 
-Counterpart of ``strique_tpu/ops/align.py`` on the split path's
-standard route: ``align_core`` (full 64-row wave calls against one
-template) and ``align_fused_pair`` (both flanks of a partial batch in
-one per-row-template call), each followed by the leftmost-argmax end
-column and the diagonal-layout traceback.
+Counterpart of ``strique_tpu/ops/align.py`` on the split path:
+``align_core`` (full 64-row wave calls against one template) and
+``align_fused_pair`` (both flanks of a partial batch in one
+per-row-template call), each followed by the leftmost-argmax end column
+and the diagonal-layout traceback.
 
 The traceback is ``csrc/traceback.cu`` (one thread walks one row) on
 the card -- the reference runs it as an XLA ``while_loop``
 (align.py:198-237), not as a Pallas kernel -- and
 ``_traceback_plain`` (the same walk, vectorised over rows) on the CPU.
 
-The ultra-long two-pass route (reads whose pointer plane exceeds the
-memory budget even at width 8) is not ported yet: such a bucket raises
-``NotImplementedError``.
+Ultra-long reads: where even a width-8 pointer plane exceeds
+``ptr_budget_bytes``, ``align_core`` routes the bucket to the exact
+checkpointed two-pass route (``align_longread_sharded``, groups of 8
+rows on one device): pass 1 (``align_forward_ckpt``) gives each row's
+score and end column and checkpoints the diagonal state; pass 2
+(``align_window_from_state``) recomputes pointers over a window that
+holds the whole optimal path, resumed from the checkpoint at its start,
+and the usual traceback walks it in window steps.  The windows are
+gathered on the device (``_gather_windows``, as the reference does).
+Configurations without a span bound (horizontal gaps free or positive)
+raise ``ValueError`` there.  Spreading the groups over several cards
+is not ported yet (``devices`` of more than one raises).
 """
 from __future__ import annotations
 
@@ -21,9 +30,10 @@ import numpy as np
 import torch
 
 from .. import _build
-from .align_cuda import (BATCH_WAVE, CHUNK, _round_up, align_forward_wave,
-                         align_forward_wave_multi, kernel_batch, pad_template,
-                         pad_template_rows, ptr_budget_bytes)
+from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
+                         align_forward_wave, align_forward_wave_multi, align_window_from_state,
+                         kernel_batch, pad_template, pad_template_rows, ptr_budget_bytes,
+                         wave_span_bound_steps)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 
@@ -174,11 +184,141 @@ def _pad_rows(x, rows: int, value):
     return torch.cat([x, pad])
 
 
-def _check_budget(n_cols: int, mp: int, device) -> None:
-    if n_cols * 8 * mp // 2 > ptr_budget_bytes(device):
+def _gather_windows(sig, t0, W: int, mp: int):
+    """Per-row pass-2 windows gathered on the device (align.py ``_gather_windows``).
+
+    sig_win[r] = a_r[t0 .. t0+W) and r_init[r] = reversed a_r[t0-mp .. t0),
+    0.0 outside the signal.
+    """
+    ext = torch.nn.functional.pad(sig, (mp, W))
+    t0 = t0.to(torch.int64)[:, None]
+    sig_win = ext.gather(1, t0 + mp + torch.arange(W, device=sig.device))
+    r_init = ext.gather(1, t0 + torch.arange(mp, device=sig.device)).flip(1)
+    return sig_win.contiguous(), r_init.contiguous()
+
+
+def restart_state(ckpts, slot, cold):
+    """Pass-2 restart state (S1, S2, Ih, C), each (B, MP), from pass-1 planes.
+
+    Row r takes slot ``slot[r]`` of the four (n_ck, B, MP) checkpoint
+    planes; rows with ``cold`` set take the cold-start values instead
+    (their slot is ignored), as the reference's ``_longread_pass2``.
+    """
+    B = slot.shape[0]
+    mp = ckpts[0].shape[2]
+    dev = ckpts[0].device
+    rows = torch.arange(B, device=dev)
+    s = slot.to(device=dev, dtype=torch.int64).clamp_min(0)
+    is_cold = (cold.to(dev) != 0)[:, None]
+    lane0 = torch.arange(mp, device=dev) == 0
+    cold_vals = (torch.where(lane0, 0.0, NEG).to(torch.float32), NEG, NEG, NEG)
+    return tuple(torch.where(is_cold, cv, plane[s, rows]).contiguous()
+                 for plane, cv in zip(ckpts, cold_vals))
+
+
+def _longread_pass1(signals, n_actual, template_np, params, ckpt_steps: int) -> dict:
+    """Two-pass pass 1: score-only forward with checkpoints (queued, no sync)."""
+    B, N = signals.shape
+    if B % 8:
+        raise ValueError(f"two-pass groups are multiples of 8 rows, got {B}")
+    tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
+    mp = tmpl_np.shape[1]
+    bound = wave_span_bound_steps(params, m)
+    if bound is None:
+        raise ValueError(
+            "two-pass alignment needs negative horizontal gap costs "
+            "(no span bound exists otherwise); use the one-pass kernel")
+    # every warm restart t0 (a checkpoint boundary) lies past the column-0
+    # boundary region: pass 2 forces boundary state only for cold rows
+    ckpt_chunks = max(ckpt_steps // CHUNK, -(-mp // CHUNK), 1)
+    ckpt_steps = ckpt_chunks * CHUNK
+    nd = _round_up(N + mp, ckpt_steps)  # ND divides the checkpoint stride
+    if nd - mp > N:
+        signals = torch.nn.functional.pad(signals, (0, nd - mp - N))
+        N = nd - mp
+    tmpl = torch.from_numpy(tmpl_np).to(signals.device)
+    _count_cells(B, N + mp, mp)  # pass 1 (score-only forward)
+    bottom_steps, ckpts = align_forward_ckpt(signals, n_actual, tmpl, params, m, ckpt_chunks)
+    return {"bottom_steps": bottom_steps, "ckpts": ckpts, "sig": signals, "tmpl": tmpl,
+            "params": params, "m": m, "mp": mp, "bound": bound, "ckpt_steps": ckpt_steps,
+            "B": B, "N": N, "W": _round_up(bound + ckpt_steps, CHUNK)}
+
+
+def window_inputs(st: dict) -> dict:
+    """Pass-2 inputs of a pass-1 state: end columns, windows, restart state.
+
+    Score and leftmost ``j_end`` come from the step-space bottoms
+    (column j at step m+j-1; virtual column 0 = the full-template
+    vertical gap).  Each row's window [t0, t0+W) starts on a checkpoint
+    boundary at or before t_end - bound, so every step the traceback
+    can visit lies inside it; rows with t0 == 0 start cold.
+    """
+    params, m, mp, B, N, W = (st[k] for k in ("params", "m", "mp", "B", "N", "W"))
+    dev = st["sig"].device
+    b0 = torch.full((B, 1), float(_b0(params, m)), device=dev)
+    bottom = torch.cat([b0, st["bottom_steps"][:, m : m + N]], dim=1)
+    j_end = torch.argmax(bottom, dim=1)  # first maximum: leftmost end column
+    cks = st["ckpt_steps"]
+    t_end = j_end + m - 1
+    t0 = (t_end - st["bound"]).clamp_min(0) // cks * cks
+    cold = (t0 == 0).to(torch.int32)
+    sig_win, r_init = _gather_windows(st["sig"], t0, W, mp)
+    return {"j_end": j_end, "score": bottom.gather(1, j_end[:, None])[:, 0], "t0": t0,
+            "sig_win": sig_win, "r_init": r_init,
+            "state4": restart_state(st["ckpts"], t0 // cks - 1, cold), "cold": cold,
+            "steps_needed": (t_end - t0 + 1).to(torch.int32)}
+
+
+def _longread_pass2(st: dict) -> dict:
+    """Two-pass pass 2: window recompute from the restart state, then the
+    traceback in window steps, shifted back by t0."""
+    w = window_inputs(st)
+    m = st["m"]
+    _count_cells(st["B"], st["W"], st["mp"])  # pass 2 (windowed pointer recompute)
+    ptr = align_window_from_state(w["sig_win"], w["r_init"], w["state4"], w["cold"],
+                                  w["steps_needed"], st["tmpl"], st["params"], m)
+    t0 = w["t0"]
+    tb = traceback_pointers(ptr, (w["j_end"] - t0).to(torch.int32), m)
+    t0_32 = t0.to(torch.int32)
+    return {"score": w["score"], "j_end": w["j_end"].to(torch.int32), "is_gap": tb["is_gap"],
+            "jpos": tb["jpos"] + t0_32[:, None], "j_begin": tb["j_begin"] + t0_32}
+
+
+def align_batch_longread(signals, n_actual, template_np, params, ckpt_steps: int = 16384):
+    """Checkpointed two-pass alignment of a group of rows (B % 8 == 0).
+
+    Exact by construction: pass 1 runs the score-only wave with
+    diagonal-state checkpoints every ``ckpt_steps``; pass 2 recomputes
+    pointers over a window that provably holds the optimal path,
+    resuming from the checkpoint at its start, so pointers and
+    tracebacks equal the one-pass plane's.  Device memory per row is
+    O(ND/ckpt_steps + W) instead of O(ND).  Returns align_core's dict.
+    """
+    return _longread_pass2(_longread_pass1(signals, n_actual, template_np, params, ckpt_steps))
+
+
+def align_longread_sharded(signals, n_actual, template_np, params, devices=None,
+                           ckpt_steps: int = 16384, group: int = 8):
+    """The two-pass route in groups of ``group`` rows on one device.
+
+    Every group's pass 1 is queued before the first pass 2 runs, as the
+    reference does.  The reference round-robins the groups over
+    ``devices``; here at most one device is accepted (the multi-GPU
+    slice is not ported yet).
+    """
+    if devices is not None and len(devices) > 1:
         raise NotImplementedError(
-            "pointer plane exceeds the memory budget even at width 8: the "
-            "checkpointed two-pass (ultra-long) route is not ported yet (ROADMAP)")
+            "round-robin of two-pass groups over several devices is not ported yet (ROADMAP)")
+    if devices:
+        signals, n_actual = signals.to(devices[0]), n_actual.to(devices[0])
+    B = signals.shape[0]
+    n_act = n_actual.to(torch.int32)
+    states = [_longread_pass1(_pad_rows(signals[g0 : g0 + group], group, 0.0),
+                              _pad_rows(n_act[g0 : g0 + group], group, 1),
+                              template_np, params, ckpt_steps)
+              for g0 in range(0, B, group)]
+    outs = [_longread_pass2(st) for st in states]
+    return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
 def align_core(signals, n_actual, template_np, params):
@@ -186,7 +326,9 @@ def align_core(signals, n_actual, template_np, params):
 
     signals (B, N) f32 on the target device; ``template_np`` a host
     array (its length is static).  Rows run in wave calls of
-    :func:`kernel_batch` rows; the tail pads with length-1 rows.
+    :func:`kernel_batch` rows; the tail pads with length-1 rows.  Past
+    the pointer budget even at width 8, the bucket takes the two-pass
+    route (:func:`align_longread_sharded`).
     """
     dev = signals.device
     B, N = signals.shape
@@ -196,7 +338,13 @@ def align_core(signals, n_actual, template_np, params):
     tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
     mp = tmpl_np.shape[1]
     n_cols = signals.shape[1] + mp
-    _check_budget(n_cols, mp, dev)
+    if n_cols * 8 * mp // 2 > ptr_budget_bytes(dev):
+        if wave_span_bound_steps(params, m) is None:
+            raise ValueError(
+                "the pointer plane exceeds the memory budget even at width 8, and the "
+                "two-pass route needs negative horizontal gap costs (no span bound "
+                "exists otherwise)")
+        return align_longread_sharded(signals, n_actual, template_np, params)
     tmpl = torch.from_numpy(tmpl_np).to(dev)
     n_act = n_actual.to(torch.int32)
     outs = []

@@ -1,10 +1,19 @@
-"""Anti-diagonal Gotoh flank-alignment forward: CUDA kernel + plain twin.
+"""Anti-diagonal Gotoh flank-alignment forward: CUDA kernel + plain twins.
 
-Counterpart of ``strique_tpu/ops/align_pallas.py``'s wavefront kernel
-(``align_forward_wave`` and ``align_forward_wave_multi``, both the
-Pallas body ``_wave_kernel``).  The kernel is ``csrc/wave_align.cu``;
-``_wave_plain`` below is the same recurrence in PyTorch ops, used only
-for tensors on the CPU (and by the on-card comparisons).
+Counterpart of ``strique_tpu/ops/align_pallas.py``'s wavefront kernel,
+the Pallas body ``_wave_kernel``, in all four of its calls:
+
+  * ``align_forward_wave`` (one shared template) and
+    ``align_forward_wave_multi`` (a template per row): pointers and
+    bottom taps; twin ``_wave_plain``;
+  * ``align_forward_ckpt``: pass 1 of the ultra-long two-pass route,
+    score-only with diagonal-state checkpoints; twin ``_ckpt_plain``;
+  * ``align_window_from_state``: pass 2, pointers over a window resumed
+    from a checkpoint; twin ``_window_plain``.
+
+The kernel is ``csrc/wave_align.cu`` (one body, compile-time modes);
+each twin is the same recurrence in PyTorch ops (``_wave_recurrence``),
+used only for tensors on the CPU (and by the on-card comparisons).
 
 Layouts are the reference's, so the traceback and the tests compare
 like with like:
@@ -155,18 +164,29 @@ def _check_inputs(signals, n_actual, tmpl, m_rows):
     return B, N, mp
 
 
-def _wave_plain(signals, tmpl, n_actual, m_rows, params):
+def _wave_recurrence(sig_ext, tmpl, n_actual, m_rows, params, nd: int, t_run: int, *,
+                     with_ptr: bool = True, with_bottom: bool = True, ckpt_steps: int = 0,
+                     state4=None, cold=None):
     """The wave recurrence in plain PyTorch ops over (B, MP) rows.
 
-    ``tmpl`` is (1, MP) or (B, MP); ``m_rows`` (B,) per-row template
-    lengths.  Same expression trees as the reference kernel
-    (align_pallas.py ``_wave_kernel``), step for step.
+    Same expression trees as the reference kernel (align_pallas.py
+    ``_wave_kernel``), step for step, in all of its modes.  Lane i at
+    step t reads ``sig_ext[:, MP + t - i]``; ``tmpl`` is (1, MP) or
+    (B, MP), ``m_rows`` (B,) the template lengths of the bottom taps.
+    Runs ``t_run`` of the ``nd`` steps and returns (ptr, bottom, ckpts),
+    None for what the mode does not produce:
+
+      * ``with_ptr``: the (nd/8, B, MP) pointer plane;
+      * ``with_bottom``: the (B, nd) bottom taps;
+      * ``ckpt_steps`` > 0: four (nd/ckpt_steps, B, MP) planes (S1, S2,
+        Ih, C), slot g the state after step (g+1)*ckpt_steps - 1;
+      * ``state4`` (S1, S2, Ih, C): resume from that state instead of
+        the cold start; ``cold`` (B,) then gates the column-0 forcing.
     """
     k = _consts(params)
-    B, N = signals.shape
+    B = sig_ext.shape[0]
     mp = tmpl.shape[1]
-    nd = N + mp
-    dev = signals.device
+    dev = sig_ext.device
     lane = torch.arange(mp, device=dev)
     lane_f = lane.to(torch.float32)
     row0 = lane == 0
@@ -175,19 +195,20 @@ def _wave_plain(signals, tmpl, n_actual, m_rows, params):
     iv_off = lane_f * k["g"]
     n_act = n_actual.to(torch.int64)
     m_r = m_rows.to(torch.int64)
-    # lane i at step t reads a[t - i]: NEG before the signal, 0 past it
-    sig_ext = torch.cat([torch.full((B, mp), NEG, device=dev), signals,
-                         torch.zeros((B, mp), device=dev)], dim=1)
-    s1 = torch.where(row0, 0.0, NEG).to(torch.float32).expand(B, mp).clone()
-    s2 = torch.full((B, mp), NEG, device=dev)
-    ih = torch.full((B, mp), NEG, device=dev)
-    c = torch.full((B, mp), NEG, device=dev)
+    if state4 is None:
+        s1 = torch.where(row0, 0.0, NEG).to(torch.float32).expand(B, mp).clone()
+        s2, ih, c = (torch.full((B, mp), NEG, device=dev) for _ in range(3))
+    else:
+        s1, s2, ih, c = (x.to(torch.float32).clone() for x in state4)
+    force = (torch.ones(B, dtype=torch.bool, device=dev) if cold is None
+             else cold.to(device=dev) != 0)
     fill_s = torch.full((B, 1), -k["dmin"] if k["neg_h"] else NEG, device=dev)
     fill_neg = torch.full((B, 1), NEG, device=dev)
-    ptr = torch.zeros((nd // 8, B, mp), dtype=torch.int32, device=dev)
-    bottom = torch.full((B, nd), NEG, device=dev)
+    ptr = torch.zeros((nd // 8, B, mp), dtype=torch.int32, device=dev) if with_ptr else None
+    bottom = torch.full((B, nd), NEG, device=dev) if with_bottom else None
+    ckpts = (tuple(torch.zeros((nd // ckpt_steps, B, mp), device=dev) for _ in range(4))
+             if ckpt_steps else None)
     acc = torch.zeros((B, mp), dtype=torch.int32, device=dev)
-    t_run = int(min(nd, _round_up(int((n_act + m_r).max()), 8)))
     m_idx = m_r[:, None]
     for t in range(t_run):
         r = sig_ext[:, t + mp - lane]
@@ -204,23 +225,81 @@ def _wave_plain(signals, tmpl, n_actual, m_rows, params):
         new_c = torch.maximum(c_sh, cvec)
         new_iv = c_sh + iv_off
         new_s = torch.maximum(q, new_iv)
-        which = torch.where(new_m >= new_s, 0, torch.where(new_iv >= new_s, 2, 1))
-        code = (which.to(torch.int32)
-                | ((ih_ext >= ih_open).to(torch.int32) << 2)
-                | (((new_iv + k["ge_v"]) >= (new_s + k["go_v"])).to(torch.int32) << 3))
-        acc |= code << (4 * (t % 8))
+        if with_ptr:
+            which = torch.where(new_m >= new_s, 0, torch.where(new_iv >= new_s, 2, 1))
+            code = (which.to(torch.int32)
+                    | ((ih_ext >= ih_open).to(torch.int32) << 2)
+                    | (((new_iv + k["ge_v"]) >= (new_s + k["go_v"])).to(torch.int32) << 3))
+            acc |= code << (4 * (t % 8))
         if t + 1 < mp:
-            # the cell (t+1, 0) enters the valid region: pin its column-0 boundary
-            new_s[:, t + 1] = s0_col[t + 1]
-            new_ih[:, t + 1] = NEG
-        j = t + 1 - m_r
-        live = (j >= 1) & (j <= n_act)
-        bottom[:, t] = torch.where(live, new_s.gather(1, m_idx)[:, 0], NEG)
+            # the cell (t+1, 0) enters the valid region: pin its column-0
+            # boundary (in a resumed window only for rows that start cold)
+            new_s[:, t + 1] = torch.where(force, s0_col[t + 1], new_s[:, t + 1])
+            new_ih[:, t + 1] = torch.where(force, NEG, new_ih[:, t + 1])
+        if with_bottom:
+            j = t + 1 - m_r
+            live = (j >= 1) & (j <= n_act)
+            bottom[:, t] = torch.where(live, new_s.gather(1, m_idx)[:, 0], NEG)
         s2, s1, ih, c = s1, new_s, new_ih, new_c
-        if t % 8 == 7:
+        if ckpt_steps and (t + 1) % ckpt_steps == 0:
+            for plane, x in zip(ckpts, (s1, s2, ih, c)):
+                plane[(t + 1) // ckpt_steps - 1] = x
+        if with_ptr and t % 8 == 7:
             ptr[t // 8] = acc
             acc = torch.zeros_like(acc)
+    return ptr, bottom, ckpts
+
+
+def _signal_ext(signals, mp: int):
+    """Lane i at step t reads a[t - i]: NEG before the signal, 0 past it."""
+    B = signals.shape[0]
+    dev = signals.device
+    return torch.cat([torch.full((B, mp), NEG, device=dev), signals,
+                      torch.zeros((B, mp), device=dev)], dim=1)
+
+
+def _steps_to_run(n_actual, m_rows, nd: int) -> int:
+    """Steps the longest row needs: round_up(n + m, 8), at most nd."""
+    if n_actual.numel() == 0:
+        return 0
+    return int(min(nd, _round_up(int((n_actual.to(torch.int64) + m_rows.to(torch.int64)).max()),
+                                 8)))
+
+
+def _wave_plain(signals, tmpl, n_actual, m_rows, params):
+    """Plain twin of the pointer-writing wave kernel (rows 1-2):
+    (ptr (ND/8, B, MP), bottom (B, ND)), ND = N + MP."""
+    mp = tmpl.shape[1]
+    nd = signals.shape[1] + mp
+    ptr, bottom, _ = _wave_recurrence(_signal_ext(signals, mp), tmpl, n_actual, m_rows, params,
+                                      nd, _steps_to_run(n_actual, m_rows, nd))
     return ptr, bottom
+
+
+def _ckpt_plain(signals, tmpl, n_actual, m_rows, params, ckpt_steps: int):
+    """Plain twin of the checkpoint kernel (row 5): (bottom, (S1, S2, Ih, C))."""
+    mp = tmpl.shape[1]
+    nd = signals.shape[1] + mp
+    _, bottom, ckpts = _wave_recurrence(_signal_ext(signals, mp), tmpl, n_actual, m_rows,
+                                        params, nd, _steps_to_run(n_actual, m_rows, nd),
+                                        with_ptr=False, ckpt_steps=ckpt_steps)
+    return bottom, ckpts
+
+
+def _window_plain(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
+    """Plain twin of the window kernel (row 6): ptr (W/8, B, MP).
+
+    Lane i at local step tau reads a[t0 + tau - i]: ``sig_win[tau - i]``
+    inside the window, ``r_init[i - tau - 1]`` before it.
+    """
+    B, W = sig_win.shape
+    mp = tmpl.shape[1]
+    sig_ext = torch.cat([torch.flip(r_init, dims=[1]), sig_win], dim=1)
+    zeros = torch.zeros(B, dtype=torch.int32, device=sig_win.device)
+    ptr, _, _ = _wave_recurrence(sig_ext, tmpl, steps_needed, zeros, params, W,
+                                 _steps_to_run(steps_needed, zeros, W), with_bottom=False,
+                                 state4=state4, cold=cold)
+    return ptr
 
 
 def _wave_cuda(signals, tmpl, n_actual, m_rows, params, counter: str):
@@ -246,11 +325,9 @@ def _wave_cuda(signals, tmpl, n_actual, m_rows, params, counter: str):
 
 
 def _dispatch(signals, tmpl, n_actual, m_rows, params, counter):
-    if signals.device.type == "cuda":
+    if _on_card(signals):
         return _wave_cuda(signals, tmpl, n_actual, m_rows, params, counter)
-    if signals.device.type == "cpu":
-        return _wave_plain(signals, tmpl, n_actual, m_rows, params)
-    raise ValueError(f"wave alignment runs on cuda or cpu tensors, got {signals.device}")
+    return _wave_plain(signals, tmpl, n_actual, m_rows, params)
 
 
 def align_forward_wave(signals, n_actual, template_padded, params, m_actual: int):
@@ -279,3 +356,136 @@ def align_forward_wave_multi(signals, n_actual, template_rows, m_rows, params):
         raise ValueError("one template row per signal row")
     return _dispatch(signals, template_rows, n_actual, m_rows, params,
                      "align_forward_wave_multi")
+
+
+# ---------------------------------------------------------------------------
+# Checkpointed two-pass mode for ultra-long reads (kernel rows 5 and 6)
+# ---------------------------------------------------------------------------
+#
+# Past the pointer budget even a width-8 plane cannot exist.  Pass 1 runs
+# the score-only forward and dumps the diagonal state (S1, S2, Ih, C)
+# every ckpt_steps; its bottom taps give each row's exact score and end
+# column.  Pass 2 re-runs a W-step window WITH pointers from the
+# checkpoint at or before t_end - bound (:func:`wave_span_bound_steps`),
+# so its pointers equal the one-pass plane's (align_pallas.py:718-740).
+
+
+def wave_span_bound_steps(params, m: int) -> int | None:
+    """Upper bound on an optimal path's diagonal extent, in steps
+    (align_pallas.py ``wave_span_bound_steps``).
+
+    None when horizontal gaps are free or positive: no bound exists, and
+    such configurations have no two-pass route.
+    """
+    gap = max(params.gap_open_h, params.gap_extension_h)
+    if gap >= 0:
+        return None
+    raw_min = params.gap_open_v + params.gap_extension_v * (m - 1)
+    gain_max = max(params.dist_offset, params.dist_min)  # sc <= max(off, dmin)
+    span_cols = m + (m * gain_max - raw_min) / abs(gap)
+    return int(np.ceil(span_cols)) + m + 1
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"wave alignment runs on cuda or cpu tensors, got {x.device}")
+
+
+def _ckpt_cuda(signals, tmpl, n_actual, m_rows, params, ckpt_steps: int):
+    k = _consts(params)
+    B, N = signals.shape
+    mp = tmpl.shape[1]
+    nd = N + mp
+    dev = signals.device
+    sig = signals.contiguous()
+    tm = tmpl.contiguous()
+    nact = n_actual.to(torch.int32).contiguous()
+    mrow = m_rows.to(torch.int32).contiguous()
+    bottom = torch.empty((B, nd), dtype=torch.float32, device=dev)
+    ckpts = tuple(torch.empty((nd // ckpt_steps, B, mp), dtype=torch.float32, device=dev)
+                  for _ in range(4))
+    _build.launch(
+        "wave_ckpt_launch", dev,
+        sig.data_ptr(), tm.data_ptr(), nact.data_ptr(), mrow.data_ptr(), bottom.data_ptr(),
+        *(c.data_ptr() for c in ckpts),
+        B, N, mp, ckpt_steps, int(k["neg_h"]),
+        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    _build.LAUNCHES["align_forward_ckpt"] += 1
+    return bottom, ckpts
+
+
+def _window_cuda(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
+    k = _consts(params)
+    B, W = sig_win.shape
+    mp = tmpl.shape[1]
+    dev = sig_win.device
+    sw = sig_win.contiguous()
+    ri = r_init.contiguous()
+    tm = tmpl.contiguous()
+    st = tuple(x.contiguous() for x in state4)
+    steps = steps_needed.to(torch.int32).contiguous()
+    cold_i = cold.to(torch.int32).contiguous()
+    ptr = torch.empty((W // 8, B, mp), dtype=torch.int32, device=dev)
+    _build.launch(
+        "wave_window_launch", dev,
+        sw.data_ptr(), ri.data_ptr(), tm.data_ptr(), steps.data_ptr(),
+        *(x.data_ptr() for x in st), cold_i.data_ptr(), ptr.data_ptr(),
+        B, W, mp, int(k["neg_h"]),
+        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    _build.LAUNCHES["align_window_from_state"] += 1
+    return ptr
+
+
+def align_forward_ckpt(signals, n_actual, template_padded, params, m_actual: int,
+                       ckpt_chunks: int):
+    """Pass 1: score-only wave forward with diagonal-state checkpoints.
+
+    signals (B, N) f32 with ND = N + MP a multiple of ckpt_chunks*128;
+    template_padded (1, MP).  Returns (bottom_steps (B, ND), ckpts), the
+    4-tuple of (ND/(ckpt_chunks*128), B, MP) f32 planes (S1, S2, Ih, C):
+    slot g holds the state after diagonal step (g+1)*ckpt_chunks*128-1.
+    A row stops at round_up(n + m, 8): slots past that stop are left
+    unwritten, and pass 2 never reads them.  No pointer plane exists.
+    """
+    B, N = signals.shape
+    mp = template_padded.shape[1]
+    if template_padded.shape[0] != 1 or not 0 < m_actual < mp:
+        raise ValueError("align_forward_ckpt takes one (1, MP) template of m < MP samples")
+    ckpt_steps = int(ckpt_chunks) * CHUNK
+    if ckpt_steps <= 0 or (N + mp) % ckpt_steps:
+        raise ValueError(f"ND = {N + mp} must be a multiple of the checkpoint stride "
+                         f"{ckpt_steps}")
+    m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=signals.device)
+    _check_inputs(signals, n_actual, template_padded, m_rows)
+    if _on_card(signals):
+        return _ckpt_cuda(signals, template_padded, n_actual, m_rows, params, ckpt_steps)
+    return _ckpt_plain(signals, template_padded, n_actual, m_rows, params, ckpt_steps)
+
+
+def align_window_from_state(sig_win, r_init, state4, cold, steps_needed, template_padded,
+                            params, m_actual: int):
+    """Pass 2: pointer forward over a W-step window, resumed from saved state.
+
+    sig_win (B, W): a[t0 .. t0+W) per row; r_init (B, MP): lane i holds
+    a[t0-1-i] (both 0.0 outside the signal, as the reference's window
+    gather pads); state4 (S1, S2, Ih, C), each (B, MP), the state after
+    step t0-1 (cold-start values where ``cold`` is 1: only those rows
+    pin the column-0 boundary); steps_needed (B,) local steps a row
+    needs (it runs round_up(steps, 8), at most W).  Returns the
+    (W/8, B, MP) pointer plane in local step space; ``m_actual`` is the
+    template length (the reference's discarded bottom tap).
+    """
+    B, W = sig_win.shape
+    mp = template_padded.shape[1]
+    if template_padded.shape[0] != 1 or not 0 < m_actual < mp:
+        raise ValueError("align_window_from_state takes one (1, MP) template of m < MP samples")
+    _check_inputs(sig_win, steps_needed, template_padded, cold)
+    if len(state4) != 4 or any(x.shape != (B, mp) or x.dtype != torch.float32
+                               or x.device != sig_win.device for x in (r_init, *state4)):
+        raise ValueError("r_init and the four state planes are (B, MP) f32 on the window's device")
+    if _on_card(sig_win):
+        return _window_cuda(sig_win, r_init, state4, cold, steps_needed, template_padded, params)
+    return _window_plain(sig_win, r_init, state4, cold, steps_needed, template_padded, params)

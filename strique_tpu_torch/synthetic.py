@@ -64,3 +64,16 @@ def smoke_workload(pm, seed: int, n_warm: int = 64, n_plus: int = 128,
     plus = make_reads(pm, n_warm + n_plus, repeats, rng, "+")
     minus = make_reads(pm, n_minus, repeats, rng, "-")
     return plus[:n_warm], plus[n_warm:], minus
+
+
+def ultralong_workload(pm, seed: int, n_reads: int = 8, repeats: int = 1200,
+                       flank_bases: int = 70000) -> list:
+    """chip_smoke.py's ultra-long reads: ``n_reads`` noisy '+' reads of
+    ~1.1M samples with ``repeats`` units, one length (one bucket).
+
+    The "ultra" regime of tools/bench_ultralong.py (70,000 backbone
+    bases on each side of the locus, 1200 GGCCCC units): its bucket's
+    width-8 pointer plane is ~4.7 GB at the bench flanks.
+    """
+    rng = np.random.default_rng(seed + 2)
+    return make_reads(pm, n_reads, repeats, rng, "+", flank_bases=flank_bases)

@@ -159,13 +159,20 @@ def test_fused_pair_matches_two_core_calls():
 
 
 def test_kernel_batch_and_budget(monkeypatch):
+    """Call widths, and the route past the pointer budget: the two-pass
+    calls (one pass 1, one pass 2 per 8-row group), or a ValueError
+    where no span bound exists."""
     assert TC.kernel_batch(8, device="cpu") == 8
     assert TC.kernel_batch(200, device="cpu") == TC.BATCH_WAVE
     signals = torch.zeros((8, 512))
+    n = torch.full((8,), 500, dtype=torch.int32)
     monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
-    with pytest.raises(NotImplementedError, match="two-pass"):
-        TA.align_core(signals, torch.full((8,), 500, dtype=torch.int32),
-                      np.ones(40, np.float32), AlignParams())
+    stats = TA.kernel_stats()
+    out = TA.align_core(signals, n, np.ones(40, np.float32), AlignParams())
+    assert TA.kernel_stats()["calls"] - stats["calls"] == 2
+    assert out["jpos"].shape == (8, 40)
+    with pytest.raises(ValueError, match="negative horizontal gap"):
+        TA.align_core(signals, n, np.ones(40, np.float32), PARAMS[2])
 
 
 def test_pad_template_helpers_match_reference():

@@ -16,14 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from strique_tpu.hmm.models import build_flanked_repeat
-from strique_tpu.ops.reference import AlignParams
-from strique_tpu.pore_model import PoreModel
 from strique_tpu_torch import _build
 from strique_tpu_torch.detect.counter import RepeatCounter
+from strique_tpu_torch.hmm.models import build_flanked_repeat
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
 from strique_tpu_torch.ops import viterbi_cuda as TVC
+from strique_tpu_torch.ops.reference import AlignParams
+from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads, write_pore_model
 
 PARAMS = [
@@ -137,3 +137,69 @@ def test_gpu_counter_matches_cpu_counter(cuda_device, model_file):
         c.add_target("c9orf72", REPEAT, prefix, suffix)
         out.append(c.detect_many("c9orf72", reads, "+"))
     assert out[0] == out[1]
+
+
+def _longread_reads(rng, B=8, N=4096, M=40):
+    """Reads whose template sits early (cold pass-2 windows) or late (warm)."""
+    template = rng.uniform(60, 120, M).astype(np.float32)
+    signals = rng.uniform(60, 120, (B, N)).astype(np.float32)
+    for i in range(B):
+        st = int(rng.integers(0, 600)) if i % 2 else int(rng.integers(N // 2, N - 3 * M))
+        signals[i, st : st + M] = template + rng.normal(0, 0.5, M)
+    na = rng.integers(N - 3 * M, N, B).astype(np.int32)
+    return signals, na, template
+
+
+def _written_slots(n_act, m, nd, ckpt_steps):
+    """(n_ck, B) mask of the checkpoint slots a row's pass 1 writes."""
+    stop = torch.clamp_max((n_act.to(torch.int64) + m + 7) // 8 * 8, nd)
+    g = torch.arange(nd // ckpt_steps, device=n_act.device)[:, None]
+    return (g + 1) * ckpt_steps <= stop[None, :]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pi", [0, 1])
+def test_gpu_ckpt_and_window_match_plain(cuda_device, pi):
+    """Kernel rows 5 and 6 against their twins: bottom taps and every
+    written checkpoint slot bit-equal, then one window state through both
+    window versions, written pointer words equal, cold and warm rows."""
+    p = PARAMS[pi]
+    signals, na, template = _longread_reads(np.random.default_rng(700 + pi))
+    s = torch.from_numpy(signals).to(cuda_device)
+    n = torch.from_numpy(na).to(cuda_device)
+    before = _build.LAUNCHES["align_forward_ckpt"]
+    st = TA._longread_pass1(s, n, template, p, ckpt_steps=512)
+    assert _build.LAUNCHES["align_forward_ckpt"] == before + 1
+    mr = torch.full((8,), st["m"], dtype=torch.int32, device=cuda_device)
+    bot_p, ck_p = TC._ckpt_plain(st["sig"], st["tmpl"], n, mr, p, st["ckpt_steps"])
+    assert torch.equal(st["bottom_steps"], bot_p)
+    mask = _written_slots(n, st["m"], st["N"] + st["mp"], st["ckpt_steps"])
+    for a, b in zip(st["ckpts"], ck_p):
+        assert torch.equal(a[mask], b[mask])
+    w = TA.window_inputs(st)
+    assert 0 < int(w["cold"].sum()) < 8  # both kinds of restart
+    args = (w["sig_win"], w["r_init"], w["state4"], w["cold"], w["steps_needed"], st["tmpl"], p)
+    before = _build.LAUNCHES["align_window_from_state"]
+    ptr = TC.align_window_from_state(*args, st["m"])
+    assert _build.LAUNCHES["align_window_from_state"] == before + 1
+    ptr_p = TC._window_plain(*args)
+    words = _valid_words(w["steps_needed"], torch.zeros_like(n), ptr.shape[0])
+    assert torch.equal(ptr[words], ptr_p[words])
+
+
+@pytest.mark.gpu
+def test_gpu_two_pass_align_core_matches_one_pass(cuda_device, monkeypatch):
+    """align_core past a tiny pointer budget takes the two-pass kernels and
+    gives the one-pass route's outputs exactly."""
+    signals, na, template = _longread_reads(np.random.default_rng(710))
+    s = torch.from_numpy(signals).to(cuda_device)
+    n = torch.from_numpy(na).to(cuda_device)
+    one = TA.align_core(s, n, template, AlignParams())
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
+    _build.reset_launches()
+    two = TA.align_core(s, n, template, AlignParams())
+    assert _build.LAUNCHES["align_forward_wave"] == 0
+    assert _build.LAUNCHES["align_forward_ckpt"] == 1
+    assert _build.LAUNCHES["align_window_from_state"] == 1
+    for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+        assert torch.equal(one[k], two[k]), k
