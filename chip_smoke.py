@@ -16,8 +16,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    B=8: N=4096, M=40, ckpt_steps 512 (cold and warm windows) and the
    bench template at N=24576, ckpt_steps 16384; bottom taps, written
    checkpoint slots and written pointer words equal.  The Viterbi pair
-   also runs at the ultra-long segment length (B=8, T 55296).  Print
-   kernel and plain times.
+   also runs at the ultra-long segment length (B=8, T 55296).  The
+   column-sweep kernel and its column-layout traceback run at the small
+   and bench shapes (64 rows, N 24576, MP 896), the dense Viterbi
+   forward at the small, bench (B 64, T 6144, SP 256) and ultra shapes.
+   Print kernel and plain times.
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
@@ -34,6 +37,15 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    and the two routes' result tuples equal.  Print each route's seconds.
 4c. One more pass of each path under torch.profiler: wall time, device
    time by kernel and the busy share.
+4d. The knob routes: the '+' and '-' passes of phase 4 once under
+   ``STRIQUE_ALIGN_KERNEL=col`` (column kernel and column traceback on
+   the '+' batches; the '-' partial batch stays on the fused wave
+   kernel, as in the reference) and once under
+   ``STRIQUE_DENSE_VITERBI=1`` (dense forward instead of the factored
+   one), each with a fresh counter so its HMM cache sees the knob.
+   Counts exact, result tuples equal to phase 4's, the knob's kernels
+   launched and the ones it replaces not; reads/s of each route, and one
+   profiled '+' pass of each.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms), then the final
@@ -63,7 +75,8 @@ F32_OPS_PER_S = 67e12  # FP32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores
 # f32 operations per DP cell, counted from wave_align.cu's expression
 # tree (pointer modes; the score-only pass drops the 6 of the pointer
-# code); the f64 |d|^1.2 counts as 2 FP64 operations (a log and an exp,
+# code); col_align.cu's tree counts the same 23 (its prefix max takes
+# the place of the running column max); the f64 |d|^1.2 counts as 2 FP64 operations (a log and an exp,
 # a lower bound of pow's cost)
 WAVE_F32_PER_CELL = 23
 CKPT_F32_PER_CELL = 17
@@ -71,6 +84,7 @@ POW_F64_PER_CELL = 2
 
 SPLIT_KERNELS = ("align_forward_wave", "align_forward_wave_multi", "traceback_pointers",
                  "viterbi_forward_factored", "viterbi_backward_batch")
+KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
                            "strique_tpu/ops/align_pallas.py:639"),
@@ -86,6 +100,12 @@ SOURCES = {
                                  "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                                "strique_tpu/ops/viterbi_pallas.py:308"),
+    "align_forward_col": ("strique_tpu_torch/csrc/col_align.cu",
+                          "strique_tpu/ops/align_pallas.py:322"),
+    "traceback_pointers_col": ("strique_tpu_torch/csrc/traceback.cu",
+                               "strique_tpu/ops/align.py:235"),
+    "viterbi_forward_dense": ("strique_tpu_torch/csrc/viterbi_dense.cu",
+                              "strique_tpu/ops/viterbi_pallas.py:183"),
 }
 
 
@@ -198,46 +218,90 @@ def check_wave(pm_templates, shape_name, B, N, params, multi, rng, results):
     return ptr_k, bot_k, n_d, m_d
 
 
-def check_traceback(ptr, bot, n_d, m_d, shape_name, results):
+def check_traceback(ptr, j_end, m_d, shape_name, results, col=False):
+    """The traceback of a diagonal (wave) or, with ``col``, a column plane
+    against its twin, walking back from ``j_end``."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align as AL
 
-    B = bot.shape[0]
-    tstar = torch.argmax(bot, dim=1)
-    j_end = (tstar.to(torch.int32) + 1 - m_d).clamp_min(0).to(torch.int32)
+    B = j_end.shape[0]
     m_out = int(m_d.max())
-    run_k = lambda: AL.traceback_pointers(ptr, j_end, m_out, m_start=m_d)
-    run_p = lambda: AL._traceback_plain(ptr, j_end, m_d, m_out)
+    name = "traceback_pointers_col" if col else "traceback_pointers"
+    run_k = lambda: AL.traceback_pointers(ptr, j_end, m_out, packed=True if col else "diag",
+                                          m_start=m_d)
+    run_p = lambda: AL._traceback_plain(ptr, j_end, m_d, m_out, col=col)
     got, _ = once_ms(run_k)
     ref, plain_ms = once_ms(run_p)
     err = 0
     for k in ("is_gap", "jpos", "j_begin"):
         err = max(err, int((got[k].to(torch.int64) - ref[k].to(torch.int64)).abs().max()))
     ms = cuda_ms(run_k, 5)
-    _build.LAUNCHES["traceback_pointers"] = 0
-    print(f"  traceback_pointers [{shape_name} B={B}]: max_abs_err {err}; kernel {ms:.3f} ms, "
+    _build.LAUNCHES[name] = 0
+    print(f"  {name} [{shape_name} B={B}]: max_abs_err {err}; kernel {ms:.3f} ms, "
           f"plain {plain_ms:.1f} ms", flush=True)
     if err != 0:
-        fail(f"traceback kernel disagrees with its plain twin at the {shape_name} shape")
+        fail(f"{name} kernel disagrees with its plain twin at the {shape_name} shape")
     # the walk reads one pointer word per step: m + (j_end - j_begin) steps a row
     steps = float((m_d.double() + (j_end - got["j_begin"]).double()).sum())
     nbytes = 4 * steps + B * m_out * 5 + 4 * B + 8 * B
-    results["traceback_pointers"] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                                     **bound(nbytes, 10 * steps)}
+    results[name] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, 10 * steps)}
 
 
-def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
+def check_col(template, shape_name, B, N, params, rng, results):
+    """The column kernel (row 8) against its twin, then the column-layout
+    traceback on the plane it wrote."""
     import numpy as np
     import torch
 
     from strique_tpu_torch import _build
-    from strique_tpu_torch.ops import viterbi_cuda as VC
-    from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
 
     dev = torch.device("cuda")
-    ph = VC.PaddedHMM(chm, dev)
+    sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
+    for b in range(B):
+        st = int(rng.integers(0, max(1, N // 2 - len(template))))
+        sig[b, st : st + len(template)] = template + rng.normal(0, 1.0, len(template))
+    tmpl, m = AC.pad_template(template)
+    s_d = torch.from_numpy(sig).to(dev)
+    n_d = torch.from_numpy(rng.integers(N // 2, N + 1, B).astype(np.int32)).to(dev)
+    t_d = torch.from_numpy(tmpl).to(dev)
+    m_d = torch.full((B,), m, dtype=torch.int32, device=dev)
+    run_k = lambda: AC.align_forward_col(s_d, n_d, t_d, params, m)
+    (ptr_k, bot_k), _ = once_ms(run_k)
+    (ptr_p, bot_p), plain_ms = once_ms(lambda: AC._col_plain(s_d, t_d, n_d, params, m))
+    mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_k.shape[0])  # (j-1)//8 < ceil(n/8)
+    ptr_eq = bool(torch.equal(ptr_k[mask], ptr_p[mask]))
+    bot_err = float((bot_k.double() - bot_p.double()).abs().max())
+    del ptr_p, bot_p
+    ms = cuda_ms(run_k, 3)
+    _build.LAUNCHES["align_forward_col"] = 0
+    print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]}]: pointers "
+          f"{'equal' if ptr_eq else 'DIFFER'}, bottom max_abs_err {bot_err}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+    if not (ptr_eq and bot_err == 0.0):
+        fail(f"align_forward_col disagrees with its plain twin at the {shape_name} shape")
+    cells = wave_cells(n_d, m_d)
+    nbytes = (4 * (sig.size + tmpl.size) + 4 * B + 4 * int(mask.sum()) * tmpl.shape[1]
+              + 4 * bot_k.numel())
+    results["align_forward_col"] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
+                                    **bound(nbytes, WAVE_F32_PER_CELL * cells,
+                                            POW_F64_PER_CELL * cells)}
+    b0 = torch.full((B, 1), float(AL._b0(params, m)), device=dev)
+    j_end = torch.argmax(torch.cat([b0, bot_k], dim=1), dim=1).to(torch.int32)
+    check_traceback(ptr_k, j_end, m_d, shape_name, results, col=True)
+
+
+def viterbi_inputs(pm, B, T, rng, repeats):
+    """(B, T) noisy c9orf72 segments of repeats/2..repeats units, and their lengths."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX
+
     obs = np.zeros((B, T), np.float32)
     lens = np.zeros(B, np.int32)
     for b in range(B):
@@ -246,8 +310,52 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
                                rng=rng).astype(np.float32)[:T]
         obs[b, : len(s)] = s
         lens[b] = len(s)
-    o_d = torch.from_numpy(obs).to(dev)
-    l_d = torch.from_numpy(lens).to(dev)
+    dev = torch.device("cuda")
+    return torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_dense(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
+    """The dense Viterbi forward (row 7) against its twin; rows below
+    each read's length, fin and acc."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    ph = VC.PaddedHMM(chm, torch.device("cuda"))
+    o_d, l_d = viterbi_inputs(pm, B, T, rng, repeats)
+    run_k = lambda: VC.viterbi_forward_dense(o_d, l_d, ph)
+    (sc_k, fin_k, acc_k), _ = once_ms(run_k)
+    (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_dense_plain(o_d, l_d, ph))
+    live = torch.arange(T, device=o_d.device)[:, None] < l_d[None, :]
+    err = max(float((sc_k[live] - sc_p[live]).abs().max()),
+              float((fin_k - fin_p).abs().max()), float((acc_k - acc_p).abs().max()))
+    del sc_p
+    ms = cuda_ms(run_k, 3)
+    _build.LAUNCHES["viterbi_forward_dense"] = 0
+    print(f"  viterbi_forward_dense [{shape_name} B={B} T={T} SP={ph.sp}]: max_abs_err {err}; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+    if err != 0.0:
+        fail(f"dense forward kernel disagrees with its plain twin at the {shape_name} shape")
+    sp = ph.sp
+    steps = float(l_d.double().sum())
+    # per step and state pair an add and a max; per state 8 for the
+    # emission and the row-max rescale
+    f32 = steps * (2 * sp * sp + 8 * sp)
+    nbytes = 4 * (B * T + sp * sp + 6 * sp + steps * sp + B * sp + 2 * B)
+    results["viterbi_forward_dense"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                        **bound(nbytes, f32)}
+
+
+def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    dev = torch.device("cuda")
+    ph = VC.PaddedHMM(chm, dev)
+    o_d, l_d = viterbi_inputs(pm, B, T, rng, repeats)
     (sc_k, fin_k, acc_k), _ = once_ms(lambda: VC.viterbi_forward_factored(o_d, l_d, ph))
     (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_plain(o_d, l_d, ph))
     live = torch.arange(T, device=dev)[:, None] < l_d[None, :]
@@ -482,13 +590,18 @@ def main() -> int:
                 ptr, bot, n_d, m_d = check_wave(tmpls, shape_name, B, N, params, multi, rng,
                                                 results)
                 if multi:
-                    check_traceback(ptr, bot, n_d, m_d, shape_name, results)
+                    j_end = (torch.argmax(bot, dim=1).to(torch.int32) + 1 - m_d).clamp_min(0)
+                    check_traceback(ptr, j_end.to(torch.int32), m_d, shape_name, results)
                 del ptr, bot
                 torch.cuda.empty_cache()
+            check_col(tmpls[0], shape_name, B, N, params, rng, results)
+            torch.cuda.empty_cache()
         for shape_name, B, T in (("small", 8, 512), ("bench", 64, 6144)):
             check_viterbi(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
+            check_dense(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
         # the ultra-long route's segments: ~9x the bench T (rescale and acc)
         check_viterbi(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
+        check_dense(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
         check_longread(small[0], "small", 8, 4096, params, 512, 4, rng, results)
         # the bench template's span bound (29,581 steps) exceeds ND: all windows cold
         check_longread(tc.prefix_ext, "bench", 8, 24576, params, 16384, 0, rng, results)
@@ -592,6 +705,52 @@ def main() -> int:
     finally:
         os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
 
+    # -- phase 4d: the knob routes (column alignment, dense Viterbi) ---------
+    knob_rps = {}
+    for route, (var, value) in KNOBS.items():
+        os.environ[var] = value
+        try:
+            kc = RepeatCounter(model, device="cuda")  # a fresh HMM cache sees the knob
+            kc.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+            run_pipeline(kc, warm, "+")
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            k_plus = run_pipeline(kc, plus, "+")
+            dt = time.perf_counter() - t0
+            plus_lc = dict(_build.LAUNCHES)
+            k_minus = run_pipeline(kc, minus, "-")
+            lc = dict(_build.LAUNCHES)
+            profile_pass(f"{var}={value}, 128 '+' reads", lambda: run_pipeline(kc, plus, "+"),
+                         card)
+        except Exception as e:  # noqa: BLE001
+            fail(f"the {var}={value} route raised {type(e).__name__}: {e}")
+        finally:
+            os.environ.pop(var, None)
+        ok_p = sum(int(r[0] == REPEATS) for r in k_plus)
+        ok_m = sum(int(r[0] == REPEATS) for r in k_minus)
+        knob_rps[route] = len(plus) / dt
+        print(f"{var}={value}: {ok_p}/{len(plus)} (+) and {ok_m}/{len(minus)} (-) exact; "
+              f"{knob_rps[route]:.2f} reads/s on the '+' pass ({dt:.3f} s); card: {card}; "
+              f"launches {json.dumps({k: v for k, v in lc.items() if v})}", flush=True)
+        if ok_p != len(plus) or ok_m != len(minus):
+            fail(f"inexact repeat counts on the {var}={value} route")
+        if [tuple(r) for r in k_plus + k_minus] != [tuple(r) for r in res_plus + res_minus]:
+            fail(f"the {var}={value} route's result tuples differ from the default route's")
+        if route == "col":
+            minus_multi = lc["align_forward_wave_multi"] - plus_lc["align_forward_wave_multi"]
+            if (plus_lc["align_forward_col"] <= 0 or plus_lc["traceback_pointers_col"] <= 0
+                    or plus_lc["align_forward_wave"] != 0 or minus_multi <= 0):
+                fail("the column route's '+' pass did not run the column kernel and traceback "
+                     "alone, or its '-' partial batch left the fused wave kernel")
+            for name in ("align_forward_col", "traceback_pointers_col"):
+                launches[name] = lc[name]
+        else:
+            if lc["viterbi_forward_dense"] <= 0 or lc["viterbi_forward_factored"] != 0:
+                fail("the dense route did not decode with the dense forward alone")
+            launches["viterbi_forward_dense"] = lc["viterbi_forward_dense"]
+    print("both knob routes' result tuples equal the default route's", flush=True)
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
@@ -600,7 +759,8 @@ def main() -> int:
         with open(args.out, "w") as fp:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "reads_per_sec": rps,
                        "plus_s": dt_plus, "minus_s": dt_minus,
-                       "ultra_s": {k: v[1] for k, v in runs.items()}, "kernels": kernels},
+                       "ultra_s": {k: v[1] for k, v in runs.items()},
+                       "knob_reads_per_sec": knob_rps, "kernels": kernels},
                       fp, indent=1)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

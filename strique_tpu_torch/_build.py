@@ -38,8 +38,11 @@ LAUNCHES = {
     "align_forward_wave_multi": 0,
     "align_forward_ckpt": 0,
     "align_window_from_state": 0,
+    "align_forward_col": 0,
     "traceback_pointers": 0,
+    "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
+    "viterbi_forward_dense": 0,
     "viterbi_backward_batch": 0,
 }
 
@@ -62,11 +65,17 @@ _SIGNATURES = {
     # sig_win, r_init, tmpl, steps, s1, s2, ih, c, cold, ptr; B, W, MP,
     # neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_window_launch": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
-    # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out; stream
-    "traceback_diag_launch": [_P] * 6 + [_I] * 3 + [_P],
+    # sig, tmpl, nact, ptr, bottom; B, N, MP, m, neg_h;
+    # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "col_align_launch": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
+    # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
+    "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, weights, spec, sc, fin,
     # acc; B, T, SP, n_w, spec_len; stream
     "viterbi_fwd_launch": [_P] * 13 + [_I] * 5 + [_P],
+    # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
+    # B, T, SP; stream
+    "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],
     # sc, transT, last, tact, path; B, T, SP; stream
     "viterbi_bwd_launch": [_P] * 5 + [_I] * 3 + [_P],
 }

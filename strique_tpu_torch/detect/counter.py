@@ -30,6 +30,17 @@ same calls: ``align_fused_pair`` declines fusion past the budget and
 reference needs an eager twin of its jitted bounds pipeline for that
 route (its ``_bounds_eager``); the port runs eagerly throughout, so
 it has none.
+
+Two knobs of the reference are honoured, through the same calls:
+
+  * ``STRIQUE_ALIGN_KERNEL=col`` -- ``align_core`` (read per call) runs
+    the column-sweep kernel and the column-layout traceback instead of
+    the wave kernel; a partial batch that ``align_fused_pair`` fuses
+    stays on the per-row-template wave kernel, as in the reference.
+  * ``STRIQUE_DENSE_VITERBI=1`` -- read when the counter first stages
+    an HMM (``PaddedHMM``, cached per counter): the decode runs the
+    dense forward over the full transition matrix instead of the
+    factored one.  HMMs that ``hmm/factor.py`` declines take it always.
 """
 from __future__ import annotations
 

@@ -6,6 +6,14 @@ Counterpart of ``strique_tpu/ops/align.py`` on the split path:
 per-row-template call), each followed by the leftmost-argmax end column
 and the diagonal-layout traceback.
 
+``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` call, as the
+reference reads it) swaps the wave kernel for the column-sweep kernel
+(``align_forward_col``) and the column-layout traceback
+(``_align_batch_col``).  As in the reference, the fusion rule of
+``align_fused_pair`` decides first, so a fused partial batch still runs
+the per-row-template wave kernel, and the two-pass route is the wave
+form's alone.
+
 The traceback is ``csrc/traceback.cu`` (one thread walks one row) on
 the card -- the reference runs it as an XLA ``while_loop``
 (align.py:198-237), not as a Pallas kernel -- and
@@ -26,14 +34,16 @@ is not ported yet (``devices`` of more than one raises).
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from .. import _build
 from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
-                         align_forward_wave, align_forward_wave_multi, align_window_from_state,
-                         kernel_batch, pad_template, pad_template_rows, ptr_budget_bytes,
-                         wave_span_bound_steps)
+                         align_forward_col, align_forward_wave, align_forward_wave_multi,
+                         align_window_from_state, kernel_batch, pad_template, pad_template_rows,
+                         ptr_budget_bytes, wave_span_bound_steps)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 
@@ -56,16 +66,23 @@ def kernel_stats() -> dict:
     return dict(KERNEL_STATS)
 
 
-def _traceback_plain(ptr, j_end, m_start, m_out: int):
-    """Diagonal-layout traceback, all rows at once (see traceback_pointers)."""
+def _traceback_plain(ptr, j_end, m_start, m_out: int, col: bool = False):
+    """Traceback of the diagonal (or, with ``col``, the column) layout,
+    all rows at once (see traceback_pointers)."""
     B = j_end.shape[0]
     dev = j_end.device
     rows = torch.arange(B, device=dev)
     iota = torch.arange(m_out, device=dev)
+    mp = ptr.shape[2]
 
     def lookup(jc, ic):
-        t = torch.clamp_min(ic + jc - 1, 0)
-        word = ptr[t // 8, rows, torch.clamp_min(ic, 0)]
+        if col:  # row i at lane i-1; row 0 wraps to lane MP-1, as the reference indexes
+            t = torch.clamp_min(jc - 1, 0)
+            lane = torch.remainder(ic - 1, mp)
+        else:
+            t = torch.clamp_min(ic + jc - 1, 0)
+            lane = torch.clamp_min(ic, 0)
+        word = ptr[t // 8, rows, lane]
         nib = (word >> (4 * (t % 8)).to(torch.int32)) & 15
         return torch.where(jc > 0, nib.to(torch.int64), MAT_V | 8)
 
@@ -86,8 +103,9 @@ def _traceback_plain(ptr, j_end, m_start, m_out: int):
         ni = torch.where(is_h, i, i - 1)
         nj = torch.where(is_v, j, j - 1)
         nbyte = lookup(nj, ni)
-        # diag layout: the V-extend bit lives at the cell stepped to
-        ext = torch.where(is_h, (byte >> 2) & 1, (nbyte >> 3) & 1)
+        # diag layout: the V-extend bit lives at the cell stepped to;
+        # column layout: at the current cell
+        ext = torch.where(is_h, (byte >> 2) & 1, ((byte if col else nbyte) >> 3) & 1)
         stay = ~is_m & (ext == 1)
         ncur = torch.where(stay, cur, torch.where(ni > 0, nbyte & 3, MAT_M))
         i = torch.where(active, ni, i)
@@ -97,7 +115,7 @@ def _traceback_plain(ptr, j_end, m_start, m_out: int):
     return {"is_gap": is_gap, "jpos": jpos.to(torch.int32), "j_begin": j.to(torch.int32)}
 
 
-def _traceback_cuda(ptr, j_end, m_start, m_out: int):
+def _traceback_cuda(ptr, j_end, m_start, m_out: int, col: bool):
     B = j_end.shape[0]
     dev = j_end.device
     p = ptr.contiguous()
@@ -107,25 +125,29 @@ def _traceback_cuda(ptr, j_end, m_start, m_out: int):
     jpos = torch.empty((B, m_out), dtype=torch.int32, device=dev)
     j_begin = torch.empty((B,), dtype=torch.int32, device=dev)
     _build.launch(
-        "traceback_diag_launch", dev,
+        "traceback_launch", dev,
         p.data_ptr(), je.data_ptr(), ms.data_ptr(), is_gap.data_ptr(),
-        jpos.data_ptr(), j_begin.data_ptr(), B, p.shape[2], m_out)
-    _build.LAUNCHES["traceback_pointers"] += 1
+        jpos.data_ptr(), j_begin.data_ptr(), B, p.shape[2], m_out, int(col))
+    _build.LAUNCHES["traceback_pointers_col" if col else "traceback_pointers"] += 1
     return {"is_gap": is_gap.bool(), "jpos": jpos, "j_begin": j_begin}
 
 
-def traceback_pointers(ptr, j_end, m: int, packed: str = "diag", m_start=None):
-    """Walk the diagonal-major pointer plane back from (m_start, j_end).
+def traceback_pointers(ptr, j_end, m: int, packed="diag", m_start=None):
+    """Walk a pointer plane back from (m_start, j_end).
 
-    ptr (ND/8, B, MP) int32 as the wave kernel writes it; j_end (B,);
-    ``m_start`` (B,) per-row start rows (default ``m``), ``m`` the
-    output width.  Returns per-template-element gap flags and signal
-    positions plus ``j_begin``.  Tie-breaks and the V-extend read follow
-    the reference walk (ops/align.py ``traceback_pointers``,
-    packed='diag') step for step.
+    ``packed='diag'``: ptr (ND/8, B, MP) int32 as the wave kernel writes
+    it; ``packed=True``: ptr (N/8, B, MP) as the column kernel writes it.
+    j_end (B,); ``m_start`` (B,) per-row start rows (default ``m``),
+    ``m`` the output width.  Returns per-template-element gap flags and
+    signal positions plus ``j_begin``.  Tie-breaks and the V-extend read
+    follow the reference walk (ops/align.py ``traceback_pointers``) step
+    for step, in either layout.
     """
-    if packed != "diag":
-        raise NotImplementedError("only the wave kernel's diagonal layout is ported")
+    if packed is not True and packed != "diag":
+        raise NotImplementedError(
+            "only the wave kernel's diagonal layout (packed='diag') and the column kernel's "
+            "(packed=True) are ported")
+    col = packed is True
     B = j_end.shape[0]
     if (ptr.dtype != torch.int32 or ptr.dim() != 3 or ptr.shape[1] != B
             or not 0 <= int(m) < ptr.shape[2]):
@@ -135,9 +157,9 @@ def traceback_pointers(ptr, j_end, m: int, packed: str = "diag", m_start=None):
     if m_start.shape != (B,) or ptr.device != j_end.device or m_start.device != j_end.device:
         raise ValueError("j_end and m_start are (B,) tensors on the plane's device")
     if j_end.device.type == "cuda":
-        return _traceback_cuda(ptr, j_end, m_start, int(m))
+        return _traceback_cuda(ptr, j_end, m_start, int(m), col)
     if j_end.device.type == "cpu":
-        return _traceback_plain(ptr, j_end, m_start, int(m))
+        return _traceback_plain(ptr, j_end, m_start, int(m), col)
     raise ValueError(f"traceback runs on cuda or cpu tensors, got {j_end.device}")
 
 
@@ -146,17 +168,31 @@ def _b0(params, m):
     return np.float32(params.gap_open_v) + np.float32(params.gap_extension_v) * np.float32(m - 1)
 
 
-def _align_batch_wave(signals, n_actual, template_padded, params, m_actual: int):
-    ptr, bottom_steps = align_forward_wave(signals, n_actual, template_padded,
-                                           params, m_actual)
-    B, N = signals.shape
-    bottom_cols = bottom_steps[:, m_actual : m_actual + N]
-    b0 = torch.full((B, 1), float(_b0(params, m_actual)), device=signals.device)
+def _end_and_traceback(ptr, bottom_cols, params, m_actual: int, packed):
+    """Score and leftmost end column over columns 0..N (virtual column 0
+    = the whole template in one vertical gap), then the traceback."""
+    B = bottom_cols.shape[0]
+    b0 = torch.full((B, 1), float(_b0(params, m_actual)), device=bottom_cols.device)
     bottom = torch.cat([b0, bottom_cols], dim=1)
     j_end = torch.argmax(bottom, dim=1)  # first maximum: leftmost end column
     score = bottom.gather(1, j_end[:, None])[:, 0]
-    tb = traceback_pointers(ptr, j_end.to(torch.int32), m_actual)
+    tb = traceback_pointers(ptr, j_end.to(torch.int32), m_actual, packed=packed)
     return {"score": score, "j_end": j_end.to(torch.int32), **tb}
+
+
+def _align_batch_wave(signals, n_actual, template_padded, params, m_actual: int):
+    ptr, bottom_steps = align_forward_wave(signals, n_actual, template_padded,
+                                           params, m_actual)
+    N = signals.shape[1]
+    return _end_and_traceback(ptr, bottom_steps[:, m_actual : m_actual + N], params, m_actual,
+                              "diag")
+
+
+def _align_batch_col(signals, n_actual, template_padded, params, m_actual: int):
+    """Column-kernel counterpart of ``_align_batch_wave`` (the reference's
+    ``_align_batch_pallas``)."""
+    ptr, bottom_cols = align_forward_col(signals, n_actual, template_padded, params, m_actual)
+    return _end_and_traceback(ptr, bottom_cols, params, m_actual, True)
 
 
 def _align_batch_wave_multi(signals, n_actual, tmpl_rows, m_rows, params, m_max: int):
@@ -328,7 +364,9 @@ def align_core(signals, n_actual, template_np, params):
     array (its length is static).  Rows run in wave calls of
     :func:`kernel_batch` rows; the tail pads with length-1 rows.  Past
     the pointer budget even at width 8, the bucket takes the two-pass
-    route (:func:`align_longread_sharded`).
+    route (:func:`align_longread_sharded`).  ``STRIQUE_ALIGN_KERNEL=col``
+    runs column-kernel calls instead (pointer plane N/8 x rows x MP, no
+    two-pass route), as the reference does.
     """
     dev = signals.device
     B, N = signals.shape
@@ -337,8 +375,10 @@ def align_core(signals, n_actual, template_np, params):
         signals = torch.nn.functional.pad(signals, (0, npad))
     tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
     mp = tmpl_np.shape[1]
-    n_cols = signals.shape[1] + mp
-    if n_cols * 8 * mp // 2 > ptr_budget_bytes(dev):
+    col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
+    batch_fn = _align_batch_col if col else _align_batch_wave
+    n_cols = signals.shape[1] + (0 if col else mp)
+    if not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev):
         if wave_span_bound_steps(params, m) is None:
             raise ValueError(
                 "the pointer plane exceeds the memory budget even at width 8, and the "
@@ -355,7 +395,7 @@ def align_core(signals, n_actual, template_np, params):
         sl = _pad_rows(signals[b0:end], kb, 0.0)
         na = _pad_rows(n_act[b0:end], kb, 1)
         _count_cells(kb, n_cols, mp)
-        outs.append(_align_batch_wave(sl, na, tmpl, params, m))
+        outs.append(batch_fn(sl, na, tmpl, params, m))
         b0 = end
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 

@@ -489,3 +489,114 @@ def align_window_from_state(sig_win, r_init, state4, cold, steps_needed, templat
     if _on_card(sig_win):
         return _window_cuda(sig_win, r_init, state4, cold, steps_needed, template_padded, params)
     return _window_plain(sig_win, r_init, state4, cold, steps_needed, template_padded, params)
+
+
+# ---------------------------------------------------------------------------
+# Column-sweep form (kernel row 8, STRIQUE_ALIGN_KERNEL=col)
+# ---------------------------------------------------------------------------
+#
+# The same Gotoh DP swept one signal column per step (align_pallas.py
+# ``_align_kernel``): the vertical gap is an inclusive prefix max over the
+# template lanes, and the pointer plane is column-major.  Kernel
+# ``csrc/col_align.cu``.
+
+
+def _cols_to_run(n_actual, N: int) -> int:
+    """Columns the longest row needs: round_up(n, 8), at most N."""
+    if n_actual.numel() == 0:
+        return 0
+    return int(min(N, _round_up(int(n_actual.max()), 8)))
+
+
+def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
+    """Plain twin of the column kernel: (ptr (N/8, B, MP), bottom (B, N)).
+
+    Step c computes column j = c + 1 with the reference's expression
+    trees.  The code of row i sits at lane i-1 (row 0's at lane MP-1,
+    never read), nibble c % 8 of word c // 8; bottom[:, c] is S(m, j),
+    NEG past the row's length.  Runs round_up(max n, 8) columns; the
+    rest of the plane stays 0 and of the bottom NEG.
+    """
+    k = _consts(params)
+    B, N = signals.shape
+    mp = tmpl.shape[1]
+    dev = signals.device
+    lane = torch.arange(mp, device=dev)
+    lane_f = lane.to(torch.float32)
+    row0 = lane == 0
+    s = torch.where(row0, 0.0, k["go_v"] + k["ge_v"] * (lane_f - 1.0)).expand(B, mp)
+    ih = torch.full((B, mp), NEG, device=dev)
+    cv_off = (lane_f + 1.0) * k["g"]
+    iv_off = lane_f * k["g"]
+    fill_s = torch.full((B, 1), -k["dmin"] if k["neg_h"] else NEG, device=dev)
+    fill_neg = torch.full((B, 1), NEG, device=dev)
+    zero_i = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+    ptr = torch.zeros((N // 8, B, mp), dtype=torch.int32, device=dev)
+    bottom = torch.full((B, N), NEG, device=dev)
+    n_act = n_actual.to(torch.int64)
+    acc = torch.zeros((B, mp), dtype=torch.int32, device=dev)
+    for c in range(_cols_to_run(n_actual, N)):
+        sc = torch.clamp_min(k["off"] - score_pow((signals[:, c : c + 1] - tmpl).abs()),
+                             k["dmin"])
+        ih_ext = ih + k["ge_h"]
+        ih_open = s + k["go_h"]
+        new_ih = torch.maximum(ih_ext, ih_open)
+        new_m = torch.cat([fill_s, s[:, :-1]], dim=1) + sc
+        q = torch.maximum(new_m, new_ih)
+        if not k["neg_h"]:
+            q = torch.where(row0, 0.0, q)
+        cvec = torch.cummax((q + k["go_v"]) - cv_off, dim=1).values
+        new_iv = torch.cat([fill_neg, cvec[:, :-1]], dim=1) + iv_off
+        new_s = torch.maximum(q, new_iv)
+        which = torch.where(new_m >= new_s, 0, torch.where(new_iv >= new_s, 2, 1))
+        ivx = ((new_iv + k["ge_v"]) >= (new_s + k["go_v"])).to(torch.int32)
+        code = (which.to(torch.int32)
+                | ((ih_ext >= ih_open).to(torch.int32) << 2)
+                | (torch.cat([zero_i, ivx[:, :-1]], dim=1) << 3))
+        acc |= torch.roll(code, -1, dims=1) << (4 * (c % 8))
+        bottom[:, c] = torch.where(c + 1 <= n_act, new_s[:, m_actual], NEG)
+        s, ih = new_s, new_ih
+        if c % 8 == 7:
+            ptr[c // 8] = acc
+            acc = torch.zeros_like(acc)
+    return ptr, bottom
+
+
+def _col_cuda(signals, tmpl, n_actual, params, m_actual: int):
+    k = _consts(params)
+    B, N = signals.shape
+    mp = tmpl.shape[1]
+    dev = signals.device
+    sig = signals.contiguous()
+    tm = tmpl.contiguous()
+    nact = n_actual.to(torch.int32).contiguous()
+    ptr = torch.empty((N // 8, B, mp), dtype=torch.int32, device=dev)
+    bottom = torch.empty((B, N), dtype=torch.float32, device=dev)
+    _build.launch(
+        "col_align_launch", dev,
+        sig.data_ptr(), tm.data_ptr(), nact.data_ptr(), ptr.data_ptr(), bottom.data_ptr(),
+        B, N, mp, int(m_actual), int(k["neg_h"]),
+        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    _build.LAUNCHES["align_forward_col"] += 1
+    return ptr, bottom
+
+
+def align_forward_col(signals, n_actual, template_padded, params, m_actual: int):
+    """Column-sweep forward DP of B reads against one shared template.
+
+    Counterpart of the reference's ``align_forward_pallas``.  signals
+    (B, N) f32, N a multiple of 128; template_padded (1, MP).  Returns
+    (ptr (N//8, B, MP) int32, bottom (B, N) f32): column j's code for
+    row i sits in nibble (j-1) % 8 of word [(j-1)//8, row, i-1]
+    (``traceback_pointers(packed=True)`` reads it), and bottom[:, j-1]
+    is S(m, j), NEG for j > n.  A row stops at round_up(n, 8): pointer
+    words past it are left unwritten.
+    """
+    B = signals.shape[0]
+    if template_padded.shape[0] != 1 or not 0 < m_actual < template_padded.shape[1]:
+        raise ValueError("align_forward_col takes one (1, MP) template of m < MP samples")
+    m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=signals.device)
+    _check_inputs(signals, n_actual, template_padded, m_rows)
+    if _on_card(signals):
+        return _col_cuda(signals, template_padded, n_actual, params, m_actual)
+    return _col_plain(signals, template_padded, n_actual, params, m_actual)

@@ -1,4 +1,4 @@
-"""Structure-factored max-plus Viterbi: CUDA kernels + plain twins.
+"""Max-plus Viterbi, factored and dense: CUDA kernels + plain twins.
 
 Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
 
@@ -7,14 +7,18 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     diagonals plus delete-chain flows ``cummax(inj - ramp) + ramp``,
     Gaussian/uniform emissions, a per-step row-max rescale and its
     running sum ``acc``.  Kernel ``csrc/viterbi_fwd.cu``.
+  * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
+    with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
+    for HMMs without a factored form (``hmm/factor.py`` declines) or
+    under ``STRIQUE_DENSE_VITERBI=1``.  Kernel ``csrc/viterbi_dense.cu``.
   * ``viterbi_backward_batch`` -- ``_bwd_batch_kernel``: the backward
     walk that recomputes each visited backpointer,
     ``bp[t] = min{u : sc[t-1, u] + trans[u, path[t]] == max}``, frozen
     past each read's length.  Kernel ``csrc/viterbi_bwd.cu``.
 
-Each kernel's plain PyTorch twin (``_fwd_plain``, ``_bwd_plain``) runs
-for CPU tensors only.  Layouts are the reference's: score rows
-time-major (T, B, SP), paths (B, T) int32.  Rows and path entries past
+Each kernel's plain PyTorch twin (``_fwd_plain``, ``_fwd_dense_plain``,
+``_bwd_plain``) runs for CPU tensors only.  Layouts are the reference's:
+score rows time-major (T, B, SP), paths (B, T) int32.  Rows and path entries past
 a read's length follow the reference where it defines them (the path
 repeats the last state); score rows past a read's length are not
 written by the kernel and are never read.
@@ -27,10 +31,13 @@ differs from the rounded float64 value by one ulp on some sigmas; paths
 are exact regardless and scores agree to f32 rounding (tests state the
 tolerance).
 
-HMMs without a factored form (``fspec is None``) raise
-``NotImplementedError``: the dense forward kernel is ROADMAP work.
+``PaddedHMM`` stages the factored form unless the HMM has none or
+``STRIQUE_DENSE_VITERBI=1`` at its construction (as the reference's
+does); ``viterbi_batch`` takes the dense forward when it has none.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -67,7 +74,12 @@ def _encode_spec(spec, sp: int) -> np.ndarray:
 
 
 class PaddedHMM:
-    """Lane-padded tensors of a CompiledHMM (SP a multiple of 128) on one device."""
+    """Lane-padded tensors of a CompiledHMM (SP a multiple of 128) on one device.
+
+    ``fspec``/``fweights`` hold the factored form, or None: when the HMM
+    has none, or when ``STRIQUE_DENSE_VITERBI=1`` at construction (read
+    here, as the reference reads it), so decodes take the dense forward.
+    """
 
     def __init__(self, chm, device="cpu"):
         S = chm.n_states
@@ -87,7 +99,8 @@ class PaddedHMM:
         luni = np.zeros(sp, np.float32)
         luni[:S] = chm.log_uni
         fspec = fweights = None
-        if getattr(chm, "factored", None) is not None:
+        if (getattr(chm, "factored", None) is not None
+                and os.environ.get("STRIQUE_DENSE_VITERBI") != "1"):
             fspec, fweights = stage_factored(chm.factored, sp)
         self._init(S, trans, start, end, mu, sigma, uni, luni, fspec, fweights, device)
 
@@ -202,17 +215,80 @@ def viterbi_forward_factored(obs, t_actual, ph: PaddedHMM):
     at t_actual-1, acc (B,) the summed rescale shifts).
     """
     if ph.fspec is None:
-        raise NotImplementedError(
-            "HMM has no factored form: the dense Viterbi kernel is not ported yet (ROADMAP)")
+        raise ValueError("HMM has no factored form: decode it with viterbi_forward_dense")
+    _check_obs(obs, t_actual, ph)
+    if obs.device.type == "cuda":
+        return _fwd_cuda(obs, t_actual, ph)
+    return _fwd_plain(obs, t_actual, ph)
+
+
+def _check_obs(obs, t_actual, ph):
     if obs.dtype != torch.float32 or obs.dim() != 2 or obs.device != ph.trans.device:
         raise ValueError("obs must be a (B, T) float32 tensor on the HMM's device")
     if t_actual.shape != obs.shape[:1] or t_actual.device != obs.device:
         raise ValueError("t_actual must be (B,) on the obs device")
+    if obs.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"Viterbi runs on cuda or cpu tensors, got {obs.device}")
+
+
+def _fwd_dense_plain(obs, t_actual, ph):
+    """Plain twin of the dense forward: the reference's step, every read
+    together.  Rows past a read's length are not frozen (the reference
+    does not freeze them either); they are never read."""
+    B, T = obs.shape
+    sp = ph.sp
+    dev = obs.device
+    tact = t_actual.to(torch.int64).clamp_max(T)
+    st = torch.zeros((B, sp), device=dev)
+    fin = torch.zeros((B, sp), device=dev)
+    acc = torch.zeros((B,), device=dev)
+    sc = torch.zeros((T, B, sp), device=dev)
+    for t in range(int(tact.max())):
+        z = (obs[:, t : t + 1] - ph.mu) / ph.sigma
+        emit = torch.where(ph.uni != 0, ph.luni, ph.lsig - 0.5 * z * z)
+        if t == 0:
+            val = ph.start + emit
+        else:
+            val = (st[:, :, None] + ph.trans[None]).amax(dim=1) + emit
+        m = val.max(dim=1, keepdim=True).values
+        st = val - m
+        acc = acc + torch.where(t < tact, m[:, 0], 0.0)
+        fin = torch.where((tact - 1 == t)[:, None], st, fin)
+        sc[t] = st
+    return sc, fin, acc
+
+
+def _fwd_dense_cuda(obs, t_actual, ph):
+    B, T = obs.shape
+    sp = ph.sp
+    dev = obs.device
+    o = obs.contiguous()
+    tact = t_actual.to(torch.int32).contiguous()
+    sc = torch.empty((T, B, sp), dtype=torch.float32, device=dev)
+    fin = torch.empty((B, sp), dtype=torch.float32, device=dev)
+    acc = torch.empty((B,), dtype=torch.float32, device=dev)
+    _build.launch(
+        "viterbi_dense_launch", dev,
+        o.data_ptr(), tact.data_ptr(), ph.trans.data_ptr(), ph.start.data_ptr(),
+        ph.mu.data_ptr(), ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
+        ph.lsig.data_ptr(), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
+    _build.LAUNCHES["viterbi_forward_dense"] += 1
+    return sc, fin, acc
+
+
+def viterbi_forward_dense(obs, t_actual, ph: PaddedHMM):
+    """Dense forward of a (B, T) batch over the full SP x SP transitions.
+
+    Counterpart of the reference's ``viterbi_forward_pallas_multi``, with
+    the rows written time-major so ``viterbi_backward_batch`` reads them
+    directly.  Returns (sc (T, B, SP) f32 rescaled score rows, fin (B, SP)
+    the row at t_actual-1, acc (B,) the summed rescale shifts).  Rows at
+    t >= t_actual are left unwritten on the card; nothing reads them.
+    """
+    _check_obs(obs, t_actual, ph)
     if obs.device.type == "cuda":
-        return _fwd_cuda(obs, t_actual, ph)
-    if obs.device.type == "cpu":
-        return _fwd_plain(obs, t_actual, ph)
-    raise ValueError(f"Viterbi runs on cuda or cpu tensors, got {obs.device}")
+        return _fwd_dense_cuda(obs, t_actual, ph)
+    return _fwd_dense_plain(obs, t_actual, ph)
 
 
 def _bwd_plain(sc, last, t_actual, transT):
@@ -283,7 +359,8 @@ def viterbi_batch(obs, t_actual, ph: PaddedHMM):
 
     Runs in GROUP-read calls; each call pads its rows to a multiple of
     8 with length-1 dummies.  logp = (fin + end)[last] + acc with
-    last = argmax(fin + end), first maximum.
+    last = argmax(fin + end), first maximum.  The forward is the
+    factored one, or the dense one when ``ph`` has no factored form.
     """
     B = obs.shape[0]
     if B > GROUP:
@@ -291,7 +368,8 @@ def viterbi_batch(obs, t_actual, ph: PaddedHMM):
                 for g in range(0, B, GROUP)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
     obs_p, tact_p = _pad_batch(obs.to(torch.float32), t_actual.to(torch.int32))
-    sc, fin, acc = viterbi_forward_factored(obs_p, tact_p, ph)
+    forward = viterbi_forward_dense if ph.fspec is None else viterbi_forward_factored
+    sc, fin, acc = forward(obs_p, tact_p, ph)
     final = fin + ph.end
     last = torch.argmax(final, dim=1)
     logp = final.gather(1, last[:, None])[:, 0] + acc

@@ -26,6 +26,11 @@ from strique_tpu_torch.convert import align_inputs_from_jax
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
 
+# The tier-1 run puts six pytest workers on the machine's cores, and
+# torch's intra-op threads then spin against each other (the plain
+# twins' small ops ran 100-200x slower): run torch on one thread here.
+torch.set_num_threads(1)
+
 SCORE_ATOL = 1.2e-4
 FIELDS = ("score", "j_end", "is_gap", "jpos", "j_begin")
 # reference defaults; affine corners with g = max(ge_v, go_v) != go_v;

@@ -27,6 +27,11 @@ from strique_tpu_torch.ops import bounds as TB
 from strique_tpu_torch.ops import viterbi as TV
 from strique_tpu_torch.synthetic import write_pore_model
 
+# The tier-1 run puts six pytest workers on the machine's cores, and
+# torch's intra-op threads then spin against each other (the plain
+# twins' small ops ran 100-200x slower): run torch on one thread here.
+torch.set_num_threads(1)
+
 
 def _tracebacks(rng, B, m, n):
     """Monotone warp positions with vertical-gap runs (repeated jpos)."""

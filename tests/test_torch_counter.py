@@ -17,6 +17,11 @@ from strique_tpu.pore_model import PoreModel
 from strique_tpu_torch.detect.counter import RepeatCounter
 from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads, write_pore_model
 
+# The tier-1 run puts six pytest workers on the machine's cores, and
+# torch's intra-op threads then spin against each other (the plain
+# twins' small ops ran 100-200x slower): run torch on one thread here.
+torch.set_num_threads(1)
+
 # shortened c9orf72 flanks keep the reference's CPU alignment quick
 T_PREFIX = PREFIX[-80:]
 T_SUFFIX = SUFFIX[:80]

@@ -124,6 +124,98 @@ def test_gpu_factored_viterbi_matches_plain(cuda_device, model_file):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_gpu_col_and_traceback_match_plain(cuda_device, pi):
+    """The column kernel and the column-layout traceback against their
+    twins: written pointer words, every bottom tap and the walks equal."""
+    p = PARAMS[pi]
+    rng = np.random.default_rng(520 + pi)
+    B, N = 16, 512
+    template = rng.uniform(60, 120, 40).astype(np.float32)
+    signals = rng.uniform(60, 120, (B, N)).astype(np.float32)
+    for i in range(B):
+        st = 30 + 20 * i
+        signals[i, st : st + 40] = template + rng.normal(0, 0.5, 40)
+    s = torch.from_numpy(signals).to(cuda_device)
+    n = torch.from_numpy(rng.integers(300, 500, B).astype(np.int32)).to(cuda_device)
+    tp, m = TC.pad_template(template)
+    tmpl = torch.from_numpy(tp).to(cuda_device)
+    before = _build.LAUNCHES["align_forward_col"]
+    ptr, bot = TC.align_forward_col(s, n, tmpl, p, m)
+    assert _build.LAUNCHES["align_forward_col"] == before + 1
+    ptr_p, bot_p = TC._col_plain(s, tmpl, n, p, m)
+    mask = _valid_words(n, torch.zeros_like(n), ptr.shape[0])  # (j-1)//8 < ceil(n/8)
+    assert torch.equal(ptr[mask], ptr_p[mask])
+    assert torch.equal(bot, bot_p)
+    b0 = torch.full((B, 1), float(TA._b0(p, m)), device=cuda_device)
+    j_end = torch.argmax(torch.cat([b0, bot], dim=1), dim=1).to(torch.int32)
+    m_start = torch.full((B,), m, dtype=torch.int32, device=cuda_device)
+    before = _build.LAUNCHES["traceback_pointers_col"]
+    got = TA.traceback_pointers(ptr, j_end, m, packed=True)
+    assert _build.LAUNCHES["traceback_pointers_col"] == before + 1
+    ref = TA._traceback_plain(ptr, j_end, m_start, m, col=True)
+    for k in ("is_gap", "jpos", "j_begin"):
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.gpu
+def test_gpu_align_core_col_matches_wave(cuda_device, monkeypatch):
+    """align_core under STRIQUE_ALIGN_KERNEL=col runs the column kernel
+    alone and gives the wave route's outputs exactly."""
+    rng = np.random.default_rng(530)
+    template = rng.uniform(60, 120, 40).astype(np.float32)
+    signals = rng.uniform(60, 120, (16, 512)).astype(np.float32)
+    for i in range(16):
+        signals[i, 40 + 20 * i : 80 + 20 * i] = template + rng.normal(0, 0.5, 40)
+    s = torch.from_numpy(signals).to(cuda_device)
+    n = torch.from_numpy(rng.integers(300, 500, 16).astype(np.int32)).to(cuda_device)
+    wave = TA.align_core(s, n, template, AlignParams())
+    monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
+    _build.reset_launches()
+    col = TA.align_core(s, n, template, AlignParams())
+    assert _build.LAUNCHES["align_forward_col"] == 1 and _build.LAUNCHES["align_forward_wave"] == 0
+    assert _build.LAUNCHES["traceback_pointers_col"] == 1
+    assert _build.LAUNCHES["traceback_pointers"] == 0
+    for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+        assert torch.equal(wave[k], col[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("flank,sp", [(25, 128), (50, 256)])
+def test_gpu_dense_viterbi_matches_plain(cuda_device, model_file, flank, sp):
+    """The dense forward against its twin at SP 128 and 256 (rows below
+    each read's length, fin and acc bit-equal), then decoded: its paths
+    equal the factored forward's on this factoring HMM."""
+    pm = PoreModel(model_file)
+    chm = build_flanked_repeat(REPEAT, PREFIX[-flank:], SUFFIX[:flank], pm)
+    rng = np.random.default_rng(40 + flank)
+    T = 1024
+    obs = np.zeros((8, T), np.float32)
+    lens = np.zeros(8, np.int32)
+    for i, k in enumerate([1, 2, 3, 5, 8, 2, 6, 4]):
+        x = pm.generate_signal(PREFIX[-flank:] + REPEAT * k + SUFFIX[:flank], samples=8,
+                               noise=True, rng=rng).astype(np.float32)[:T]
+        obs[i, : len(x)] = x
+        lens[i] = len(x)
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == sp
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    before = _build.LAUNCHES["viterbi_forward_dense"]
+    sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
+    assert _build.LAUNCHES["viterbi_forward_dense"] == before + 1
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    last = torch.argmax(fin + ph.end, dim=1)
+    path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
+    sc_f, fin_f, _ = TVC.viterbi_forward_factored(o, n, ph)
+    path_f = TVC.viterbi_backward_batch(sc_f, torch.argmax(fin_f + ph.end, dim=1), n, ph.transT)
+    assert torch.equal(path, path_f)
+
+
+@pytest.mark.gpu
 def test_gpu_counter_matches_cpu_counter(cuda_device, model_file):
     """The whole split path on the card against the plain CPU path."""
     pm = PoreModel(model_file)

@@ -33,6 +33,11 @@ from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
 from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads, write_pore_model
 
+# The tier-1 run puts six pytest workers on the machine's cores, and
+# torch's intra-op threads then spin against each other (the plain
+# twins' small ops ran 100-200x slower): run torch on one thread here.
+torch.set_num_threads(1)
+
 FIELDS = ("score", "j_end", "is_gap", "jpos", "j_begin")
 # reference defaults (span bound ~1.4k steps at M=40) and the steep-gap
 # corner of the reference's fuzz sweep (steep h, shallow v: bound 123)

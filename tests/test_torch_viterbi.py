@@ -27,6 +27,11 @@ from strique_tpu_torch.ops import viterbi as TV
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.synthetic import write_pore_model
 
+# The tier-1 run puts six pytest workers on the machine's cores, and
+# torch's intra-op threads then spin against each other (the plain
+# twins' small ops ran 100-200x slower): run torch on one thread here.
+torch.set_num_threads(1)
+
 # short flanks: reads of 1-3 units fit T=512
 PREFIX = "CCAGGATGCCGCCTCCTCACTCACC"
 SUFFIX = "TAGCGCGACTCCTGAGTTCCAGAGC"
@@ -118,12 +123,20 @@ def test_forward_rows_and_backward_against_reference_kernels(pm, chm):
     np.testing.assert_array_equal(path.numpy(), jpath)
 
 
-def test_dense_only_hmm_raises(chm):
-    """An HMM without a factored form is refused until the dense kernel lands."""
+def test_dense_only_hmm_raises(pm, chm):
+    """An HMM staged without a factored form: the factored forward raises
+    on it, and viterbi_batch decodes it with the dense forward to the
+    reference's (factored) paths."""
     jph = JaxPaddedHMM(chm)
     ph = TVC.PaddedHMM.from_arrays(chm.n_states, np.asarray(jph.trans), np.asarray(jph.start),
                                    np.asarray(jph.end), np.asarray(jph.mu),
                                    np.asarray(jph.sigma), np.asarray(jph.uni),
                                    np.asarray(jph.luni), None, None)
-    with pytest.raises(NotImplementedError, match="dense"):
-        TVC.viterbi_batch(torch.zeros((8, 512)), torch.ones(8, dtype=torch.int32), ph)
+    obs, lens = _batch(pm, [1, 2, 3, 5, 8, 2, 6, 4], 512, seed=5)
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    with pytest.raises(ValueError, match="dense"):
+        TVC.viterbi_forward_factored(o, n, ph)
+    jl, jp = viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), jph)
+    tl, tp = TVC.viterbi_batch(o, n, ph)
+    np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=1e-5)
