@@ -12,7 +12,16 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 3. Hold each kernel against its plain PyTorch twin on the card, at a
    small random shape and at the bench shape (64 rows, npad 24576,
    MP 896; Viterbi T 6144, SP 256): integer outputs exactly equal, f32
-   outputs bit-equal (max_abs_err 0).  The two-pass kernels run at
+   outputs bit-equal (max_abs_err 0).  The wave kernel (rows 1-2) runs
+   on morph-form reads (u8 bins and a 256-level table per read,
+   ``samples=6`` templates; row 2 at the bench shape with 128 rows, both
+   flanks of 64 reads): its TABLE score mode against the table twin,
+   and its POW mode on the decoded f32 against the same twin run, with
+   each mode's ms and us per diagonal step.  The TABLE/POW rule is held
+   in both directions (at the shared-memory cap at MP 256, and past
+   1024 lanes), each call against the table twin; row 1 also runs at the
+   ultra-long one-pass shape (8 rows, the bucket's N), TABLE against POW
+   on the decoded f32.  The two-pass kernels run at
    B=8: N=4096, M=40, ckpt_steps 512 (cold and warm windows) and the
    bench template at N=24576, ckpt_steps 16384; bottom taps, written
    checkpoint slots and written pointer words equal.  The Viterbi pair
@@ -26,15 +35,23 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
    the fused per-row-template wave route), with a seeded synthetic
    6-mer pore model.  Every count must be exact, every kernel of the
-   split path must have launched in this phase, and the first 8 '+'
-   results must equal the port's plain CPU path.  Print reads/s beside
-   the card's power limit.
+   split path must have launched in this phase, every wave launch in
+   the TABLE score mode (both flanks of a 64-read batch fuse into one
+   128-row call on the card), and the first 8 '+' results must equal
+   the port's plain CPU path.  Print reads/s beside the card's power
+   limit.
 4b. The ultra-long route: 8 noisy '+' reads of ~1.1M samples with 1200
    units through the same counter, once with ``STRIQUE_PTR_BUDGET_GB=2``
    (the bucket's ~4.7 GB width-8 plane does not fit: the two-pass
    kernels run, the one-pass wave kernel must not) and once with 8 (the
-   one-pass route at 8 rows a call).  Counts 8/8 exact on both routes,
-   and the two routes' result tuples equal.  Print each route's seconds.
+   one-pass route at 8 rows a call, one call per flank, TABLE mode).
+   Counts 8/8 exact on both routes, and the two routes' result tuples
+   equal.  Print each route's seconds.
+4e. A target whose flanks are 200 bases longer each (MP 2176: more
+   lanes than the TABLE mode runs, and more levels than its table
+   holds): both wave calls' POW dispatch at that MP against the table
+   twin (16 rows, N 4096), then 72 '+' and 24 '-' reads count exactly
+   through the POW score mode alone (2 + 1 wave calls).
 4c. One more pass of each path under torch.profiler: wall time, device
    time by kernel and the busy share.
 4d. The knob routes: the '+' and '-' passes of phase 4 once under
@@ -48,8 +65,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    profiled '+' pass of each.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
-   ``bound()`` and library_ms), then the final
-   ``{"ok": true, "device": ...}`` line.
+   ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
+   their bound with the pow counted per cell), then the final
+   ``{"ok": true, "device": ...}`` line.  Row 1's TABLE launches come
+   from phase 4b's one-pass route, the POW launches of rows 1-2 from
+   phase 4e.
 """
 from __future__ import annotations
 
@@ -74,22 +94,36 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # FP32 outside the tensor cores
 F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores
 # f32 operations per DP cell, counted from wave_align.cu's expression
-# tree (pointer modes; the score-only pass drops the 6 of the pointer
-# code); col_align.cu's tree counts the same 23 (its prefix max takes
-# the place of the running column max); the f64 |d|^1.2 counts as 2 FP64 operations (a log and an exp,
-# a lower bound of pow's cost)
+# tree (pointer modes, POW score; the score-only pass drops the 6 of the
+# pointer code); col_align.cu's tree counts the same 23 (its prefix max
+# takes the place of the running column max); the f64 |d|^1.2 counts as
+# 2 FP64 operations (a log and an exp, a lower bound of pow's cost).  In
+# the TABLE score mode a cell looks its score up (dp_cell's 19), and the
+# score's sub, abs, sub, max and pow run once per table entry.
 WAVE_F32_PER_CELL = 23
 CKPT_F32_PER_CELL = 17
+TABLE_F32_PER_CELL = 19
+SCORE_F32 = 4
 POW_F64_PER_CELL = 2
 
-SPLIT_KERNELS = ("align_forward_wave", "align_forward_wave_multi", "traceback_pointers",
+# the split path's kernels on the card: both flanks of a batch fuse into
+# one per-row-template wave call in TABLE score mode
+SPLIT_KERNELS = ("align_forward_wave_multi_table", "traceback_pointers",
                  "viterbi_forward_factored", "viterbi_backward_batch")
+POW_WAVE = ("align_forward_wave", "align_forward_wave_multi")
+KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+               "plain_ms", "bound_ms", "bound_by", "library_ms")
+TABLE_WAVE = ("align_forward_wave_table", "align_forward_wave_multi_table")
 KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
                            "strique_tpu/ops/align_pallas.py:639"),
     "align_forward_wave_multi": ("strique_tpu_torch/csrc/wave_align.cu",
                                  "strique_tpu/ops/align_pallas.py:684"),
+    "align_forward_wave_table": ("strique_tpu_torch/csrc/wave_align.cu",
+                                 "strique_tpu/ops/align_pallas.py:639"),
+    "align_forward_wave_multi_table": ("strique_tpu_torch/csrc/wave_align.cu",
+                                       "strique_tpu/ops/align_pallas.py:684"),
     "align_forward_ckpt": ("strique_tpu_torch/csrc/wave_align.cu",
                            "strique_tpu/ops/align_pallas.py:788"),
     "align_window_from_state": ("strique_tpu_torch/csrc/wave_align.cu",
@@ -163,59 +197,234 @@ def valid_ptr_mask(n_act, m_rows, nwords):
     return q < words[None, :]
 
 
-def check_wave(pm_templates, shape_name, B, N, params, multi, rng, results):
+def morph_reads(templates, B, N, rng, n_lo=None):
+    """(B, N) u8 morph bins and (B, 256) f32 level tables: per read an
+    affine 256-level table (as the counter's prep builds one) and a
+    uniform signal with row b's template (``templates[b]``) inserted with
+    noise, quantised to its nearest level.  Lengths n in [n_lo, N]."""
     import numpy as np
+
+    lo = rng.uniform(40, 60, B)
+    hi = rng.uniform(130, 150, B)
+    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
+    sig = rng.uniform(60, 120, (B, N))
+    for b, t in enumerate(templates):
+        st = int(rng.integers(0, max(1, N // 2 - len(t))))
+        sig[b, st : st + len(t)] = t + rng.normal(0, 1.0, len(t))
+    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    na = rng.integers(N // 2 if n_lo is None else n_lo, N + 1, B).astype(np.int32)
+    return bins.astype(np.uint8), lut, na
+
+
+def wave_bound(n_d, m_d, levels, nbytes, table: bool):
+    """Rows 1-2's bound over the DP cells the inputs need (sum of n * m).
+    POW: 23 f32 and 2 FP64 operations a cell.  TABLE: 19 f32 a cell, and
+    the score (4 f32, 2 FP64) once per table entry: U x 258 for every row
+    (each read has its own level table), U the row's distinct template
+    values, the +1e30 pad among them; the POW count beside it."""
+    import numpy as np
+
+    cells = wave_cells(n_d, m_d)
+    old = bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)
+    if not table:
+        return old
+    u = (levels < np.float32(1e30)).sum(axis=1) + 1
+    entries = 258.0 * float(u.sum() if levels.shape[0] > 1 else u[0] * n_d.shape[0])
+    new = bound(nbytes, TABLE_F32_PER_CELL * cells + SCORE_F32 * entries,
+                POW_F64_PER_CELL * entries)
+    return {**new, "bound_ms_pow_per_cell": old["bound_ms"]}
+
+
+def wave_inputs(templates, multi, B, N, rng, n_lo=None):
+    """Morph-form wave inputs on the card: one shared template
+    (``templates[0]``) or, with ``multi``, the two templates over the two
+    halves of the rows.  Returns (numpy (levels, lidx, tmpl, bins, lut),
+    device (bins, lut, n, m_rows, levels, lidx, tmpl))."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    if multi:
+        rows, ms = AC.pad_template_rows(list(templates))
+        tmpl = np.repeat(rows, [B // 2, B - B // 2], axis=0)
+        mr = np.repeat(ms.astype(np.int32), [B // 2, B - B // 2])
+        row_t = [templates[0]] * (B // 2) + [templates[1]] * (B - B // 2)
+    else:
+        tmpl, m = AC.pad_template(templates[0])
+        mr = np.full(B, m, np.int32)
+        row_t = [templates[0]] * B
+    bins, lut, na = morph_reads(row_t, B, N, rng, n_lo)
+    levels, lidx = AC.template_levels(tmpl)
+    dev = torch.device("cuda")
+    return ((levels, lidx, tmpl, bins, lut),
+            tuple(torch.from_numpy(x).to(dev) for x in (bins, lut, na, mr, levels, lidx, tmpl)))
+
+
+def morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params):
+    """The morph-form wave entry point of row 2 (``multi``) or row 1."""
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    if multi:
+        return AC.align_forward_wave_multi_morph(b_d, l_d, n_d, lv_d, li_d, m_d, params)
+    return AC.align_forward_wave_morph(b_d, l_d, n_d, lv_d, li_d, params, int(m_d[0]))
+
+
+def pow_call(multi, s_d, n_d, m_d, t_d, params):
+    """The f32 wave entry point (POW mode) of row 2 (``multi``) or row 1."""
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    if multi:
+        return AC.align_forward_wave_multi(s_d, n_d, t_d, m_d, params)
+    return AC.align_forward_wave(s_d, n_d, t_d, params, int(m_d[0]))
+
+
+def check_wave(templates, shape_name, B, N, params, multi, rng, results):
+    """Rows 1-2 on morph-form reads: the TABLE-mode kernel against the
+    table twin (one plain run) and the POW-mode kernel on the decoded f32
+    against the same run; pointer words and bottom taps equal."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align_cuda as AC
 
-    dev = torch.device("cuda")
-    t_pre, t_suf = pm_templates
-    sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
-    for b in range(B):
-        t = t_pre if (not multi or b < B // 2) else t_suf
-        st = int(rng.integers(0, max(1, N // 2 - len(t))))
-        sig[b, st : st + len(t)] = t + rng.normal(0, 1.0, len(t)).astype(np.float32)
-    na = rng.integers(N // 2, N + 1, B).astype(np.int32)
-    if multi:
-        rows, ms = AC.pad_template_rows([t_pre, t_suf])
-        tmpl = np.concatenate([np.repeat(rows[0:1], B // 2, 0), np.repeat(rows[1:2], B - B // 2, 0)])
-        mr = np.concatenate([np.full(B // 2, ms[0], np.int32), np.full(B - B // 2, ms[1], np.int32)])
-    else:
-        tmpl, m = AC.pad_template(t_pre)
-        mr = np.full(B, m, np.int32)
-    s_d = torch.from_numpy(sig).to(dev)
-    n_d = torch.from_numpy(na).to(dev)
-    t_d = torch.from_numpy(tmpl).to(dev)
-    m_d = torch.from_numpy(mr).to(dev)
-    if multi:
-        run_k = lambda: AC.align_forward_wave_multi(s_d, n_d, t_d, m_d, params)
-        run_p = lambda: AC._wave_plain(s_d, t_d, n_d, m_d, params)
-        name = "align_forward_wave_multi"
-    else:
-        run_k = lambda: AC.align_forward_wave(s_d, n_d, t_d, params, int(mr[0]))
-        run_p = lambda: AC._wave_plain(s_d, t_d, n_d, m_d, params)
-        name = "align_forward_wave"
+    (levels, lidx, tmpl, bins, lut), dev_in = wave_inputs(templates, multi, B, N, rng)
+    b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+    s_d = AC.morph_decode(b_d, l_d)
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    if AC.wave_score_mode(levels.shape[1], tmpl.shape[1]) != "table":
+        fail(f"the {shape_name} templates ({levels.shape[1]} levels) do not fit the score table")
+    run_t = lambda: morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params)
+    run_k = lambda: pow_call(multi, s_d, n_d, m_d, t_d, params)
+    before = dict(_build.LAUNCHES)
+    (ptr_t, bot_t), _ = once_ms(run_t)
+    if (_build.LAUNCHES[name + "_table"] != before[name + "_table"] + 1
+            or _build.LAUNCHES[name] != before[name]):
+        fail(f"the morph-form {name} call did not launch the TABLE mode alone")
     (ptr_k, bot_k), _ = once_ms(run_k)
-    (ptr_p, bot_p), plain_ms = once_ms(run_p)
-    mask = valid_ptr_mask(n_d, m_d, ptr_k.shape[0])
-    ptr_eq = bool(torch.equal(ptr_k[mask], ptr_p[mask]))
-    bot_err = float((bot_k.double() - bot_p.double()).abs().max())
-    ok = ptr_eq and bot_err == 0.0
-    ms = cuda_ms(run_k, 3)
+    (ptr_p, bot_p), plain_ms = once_ms(
+        lambda: AC._wave_table_plain(b_d, l_d, lv_d, li_d, n_d, m_d, params))
+    mask = valid_ptr_mask(n_d, m_d, ptr_t.shape[0])
+    nd = N + tmpl.shape[1]
+    errs = {}
+    for mode, (ptr, bot), (ptr_r, bot_r) in (("table", (ptr_t, bot_t), (ptr_p, bot_p)),
+                                             ("pow", (ptr_k, bot_k), (ptr_p, bot_p)),
+                                             ("table-pow", (ptr_t, bot_t), (ptr_k, bot_k))):
+        errs[mode] = (bool(torch.equal(ptr[mask], ptr_r[mask])),
+                      float((bot.double() - bot_r.double()).abs().max()))
+    del ptr_k, ptr_p, bot_p
+    ms_t = cuda_ms(run_t, 3)
+    ms_k = cuda_ms(run_k, 3)
     _build.LAUNCHES[name] = 0
-    print(f"  {name} [{shape_name} B={B} N={N} MP={tmpl.shape[1]}]: pointers "
-          f"{'equal' if ptr_eq else 'DIFFER'}, bottom max_abs_err {bot_err}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
-    if not ok:
-        fail(f"{name} disagrees with its plain twin at the {shape_name} shape")
-    cells = wave_cells(n_d, m_d)
-    nbytes = (4 * (sig.size + tmpl.size) + 8 * B + 4 * int(mask.sum()) * tmpl.shape[1]
-              + 4 * bot_k.numel())
-    results[name] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
-                     **bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
-    return ptr_k, bot_k, n_d, m_d
+    _build.LAUNCHES[name + "_table"] = 0
+    print(f"  {name} [{shape_name} B={B} N={N} MP={tmpl.shape[1]} U={levels.shape[1]}]: "
+          f"TABLE vs twin: pointers {'equal' if errs['table'][0] else 'DIFFER'}, bottom "
+          f"max_abs_err {errs['table'][1]}; POW on the decoded f32 vs twin: pointers "
+          f"{'equal' if errs['pow'][0] else 'DIFFER'}, bottom max_abs_err {errs['pow'][1]}; "
+          f"TABLE vs POW: pointers {'equal' if errs['table-pow'][0] else 'DIFFER'}, bottom "
+          f"max_abs_err {errs['table-pow'][1]}; "
+          f"TABLE {ms_t:.3f} ms ({ms_t * 1e3 / nd:.4f} us/step), POW {ms_k:.3f} ms "
+          f"({ms_k * 1e3 / nd:.4f} us/step), plain {plain_ms:.1f} ms", flush=True)
+    if not all(eq and err == 0.0 for eq, err in errs.values()):
+        fail(f"{name}: the TABLE mode, the POW mode and the plain twin disagree at the "
+             f"{shape_name} shape")
+    words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_t.numel() + 8 * B
+    table_bytes = bins.size + lut.size * 4 + levels.size * 4 + lidx.size * 4 + words
+    pow_bytes = 4 * (bins.size + tmpl.size) + words
+    results[name + "_table"] = {"max_abs_err": errs["table"][1], "ms": ms_t,
+                                "plain_ms": plain_ms, "us_per_step": ms_t * 1e3 / nd,
+                                **wave_bound(n_d, m_d, levels, table_bytes, True)}
+    results[name] = {"max_abs_err": errs["pow"][1], "ms": ms_k, "plain_ms": plain_ms,
+                     "us_per_step": ms_k * 1e3 / nd,
+                     **wave_bound(n_d, m_d, levels, pow_bytes, False)}
+    return ptr_t, bot_t, n_d, m_d
+
+
+def hold_morph(templates, multi, B, N, params, rng, mode, label) -> None:
+    """One morph-form wave call on the card: it must launch the ``mode``
+    score mode alone and equal the table twin (written pointer words and
+    bottom taps).  The launch does not count toward any path's launches."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    (levels, _, tmpl, _, _), dev_in = wave_inputs(templates, multi, B, N, rng)
+    b_d, l_d, n_d, m_d, lv_d, li_d, _ = dev_in
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    before = dict(_build.LAUNCHES)
+    ptr, bot = morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params)
+    ran = {k: _build.LAUNCHES[k] - before[k] for k in (name, name + "_table")}
+    want = {name: int(mode == "pow"), name + "_table": int(mode == "table")}
+    ptr_p, bot_p = AC._wave_table_plain(b_d, l_d, lv_d, li_d, n_d, m_d, params)
+    mask = valid_ptr_mask(n_d, m_d, ptr.shape[0])
+    ok = bool(torch.equal(ptr[mask], ptr_p[mask]) and torch.equal(bot, bot_p))
+    print(f"  {label} [{name}, B={B} N={N} MP={tmpl.shape[1]}, {levels.shape[1]} levels]: "
+          f"launches {ran}, {'equal to' if ok else 'DIFFERS from'} the table twin", flush=True)
+    if ran != want or not ok:
+        fail(f"{label}: the morph call did not run {mode} mode alone, or disagrees with the "
+             "table twin")
+    for k in (name, name + "_table"):
+        _build.LAUNCHES[k] = before[k]
+
+
+def check_mode_rule(params, rng) -> None:
+    """The TABLE/POW rule in both directions: at MP 256 a template at the
+    shared-memory cap runs TABLE and one with a level more runs POW (on
+    the decoded f32); at MP 1152 (more lanes than TABLE runs) a template
+    of 9 levels runs POW.  Each equals the table twin."""
+    import numpy as np
+
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    mp = 256
+    cap = next(u for u in range(1, 1024) if AC.wave_score_mode(u + 1, mp) == "pow")
+    for n_lv, mode in ((cap, "table"), (cap + 1, "pow")):
+        # n_lv - 1 distinct values (the +1e30 pad is a level too)
+        t = rng.permutation(np.linspace(60, 120, n_lv - 1)).astype(np.float32)
+        hold_morph((t,), False, 8, 512, params, rng, mode, f"score mode rule (cap {cap})")
+    t = np.resize(np.linspace(60, 120, 8), 1100).astype(np.float32)
+    hold_morph((t,), False, 8, 2048, params, rng, "pow", "score mode rule (lanes)")
+
+
+def check_wave_ultra(template, B, N, params, rng, results) -> None:
+    """Row 1 at the ultra-long one-pass route's shape (8 rows of the
+    bucket's N, one flank): the TABLE-mode kernel against the POW-mode
+    kernel on the decoded f32, written pointer words equal and bottom
+    max_abs_err 0.  (The twin would take minutes here; POW is held to it
+    at the small and bench shapes.)"""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    (levels, _, tmpl, _, _), dev_in = wave_inputs((template,), False, B, N, rng,
+                                                  n_lo=N - N // 8)
+    b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+    if AC.wave_score_mode(levels.shape[1], tmpl.shape[1]) != "table":
+        fail("the ultra-long shape's template does not fit the score table")
+    before = dict(_build.LAUNCHES)
+    (ptr_t, bot_t), ms_t = once_ms(lambda: morph_call(False, b_d, l_d, n_d, m_d, lv_d, li_d,
+                                                      params))
+    if (_build.LAUNCHES["align_forward_wave_table"] != before["align_forward_wave_table"] + 1
+            or _build.LAUNCHES["align_forward_wave"] != before["align_forward_wave"]):
+        fail("the ultra-long morph call did not launch the TABLE mode alone")
+    s_d = AC.morph_decode(b_d, l_d)
+    (ptr_k, bot_k), ms_k = once_ms(lambda: pow_call(False, s_d, n_d, m_d, t_d, params))
+    mask = valid_ptr_mask(n_d, m_d, ptr_t.shape[0])
+    eq = not bool(((ptr_t != ptr_k) & mask[:, :, None]).any())
+    err = float((bot_t.double() - bot_k.double()).abs().max())
+    del ptr_t, ptr_k
+    for k in ("align_forward_wave", "align_forward_wave_table"):
+        _build.LAUNCHES[k] = before[k]
+    nd = N + tmpl.shape[1]
+    print(f"  align_forward_wave [ultra B={B} N={N} MP={tmpl.shape[1]} U={levels.shape[1]}]: "
+          f"TABLE vs POW: pointers {'equal' if eq else 'DIFFER'}, bottom max_abs_err {err}; "
+          f"TABLE {ms_t:.3f} ms ({ms_t * 1e3 / nd:.4f} us/step), POW {ms_k:.3f} ms "
+          f"({ms_k * 1e3 / nd:.4f} us/step), one call each", flush=True)
+    if not (eq and err == 0.0):
+        fail("align_forward_wave: the TABLE and POW modes disagree at the ultra-long shape")
+    results["align_forward_wave_table"].update(ultra_ms=ms_t, ultra_pow_ms=ms_k)
 
 
 def check_traceback(ptr, j_end, m_d, shape_name, results, col=False):
@@ -478,6 +687,58 @@ def check_longread(template, shape_name, B, N, params, ckpt_steps, cold_rows, rn
         **bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
 
 
+def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
+    """Phase 4e: a target whose flanks carry 200 more backbone bases each
+    (MP 2176, ~300 distinct template levels: POW mode on both counts)
+    counts 72 '+' reads in one batch (144 rows: each flank its own
+    72-row call, row 1) and 24 '-' reads (one fused 48-row call, row 2),
+    all in the POW score mode.  Returns the wave launches."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.ops import align_cuda as AC
+    from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads
+
+    rng = np.random.default_rng(seed + 3)
+    prefix = "".join(rng.choice(list("ACGT"), 200)) + PREFIX
+    suffix = SUFFIX + "".join(rng.choice(list("ACGT"), 200))
+    c = RepeatCounter(model, device="cuda")
+    c.add_target("long", REPEAT, prefix, suffix)
+    tc = c.targets["long"][0]
+    levels, _ = AC.template_levels(AC.pad_template(tc.prefix_ext)[0])
+    mp = AC.pad_template(tc.prefix_ext)[0].shape[1]
+    # the POW dispatch of both wave calls at this MP, held to the table twin
+    for multi in (False, True):
+        hold_morph((tc.prefix_ext, tc.suffix_ext), multi, 16, 4096, c.align_params, rng, "pow",
+                   "over the cap")
+    plus = make_reads(pm, 72, REPEATS, rng, "+", prefix=prefix, suffix=suffix)
+    minus = make_reads(pm, 24, REPEATS, rng, "-", prefix=prefix, suffix=suffix)
+    try:
+        c.detect_many("long", plus[:8], "+")  # first use
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    except Exception as e:  # noqa: BLE001
+        fail(f"the over-the-cap target raised {type(e).__name__}: {e}")
+    lc = {k: _build.LAUNCHES[k] for k in POW_WAVE + TABLE_WAVE}
+    ok = sum(int(r[0] == REPEATS) for r in res)
+    mode = AC.wave_score_mode(levels.shape[1], mp)
+    print(f"over the cap: prefix_ext {len(tc.prefix_ext)} samples, {levels.shape[1]} levels at "
+          f"MP {mp} (mode {mode}); {ok}/{len(res)} exact in {dt:.3f} s; card: {card}; wave "
+          f"launches {json.dumps(lc)}", flush=True)
+    if ok != len(res) or not all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in res):
+        fail("inexact or non-finite results for the over-the-cap target")
+    if lc["align_forward_wave"] != 2 or lc["align_forward_wave_multi"] != 1 or any(
+            lc[k] for k in TABLE_WAVE):
+        fail("the over-the-cap target did not run 2 + 1 POW-mode wave calls alone")
+    return {k: lc[k] for k in POW_WAVE}
+
+
 def profile_pass(label: str, fn, card: str) -> None:
     """Run ``fn`` once under torch.profiler; print wall time, device time
     by kernel and the device's busy share (kernel time over wall)."""
@@ -533,7 +794,7 @@ def main() -> int:
         import numpy as np
 
         from strique_tpu_torch import _build, native
-        from strique_tpu_torch.detect.counter import RepeatCounter
+        from strique_tpu_torch.detect.counter import RepeatCounter, signal_bucket
         from strique_tpu_torch.pore_model import PoreModel
         from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, smoke_workload,
                                                  ultralong_workload, write_pore_model)
@@ -580,14 +841,19 @@ def main() -> int:
     tc = counter.targets["c9orf72"][0]
     rng = np.random.default_rng(args.seed + 7)
     params = counter.align_params
-    small = (rng.uniform(60, 120, 40).astype(np.float32), rng.uniform(60, 120, 28).astype(np.float32))
+    # samples=6 templates, as the counter builds them (np.repeat of k-mer levels)
+    small = tuple(np.repeat(rng.uniform(60, 120, k), 6).astype(np.float32) for k in (7, 5))
     bench_t = (tc.prefix_ext, tc.suffix_ext)
     results: dict = {}
+    ultra = ultralong_workload(pm, args.seed, repeats=ULTRA_REPEATS)
     print("kernels vs plain twins:", flush=True)
     try:
+        check_mode_rule(params, rng)
         for shape_name, B, N, tmpls in (("small", 8, 512, small), ("bench", 64, 24576, bench_t)):
             for multi in (False, True):
-                ptr, bot, n_d, m_d = check_wave(tmpls, shape_name, B, N, params, multi, rng,
+                # row 2 at the split path's fused width: both flanks of 64 reads
+                Bw = 2 * B if multi and shape_name == "bench" else B
+                ptr, bot, n_d, m_d = check_wave(tmpls, shape_name, Bw, N, params, multi, rng,
                                                 results)
                 if multi:
                     j_end = (torch.argmax(bot, dim=1).to(torch.int32) + 1 - m_d).clamp_min(0)
@@ -606,6 +872,10 @@ def main() -> int:
         # the bench template's span bound (29,581 steps) exceeds ND: all windows cold
         check_longread(tc.prefix_ext, "bench", 8, 24576, params, 16384, 0, rng, results)
         torch.cuda.empty_cache()
+        # row 1 at the shape phase 4b's one-pass route launches it
+        check_wave_ultra(tc.prefix_ext, 8, signal_bucket(max(len(r) for r in ultra)), params,
+                         rng, results)
+        torch.cuda.empty_cache()
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001
@@ -623,6 +893,7 @@ def main() -> int:
         t0 = time.perf_counter()
         res_plus = run_pipeline(counter, plus, "+")
         dt_plus = time.perf_counter() - t0
+        plus_launches = dict(_build.LAUNCHES)
         t1 = time.perf_counter()
         res_minus = run_pipeline(counter, minus, "-")
         dt_minus = time.perf_counter() - t1
@@ -637,12 +908,17 @@ def main() -> int:
           f"{dt_plus:.3f} s); '-' partial batch {dt_minus * 1e3:.1f} ms; card: {card}",
           flush=True)
     print(f"launches in the counting run: {json.dumps(launches)}", flush=True)
+    print(f"wave launches on the '+' pass: "
+          f"{json.dumps({k: plus_launches[k] for k in TABLE_WAVE + POW_WAVE})} (two flanks of "
+          f"{BATCH} reads: {2 * BATCH} rows a call where the card's width allows)", flush=True)
     if ok_plus != len(plus) or ok_minus != len(minus):
         fail("inexact repeat counts: " + str([r[0] for r in res_plus + res_minus
                                                if r[0] != REPEATS][:10]))
     for name in SPLIT_KERNELS:
         if launches[name] <= 0:
             fail(f"kernel {name} was not launched by the counting path")
+    if any(launches[k] for k in POW_WAVE):
+        fail("a wave launch of the split path ran the POW score mode")
     if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and np.isfinite(r[3])
                for r in res_plus + res_minus):
         fail("non-finite scores or log_p")
@@ -654,7 +930,6 @@ def main() -> int:
     print("first 8 '+' result tuples equal the plain CPU path", flush=True)
 
     # -- phase 4b: the ultra-long two-pass route -----------------------------
-    ultra = ultralong_workload(pm, args.seed, repeats=ULTRA_REPEATS)
     print(f"ultra-long workload: {len(ultra)} '+' reads of {len(ultra[0])} samples, "
           f"{ULTRA_REPEATS} repeat units", flush=True)
     runs = {}
@@ -683,23 +958,33 @@ def main() -> int:
         if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and np.isfinite(r[3]) for r in res):
             fail(f"non-finite scores or log_p on the {route} route")
     two_launches = runs["two-pass"][2]
+    one_launches = runs["one-pass"][2]
     if (two_launches["align_forward_ckpt"] <= 0 or two_launches["align_window_from_state"] <= 0
-            or two_launches["align_forward_wave"] or two_launches["align_forward_wave_multi"]):
+            or any(two_launches[k] for k in POW_WAVE + TABLE_WAVE)):
         fail("the two-pass run did not go through the checkpoint and window kernels alone")
-    if runs["one-pass"][2]["align_forward_ckpt"]:
+    if one_launches["align_forward_ckpt"]:
         fail("the one-pass run took the two-pass route")
+    # one-pass: 2 x 8 rows exceed the budget as one call, so each flank
+    # runs its own 8-row call against one template (row 1, TABLE mode)
+    if one_launches["align_forward_wave_table"] <= 0 or any(one_launches[k] for k in POW_WAVE):
+        fail("the one-pass run did not align in the TABLE score mode")
     if [tuple(r) for r in runs["two-pass"][0]] != [tuple(r) for r in runs["one-pass"][0]]:
         fail("two-pass result tuples differ from the one-pass route's")
     print("ultra-long two-pass result tuples equal the one-pass route's", flush=True)
     for name in ("align_forward_ckpt", "align_window_from_state"):
         launches[name] = two_launches[name]
+    launches["align_forward_wave_table"] = one_launches["align_forward_wave_table"]
+
+    # -- phase 4e: flanks over the score table's cap (the POW score mode) ----
+    launches.update(run_over_cap(pm, model, args.seed, card))
 
     # -- phase 4c: where the device time goes --------------------------------
     try:
         profile_pass("split path, 128 '+' reads", lambda: run_pipeline(counter, plus, "+"), card)
-        os.environ["STRIQUE_PTR_BUDGET_GB"] = "2"
-        profile_pass("ultra-long two-pass, 8 reads",
-                     lambda: counter.detect_many("c9orf72", ultra, "+"), card)
+        for route, budget in (("two-pass", "2"), ("one-pass", "8")):
+            os.environ["STRIQUE_PTR_BUDGET_GB"] = budget
+            profile_pass(f"ultra-long {route}, 8 reads",
+                         lambda: counter.detect_many("c9orf72", ultra, "+"), card)
     except Exception as e:  # noqa: BLE001
         fail(f"profiled pass raised {type(e).__name__}: {e}")
     finally:
@@ -738,9 +1023,10 @@ def main() -> int:
         if [tuple(r) for r in k_plus + k_minus] != [tuple(r) for r in res_plus + res_minus]:
             fail(f"the {var}={value} route's result tuples differ from the default route's")
         if route == "col":
-            minus_multi = lc["align_forward_wave_multi"] - plus_lc["align_forward_wave_multi"]
+            minus_multi = (lc["align_forward_wave_multi_table"]
+                           - plus_lc["align_forward_wave_multi_table"])
             if (plus_lc["align_forward_col"] <= 0 or plus_lc["traceback_pointers_col"] <= 0
-                    or plus_lc["align_forward_wave"] != 0 or minus_multi <= 0):
+                    or any(plus_lc[k] for k in POW_WAVE + TABLE_WAVE) or minus_multi <= 0):
                 fail("the column route's '+' pass did not run the column kernel and traceback "
                      "alone, or its '-' partial batch left the fused wave kernel")
             for name in ("align_forward_col", "traceback_pointers_col"):
@@ -762,7 +1048,8 @@ def main() -> int:
                        "ultra_s": {k: v[1] for k, v in runs.items()},
                        "knob_reads_per_sec": knob_rps, "kernels": kernels},
                       fp, indent=1)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -36,6 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {
     "align_forward_wave": 0,
     "align_forward_wave_multi": 0,
+    "align_forward_wave_table": 0,  # the same kernels, TABLE score mode
+    "align_forward_wave_multi_table": 0,
     "align_forward_ckpt": 0,
     "align_window_from_state": 0,
     "align_forward_col": 0,
@@ -59,6 +61,9 @@ _SIGNATURES = {
     # sig, tmpl, nact, mrow, ptr, bottom; B, N, MP, tmpl_stride, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_align_launch": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P],
+    # bins, lut, levels, lidx, nact, mrow, ptr, bottom; B, N, MP, UP,
+    # per_row, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "wave_table_launch": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P],
     # sig, tmpl, nact, mrow, bottom, ck_s1, ck_s2, ck_ih, ck_c; B, N, MP,
     # ckpt_steps, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_ckpt_launch": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],

@@ -5,11 +5,12 @@ path, in three phases a caller can overlap across batches:
 
   1. :meth:`RepeatCounter.detect_submit` -- host prep (the port's
      native library, or NumPy), upload of 1 byte per sample (u8 morph
-     bins plus a 256-entry f32 level table per read), the u8 -> f32
-     decode as a device gather, both flank alignments
-     (``ops.align.align_fused_pair``), tracebacks, segment bounds and
-     the QC gate, packed into a 40-byte row per read whose copy to a
-     pinned host buffer is queued behind one CUDA event.
+     bins plus a 256-entry f32 level table per read), both flank
+     alignments on those bins and tables (``ops.align.align_fused_pair``
+     in morph form: the wave kernel's TABLE score mode; the column and
+     two-pass routes decode ``lut[bins]`` to f32), tracebacks, segment
+     bounds and the QC gate, packed into a 40-byte row per read whose
+     copy to a pinned host buffer is queued behind one CUDA event.
   2. :meth:`RepeatCounter.detect_middle` -- waits for that event,
      slices each gated-in read's repeat segment from the host flt
      channel, and queues the Viterbi decode (``ops.viterbi_cuda``) with
@@ -84,11 +85,11 @@ def _morph_buf_bytes(npad: int) -> int:
     return 4 * _LUT_LEVELS + npad
 
 
-def _unpack_morph_upload(buf: torch.Tensor) -> torch.Tensor:
-    """Uploaded (B, _morph_buf_bytes(npad)) uint8 rows -> (B, npad) f32 morph."""
+def _split_morph_upload(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uploaded (B, _morph_buf_bytes(npad)) uint8 rows -> ((B, npad) u8
+    morph bins, (B, 256) f32 level tables), both contiguous."""
     lut = buf[:, : 4 * _LUT_LEVELS].contiguous().view(torch.float32)
-    idx = buf[:, 4 * _LUT_LEVELS :].to(torch.int64)
-    return torch.gather(lut, 1, idx)
+    return buf[:, 4 * _LUT_LEVELS :].contiguous(), lut
 
 
 def reverse_complement(sequence: str) -> str:
@@ -309,10 +310,10 @@ class RepeatCounter:
                 _to_token(i, row, len(raw))
 
         dev = self.device
-        morph = _unpack_morph_upload(upload.to(dev, non_blocking=True))
+        bins, lut = _split_morph_upload(upload.to(dev, non_blocking=True))
         n_dev = torch.from_numpy(n_sigs_p).to(dev, non_blocking=True)
-        pre, suf = align_fused_pair(morph, n_dev, tc.prefix_ext, tc.suffix_ext,
-                                    self.align_params)
+        pre, suf = align_fused_pair(bins, n_dev, tc.prefix_ext, tc.suffix_ext,
+                                    self.align_params, lut=lut)
         b = segment_bounds(pre, suf, n_dev,
                            trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
                            trim_suffix=len(tc.suffix_ext) - len(tc.suffix))

@@ -1,18 +1,33 @@
 """Semi-global affine flank alignment: batching, end columns, traceback.
 
 Counterpart of ``strique_tpu/ops/align.py`` on the split path:
-``align_core`` (full 64-row wave calls against one template) and
-``align_fused_pair`` (both flanks of a partial batch in one
-per-row-template call), each followed by the leftmost-argmax end column
-and the diagonal-layout traceback.
+``align_core`` (wave calls against one template) and
+``align_fused_pair`` (both flanks of a batch in one per-row-template
+row stream), each followed by the leftmost-argmax end column and the
+diagonal-layout traceback.
 
-``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` call, as the
-reference reads it) swaps the wave kernel for the column-sweep kernel
-(``align_forward_col``) and the column-layout traceback
-(``_align_batch_col``).  As in the reference, the fusion rule of
-``align_fused_pair`` decides first, so a fused partial batch still runs
-the per-row-template wave kernel, and the two-pass route is the wave
-form's alone.
+Both take the reads as f32 signals or, with ``lut``, in morph form: u8
+bins plus each read's 256-entry f32 level table, as the counter uploads
+them.  The wave route then runs the morph-form kernel calls
+(``align_forward_wave_morph`` / ``_multi_morph``: TABLE score mode where
+the template's score table fits shared memory); the column and two-pass
+routes decode ``lut[bins]`` to f32 first.
+
+Call widths and fusion follow the device (``align_cuda.kernel_batch``,
+:func:`fuse_flanks`): on the card a call is as wide as its rows, up to
+the largest multiple of 8 within the SM count, and both flanks fuse
+whenever their 2B rows fit one call; on the CPU the reference's 64-row
+widths and partial-batch fusion rule stay.
+
+``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` and
+``align_fused_pair`` call, as the reference reads it) swaps the wave
+kernel for the column-sweep kernel (``align_forward_col``) and the
+column-layout traceback (``_align_batch_col``).  As in the reference,
+the fusion rule of ``align_fused_pair`` decides first -- under the knob
+the reference's partial-batch rule, on the card too, so full batches
+reach the column kernel -- and a fused partial batch still runs the
+per-row-template wave kernel; the two-pass route is the wave form's
+alone.
 
 The traceback is ``csrc/traceback.cu`` (one thread walks one row) on
 the card -- the reference runs it as an XLA ``while_loop``
@@ -41,9 +56,11 @@ import torch
 
 from .. import _build
 from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
-                         align_forward_col, align_forward_wave, align_forward_wave_multi,
-                         align_window_from_state, kernel_batch, pad_template, pad_template_rows,
-                         ptr_budget_bytes, wave_span_bound_steps)
+                         align_forward_col, align_forward_wave, align_forward_wave_morph,
+                         align_forward_wave_multi, align_forward_wave_multi_morph,
+                         align_window_from_state, kernel_batch, morph_decode, pad_template,
+                         pad_template_rows, ptr_budget_bytes, sm_count, template_levels,
+                         wave_span_bound_steps)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 
@@ -181,9 +198,20 @@ def _end_and_traceback(ptr, bottom_cols, params, m_actual: int, packed):
 
 
 def _align_batch_wave(signals, n_actual, template_padded, params, m_actual: int):
-    ptr, bottom_steps = align_forward_wave(signals, n_actual, template_padded,
-                                           params, m_actual)
+    """One wave call and its traceback."""
+    ptr, bottom_steps = align_forward_wave(signals, n_actual, template_padded, params, m_actual)
     N = signals.shape[1]
+    return _end_and_traceback(ptr, bottom_steps[:, m_actual : m_actual + N], params, m_actual,
+                              "diag")
+
+
+def _align_batch_wave_morph(bins, lut, n_actual, levels, lidx, params, m_actual: int):
+    """``_align_batch_wave`` on morph-form reads: (B, N) u8 bins, their
+    (B, 256) level tables, and the template as ``template_levels`` of its
+    (1, MP) lane layout."""
+    ptr, bottom_steps = align_forward_wave_morph(bins, lut, n_actual, levels, lidx, params,
+                                                 m_actual)
+    N = bins.shape[1]
     return _end_and_traceback(ptr, bottom_steps[:, m_actual : m_actual + N], params, m_actual,
                               "diag")
 
@@ -196,8 +224,22 @@ def _align_batch_col(signals, n_actual, template_padded, params, m_actual: int):
 
 
 def _align_batch_wave_multi(signals, n_actual, tmpl_rows, m_rows, params, m_max: int):
-    ptr, bottom_steps = align_forward_wave_multi(signals, n_actual, tmpl_rows,
-                                                 m_rows, params)
+    """Per-row-template counterpart of ``_align_batch_wave``."""
+    ptr, bottom_steps = align_forward_wave_multi(signals, n_actual, tmpl_rows, m_rows, params)
+    return _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max)
+
+
+def _align_batch_wave_multi_morph(bins, lut, n_actual, levels, lidx, m_rows, params,
+                                  m_max: int):
+    """``_align_batch_wave_multi`` on morph-form reads; (levels, lidx) is
+    ``template_levels`` of the (B, MP) template rows."""
+    ptr, bottom_steps = align_forward_wave_multi_morph(bins, lut, n_actual, levels, lidx,
+                                                       m_rows, params)
+    return _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max)
+
+
+def _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max: int):
+    """Score, end column and traceback of a per-row-template call."""
     # leftmost max over columns incl. the virtual column 0: argmax in
     # step space is argmax in column space (a per-row constant shift)
     tstar = torch.argmax(bottom_steps, dim=1)  # first maximum
@@ -357,86 +399,122 @@ def align_longread_sharded(signals, n_actual, template_np, params, devices=None,
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
-def align_core(signals, n_actual, template_np, params):
+def _pad_signals(signals, lut):
+    """Pad f32 signals to a multiple of CHUNK samples (0.0 fill); morph
+    bins must come padded (0.0 is no level of their table)."""
+    npad = (-signals.shape[1]) % CHUNK
+    if npad and lut is not None:
+        raise ValueError(f"morph bins must be padded to a multiple of {CHUNK} samples")
+    return torch.nn.functional.pad(signals, (0, npad)) if npad else signals
+
+
+def align_core(signals, n_actual, template_np, params, lut=None):
     """Align B reads against one template; returns a dict of (B, ...) tensors.
 
-    signals (B, N) f32 on the target device; ``template_np`` a host
-    array (its length is static).  Rows run in wave calls of
+    signals (B, N) f32 on the target device or, with ``lut`` (B, 256)
+    f32, (B, N) u8 morph bins (N a multiple of 128); ``template_np`` a
+    host array (its length is static).  Rows run in wave calls of
     :func:`kernel_batch` rows; the tail pads with length-1 rows.  Past
     the pointer budget even at width 8, the bucket takes the two-pass
     route (:func:`align_longread_sharded`).  ``STRIQUE_ALIGN_KERNEL=col``
     runs column-kernel calls instead (pointer plane N/8 x rows x MP, no
-    two-pass route), as the reference does.
+    two-pass route), as the reference does.  The column and two-pass
+    routes decode morph input to f32 first.
     """
     dev = signals.device
-    B, N = signals.shape
-    npad = (-N) % CHUNK
-    if npad:
-        signals = torch.nn.functional.pad(signals, (0, npad))
+    B = signals.shape[0]
+    signals = _pad_signals(signals, lut)
     tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
     mp = tmpl_np.shape[1]
     col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
-    batch_fn = _align_batch_col if col else _align_batch_wave
     n_cols = signals.shape[1] + (0 if col else mp)
-    if not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev):
+    two_pass = not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev)
+    if lut is not None and (col or two_pass):
+        signals, lut = morph_decode(signals, lut), None
+    if two_pass:
         if wave_span_bound_steps(params, m) is None:
             raise ValueError(
                 "the pointer plane exceeds the memory budget even at width 8, and the "
                 "two-pass route needs negative horizontal gap costs (no span bound "
                 "exists otherwise)")
         return align_longread_sharded(signals, n_actual, template_np, params)
-    tmpl = torch.from_numpy(tmpl_np).to(dev)
+    if lut is None:
+        tmpl = torch.from_numpy(tmpl_np).to(dev)
+    else:
+        levels, lidx = (torch.from_numpy(x).to(dev) for x in template_levels(tmpl_np))
     n_act = n_actual.to(torch.int32)
     outs = []
     b0 = 0
     while b0 < B:
         kb = kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev)
         end = b0 + kb
-        sl = _pad_rows(signals[b0:end], kb, 0.0)
+        sl = _pad_rows(signals[b0:end], kb, 0)
         na = _pad_rows(n_act[b0:end], kb, 1)
         _count_cells(kb, n_cols, mp)
-        outs.append(batch_fn(sl, na, tmpl, params, m))
+        if col:
+            outs.append(_align_batch_col(sl, na, tmpl, params, m))
+        elif lut is None:
+            outs.append(_align_batch_wave(sl, na, tmpl, params, m))
+        else:
+            outs.append(_align_batch_wave_morph(sl, _pad_rows(lut[b0:end], kb, 0.0), na, levels,
+                                                lidx, params, m))
         b0 = end
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
-def align_fused_pair(signals, n_actual, t_pre, t_suf, params):
-    """Both flank alignments of a batch, fused into one row stream when it pays.
+def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None) -> bool:
+    """Whether :func:`align_fused_pair` runs both flanks of a B-read batch
+    as one per-row-template row stream (N signal columns, MP lanes).
 
-    A wave call costs its longest row whatever its width, so when the
-    per-flank tail is at most half a call (0 < B % 64 <= 32) the rows
-    [read0 x prefix .. readB x prefix, read0 x suffix ..] run as
-    per-row-template calls -- the same fusion rule as the reference
-    (ops/align.py:324-334).  Otherwise two :func:`align_core` calls.
-    Returns (pre, suf).
+    Card rule (a CUDA device, or any device when ``sms`` is given, and
+    ``STRIQUE_ALIGN_KERNEL`` not ``col``): whenever the 2B rows fit one
+    call of :func:`kernel_batch` -- one launch in place of two.  The
+    reference's rule otherwise (ops/align.py:324-334: a wave call costs
+    its longest row whatever its width, so fuse when the per-flank tail
+    is at most half a 64-row call, 0 < B % 64 <= 32), and only while a
+    width-8 pointer plane fits :func:`ptr_budget_bytes`.
+    """
+    n_cols = _round_up(N, CHUNK) + mp
+    if n_cols * 8 * mp // 2 > ptr_budget_bytes(device):
+        return False
+    if sms is None:
+        sms = sm_count(device)
+    if sms is not None and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col":
+        return kernel_batch(2 * B, n_cols=n_cols, mp=mp, device=device, sms=sms) >= 2 * B
+    return 0 < B % BATCH_WAVE <= BATCH_WAVE // 2
+
+
+def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
+    """Both flank alignments of a batch, fused into one row stream when
+    :func:`fuse_flanks` says so: the rows [read0 x prefix .. readB x
+    prefix, read0 x suffix ..] run as per-row-template calls.  Otherwise
+    two :func:`align_core` calls.  ``lut``: morph-form input, as in
+    :func:`align_core`.  Returns (pre, suf).
     """
     t_pre = np.asarray(t_pre, np.float32)
     t_suf = np.asarray(t_suf, np.float32)
     dev = signals.device
     B, N = signals.shape
-    tail = B % BATCH_WAVE
-    use_fuse = 0 < tail <= BATCH_WAVE // 2
-    if use_fuse:
-        tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
-        mp = tmpl_rows_np.shape[1]
-        nd = _round_up(N, CHUNK) + mp
-        if nd * 8 * mp // 2 > ptr_budget_bytes(dev):
-            use_fuse = False
-    if not use_fuse:
-        return (align_core(signals, n_actual, t_pre, params),
-                align_core(signals, n_actual, t_suf, params))
+    tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
+    mp = tmpl_rows_np.shape[1]
+    if not fuse_flanks(B, N, mp, dev):
+        return (align_core(signals, n_actual, t_pre, params, lut=lut),
+                align_core(signals, n_actual, t_suf, params, lut=lut))
 
-    npad = (-N) % CHUNK
-    if npad:
-        signals = torch.nn.functional.pad(signals, (0, npad))
+    signals = _pad_signals(signals, lut)
     m_max = int(ms.max())
     n_act = n_actual.to(torch.int32)
     sig2 = torch.cat([signals, signals])
     na2 = torch.cat([n_act, n_act])
-    rows2 = torch.from_numpy(np.concatenate([np.repeat(tmpl_rows_np[0:1], B, axis=0),
-                                             np.repeat(tmpl_rows_np[1:2], B, axis=0)])).to(dev)
-    ms2 = torch.from_numpy(np.concatenate([np.full(B, ms[0], np.int32),
-                                           np.full(B, ms[1], np.int32)])).to(dev)
+    def rows2(x):
+        return torch.from_numpy(np.repeat(x, B, axis=0)).to(dev)
+
+    if lut is None:
+        tmpl2 = rows2(tmpl_rows_np)
+    else:
+        levels, lidx = template_levels(tmpl_rows_np)
+        lv2, li2, lut2 = rows2(levels), rows2(lidx), torch.cat([lut, lut])
+    ms2 = torch.from_numpy(np.repeat(ms.astype(np.int32), B)).to(dev)
     n_cols = sig2.shape[1] + mp
     outs = []
     b0 = 0
@@ -444,12 +522,18 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params):
     while b0 < R:
         kb = kernel_batch(R - b0, n_cols=n_cols, mp=mp, device=dev)
         end = b0 + kb
-        sl = _pad_rows(sig2[b0:end], kb, 0.0)
+        sl = _pad_rows(sig2[b0:end], kb, 0)
         na = _pad_rows(na2[b0:end], kb, 1)
-        tr = _pad_rows(rows2[b0:end], kb, 1e30)
         mr = _pad_rows(ms2[b0:end], kb, 1)
         _count_cells(kb, n_cols, mp)
-        outs.append(_align_batch_wave_multi(sl, na, tr, mr, params, m_max))
+        # pad rows: an all-+1e30 template (levels 1e30, every lane index 0)
+        if lut is None:
+            outs.append(_align_batch_wave_multi(sl, na, _pad_rows(tmpl2[b0:end], kb, 1e30), mr,
+                                                params, m_max))
+        else:
+            outs.append(_align_batch_wave_multi_morph(
+                sl, _pad_rows(lut2[b0:end], kb, 0.0), na, _pad_rows(lv2[b0:end], kb, 1e30),
+                _pad_rows(li2[b0:end], kb, 0), mr, params, m_max))
         b0 = end
     out = {k: torch.cat([o[k] for o in outs])[:R] for k in outs[0]}
     pre = {k: (v[:B, : len(t_pre)] if v.ndim == 2 else v[:B]) for k, v in out.items()}

@@ -5,7 +5,11 @@ the Pallas body ``_wave_kernel``, in all four of its calls:
 
   * ``align_forward_wave`` (one shared template) and
     ``align_forward_wave_multi`` (a template per row): pointers and
-    bottom taps; twin ``_wave_plain``;
+    bottom taps; twin ``_wave_plain``.  Each also has a morph form
+    (``align_forward_wave_morph``, ``align_forward_wave_multi_morph``)
+    that takes the reads as u8 bins plus a 256-entry f32 level table
+    per read, and the template as :func:`template_levels`; twin
+    ``_wave_table_plain`` (see "Score modes" below);
   * ``align_forward_ckpt``: pass 1 of the ultra-long two-pass route,
     score-only with diagonal-state checkpoints; twin ``_ckpt_plain``;
   * ``align_window_from_state``: pass 2, pointers over a window resumed
@@ -37,6 +41,23 @@ sides.  XLA's f32 ``jnp.power`` is not correctly rounded: it differs
 from this by one ulp on about 0.065% of inputs (and ``torch.pow`` in
 f32 by up to 41 ulp), so scores agree with the reference to that
 measured bound; see ROADMAP.md Queue 3.
+
+Score modes of the pointer-writing kernel (one launch counter each):
+
+  * POW: every cell evaluates the pow above (the f32 entry points, and
+    rows 5-6 always);
+  * TABLE: a morph-form row meets at most U x 258 distinct
+    (template value, signal value) pairs -- U distinct template values
+    against the 256 bins, the NEG fill before the read and the 0.0 fill
+    past the padded end -- so the kernel evaluates that
+    :func:`score_table` once per row into shared memory and each cell
+    looks its score up.  Same expression, same values.
+
+A morph-form call runs TABLE when :func:`wave_score_mode` says the
+template's lanes fit one thread each and the table fits one block's
+shared memory, and otherwise POW on the decoded f32 (``lut[bins]``, the
+template rebuilt from its levels): a rule on the shapes, decided before
+the launch.
 """
 from __future__ import annotations
 
@@ -50,11 +71,16 @@ from .. import _build
 NEG = -1e30
 LANE = 128
 CHUNK = 128
-# wave call width: the kernel runs one CTA per row, so a call's time is
-# set by its longest row, not by its width; one 64-row shape serves
-# every batch (the fusion rule in ops.align keys on it)
+# the reference's wave call width: one 64-row shape serves every batch
+# (its fusion rule in ops.align keys on it); kept for CPU tensors
 BATCH_WAVE = 64
 POW_EXP = float(np.float32(1.2))  # the reference's f32 exponent, widened
+# TABLE score mode: a score row per template level over the 256 bins,
+# then NEG (before the read) and 0.0 (past the padded end)
+SCORE_COLS = 258
+BIN_NEG, BIN_ZERO = 256, 257
+SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90 (227 KB)
+TABLE_MAX_MP = 1024  # TABLE mode runs one thread a template lane
 
 _DEFAULT_PTR_BUDGET = int(3.5 * (1 << 30))
 _ptr_budget_cache: dict = {}
@@ -106,20 +132,33 @@ def ptr_budget_bytes(device=None) -> int:
     return _ptr_budget_cache[key]
 
 
+def sm_count(device) -> int | None:
+    """Streaming multiprocessors of a CUDA device; None for the CPU."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 def kernel_batch(b: int | None = None, n_cols: int | None = None,
-                 mp: int | None = None, device=None) -> int:
+                 mp: int | None = None, device=None, sms: int | None = None) -> int:
     """Rows per wave call.
 
-    On the card every call is BATCH_WAVE rows wide (a call costs its
-    longest row).  On the CPU the plain twin's cost grows with width, so
-    a call covers only the remaining rows, rounded up to 8.  With
-    ``n_cols``/``mp`` the width shrinks (never below 8) to keep the
-    pointer plane inside :func:`ptr_budget_bytes`.
+    Card rule (a CUDA device, or any device when ``sms`` is given): the
+    kernel runs one CTA per row, so a call of up to ``sms`` rows costs
+    its longest row; a call is as wide as the rows it has, rounded up to
+    8, up to the largest multiple of 8 that is at most the SM count (128
+    on an H100's 132 SMs).  CPU rule (the reference's widths, so the
+    parity tests compare like with like): BATCH_WAVE rows, or only the
+    remaining rows rounded up to 8 when fewer.  With ``n_cols``/``mp``
+    the width shrinks (never below 8) to keep the pointer plane inside
+    :func:`ptr_budget_bytes`.
     """
     dev = torch.device(device) if device is not None else torch.device("cpu")
-    kb = BATCH_WAVE
-    if dev.type != "cuda" and b is not None:
-        kb = min(BATCH_WAVE, max(8, _round_up(int(b), 8)))
+    if sms is None:
+        sms = sm_count(dev)
+    cap = BATCH_WAVE if sms is None else max(8, int(sms) // 8 * 8)
+    kb = cap if b is None else min(cap, max(8, _round_up(int(b), 8)))
     if n_cols is not None and mp is not None:
         budget = ptr_budget_bytes(dev)
         while kb > 8 and n_cols * kb * mp // 2 > budget:
@@ -134,6 +173,59 @@ def _f32(x) -> float:
 def score_pow(diff: torch.Tensor) -> torch.Tensor:
     """|d|^1.2 rounded as the kernel rounds it: f32 -> f64 pow -> f32."""
     return torch.pow(diff.double(), POW_EXP).float()
+
+
+def template_levels(tmpl) -> tuple[np.ndarray, np.ndarray]:
+    """A template's distinct values and each lane's index into them.
+
+    ``tmpl`` (R, MP) f32 in the lane layout (:func:`pad_template`, one
+    row, or :func:`pad_template_rows`).  Returns (levels (R, UP) f32,
+    each row's sorted distinct values padded with +1e30 to the longest
+    row's count UP; idx (R, MP) int32 with levels[r, idx[r, i]] ==
+    tmpl[r, i] for every lane, the +1e30 pad lanes included).
+    """
+    tmpl = np.asarray(tmpl, np.float32)
+    uniq = [np.unique(row, return_inverse=True) for row in tmpl]
+    up = max(len(u) for u, _ in uniq)
+    levels = np.full((len(uniq), up), 1e30, np.float32)
+    idx = np.empty(tmpl.shape, np.int32)
+    for r, (u, inv) in enumerate(uniq):
+        levels[r, : len(u)] = u
+        idx[r] = inv.reshape(-1)
+    return levels, idx
+
+
+def score_table(lut, levels, params) -> torch.Tensor:
+    """The TABLE mode's scores: (B, UP, 258) f32.
+
+    Entry [r, u, b] is ``clamp_min(off - score_pow(|x_b - level_u|),
+    dmin)`` with x_b = ``lut[r, b]`` for b < 256, NEG for b = 256 (before
+    the read) and 0.0 for b = 257 (past the padded end): the value the
+    recurrence computes for that (signal value, template value) pair.
+    ``levels`` is (1, UP) (shared template) or (B, UP).
+    """
+    k = _consts(params)
+    B = lut.shape[0]
+    x = torch.cat([lut, torch.full((B, 1), NEG, device=lut.device),
+                   torch.zeros((B, 1), device=lut.device)], dim=1)
+    return torch.clamp_min(k["off"] - score_pow((x[:, None, :] - levels[:, :, None]).abs()),
+                           k["dmin"])
+
+
+def wave_score_mode(n_levels: int, mp: int) -> str:
+    """The score mode of a morph-form wave call: "table" when the
+    template has at most TABLE_MAX_MP lanes and a row's ``n_levels`` x
+    258 f32 table fits one block's shared memory (SMEM_BYTES) behind the
+    kernel's four (MP + 1)-float exchange buffers, else "pow".  The cap
+    is 211 levels at MP 896 (a ``samples=6`` template of the bench's
+    c9orf72 flanks has 119-142) and 209 at MP 1024."""
+    fits = 4 * (4 * (mp + 1) + n_levels * SCORE_COLS) <= SMEM_BYTES
+    return "table" if mp <= TABLE_MAX_MP and fits else "pow"
+
+
+def morph_decode(bins, lut) -> torch.Tensor:
+    """(B, N) u8 bins and (B, 256) f32 level tables -> (B, N) f32 signals."""
+    return torch.gather(lut, 1, bins.to(torch.int64))
 
 
 def _consts(params) -> dict:
@@ -164,17 +256,43 @@ def _check_inputs(signals, n_actual, tmpl, m_rows):
     return B, N, mp
 
 
-def _wave_recurrence(sig_ext, tmpl, n_actual, m_rows, params, nd: int, t_run: int, *,
+def _pow_scores(sig_ext, tmpl, params):
+    """POW mode's cell scores: step t -> (B, MP), lane i scoring
+    ``sig_ext[:, MP + t - i]`` against ``tmpl`` ((1, MP) or (B, MP))."""
+    k = _consts(params)
+    mp = tmpl.shape[1]
+    lane = torch.arange(mp, device=sig_ext.device)
+    return lambda t: torch.clamp_min(
+        k["off"] - score_pow((sig_ext[:, t + mp - lane] - tmpl).abs()), k["dmin"])
+
+
+def _table_scores(bins, lut, levels, lidx, params):
+    """TABLE mode's cell scores: step t -> (B, MP), read from
+    :func:`score_table` at (lane's level index, bin of a[t - i]), with
+    bin 256 before the read and 257 past the padded end."""
+    B = bins.shape[0]
+    mp = lidx.shape[1]
+    dev = bins.device
+    tab = score_table(lut, levels, params).reshape(B, -1)
+    ext = torch.cat([torch.full((B, mp), BIN_NEG, dtype=torch.int64, device=dev),
+                     bins.to(torch.int64),
+                     torch.full((B, mp), BIN_ZERO, dtype=torch.int64, device=dev)], dim=1)
+    lane = torch.arange(mp, device=dev)
+    row_off = (lidx.to(torch.int64) * SCORE_COLS).expand(B, mp)
+    return lambda t: tab.gather(1, row_off + ext[:, t + mp - lane])
+
+
+def _wave_recurrence(scores, n_actual, m_rows, params, nd: int, t_run: int, mp: int, *,
                      with_ptr: bool = True, with_bottom: bool = True, ckpt_steps: int = 0,
                      state4=None, cold=None):
     """The wave recurrence in plain PyTorch ops over (B, MP) rows.
 
     Same expression trees as the reference kernel (align_pallas.py
-    ``_wave_kernel``), step for step, in all of its modes.  Lane i at
-    step t reads ``sig_ext[:, MP + t - i]``; ``tmpl`` is (1, MP) or
-    (B, MP), ``m_rows`` (B,) the template lengths of the bottom taps.
-    Runs ``t_run`` of the ``nd`` steps and returns (ptr, bottom, ckpts),
-    None for what the mode does not produce:
+    ``_wave_kernel``), step for step, in all of its modes.  ``scores(t)``
+    gives step t's (B, MP) cell scores (:func:`_pow_scores` or
+    :func:`_table_scores`); ``m_rows`` (B,) the template lengths of the
+    bottom taps.  Runs ``t_run`` of the ``nd`` steps and returns (ptr,
+    bottom, ckpts), None for what the mode does not produce:
 
       * ``with_ptr``: the (nd/8, B, MP) pointer plane;
       * ``with_bottom``: the (B, nd) bottom taps;
@@ -184,9 +302,8 @@ def _wave_recurrence(sig_ext, tmpl, n_actual, m_rows, params, nd: int, t_run: in
         the cold start; ``cold`` (B,) then gates the column-0 forcing.
     """
     k = _consts(params)
-    B = sig_ext.shape[0]
-    mp = tmpl.shape[1]
-    dev = sig_ext.device
+    B = n_actual.shape[0]
+    dev = n_actual.device
     lane = torch.arange(mp, device=dev)
     lane_f = lane.to(torch.float32)
     row0 = lane == 0
@@ -211,8 +328,7 @@ def _wave_recurrence(sig_ext, tmpl, n_actual, m_rows, params, nd: int, t_run: in
     acc = torch.zeros((B, mp), dtype=torch.int32, device=dev)
     m_idx = m_r[:, None]
     for t in range(t_run):
-        r = sig_ext[:, t + mp - lane]
-        sc = torch.clamp_min(k["off"] - score_pow((r - tmpl).abs()), k["dmin"])
+        sc = scores(t)
         ih_ext = ih + k["ge_h"]
         ih_open = s1 + k["go_h"]
         new_ih = torch.maximum(ih_ext, ih_open)
@@ -271,8 +387,21 @@ def _wave_plain(signals, tmpl, n_actual, m_rows, params):
     (ptr (ND/8, B, MP), bottom (B, ND)), ND = N + MP."""
     mp = tmpl.shape[1]
     nd = signals.shape[1] + mp
-    ptr, bottom, _ = _wave_recurrence(_signal_ext(signals, mp), tmpl, n_actual, m_rows, params,
-                                      nd, _steps_to_run(n_actual, m_rows, nd))
+    ptr, bottom, _ = _wave_recurrence(_pow_scores(_signal_ext(signals, mp), tmpl, params),
+                                      n_actual, m_rows, params, nd,
+                                      _steps_to_run(n_actual, m_rows, nd), mp)
+    return ptr, bottom
+
+
+def _wave_table_plain(bins, lut, levels, lidx, n_actual, m_rows, params):
+    """Plain twin of the TABLE-mode kernel: the same recurrence, each
+    cell's score read from :func:`score_table` by (lane's level index,
+    sample's bin or sentinel).  (ptr (ND/8, B, MP), bottom (B, ND))."""
+    mp = lidx.shape[1]
+    nd = bins.shape[1] + mp
+    ptr, bottom, _ = _wave_recurrence(_table_scores(bins, lut, levels, lidx, params),
+                                      n_actual, m_rows, params, nd,
+                                      _steps_to_run(n_actual, m_rows, nd), mp)
     return ptr, bottom
 
 
@@ -280,8 +409,9 @@ def _ckpt_plain(signals, tmpl, n_actual, m_rows, params, ckpt_steps: int):
     """Plain twin of the checkpoint kernel (row 5): (bottom, (S1, S2, Ih, C))."""
     mp = tmpl.shape[1]
     nd = signals.shape[1] + mp
-    _, bottom, ckpts = _wave_recurrence(_signal_ext(signals, mp), tmpl, n_actual, m_rows,
-                                        params, nd, _steps_to_run(n_actual, m_rows, nd),
+    _, bottom, ckpts = _wave_recurrence(_pow_scores(_signal_ext(signals, mp), tmpl, params),
+                                        n_actual, m_rows, params, nd,
+                                        _steps_to_run(n_actual, m_rows, nd), mp,
                                         with_ptr=False, ckpt_steps=ckpt_steps)
     return bottom, ckpts
 
@@ -296,9 +426,9 @@ def _window_plain(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
     mp = tmpl.shape[1]
     sig_ext = torch.cat([torch.flip(r_init, dims=[1]), sig_win], dim=1)
     zeros = torch.zeros(B, dtype=torch.int32, device=sig_win.device)
-    ptr, _, _ = _wave_recurrence(sig_ext, tmpl, steps_needed, zeros, params, W,
-                                 _steps_to_run(steps_needed, zeros, W), with_bottom=False,
-                                 state4=state4, cold=cold)
+    ptr, _, _ = _wave_recurrence(_pow_scores(sig_ext, tmpl, params), steps_needed, zeros,
+                                 params, W, _steps_to_run(steps_needed, zeros, W), mp,
+                                 with_bottom=False, state4=state4, cold=cold)
     return ptr
 
 
@@ -330,6 +460,62 @@ def _dispatch(signals, tmpl, n_actual, m_rows, params, counter):
     return _wave_plain(signals, tmpl, n_actual, m_rows, params)
 
 
+def _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, counter: str):
+    k = _consts(params)
+    B, N = bins.shape
+    mp = lidx.shape[1]
+    nd = N + mp
+    dev = bins.device
+    bn = bins.contiguous()
+    lt = lut.contiguous()
+    lv = levels.contiguous()
+    li = lidx.contiguous()
+    nact = n_actual.to(torch.int32).contiguous()
+    mrow = m_rows.to(torch.int32).contiguous()
+    ptr = torch.empty((nd // 8, B, mp), dtype=torch.int32, device=dev)
+    bottom = torch.empty((B, nd), dtype=torch.float32, device=dev)
+    _build.launch(
+        "wave_table_launch", dev,
+        bn.data_ptr(), lt.data_ptr(), lv.data_ptr(), li.data_ptr(), nact.data_ptr(),
+        mrow.data_ptr(), ptr.data_ptr(), bottom.data_ptr(),
+        B, N, mp, lv.shape[1], int(lv.shape[0] != 1), int(k["neg_h"]),
+        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    _build.LAUNCHES[counter] += 1
+    return ptr, bottom
+
+
+def _check_morph(bins, lut, n_actual, levels, lidx, m_rows):
+    """Shapes, dtypes and devices of a morph-form wave call."""
+    B, N = bins.shape
+    if B % 8 or N % CHUNK:
+        raise ValueError(f"wave call needs B % 8 == 0 and N % {CHUNK} == 0, got {(B, N)}")
+    if (bins.dtype != torch.uint8 or lut.dtype != torch.float32
+            or levels.dtype != torch.float32 or lidx.dtype != torch.int32):
+        raise TypeError("morph form: u8 bins, f32 lut and levels, int32 level indices")
+    mp = lidx.shape[1]
+    if mp % LANE or mp > 8192:
+        raise ValueError(f"template lanes must be a multiple of {LANE} up to 8192, got {mp}")
+    if (lut.shape != (B, 256) or levels.shape[0] != lidx.shape[0]
+            or lidx.shape[0] not in (1, B) or n_actual.shape != (B,) or m_rows.shape != (B,)):
+        raise ValueError("a 256-level lut per row, one template (or one per row), one length "
+                         "and one m per row")
+    for x in (lut, n_actual, levels, lidx, m_rows):
+        if x.device != bins.device:
+            raise ValueError("all wave inputs must share one device")
+
+
+def _dispatch_morph(bins, lut, n_actual, levels, lidx, m_rows, params, counter):
+    """TABLE or POW by :func:`wave_score_mode`, then the kernel (CUDA
+    tensors) or the mode's twin (CPU tensors)."""
+    if wave_score_mode(levels.shape[1], lidx.shape[1]) == "pow":
+        tmpl = levels.gather(1, lidx.to(torch.int64))
+        return _dispatch(morph_decode(bins, lut), tmpl, n_actual, m_rows, params, counter)
+    if _on_card(bins):
+        return _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params,
+                                counter + "_table")
+    return _wave_table_plain(bins, lut, levels, lidx, n_actual, m_rows, params)
+
+
 def align_forward_wave(signals, n_actual, template_padded, params, m_actual: int):
     """Wavefront forward DP of B reads against one shared template.
 
@@ -356,6 +542,38 @@ def align_forward_wave_multi(signals, n_actual, template_rows, m_rows, params):
         raise ValueError("one template row per signal row")
     return _dispatch(signals, template_rows, n_actual, m_rows, params,
                      "align_forward_wave_multi")
+
+
+def align_forward_wave_morph(bins, lut, n_actual, levels, lidx, params, m_actual: int):
+    """:func:`align_forward_wave` on morph-form reads: the same outputs
+    as on the f32 signals ``lut[bins]`` against the template
+    ``levels[0, lidx[0]]``.
+
+    bins (B, N) u8, N a multiple of 128; lut (B, 256) f32; (levels,
+    lidx) = :func:`template_levels` of a (1, MP) template, (1, UP) f32
+    and (1, MP) int32.  Runs TABLE mode (launch counter
+    ``align_forward_wave_table``) where :func:`wave_score_mode` allows,
+    else POW mode (``align_forward_wave``).
+    """
+    B = bins.shape[0]
+    if lidx.shape[0] != 1 or not 0 < m_actual < lidx.shape[1]:
+        raise ValueError("align_forward_wave_morph takes one (1, MP) template of m < MP samples")
+    m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=bins.device)
+    _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
+    return _dispatch_morph(bins, lut, n_actual, levels, lidx, m_rows, params,
+                           "align_forward_wave")
+
+
+def align_forward_wave_multi_morph(bins, lut, n_actual, levels, lidx, m_rows, params):
+    """:func:`align_forward_wave_multi` on morph-form reads, a template
+    per row: levels (B, UP), lidx (B, MP) from :func:`template_levels`
+    of the (B, MP) rows.  TABLE (``align_forward_wave_multi_table``) or
+    POW (``align_forward_wave_multi``) by :func:`wave_score_mode`."""
+    _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
+    if lidx.shape[0] != bins.shape[0]:
+        raise ValueError("one template row per signal row")
+    return _dispatch_morph(bins, lut, n_actual, levels, lidx, m_rows, params,
+                           "align_forward_wave_multi")
 
 
 # ---------------------------------------------------------------------------

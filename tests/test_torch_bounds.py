@@ -23,6 +23,7 @@ from strique_tpu.pore_model import PoreModel
 from strique_tpu_torch.detect import counter as TCn
 from strique_tpu_torch.detect.packed import pack_meta
 from strique_tpu_torch.ops import align as TA
+from strique_tpu_torch.ops.align_cuda import morph_decode
 from strique_tpu_torch.ops import bounds as TB
 from strique_tpu_torch.ops import viterbi as TV
 from strique_tpu_torch.synthetic import write_pore_model
@@ -133,7 +134,8 @@ def test_counter_helpers_copy_match_reference():
 
 
 def test_morph_upload_decode_matches_reference():
-    """u8 bins + per-read f32 level table -> morph, as a torch gather."""
+    """u8 bins + per-read f32 level table -> morph: the upload's split
+    into bins and tables, then ``morph_decode``'s gather."""
     rng = np.random.default_rng(9)
     B, npad = 8, 1024
     buf = np.zeros((B, TCn._morph_buf_bytes(npad)), np.uint8)
@@ -141,5 +143,5 @@ def test_morph_upload_decode_matches_reference():
         buf[i, : 4 * 256].view(np.float32)[:] = rng.uniform(50, 140, 256).astype(np.float32)
         buf[i, 4 * 256 :] = rng.integers(0, 256, npad)
     ref = np.asarray(JC._unpack_morph_upload(jnp.asarray(buf)))
-    got = TCn._unpack_morph_upload(torch.from_numpy(buf)).numpy()
+    got = morph_decode(*TCn._split_morph_upload(torch.from_numpy(buf))).numpy()
     np.testing.assert_array_equal(got, ref)

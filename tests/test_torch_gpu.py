@@ -10,7 +10,8 @@ without the JAX-side conftest:
 Integer outputs (pointer words, tracebacks, paths) and f32 outputs
 (bottom taps, score rows, fin, acc) must be exactly equal: kernel and
 twin evaluate the same expression trees with the same rounding on the
-same card (CUDA's double ``pow`` on both sides).
+same card (CUDA's double ``pow`` on both sides; the wave kernel's TABLE
+score mode evaluates it once per table entry).
 """
 import numpy as np
 import pytest
@@ -91,6 +92,116 @@ def test_gpu_wave_and_traceback_match_plain(cuda_device, pi, multi):
     ref = TA._traceback_plain(ptr, j_end, mr, m_out)
     for k in ("is_gap", "jpos", "j_begin"):
         assert torch.equal(got[k], ref[k]), k
+
+
+def _morph_batch(rng, B, N, templates):
+    """u8 bins, per-read 256-level tables and lengths; row b carries
+    templates[b] (one row runs to the padded end)."""
+    lo = rng.uniform(40, 60, B)
+    hi = rng.uniform(130, 150, B)
+    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
+    sig = rng.uniform(60, 120, (B, N))
+    for i, t in enumerate(templates):
+        st = 30 + (20 * i) % (N // 2)
+        sig[i, st : st + len(t)] = t + rng.normal(0, 0.5, len(t))
+    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    na = rng.integers(N // 2, N, B).astype(np.int32)
+    na[0] = N
+    return bins.astype(np.uint8), lut, na
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+@pytest.mark.parametrize("multi", [False, True])
+def test_gpu_wave_table_mode_matches_pow_and_plain(cuda_device, pi, multi):
+    """Morph-form reads (samples=6 templates): the TABLE-mode kernel, the
+    POW-mode kernel on the decoded f32 and the table twin, bit for bit."""
+    p = PARAMS[pi]
+    rng = np.random.default_rng(540 + pi)
+    B, N = 16, 512
+    t_pre = np.repeat(rng.uniform(60, 120, 7), 6).astype(np.float32)
+    t_suf = np.repeat(rng.uniform(60, 120, 5), 6).astype(np.float32)
+    if multi:
+        rows, ms = TC.pad_template_rows([t_pre, t_suf])
+        tmpl, mr = np.repeat(rows, B // 2, axis=0), np.repeat(ms, B // 2).astype(np.int32)
+        row_t = [t_pre] * (B // 2) + [t_suf] * (B // 2)
+    else:
+        tmpl, m = TC.pad_template(t_pre)
+        mr = np.full(B, m, np.int32)
+        row_t = [t_pre] * B
+    bins, lut, na = _morph_batch(rng, B, N, row_t)
+    levels, lidx = TC.template_levels(tmpl)
+    b, lt, n, lv, li, t, m_d = (torch.from_numpy(x).to(cuda_device)
+                                for x in (bins, lut, na, levels, lidx, tmpl, mr))
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    before = dict(_build.LAUNCHES)
+    if multi:
+        ptr, bot = TC.align_forward_wave_multi_morph(b, lt, n, lv, li, m_d, p)
+        ptr_k, bot_k = TC.align_forward_wave_multi(TC.morph_decode(b, lt), n, t, m_d, p)
+    else:
+        ptr, bot = TC.align_forward_wave_morph(b, lt, n, lv, li, p, int(mr[0]))
+        ptr_k, bot_k = TC.align_forward_wave(TC.morph_decode(b, lt), n, t, p, int(mr[0]))
+    assert _build.LAUNCHES[name + "_table"] == before[name + "_table"] + 1
+    assert _build.LAUNCHES[name] == before[name] + 1
+    ptr_p, bot_p = TC._wave_table_plain(b, lt, lv, li, n, m_d, p)
+    mask = _valid_words(n, m_d, ptr.shape[0])
+    for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
+        assert torch.equal(got_ptr[mask], ptr_p[mask])
+        assert torch.equal(got_bot, bot_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", [256, 1152])
+def test_gpu_wave_over_the_cap_runs_pow(cuda_device, mp):
+    """A template with one level more than the score table holds (222
+    levels at MP 256), or with more lanes than TABLE mode runs (MP 1152,
+    9 levels), runs the POW mode on the card and equals the table twin."""
+    rng = np.random.default_rng(550)
+    if mp <= TC.TABLE_MAX_MP:
+        n_vals = (TC.SMEM_BYTES // 4 - 4 * (mp + 1)) // TC.SCORE_COLS  # + the pad: cap + 1
+    else:
+        n_vals = 8
+    t = rng.permutation(np.resize(np.linspace(60, 120, n_vals), mp - 1)).astype(np.float32)
+    tp, m = TC.pad_template(t)
+    levels, lidx = TC.template_levels(tp)
+    assert tp.shape[1] == mp and TC.wave_score_mode(levels.shape[1], mp) == "pow"
+    bins, lut, na = _morph_batch(rng, 8, 512, [t[:200]] * 8)
+    b, lt, n, lv, li = (torch.from_numpy(x).to(cuda_device) for x in (bins, lut, na, levels, lidx))
+    before = dict(_build.LAUNCHES)
+    ptr, bot = TC.align_forward_wave_morph(b, lt, n, lv, li, AlignParams(), m)
+    assert _build.LAUNCHES["align_forward_wave"] == before["align_forward_wave"] + 1
+    assert _build.LAUNCHES["align_forward_wave_table"] == before["align_forward_wave_table"]
+    m_d = torch.full((8,), m, dtype=torch.int32, device=cuda_device)
+    ptr_p, bot_p = TC._wave_table_plain(b, lt, lv, li, n, m_d, AlignParams())
+    mask = _valid_words(n, m_d, ptr.shape[0])
+    assert torch.equal(ptr[mask], ptr_p[mask]) and torch.equal(bot, bot_p)
+
+
+@pytest.mark.gpu
+def test_gpu_fused_pair_one_128_row_launch(cuda_device, monkeypatch):
+    """Both flanks of 64 morph-form reads: one 128-row TABLE launch on a
+    card of at least 128 SMs, with the plain CPU path's outputs."""
+    monkeypatch.delenv("STRIQUE_ALIGN_KERNEL", raising=False)
+    if TC.sm_count(cuda_device) < 128:
+        pytest.skip("needs a card of at least 128 SMs")
+    rng = np.random.default_rng(560)
+    t_pre = np.repeat(rng.uniform(60, 120, 6), 6).astype(np.float32)
+    t_suf = np.repeat(rng.uniform(60, 120, 4), 6).astype(np.float32)
+    bins, lut, na = _morph_batch(rng, 64, 512, [t_pre] * 64)
+    _build.reset_launches()
+    calls0 = TA.kernel_stats()["calls"]
+    pre, suf = TA.align_fused_pair(torch.from_numpy(bins).to(cuda_device),
+                                   torch.from_numpy(na).to(cuda_device), t_pre, t_suf,
+                                   AlignParams(), lut=torch.from_numpy(lut).to(cuda_device))
+    assert _build.LAUNCHES["align_forward_wave_multi_table"] == 1
+    assert TA.kernel_stats()["calls"] - calls0 == 1
+    assert sum(_build.LAUNCHES[k] for k in ("align_forward_wave", "align_forward_wave_multi",
+                                            "align_forward_wave_table")) == 0
+    ref = TA.align_fused_pair(torch.from_numpy(bins), torch.from_numpy(na), t_pre, t_suf,
+                              AlignParams(), lut=torch.from_numpy(lut))
+    for got, want in zip((pre, suf), ref):
+        for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+            assert torch.equal(got[k].cpu(), want[k]), k
 
 
 @pytest.mark.gpu
