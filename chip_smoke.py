@@ -29,7 +29,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    column-sweep kernel and its column-layout traceback run at the small
    and bench shapes (64 rows, N 24576, MP 896), the dense Viterbi
    forward at the small, bench (B 64, T 6144, SP 256) and ultra shapes.
-   Print kernel and plain times.
+   Rows 3-4 also run at their edges (``check_viterbi_edges``: short
+   reads, obs-chunk boundaries, constant obs, SP 512).  Print kernel and
+   plain times, and us per step for rows 3-4.
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
@@ -572,8 +574,10 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
               float((fin_k - fin_p).abs().max()), float((acc_k - acc_p).abs().max()))
     ms = cuda_ms(lambda: VC.viterbi_forward_factored(o_d, l_d, ph), 3)
     _build.LAUNCHES["viterbi_forward_factored"] = 0
+    steps = int(l_d.max())  # the chain: one step a sample of the longest read
     print(f"  viterbi_forward_factored [{shape_name} B={B} T={T} SP={ph.sp}]: "
-          f"max_abs_err {err}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+          f"max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), "
+          f"plain {plain_ms:.1f} ms", flush=True)
     if err != 0.0:
         fail(f"factored forward kernel disagrees with its plain twin at the {shape_name} shape")
     sp = ph.sp
@@ -585,7 +589,7 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
     f32 = live_cells * (2 * n_rolls + 3 * len(chain_spec) + 8)
     nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + len(chain_spec) + 5) * sp
     results["viterbi_forward_factored"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                           **bound(nbytes, f32)}
+                                           "us_per_step": ms * 1e3 / steps, **bound(nbytes, f32)}
 
     last = torch.argmax(fin_k + ph.end, dim=1)
     run_k = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
@@ -595,13 +599,52 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
     ms = cuda_ms(run_k, 3)
     _build.LAUNCHES["viterbi_backward_batch"] = 0
     print(f"  viterbi_backward_batch [{shape_name} B={B} T={T}]: max_abs_err {perr}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+          f"kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), plain {plain_ms:.1f} ms",
+          flush=True)
     if perr != 0:
         fail(f"backward kernel disagrees with its plain twin at the {shape_name} shape")
     # one score row and one transition row per visited step; 3 f32 ops a state
     nbytes = 4 * (live_cells + sp * sp + B * T + 2 * B)
     results["viterbi_backward_batch"] = {"max_abs_err": float(perr), "ms": ms,
-                                         "plain_ms": plain_ms, **bound(nbytes, 3 * live_cells)}
+                                         "plain_ms": plain_ms, "us_per_step": ms * 1e3 / steps,
+                                         **bound(nbytes, 3 * live_cells)}
+
+
+def check_viterbi_edges(pm, rng) -> None:
+    """Rows 3-4 against their twins at their edge inputs
+    (``synthetic.VITERBI_EDGES``, shared with the ``gpu`` tests):
+    lengths below the backward's 16-row score ring and around the
+    forward's 32-step obs chunks, constant obs (ties in every row), and
+    an HMM of SP 512.  Forward rows below each length, fin and acc
+    bit-equal, paths equal.  These launches count toward no path."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+    from strique_tpu_torch.synthetic import VITERBI_EDGE_T, VITERBI_EDGES, viterbi_edge_case
+
+    dev = torch.device("cuda")
+    before = dict(_build.LAUNCHES)
+    for label in VITERBI_EDGES:
+        hmm, obs, lens = viterbi_edge_case(pm, label, rng)
+        ph = VC.PaddedHMM(hmm, dev)
+        o_d = torch.from_numpy(obs).to(dev)
+        l_d = torch.from_numpy(lens).to(dev)
+        sc, fin, acc = VC.viterbi_forward_factored(o_d, l_d, ph)
+        sc_p, fin_p, acc_p = VC._fwd_plain(o_d, l_d, ph)
+        live = torch.arange(VITERBI_EDGE_T, device=dev)[:, None] < l_d[None, :]
+        fwd_ok = bool(torch.equal(sc[live], sc_p[live]) and torch.equal(fin, fin_p)
+                      and torch.equal(acc, acc_p))
+        last = torch.argmax(fin + ph.end, dim=1)
+        path = VC.viterbi_backward_batch(sc, last, l_d, ph.transT)
+        bwd_ok = bool(torch.equal(path, VC._bwd_plain(sc, last, l_d, ph.transT)))
+        print(f"  viterbi edges [{label}: SP {ph.sp}, {hmm.n_states} states, lengths "
+              f"{lens.tolist()}]: forward {'equal' if fwd_ok else 'DIFFERS'}, paths "
+              f"{'equal' if bwd_ok else 'DIFFER'}", flush=True)
+        if not (fwd_ok and bwd_ok):
+            fail(f"a Viterbi kernel disagrees with its plain twin at the edge case {label!r}")
+    for k in ("viterbi_forward_factored", "viterbi_backward_batch"):
+        _build.LAUNCHES[k] = before[k]
 
 
 def written_slots(n_act, m: int, nd: int, ckpt_steps: int):
@@ -868,6 +911,7 @@ def main() -> int:
         # the ultra-long route's segments: ~9x the bench T (rescale and acc)
         check_viterbi(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
         check_dense(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
+        check_viterbi_edges(pm, rng)
         check_longread(small[0], "small", 8, 4096, params, 512, 4, rng, results)
         # the bench template's span bound (29,581 steps) exceeds ND: all windows cold
         check_longread(tc.prefix_ext, "bench", 8, 24576, params, 16384, 0, rng, results)

@@ -75,9 +75,9 @@ _SIGNATURES = {
     "col_align_launch": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
     "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
-    # obs, tact, start, mu, sigma, uni, luni, lsig, weights, spec, sc, fin,
-    # acc; B, T, SP, n_w, spec_len; stream
-    "viterbi_fwd_launch": [_P] * 13 + [_I] * 5 + [_P],
+    # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts
+    # (host), sc, fin, acc; B, T, SP; stream
+    "viterbi_fwd_launch": [_P] * 15 + [_I] * 3 + [_P],
     # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
     # B, T, SP; stream
     "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],

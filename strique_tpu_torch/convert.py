@@ -29,8 +29,9 @@ def align_params_from_jax(params) -> AlignParams:
         raise TypeError(f"expected an AlignParams-like object, got {type(params)}") from e
 
 
-def padded_hmm_from_jax(ph, device="cpu") -> PaddedHMM:
-    """The reference ``viterbi_pallas.PaddedHMM`` -> the port's PaddedHMM."""
+def padded_hmm_from_jax(ph, device="cuda") -> PaddedHMM:
+    """The reference ``viterbi_pallas.PaddedHMM`` -> the port's PaddedHMM
+    (on the card unless ``device`` says otherwise, as PaddedHMM)."""
     fweights = None
     if ph.fspec is not None:
         fweights = tuple(np.asarray(w, np.float32).reshape(-1) for w in ph.fweights)

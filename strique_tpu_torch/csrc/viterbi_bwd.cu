@@ -8,61 +8,174 @@
 // path[t] = last for t >= t_actual - 1 (the walk is frozen there).
 //
 // What bounds it on an H100: latency of the serial walk -- each step
-// needs the previous step's state to pick its transT row; per step a
-// read touches one 1 KB score row and one 1 KB transT row (L2-resident:
-// transT is 256 KB).
+// needs the previous step's state to pick its transT row.  The bytes
+// (one 1 KB score row a step and read at SP 256) are far below the
+// card's bandwidth.
 //
-// Design: one warp per read, each lane holding SP/32 candidates.  The
-// TPU gathered trans[:, state] with a one-hot matmul on its matrix unit;
-// here a lane simply reads transT[state, u].  A warp max (shfl_xor), then
-// a warp min over the lanes' first indices reaching it.
+// Design: one CTA of one warp per read; the step's chain waits on no
+// score row, only on its transition row (an L1 hit, mostly):
+//   * score rows: the walk visits sc[ta-2], ..., sc[0] whatever the path
+//     is, so each lane copies its part of a row RING - 1 steps ahead
+//     into a shared ring of RING rows by cp.async, one commit group a
+//     step, and waits on the group of the current step
+//     (cp.async.wait_group RING-2); it reads back only what it copied,
+//     so no barrier is needed, and never a row at or past t_actual - 1;
+//   * transition rows: the row of the state just chosen, read through
+//     the read-only path (__ldg); a read's walk revisits a few states, so
+//     its rows stay in the SM's L1 (transT of SP 256 is 256 KB);
+//   * lane l holds the 4 NV states u = 4 NV l + j (NV = SP / 128 float4
+//     reads); the max is one __reduce_max_sync on an order-preserving
+//     int key of the lane's f32 max, converted back and compared >= in
+//     f32 (-0.0 and +0.0 compare equal, so the key need not fold them);
+//     the first index is the first lane holding a hit (a ballot) and its
+//     first hit (one shuffle);
+//   * path entries are held one a lane and stored 32 at a time.
+// One read a CTA: the split path's 64 reads (the ultra routes' 8) leave
+// SMs to spare, and each read has an SM's L1 to itself.
 #include <cuda_runtime.h>
-#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int WARPS_PER_BLOCK = 4;
+constexpr int RING = 16;  // score rows in flight (a power of two)
+constexpr unsigned FULL = 0xffffffffu;
 
-__global__ void viterbi_bwd_kernel(const float* __restrict__ sc, const float* __restrict__ transT,
-                                   const int* __restrict__ last, const int* __restrict__ tact,
-                                   int32_t* __restrict__ path, int B, int T, int SP) {
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * WARPS_PER_BLOCK + (threadIdx.x >> 5);
-  if (b >= B) return;
+// f32 -> int whose signed order is the float order (NaN never occurs)
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// 16-byte cp.async, issued only where `on` (no branch around it)
+__device__ __forceinline__ void cp_async16_if(float4* dst, const float4* src, bool on) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %2, 0;\n"
+      " @p cp.async.cg.shared.global [%0], [%1], 16;\n}\n" ::"r"(d),
+      "l"(src), "r"((int)on));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// NV = SP / 128 float4 a lane
+template <int NV>
+__global__ void __launch_bounds__(32)
+viterbi_bwd_kernel(const float* __restrict__ sc, const float* __restrict__ transT,
+                   const int* __restrict__ last, const int* __restrict__ tact,
+                   int32_t* __restrict__ path, int B, int T) {
+  constexpr int SP = 128 * NV;
+  constexpr int SP4 = SP / 4;
+  constexpr int PER = 4 * NV;  // states a lane holds
+  extern __shared__ float4 ring[];  // RING rows of sc
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
+  const float4* tT4 = reinterpret_cast<const float4*>(transT) + lane * NV;
+  const int ta = min(tact[b], T);
+  const int n = max(ta - 1, 0);  // steps: step i reads row n-1-i, writes path[n-1-i]
+  const size_t rstride = (size_t)B * SP4;
+  // this lane's float4s of read b's row of step i: row_src - i * rstride
+  const float4* row_src = reinterpret_cast<const float4*>(sc) +
+                          (size_t)max(n - 1, 0) * rstride + (size_t)b * SP4 + lane * NV;
+  float4* my_ring = ring + lane * NV;  // slot j at my_ring[j * SP4 + k]
+  // one group a step: rows of steps 0 .. RING-1
+  for (int j = 0; j < RING; ++j) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      cp_async16_if(my_ring + j * SP4 + k, row_src - (size_t)j * rstride + k, j < n);
+    cp_async_commit();
+  }
+
   int32_t* prow = path + (size_t)b * T;
   int st = last[b];
-  const int ta = min(tact[b], T);
-  for (int t = ta - 1 + lane; t < T; t += 32) prow[t] = st;
-  for (int t = ta - 1; t >= 1; --t) {
-    const float* srow = sc + ((size_t)(t - 1) * B + b) * SP;
-    const float* trow = transT + (size_t)st * SP;
-    float mx = -INFINITY;
-    for (int u = lane; u < SP; u += 32) mx = fmaxf(mx, srow[u] + trow[u]);
+  for (int t = n + lane; t < T; t += 32) prow[t] = st;
+  int held = st;  // this lane's path entry of the current 32-step group
+  for (int i = 0; i < n; ++i) {
+    // step i's row: committed RING-1 steps ago (or in the prologue), and
+    // at most RING-2 younger groups are in flight
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING - 2) : "memory");
+    const float4* srow = my_ring + (i & (RING - 1)) * SP4;
+    float4 sv[NV], tv[NV];
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-    int first = SP;
-    for (int u = lane; u < SP; u += 32) {
-      if (srow[u] + trow[u] >= mx) {
-        first = u;
-        break;
-      }
+    for (int k = 0; k < NV; ++k) sv[k] = srow[k];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) tv[k] = __ldg(tT4 + (size_t)st * SP4 + k);
+    // refill the slot step i-1 read with the row of step i-1+RING (in
+    // the loads' shadow; that slot's reads were consumed last step)
+    const int ahead = i - 1 + RING;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      cp_async16_if(my_ring + ((i - 1) & (RING - 1)) * SP4 + k,
+                    row_src - (size_t)ahead * rstride + k, i > 0 && ahead < n);
+    cp_async_commit();
+    float c[PER];
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      c[4 * k + 0] = sv[k].x + tv[k].x;
+      c[4 * k + 1] = sv[k].y + tv[k].y;
+      c[4 * k + 2] = sv[k].z + tv[k].z;
+      c[4 * k + 3] = sv[k].w + tv[k].w;
     }
+    // the lane's max and, after the warp's, its first hit: trees, exact
+    float mt[PER];
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) first = min(first, __shfl_xor_sync(0xffffffffu, first, d));
-    st = first;
-    if (lane == 0) prow[t - 1] = st;
+    for (int j = 0; j < PER; ++j) mt[j] = c[j];
+#pragma unroll
+    for (int w = 1; w < PER; w <<= 1)
+#pragma unroll
+      for (int j = 0; j + w < PER; j += 2 * w) mt[j] = fmaxf(mt[j], mt[j + w]);
+    const float mx = key_value(__reduce_max_sync(FULL, order_key(mt[0])));
+    int ft[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) ft[j] = c[j] >= mx ? j : PER;
+#pragma unroll
+    for (int w = 1; w < PER; w <<= 1)
+#pragma unroll
+      for (int j = 0; j + w < PER; j += 2 * w) ft[j] = min(ft[j], ft[j + w]);
+    const int owner = __ffs(__ballot_sync(FULL, ft[0] < PER)) - 1;
+    st = owner * PER + __shfl_sync(FULL, ft[0], owner);
+    if ((i & 31) == lane) held = st;
+    if ((i & 31) == 31) prow[n - 1 - (i - 31) - lane] = held;
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const int rem = n & 31;
+  if (lane < rem) prow[rem - 1 - lane] = held;
+}
+
+template <int NV>
+int launch_nv(const void* sc, const void* transT, const void* last, const void* tact,
+              void* path, int B, int T, cudaStream_t stream) {
+  const size_t shmem = (size_t)RING * NV * 128 * sizeof(float);  // 64 KB at SP 1024
+  cudaError_t e = cudaFuncSetAttribute(viterbi_bwd_kernel<NV>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return (int)e;
+  viterbi_bwd_kernel<NV><<<B, 32, shmem, stream>>>(
+      (const float*)sc, (const float*)transT, (const int*)last, (const int*)tact,
+      (int32_t*)path, B, T);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// SP a multiple of 128 up to 1024.
 extern "C" int viterbi_bwd_launch(const void* sc, const void* transT, const void* last,
                                   const void* tact, void* path, int B, int T, int SP,
                                   void* stream) {
-  const int blocks = (B + WARPS_PER_BLOCK - 1) / WARPS_PER_BLOCK;
-  viterbi_bwd_kernel<<<blocks, 32 * WARPS_PER_BLOCK, 0, (cudaStream_t)stream>>>(
-      (const float*)sc, (const float*)transT, (const int*)last, (const int*)tact,
-      (int32_t*)path, B, T, SP);
-  return (int)cudaGetLastError();
+  if (SP % 128 != 0 || SP > 1024) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (SP / 128) {
+    case 1: return launch_nv<1>(sc, transT, last, tact, path, B, T, s);
+    case 2: return launch_nv<2>(sc, transT, last, tact, path, B, T, s);
+    case 3: return launch_nv<3>(sc, transT, last, tact, path, B, T, s);
+    case 4: return launch_nv<4>(sc, transT, last, tact, path, B, T, s);
+    case 5: return launch_nv<5>(sc, transT, last, tact, path, B, T, s);
+    case 6: return launch_nv<6>(sc, transT, last, tact, path, B, T, s);
+    case 7: return launch_nv<7>(sc, transT, last, tact, path, B, T, s);
+    default: return launch_nv<8>(sc, transT, last, tact, path, B, T, s);
+  }
 }

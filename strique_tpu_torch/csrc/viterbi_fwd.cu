@@ -9,163 +9,313 @@
 // row st = val - m (stored to sc[t, read, :]) and acc += m.
 //
 // What bounds it on an H100: the serial time chain -- every step waits on
-// the previous row, and within a step on two block-wide prefix maxima
-// (one per chain) and a block max; a step is a few hundred flops over
-// 256 lanes.  The score-row stream (T x B x SP f32, ~0.4 GB for 64
-// reads of 6144 samples) is written once, coalesced, at far below the
-// card's bandwidth.
+// the previous row, and within a step on a block-wide prefix max per
+// chain and a block max; a step is a few hundred flops over 256 lanes.
+// The score-row stream (T x B x SP f32, ~0.4 GB for 64 reads of 6144
+// samples) is written once, coalesced, at far below the card's
+// bandwidth.
 //
-// Design: one CTA per read, one thread per state lane (SP = 256 for the
-// c9orf72 HMM's 216 states).  The n_w weight rows (18 x 256 f32) and the
-// current row sit in shared memory, so every roll is a shared-memory
-// gather.  The prefix max is a warp shfl_up scan plus a pass over the
-// warp totals; max is exact, so any association order gives the
-// reference's value.  The emission keeps the reference's expression
-// tree, lsig - (0.5*z)*z with z = (x - mu) / sigma in IEEE division;
-// lsig = -log(2 pi)/2 - log(sigma) arrives precomputed from the host.
+// Design: one CTA per read, one thread per state lane v (SP = 256 for
+// the c9orf72 HMM's 216 states); a step is three barriers and
+// independent shared loads:
+//   * every roll's source lane u = (v - o) mod SP and weight w[u] are the
+//     same at every step: the host stages them per thread
+//     (viterbi_cuda.fwd_gather_tables: DIAG_SLOTS diagonal slots, then
+//     per chain ENTRY_SLOTS entry and EXIT_SLOTS exit slots; a slot the
+//     spec leaves empty has weight -inf, the identity of the max), and
+//     each thread holds every slot in registers: no predicate or branch
+//     in the step, so every gather's load is in flight at once.  The
+//     slots fit the flanked-repeat HMMs (6 or 7 diagonals, chains of 2
+//     entries and 3 and 2 exits); the wrapper sends a wider spec to the
+//     dense forward;
+//   * the row is published as val (before the rescale) behind ONE
+//     barrier, and every warp then takes the row max itself (NV float4
+//     reads a lane, one __reduce_max_sync on an order-preserving int key;
+//     max is exact): a gather reads (val[u] - m) + w, the same f32 st[u]
+//     the reference rolls; rows alternate between two buffers, so no
+//     barrier guards only a reuse;
+//   * all chains scan together: interleaved warp shfl_up scans, one
+//     barrier for every chain's warp totals (each thread folds the totals
+//     of the warps below its own from broadcast float4 reads), one
+//     barrier to publish every h row;
+//   * the emission is off the chain: obs is staged 32 steps at a time in
+//     shared memory by cp.async, one chunk ahead, and at each chunk's
+//     first step a thread computes its 32 emissions at once into its own
+//     column of a shared table; it keeps the reference's expression
+//     tree, lsig - (0.5*z)*z with z = (x - mu) / sigma in IEEE division
+//     (lsig from the host);
+//   * score rows are stored with streaming stores (__stcs).
 // acc accumulates sequentially in f32, in step order.  A read stops at
 // its own length: later rows are frozen in the reference and never read.
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float NEGF = -1e30f;
-constexpr int MAX_WARPS = 32;
-constexpr int MAX_SPEC = 128;
+// the host's slot layout (viterbi_cuda.fwd_gather_tables), the limits of
+// a spec the kernel takes
+constexpr int DIAG_SLOTS = 8;
+constexpr int MAX_CHAIN = 2;
+constexpr int ENTRY_SLOTS = 2;
+constexpr int EXIT_SLOTS = 3;
+constexpr int CHAIN_SLOTS = ENTRY_SLOTS + EXIT_SLOTS;
+constexpr int OBS_CHUNK = 32;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ int wrap(int v, int o, int sp) {
-  int u = v - o;
-  return u < 0 ? u + sp : u;
+__device__ __forceinline__ int order_key(float x) {
+  const int i = __float_as_int(x);
+  return i >= 0 ? i : i ^ 0x7fffffff;
 }
 
-// inclusive prefix max over the block's lanes (blockDim.x == SP)
-__device__ __forceinline__ float block_prefix_max(float x, float* warp_tot) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float y = __shfl_up_sync(0xffffffffu, x, d);
-    if (lane >= d) x = fmaxf(x, y);
-  }
-  if (lane == 31) warp_tot[warp] = x;
-  __syncthreads();
-  for (int w = 0; w < warp; ++w) x = fmaxf(x, warp_tot[w]);
+__device__ __forceinline__ float key_value(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  return key_value(__reduce_max_sync(FULL, order_key(x)));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// a shared-memory f32 at byte address `addr` + OFF
+template <int OFF>
+__device__ __forceinline__ float lds(uint32_t addr) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1+%2];\n" : "=f"(x) : "r"(addr), "n"(OFF));
   return x;
 }
 
-__device__ __forceinline__ float block_max(float x, float* warp_red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, d));
-  if (lane == 0) warp_red[warp] = x;
-  __syncthreads();
-  float m = warp_red[0];
-  for (int w = 1; w < n_warps; ++w) m = fmaxf(m, warp_red[w]);
-  return m;
-}
-
-__global__ void viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
-                                   const float* __restrict__ start, const float* __restrict__ mu,
-                                   const float* __restrict__ sigma, const int* __restrict__ uni,
-                                   const float* __restrict__ luni, const float* __restrict__ lsig,
-                                   const float* __restrict__ weights,
-                                   const int* __restrict__ spec, float* __restrict__ sc,
-                                   float* __restrict__ fin, float* __restrict__ acc_out,
-                                   int B, int T, int SP, int n_w, int spec_len) {
-  extern __shared__ float smem[];
-  float* w_sh = smem;                  // n_w x SP
-  float* st_sh = w_sh + n_w * SP;      // SP
-  float* h_sh = st_sh + SP;            // SP
-  float* warp_tot = h_sh + SP;         // MAX_WARPS
-  float* warp_red = warp_tot + MAX_WARPS;  // MAX_WARPS
-  __shared__ int prog[MAX_SPEC];
+// SP = 128 NV states, one thread each, every slot held in registers
+template <int NV>
+__global__ void __launch_bounds__(128 * NV)
+viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
+                   const float* __restrict__ start, const float* __restrict__ mu,
+                   const float* __restrict__ sigma, const int* __restrict__ uni,
+                   const float* __restrict__ luni, const float* __restrict__ lsig,
+                   const int* __restrict__ src, const float* __restrict__ wts,
+                   const float* __restrict__ ramp, int n_chain, float* __restrict__ sc,
+                   float* __restrict__ fin, float* __restrict__ acc_out, int B, int T) {
+  constexpr int SP = 128 * NV;
+  constexpr int ROW = SP * 4;  // bytes of a row
+  extern __shared__ __align__(16) float smem[];
+  float* val_sh = smem;                     // 2 x SP: the rows, by step parity
+  float* h_sh = val_sh + 2 * SP;            // MAX_CHAIN x SP
+  float* emit_sh = h_sh + MAX_CHAIN * SP;   // OBS_CHUNK x SP: a column a thread
+  __shared__ __align__(16) float wtot[MAX_CHAIN][32];
+  __shared__ float obs_sh[2][OBS_CHUNK];
 
   const int b = blockIdx.x;
   const int v = threadIdx.x;
-  for (int k = v; k < n_w * SP; k += blockDim.x) w_sh[k] = weights[k];
-  for (int k = v; k < spec_len; k += blockDim.x) prog[k] = spec[k];
+  const int lane = v & 31;
+  const int warp = v >> 5;
+  const int ta = min(tact[b], T);  // lengths past T would read past the row
+  const float* x_row = obs + (size_t)b * T;
+
+  // shared byte addresses of every gather: a row (parity 0) and the h rows
+  const uint32_t val0 = (uint32_t)__cvta_generic_to_shared(val_sh);
+  const uint32_t h0 = (uint32_t)__cvta_generic_to_shared(h_sh);
+  uint32_t ad[DIAG_SLOTS], ae[MAX_CHAIN][ENTRY_SLOTS], ax[MAX_CHAIN][EXIT_SLOTS];
+  float wd[DIAG_SLOTS], we[MAX_CHAIN][ENTRY_SLOTS], wx[MAX_CHAIN][EXIT_SLOTS], rp[MAX_CHAIN];
+#pragma unroll
+  for (int d = 0; d < DIAG_SLOTS; ++d) {
+    ad[d] = val0 + 4 * src[d * SP + v];
+    wd[d] = wts[d * SP + v];
+  }
+#pragma unroll
+  for (int c = 0; c < MAX_CHAIN; ++c) {
+    rp[c] = ramp[c * SP + v];
+    const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
+#pragma unroll
+    for (int e = 0; e < ENTRY_SLOTS; ++e) {
+      ae[c][e] = val0 + 4 * src[(base + e) * SP + v];
+      we[c][e] = wts[(base + e) * SP + v];
+    }
+#pragma unroll
+    for (int e = 0; e < EXIT_SLOTS; ++e) {
+      ax[c][e] = h0 + c * ROW + 4 * src[(base + ENTRY_SLOTS + e) * SP + v];
+      wx[c][e] = wts[(base + ENTRY_SLOTS + e) * SP + v];
+    }
+  }
   const float mu_v = mu[v], sig_v = sigma[v], luni_v = luni[v], lsig_v = lsig[v];
   const float start_v = start[v];
   const bool uni_v = uni[v] != 0;
-  const int ta = min(tact[b], T);  // lengths past T would read past the row
-  const float* x_row = obs + (size_t)b * T;
-  float st = 0.0f, fin_v = 0.0f, acc = 0.0f;
+
+  // obs chunk 0 now, chunk 1 in flight
+  if (v < OBS_CHUNK) {
+    if (v < ta) obs_sh[0][v] = x_row[v];
+    if (OBS_CHUNK + v < ta) cp_async4(&obs_sh[1][v], x_row + OBS_CHUNK + v);
+    cp_async_commit();
+  }
+  float fin_v = 0.0f, acc = 0.0f, m = 0.0f;
+  float* sc_v = sc + (size_t)b * SP + v;  // row t at sc_v + t * B * SP
+  const size_t sc_step = (size_t)B * SP;
   __syncthreads();
 
-  for (int t = 0; t < ta; ++t) {
-    const float x = x_row[t];
-    const float z = (x - mu_v) / sig_v;
-    const float emit = uni_v ? luni_v : (lsig_v - (0.5f * z) * z);
+  // one step; parity P picks the row buffers at compile time
+  auto step = [&](auto parity, int t) {
+    constexpr int P = decltype(parity)::value;
+    const int jc = t % OBS_CHUNK;
+    if (P == 0 && jc == 0) {  // a chunk starts on an even step
+      const int chunk = t / OBS_CHUNK;
+      if (chunk > 0 && v < OBS_CHUNK) {
+        // the buffer of chunk+1 last held chunk-1, read before the last barrier
+        const int tn = (chunk + 1) * OBS_CHUNK + v;
+        if (tn < ta) cp_async4(&obs_sh[(chunk + 1) & 1][v], x_row + tn);
+        cp_async_commit();
+      }
+      const float* x_chunk = obs_sh[chunk & 1];
+#pragma unroll 8
+      for (int j = 0; j < OBS_CHUNK; ++j) {
+        const float x = t + j < ta ? x_chunk[j] : mu_v;
+        const float z = (x - mu_v) / sig_v;
+        emit_sh[j * SP + v] = uni_v ? luni_v : (lsig_v - (0.5f * z) * z);
+      }
+    }
+    const float emit = emit_sh[jc * SP + v];
     float val;
-    if (t == 0) {
+    if (P == 0 && t == 0) {
       val = start_v + emit;
     } else {
-      st_sh[v] = st;
-      __syncthreads();
+      constexpr int PREV = (P ^ 1) * ROW;  // the previous row: st = val - m
       float out = NEGF;
-      int pc = 0, wi = 0;
-      const int n_diag = prog[pc++];
-      for (int d = 0; d < n_diag; ++d) {
-        const int u = wrap(v, prog[pc++], SP);
-        out = fmaxf(out, st_sh[u] + w_sh[wi * SP + u]);
-        ++wi;
-      }
-      const int n_chain = prog[pc++];
-      for (int c = 0; c < n_chain; ++c) {
-        float inj = NEGF;
-        const int n_entry = prog[pc++];
-        for (int e = 0; e < n_entry; ++e) {
-          const int u = wrap(v, prog[pc++], SP);
-          inj = fmaxf(inj, st_sh[u] + w_sh[wi * SP + u]);
-          ++wi;
+#pragma unroll
+      for (int d = 0; d < DIAG_SLOTS; ++d) out = fmaxf(out, (lds<PREV>(ad[d]) - m) + wd[d]);
+      if (n_chain > 0) {
+        float xs[MAX_CHAIN];
+#pragma unroll
+        for (int c = 0; c < MAX_CHAIN; ++c) {
+          float inj = NEGF;
+#pragma unroll
+          for (int e = 0; e < ENTRY_SLOTS; ++e) inj = fmaxf(inj, (lds<PREV>(ae[c][e]) - m) + we[c][e]);
+          xs[c] = inj - rp[c];
         }
-        const float ramp = w_sh[wi * SP + v];
-        ++wi;
-        const float h = block_prefix_max(inj - ramp, warp_tot) + ramp;
-        h_sh[v] = h;
+        // inclusive scans; a lane below d gets its own value back
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+          for (int c = 0; c < MAX_CHAIN; ++c)
+            xs[c] = fmaxf(xs[c], __shfl_up_sync(FULL, xs[c], d));
+        if (lane == 31) {
+#pragma unroll
+          for (int c = 0; c < MAX_CHAIN; ++c) wtot[c][warp] = xs[c];
+        }
         __syncthreads();
-        const int n_exit = prog[pc++];
-        for (int e = 0; e < n_exit; ++e) {
-          const int u = wrap(v, prog[pc++], SP);
-          out = fmaxf(out, h_sh[u] + w_sh[wi * SP + u]);
-          ++wi;
+#pragma unroll
+        for (int c = 0; c < MAX_CHAIN; ++c) {
+          // the totals of the warps below this one: NV broadcast float4 reads
+          const float4* tot4 = reinterpret_cast<const float4*>(wtot[c]);
+          float below = -INFINITY;
+#pragma unroll
+          for (int k = 0; k < NV; ++k) {
+            const float4 q = tot4[k];
+            below = fmaxf(below, fmaxf(fmaxf(4 * k < warp ? q.x : -INFINITY,
+                                             4 * k + 1 < warp ? q.y : -INFINITY),
+                                       fmaxf(4 * k + 2 < warp ? q.z : -INFINITY,
+                                             4 * k + 3 < warp ? q.w : -INFINITY)));
+          }
+          h_sh[c * SP + v] = fmaxf(xs[c], below) + rp[c];
         }
-        __syncthreads();  // h_sh and warp_tot are reused by the next chain
+        __syncthreads();
+#pragma unroll
+        for (int c = 0; c < MAX_CHAIN; ++c)
+#pragma unroll
+          for (int e = 0; e < EXIT_SLOTS; ++e) out = fmaxf(out, lds<0>(ax[c][e]) + wx[c][e]);
       }
       val = out + emit;
     }
-    const float m = block_max(val, warp_red);
+    val_sh[P * SP + v] = val;
+    if (P == 1 && jc == OBS_CHUNK - 1 && v < OBS_CHUNK) cp_async_wait_all();  // chunk+1 lands
+    __syncthreads();
+    const float4* row4 = reinterpret_cast<const float4*>(val_sh + P * SP) + lane;
+    float lm = -INFINITY;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+      const float4 q = row4[32 * k];
+      lm = fmaxf(lm, fmaxf(fmaxf(q.x, q.y), fmaxf(q.z, q.w)));
+    }
+    m = warp_max(lm);
     const float stn = val - m;
-    st = stn;
     acc = acc + m;
     if (t == ta - 1) fin_v = stn;
-    sc[((size_t)t * B + b) * SP + v] = st;
+    __stcs(sc_v, stn);
+    sc_v += sc_step;
+  };
+  for (int t = 0; t < ta; t += 2) {
+    step(std::integral_constant<int, 0>{}, t);
+    if (t + 1 < ta) step(std::integral_constant<int, 1>{}, t + 1);
   }
+  if (v < OBS_CHUNK) cp_async_wait_all();
   fin[(size_t)b * SP + v] = fin_v;
   if (v == 0) acc_out[b] = acc;
 }
 
-}  // namespace
-
-extern "C" int viterbi_fwd_launch(const void* obs, const void* tact, const void* start,
-                                  const void* mu, const void* sigma, const void* uni,
-                                  const void* luni, const void* lsig, const void* weights,
-                                  const void* spec, void* sc, void* fin, void* acc,
-                                  int B, int T, int SP, int n_w, int spec_len, void* stream) {
-  if (SP % 32 != 0 || SP > 1024 || spec_len > MAX_SPEC) return (int)cudaErrorInvalidValue;
-  const size_t shmem = ((size_t)(n_w + 2) * SP + 2 * MAX_WARPS) * sizeof(float);
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(viterbi_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  viterbi_fwd_kernel<<<B, SP, shmem, (cudaStream_t)stream>>>(
+template <int NV>
+int launch(const void* obs, const void* tact, const void* start, const void* mu,
+           const void* sigma, const void* uni, const void* luni, const void* lsig,
+           const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
+           void* fin, void* acc, int B, int T, cudaStream_t stream) {
+  constexpr int SP = 128 * NV;
+  auto kernel = viterbi_fwd_kernel<NV>;
+  const size_t shmem = (size_t)(2 + MAX_CHAIN + OBS_CHUNK) * SP * sizeof(float);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B, SP, shmem, stream>>>(
       (const float*)obs, (const int*)tact, (const float*)start, (const float*)mu,
       (const float*)sigma, (const int*)uni, (const float*)luni, (const float*)lsig,
-      (const float*)weights, (const int*)spec, (float*)sc, (float*)fin, (float*)acc,
-      B, T, SP, n_w, spec_len);
+      (const int*)src, (const float*)wts, (const float*)ramp, n_chain, (float*)sc, (float*)fin,
+      (float*)acc, B, T);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// src, wts: (DIAG_SLOTS + MAX_CHAIN * CHAIN_SLOTS, SP) per-thread slot
+// tables; ramp (MAX_CHAIN, SP); counts: a host array of n_diag, n_chain
+// and (n_entry, n_exit) per chain.  A spec past the slots is refused
+// (PaddedHMM sends such an HMM to the dense forward).
+extern "C" int viterbi_fwd_launch(const void* obs, const void* tact, const void* start,
+                                  const void* mu, const void* sigma, const void* uni,
+                                  const void* luni, const void* lsig, const void* src,
+                                  const void* wts, const void* ramp, const void* counts,
+                                  void* sc, void* fin, void* acc, int B, int T, int SP,
+                                  void* stream) {
+  const int* h = (const int*)counts;
+  const int n_diag = h[0], n_chain = h[1];
+  bool ok = SP % 128 == 0 && SP <= 1024 && n_diag >= 0 && n_diag <= DIAG_SLOTS &&
+            n_chain >= 0 && n_chain <= MAX_CHAIN;
+  for (int c = 0; c < n_chain && c < MAX_CHAIN; ++c) {
+    const int n_entry = h[2 + 2 * c], n_exit = h[3 + 2 * c];
+    ok = ok && n_entry >= 0 && n_entry <= ENTRY_SLOTS && n_exit >= 0 && n_exit <= EXIT_SLOTS;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t stream_ = (cudaStream_t)stream;
+#define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
+                 acc, B, T, stream_
+  switch (SP / 128) {
+    case 1: return launch<1>(FWD_ARGS);
+    case 2: return launch<2>(FWD_ARGS);
+    case 3: return launch<3>(FWD_ARGS);
+    case 4: return launch<4>(FWD_ARGS);
+    case 5: return launch<5>(FWD_ARGS);
+    case 6: return launch<6>(FWD_ARGS);
+    case 7: return launch<7>(FWD_ARGS);
+    default: return launch<8>(FWD_ARGS);
+  }
+#undef FWD_ARGS
 }

@@ -6,7 +6,10 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     forward over (B, SP) rows with transitions applied as lane-rolled
     diagonals plus delete-chain flows ``cummax(inj - ramp) + ramp``,
     Gaussian/uniform emissions, a per-step row-max rescale and its
-    running sum ``acc``.  Kernel ``csrc/viterbi_fwd.cu``.
+    running sum ``acc``.  Kernel ``csrc/viterbi_fwd.cu``, fed per-thread
+    gather tables (``fwd_gather_tables``: at most ``FWD_MAX_DIAG``
+    diagonals and ``FWD_MAX_CHAIN`` chains of ``FWD_MAX_ENTRY`` entries
+    and ``FWD_MAX_EXIT`` exits, the shape of every flanked-repeat HMM).
   * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
     with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
     for HMMs without a factored form (``hmm/factor.py`` declines) or
@@ -14,7 +17,9 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
   * ``viterbi_backward_batch`` -- ``_bwd_batch_kernel``: the backward
     walk that recomputes each visited backpointer,
     ``bp[t] = min{u : sc[t-1, u] + trans[u, path[t]] == max}``, frozen
-    past each read's length.  Kernel ``csrc/viterbi_bwd.cu``.
+    past each read's length.  Kernel ``csrc/viterbi_bwd.cu``, one warp a
+    read with its score rows prefetched into a shared ring, SP at most
+    ``BWD_MAX_SP``.
 
 Each kernel's plain PyTorch twin (``_fwd_plain``, ``_fwd_dense_plain``,
 ``_bwd_plain``) runs for CPU tensors only.  Layouts are the reference's:
@@ -31,12 +36,14 @@ differs from the rounded float64 value by one ulp on some sigmas; paths
 are exact regardless and scores agree to f32 rounding (tests state the
 tolerance).
 
-``PaddedHMM`` stages the factored form unless the HMM has none or
+``PaddedHMM`` stages the factored form unless the HMM has none, its
+form is wider than the forward kernel's slots (``fwd_spec_fits``), or
 ``STRIQUE_DENSE_VITERBI=1`` at its construction (as the reference's
 does); ``viterbi_batch`` takes the dense forward when it has none.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -49,6 +56,7 @@ NEG = -1e30
 LANE = 128
 CHUNK_T = 512
 GROUP = 64  # reads per forward/backward call
+BWD_MAX_SP = 1024  # the backward kernel's widest row (a lane holds SP/32 states)
 _LOG2PI = float(np.log(2.0 * np.pi))
 
 
@@ -61,27 +69,86 @@ def lsig_row(sigma: np.ndarray) -> np.ndarray:
     return (-0.5 * _LOG2PI - np.log(np.asarray(sigma, np.float64))).astype(np.float32)
 
 
-def _encode_spec(spec, sp: int) -> np.ndarray:
-    """Factored spec -> flat int32 program for the kernel:
-    [n_diag, diag_offs.., n_chain, (n_entry, entry_offs.., n_exit, exit_offs..)*],
-    offsets reduced mod SP."""
+# slot layout of the factored forward kernel (csrc/viterbi_fwd.cu): each
+# thread holds one source lane and weight per slot in registers, and
+# applies every slot at every step; these are the limits of a spec the
+# kernel takes.  Every flanked-repeat HMM factors into 6 or 7 diagonals
+# and 2 chains of 2 entries and 3 and 2 exits.
+FWD_MAX_DIAG = 8
+FWD_MAX_CHAIN = 2
+FWD_MAX_ENTRY = 2
+FWD_MAX_EXIT = 3
+FWD_CHAIN_SLOTS = FWD_MAX_ENTRY + FWD_MAX_EXIT
+FWD_SLOTS = FWD_MAX_DIAG + FWD_MAX_CHAIN * FWD_CHAIN_SLOTS
+BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
+
+
+def fwd_spec_fits(spec) -> bool:
+    """Whether a factored spec fits the forward kernel's slots."""
     diag_offs, chain_spec = spec
-    out = [len(diag_offs), *[o % sp for o in diag_offs], len(chain_spec)]
-    for entry_offs, exit_offs in chain_spec:
-        out += [len(entry_offs), *[o % sp for o in entry_offs]]
-        out += [len(exit_offs), *[o % sp for o in exit_offs]]
-    return np.asarray(out, np.int32)
+    return (len(diag_offs) <= FWD_MAX_DIAG and len(chain_spec) <= FWD_MAX_CHAIN
+            and all(len(a) <= FWD_MAX_ENTRY and len(x) <= FWD_MAX_EXIT for a, x in chain_spec))
+
+
+def fwd_gather_tables(spec, weights, sp: int):
+    """Per-thread gather tables of the factored forward kernel.
+
+    Every roll's source lane ``u = (v - o) mod SP`` and weight ``w[u]``
+    are the same at every step, so the kernel's thread ``v`` loads them
+    once into registers.  Slots: ``FWD_MAX_DIAG`` diagonals, then per
+    chain ``FWD_MAX_ENTRY`` entries and ``FWD_MAX_EXIT`` exits; a slot the
+    spec leaves empty gathers lane v with weight -inf, the identity of
+    the max, so the kernel applies its slots without a branch.  Returns
+    numpy (src (FWD_SLOTS, SP) int32, w (FWD_SLOTS, SP) f32, ramp
+    (FWD_MAX_CHAIN, SP) f32, counts int32 [n_diag, n_chain, (n_entry,
+    n_exit) per chain slot]).  Raises ValueError for a spec past the
+    slots: the kernel takes none.
+    """
+    diag_offs, chain_spec = spec
+    if not fwd_spec_fits(spec):
+        raise ValueError(
+            f"factored spec with {len(diag_offs)} diagonals and chains "
+            f"{[(len(a), len(x)) for a, x in chain_spec]} exceeds the forward kernel's slots "
+            f"({FWD_MAX_DIAG} diagonals, {FWD_MAX_CHAIN} chains of {FWD_MAX_ENTRY} entries "
+            f"and {FWD_MAX_EXIT} exits)")
+    lane = np.arange(sp)
+    src = np.tile(lane.astype(np.int32), (FWD_SLOTS, 1))
+    w = np.full((FWD_SLOTS, sp), -np.inf, np.float32)
+    ramp = np.zeros((FWD_MAX_CHAIN, sp), np.float32)
+    counts = np.zeros(2 + 2 * FWD_MAX_CHAIN, np.int32)
+    counts[:2] = len(diag_offs), len(chain_spec)
+    it = iter(np.asarray(x, np.float32).reshape(sp) for x in weights)
+
+    def put(slot, o):
+        src[slot] = (lane - o) % sp
+        w[slot] = next(it)[src[slot]]
+
+    for d, o in enumerate(diag_offs):
+        put(d, o)
+    for c, (entry_offs, exit_offs) in enumerate(chain_spec):
+        base = FWD_MAX_DIAG + c * FWD_CHAIN_SLOTS
+        for e, o in enumerate(entry_offs):
+            put(base + e, o)
+        ramp[c] = next(it)
+        for e, o in enumerate(exit_offs):
+            put(base + FWD_MAX_ENTRY + e, o)
+        counts[2 + 2 * c : 4 + 2 * c] = len(entry_offs), len(exit_offs)
+    return src, w, ramp, counts
 
 
 class PaddedHMM:
     """Lane-padded tensors of a CompiledHMM (SP a multiple of 128) on one device.
 
+    ``device`` defaults to the card and raises when there is none, as
+    ``RepeatCounter`` does; pass "cpu" for the plain twins.
     ``fspec``/``fweights`` hold the factored form, or None: when the HMM
-    has none, or when ``STRIQUE_DENSE_VITERBI=1`` at construction (read
-    here, as the reference reads it), so decodes take the dense forward.
+    has none, when it is wider than the forward kernel's slots
+    (``fwd_spec_fits``; the factorizer takes up to 28 rolls), or when
+    ``STRIQUE_DENSE_VITERBI=1`` at construction (read here, as the
+    reference reads it), so decodes take the dense forward.
     """
 
-    def __init__(self, chm, device="cpu"):
+    def __init__(self, chm, device="cuda"):
         S = chm.n_states
         sp = _round_up(max(S, LANE), LANE)
         trans = np.full((sp, sp), NEG, np.float32)
@@ -106,7 +173,7 @@ class PaddedHMM:
 
     @classmethod
     def from_arrays(cls, n_states, trans, start, end, mu, sigma, uni, luni,
-                    fspec, fweights, device="cpu"):
+                    fspec, fweights, device="cuda"):
         """Build from already padded host arrays (see convert.py)."""
         ph = cls.__new__(cls)
         ph._init(n_states, trans, start, end, mu, sigma, uni, luni, fspec, fweights, device)
@@ -115,6 +182,9 @@ class PaddedHMM:
     def _init(self, n_states, trans, start, end, mu, sigma, uni, luni, fspec,
               fweights, device):
         dev = torch.device(device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("PaddedHMM(device='cuda') needs a CUDA device; "
+                               "pass device='cpu' for the plain PyTorch path")
         trans = np.asarray(trans, np.float32)
         sp = trans.shape[0]
         if sp % LANE:
@@ -134,13 +204,26 @@ class PaddedHMM:
         self.uni = t(uni, np.int32)
         self.luni = t(luni)
         self.lsig = t(lsig_row(np.asarray(sigma, np.float32).reshape(-1)))
+        if fspec is not None and not fwd_spec_fits(fspec):
+            fspec = None
         self.fspec = fspec
         self.fweights = None
-        self.spec_prog = None
+        self._fwd_tables = None
         if fspec is not None:
             w = np.stack([np.asarray(x, np.float32).reshape(sp) for x in fweights])
             self.fweights = torch.from_numpy(w).to(dev)
-            self.spec_prog = torch.from_numpy(_encode_spec(fspec, sp)).to(dev)
+
+    def fwd_tables(self):
+        """The forward kernel's gather tables on this HMM's device (built
+        at first use)."""
+        if self._fwd_tables is None:
+            src, w, ramp, counts = fwd_gather_tables(self.fspec, self.fweights.cpu().numpy(),
+                                                     self.sp)
+            dev = self.fweights.device
+            self._fwd_tables = (torch.from_numpy(src).to(dev), torch.from_numpy(w).to(dev),
+                                torch.from_numpy(ramp).to(dev),
+                                (ctypes.c_int * len(counts))(*counts.tolist()))
+        return self._fwd_tables
 
 
 def _transition_plain(spec, weights, st):
@@ -194,6 +277,7 @@ def _fwd_cuda(obs, t_actual, ph):
     dev = obs.device
     o = obs.contiguous()
     tact = t_actual.to(torch.int32).contiguous()
+    src, w, ramp, counts = ph.fwd_tables()
     sc = torch.empty((T, B, sp), dtype=torch.float32, device=dev)
     fin = torch.empty((B, sp), dtype=torch.float32, device=dev)
     acc = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -201,9 +285,8 @@ def _fwd_cuda(obs, t_actual, ph):
         "viterbi_fwd_launch", dev,
         o.data_ptr(), tact.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
         ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
-        ph.lsig.data_ptr(), ph.fweights.data_ptr(), ph.spec_prog.data_ptr(),
-        sc.data_ptr(), fin.data_ptr(), acc.data_ptr(),
-        B, T, sp, ph.fweights.shape[0], ph.spec_prog.shape[0])
+        ph.lsig.data_ptr(), src.data_ptr(), w.data_ptr(), ramp.data_ptr(),
+        ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
     _build.LAUNCHES["viterbi_forward_factored"] += 1
     return sc, fin, acc
 
@@ -314,6 +397,8 @@ def _bwd_plain(sc, last, t_actual, transT):
 def _bwd_cuda(sc, last, t_actual, transT):
     T, B, sp = sc.shape
     dev = sc.device
+    if sp > BWD_MAX_SP:
+        raise ValueError(f"the backward kernel takes at most {BWD_MAX_SP} padded states, got {sp}")
     s = sc.contiguous()
     tt = transT.contiguous()
     la = last.to(torch.int32).contiguous()
@@ -330,7 +415,8 @@ def viterbi_backward_batch(sc, last, t_actual, transT):
     """Paths (B, T) int32 from time-major score rows (T, B, SP).
 
     path[t] = last for t >= t_actual - 1; below, each step takes the
-    first state u maximising sc[t-1, u] + trans[u, path[t]].
+    first state u maximising sc[t-1, u] + trans[u, path[t]].  SP at most
+    ``BWD_MAX_SP`` on the card.
     """
     T, B, sp = sc.shape
     if (sc.dtype != torch.float32 or transT.shape != (sp, sp) or last.shape != (B,)

@@ -5,7 +5,9 @@ repeat count without any downloaded data: the model is a full 4096-row
 6-mer table of seeded random levels in the tab format ``PoreModel``
 parses (``kmer<TAB>level_mean<TAB>level_stdv``), and reads are the
 c9orf72 locus (flanks as in bench.py) around a backbone, synthesised by
-``PoreModel.generate_signal`` with per-sample model noise.
+``PoreModel.generate_signal`` with per-sample model noise.  The Viterbi
+kernels' edge inputs (``viterbi_edge_case``) are one table shared by
+the ``gpu`` tests and ``chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -77,3 +79,32 @@ def ultralong_workload(pm, seed: int, n_reads: int = 8, repeats: int = 1200,
     """
     rng = np.random.default_rng(seed + 2)
     return make_reads(pm, n_reads, repeats, rng, "+", flank_bases=flank_bases)
+
+
+# the Viterbi kernels' edge inputs, 8 reads of T VITERBI_EDGE_T: label ->
+# (flank bases on each side of the repeat HMM, read lengths, constant obs).
+# Lengths below the backward's 16-row score ring and around the forward's
+# 32-step obs chunks; constant obs ties every row; flank 100 gives SP 512
+VITERBI_EDGE_T = 1024
+VITERBI_EDGES = {
+    "short": (50, [1, 2, 3, 5, 9, 15, 16, 17], False),
+    "obs chunks": (50, [31, 32, 33, 64, 65, 100, 129, 1000], False),
+    "constant obs": (50, [1024, 700, 65, 33, 2, 1, 500, 1023], True),
+    "SP 512": (100, [1024, 800, 129, 65, 9, 2, 1, 300], False),
+}
+
+
+def viterbi_edge_case(pm, label: str, rng):
+    """(CompiledHMM, obs (8, VITERBI_EDGE_T) f32, lengths (8,) int32) of
+    the edge case ``label``: noisy reads of 20 units between the HMM's
+    flanks, cut to each length and zero-padded (or 100.0 throughout)."""
+    from .hmm.models import build_flanked_repeat
+
+    flank, lens, constant = VITERBI_EDGES[label]
+    chm = build_flanked_repeat(REPEAT, PREFIX[-flank:], SUFFIX[:flank], pm)
+    obs = np.zeros((len(lens), VITERBI_EDGE_T), np.float32)
+    for i, k in enumerate(lens):
+        x = pm.generate_signal(PREFIX[-flank:] + REPEAT * 20 + SUFFIX[:flank], samples=8,
+                               noise=True, rng=rng).astype(np.float32)[:k]
+        obs[i, :k] = 100.0 if constant else x
+    return chm, obs, np.array(lens, np.int32)

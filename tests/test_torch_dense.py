@@ -95,7 +95,7 @@ def test_dense_viterbi_matches_jax_on_declined_graph():
     chm = _declined_graph(HmmGraph)
     jchm = _declined_graph(JaxHmmGraph)
     assert chm.factored is None and jchm.factored is None
-    ph = TVC.PaddedHMM(chm)
+    ph = TVC.PaddedHMM(chm, "cpu")
     jph = JaxPaddedHMM(jchm)
     assert ph.fspec is None and jph.fspec is None
     rng = np.random.default_rng(5)
@@ -128,13 +128,14 @@ def test_dense_viterbi_matches_jax_under_knob(model_file, monkeypatch):
     both packages; convert.py carries fspec = None over; rows, paths and
     logp against the reference; the dense paths equal the factored ones."""
     factored = TVC.PaddedHMM(build_flanked_repeat("GGCCCC", PREFIX, SUFFIX,
-                                                  PoreModel(model_file)))
+                                                  PoreModel(model_file)), "cpu")
     monkeypatch.setenv("STRIQUE_DENSE_VITERBI", "1")
     jpm = JaxPoreModel(model_file)
     jchm = jax_build_flanked_repeat("GGCCCC", PREFIX, SUFFIX, jpm)
     jph = JaxPaddedHMM(jchm)
-    own = TVC.PaddedHMM(build_flanked_repeat("GGCCCC", PREFIX, SUFFIX, PoreModel(model_file)))
-    ph = padded_hmm_from_jax(jph)
+    own = TVC.PaddedHMM(build_flanked_repeat("GGCCCC", PREFIX, SUFFIX, PoreModel(model_file)),
+                        "cpu")
+    ph = padded_hmm_from_jax(jph, "cpu")
     assert jchm.factored is not None and factored.fspec is not None
     assert jph.fspec is None and own.fspec is None and ph.fspec is None and ph.sp == 128
     obs, lens = _batch(jpm, [1, 2, 3, 5, 8, 2, 6, 4], 512, seed=13)

@@ -25,7 +25,8 @@ from strique_tpu_torch.ops import align_cuda as TC
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
-from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads, write_pore_model
+from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, VITERBI_EDGES, make_reads,
+                                        viterbi_edge_case, write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -223,6 +224,32 @@ def test_gpu_factored_viterbi_matches_plain(cuda_device, model_file):
     before = _build.LAUNCHES["viterbi_forward_factored"]
     sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
     assert _build.LAUNCHES["viterbi_forward_factored"] == before + 1
+    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
+    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    last = torch.argmax(fin + ph.end, dim=1)
+    before = _build.LAUNCHES["viterbi_backward_batch"]
+    path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
+    assert _build.LAUNCHES["viterbi_backward_batch"] == before + 1
+    assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(VITERBI_EDGES))
+def test_gpu_viterbi_edges_match_plain(cuda_device, model_file, case):
+    """Both Viterbi kernels against their twins at the edge inputs
+    chip_smoke.py runs too: lengths below the backward's score-row ring
+    and around the forward's obs chunks, constant obs (ties in every
+    row), and SP 512."""
+    pm = PoreModel(model_file)
+    chm, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(60 + len(case)))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == (512 if case == "SP 512" else 256)
+    T = obs.shape[1]
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
     sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
     live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
     assert torch.equal(sc[live], sc_p[live])

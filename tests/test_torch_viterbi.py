@@ -69,7 +69,7 @@ def test_factored_viterbi_matches_jax_interpret(pm, chm):
     jl, jp = viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), jph)
     jl, jp = np.asarray(jl), np.asarray(jp)
     tl, tp = TVC.viterbi_batch(torch.from_numpy(obs), torch.from_numpy(lens),
-                               padded_hmm_from_jax(jph))
+                               padded_hmm_from_jax(jph, "cpu"))
     np.testing.assert_array_equal(tp.numpy(), jp)
     np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-5)
     for i in range(len(lens)):
@@ -80,7 +80,7 @@ def test_factored_viterbi_matches_jax_interpret(pm, chm):
 def test_padded_hmm_matches_reference_staging(chm):
     """PaddedHMM(chm) stages the same arrays as the reference class."""
     jph = JaxPaddedHMM(chm)
-    ph = TVC.PaddedHMM(chm)
+    ph = TVC.PaddedHMM(chm, "cpu")
     assert ph.sp == jph.sp and ph.sp % 128 == 0 and ph.n_states == jph.n_states
     np.testing.assert_array_equal(ph.trans.numpy(), np.asarray(jph.trans))
     np.testing.assert_array_equal(ph.transT.numpy(), np.asarray(jph.transT))
@@ -106,7 +106,7 @@ def test_forward_rows_and_backward_against_reference_kernels(pm, chm):
         jnp.asarray(obs), jnp.asarray(lens), jph.start, jph.mu, jph.sigma, jph.uni,
         jph.luni, jph.fspec, *jph.fweights)
     jsc, jfin, jacc = np.asarray(jsc), np.asarray(jfin), np.asarray(jacc)[:, 0]
-    ph = padded_hmm_from_jax(jph)
+    ph = padded_hmm_from_jax(jph, "cpu")
     sc, fin, acc = TVC.viterbi_forward_factored(torch.from_numpy(obs), torch.from_numpy(lens), ph)
     live = np.arange(obs.shape[1])[:, None] < lens[None, :]
     # rows are rescaled to max 0 each step; an ulp of lsig moves a row
@@ -131,7 +131,7 @@ def test_dense_only_hmm_raises(pm, chm):
     ph = TVC.PaddedHMM.from_arrays(chm.n_states, np.asarray(jph.trans), np.asarray(jph.start),
                                    np.asarray(jph.end), np.asarray(jph.mu),
                                    np.asarray(jph.sigma), np.asarray(jph.uni),
-                                   np.asarray(jph.luni), None, None)
+                                   np.asarray(jph.luni), None, None, device="cpu")
     obs, lens = _batch(pm, [1, 2, 3, 5, 8, 2, 6, 4], 512, seed=5)
     o, n = torch.from_numpy(obs), torch.from_numpy(lens)
     with pytest.raises(ValueError, match="dense"):
