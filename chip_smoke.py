@@ -21,10 +21,16 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    in both directions (at the shared-memory cap at MP 256, and past
    1024 lanes), each call against the table twin; row 1 also runs at the
    ultra-long one-pass shape (8 rows, the bucket's N), TABLE against POW
-   on the decoded f32.  The two-pass kernels run at
-   B=8: N=4096, M=40, ckpt_steps 512 (cold and warm windows) and the
-   bench template at N=24576, ckpt_steps 16384; bottom taps, written
-   checkpoint slots and written pointer words equal.  The Viterbi pair
+   on the decoded f32.  The two-pass kernels (rows 5-6) run on morph-form
+   reads at N=4096, M=42, ckpt_steps 512 (cold and warm windows) and
+   at the bench templates, N=24576, ckpt_steps 16384, each with one
+   template over 8 rows and with both flanks as per-row templates over
+   16 rows (the row stream of phase 4b's two-pass route): their TABLE
+   modes against the table twins, their POW modes on the decoded f32
+   against the same twin runs; bottom taps, written checkpoint slots
+   and written pointer words equal; ms and us per step of each mode.
+   Row 5 also runs at the ultra-long shape (8 and 64 rows, the bucket's
+   N), TABLE against POW.  The Viterbi pair
    also runs at the ultra-long segment length (B=8, T 55296).  The
    column-sweep kernel and its column-layout traceback run at the small
    and bench shapes (64 rows, N 24576, MP 896), the dense Viterbi
@@ -45,15 +51,20 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 4b. The ultra-long route: 8 noisy '+' reads of ~1.1M samples with 1200
    units through the same counter, once with ``STRIQUE_PTR_BUDGET_GB=2``
    (the bucket's ~4.7 GB width-8 plane does not fit: the two-pass
-   kernels run, the one-pass wave kernel must not) and once with 8 (the
-   one-pass route at 8 rows a call, one call per flank, TABLE mode).
+   kernels run in the TABLE mode alone, pass 1 of both flanks in one
+   16-row launch, and the one-pass wave kernel must not) and once with 8
+   (the one-pass route at 8 rows a call, one call per flank, TABLE mode).
    Counts 8/8 exact on both routes, and the two routes' result tuples
    equal.  Print each route's seconds.
 4e. A target whose flanks are 200 bases longer each (MP 2176: more
    lanes than the TABLE mode runs, and more levels than its table
    holds): both wave calls' POW dispatch at that MP against the table
-   twin (16 rows, N 4096), then 72 '+' and 24 '-' reads count exactly
-   through the POW score mode alone (2 + 1 wave calls).
+   twin (16 rows, N 4096), rows 5-6 in the POW mode with both flanks as
+   per-row templates against ``_ckpt_plain`` / ``_window_plain`` (16
+   rows, N 4096), then 72 '+' and 24 '-' reads count exactly
+   through the POW score mode alone (2 + 1 wave calls), and the 72 '+'
+   reads again under ``STRIQUE_PTR_BUDGET_GB=0.1``: the two-pass route
+   in the POW mode, exact, with the one-pass run's tuples.
 4c. One more pass of each path under torch.profiler: wall time, device
    time by kernel and the busy share.
 4d. The knob routes: the '+' and '-' passes of phase 4 once under
@@ -70,8 +81,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
    their bound with the pow counted per cell), then the final
    ``{"ok": true, "device": ...}`` line.  Row 1's TABLE launches come
-   from phase 4b's one-pass route, the POW launches of rows 1-2 from
-   phase 4e.
+   from phase 4b's one-pass route, rows 5-6's TABLE launches from its
+   two-pass route, the POW launches of rows 1-2 and 5-6 from phase 4e.
 """
 from __future__ import annotations
 
@@ -100,11 +111,13 @@ F64_OPS_PER_S = 34e12  # FP64 outside the tensor cores
 # pointer code); col_align.cu's tree counts the same 23 (its prefix max
 # takes the place of the running column max); the f64 |d|^1.2 counts as
 # 2 FP64 operations (a log and an exp, a lower bound of pow's cost).  In
-# the TABLE score mode a cell looks its score up (dp_cell's 19), and the
-# score's sub, abs, sub, max and pow run once per table entry.
+# the TABLE score mode a cell looks its score up (dp_cell's 19, and 13
+# in the score-only pass), and the score's sub, abs, sub, max and pow
+# run once per table entry.
 WAVE_F32_PER_CELL = 23
 CKPT_F32_PER_CELL = 17
 TABLE_F32_PER_CELL = 19
+CKPT_TABLE_F32_PER_CELL = 13
 SCORE_F32 = 4
 POW_F64_PER_CELL = 2
 
@@ -116,6 +129,8 @@ POW_WAVE = ("align_forward_wave", "align_forward_wave_multi")
 KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
                "plain_ms", "bound_ms", "bound_by", "library_ms")
 TABLE_WAVE = ("align_forward_wave_table", "align_forward_wave_multi_table")
+POW_TWO_PASS = ("align_forward_ckpt", "align_window_from_state")
+TABLE_TWO_PASS = ("align_forward_ckpt_table", "align_window_from_state_table")
 KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
@@ -130,6 +145,10 @@ SOURCES = {
                            "strique_tpu/ops/align_pallas.py:788"),
     "align_window_from_state": ("strique_tpu_torch/csrc/wave_align.cu",
                                 "strique_tpu/ops/align_pallas.py:834"),
+    "align_forward_ckpt_table": ("strique_tpu_torch/csrc/wave_align.cu",
+                                 "strique_tpu/ops/align_pallas.py:788"),
+    "align_window_from_state_table": ("strique_tpu_torch/csrc/wave_align.cu",
+                                      "strique_tpu/ops/align_pallas.py:834"),
     "traceback_pointers": ("strique_tpu_torch/csrc/traceback.cu",
                            "strique_tpu/ops/align.py:235"),
     "viterbi_forward_factored": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
@@ -206,16 +225,26 @@ def morph_reads(templates, B, N, rng, n_lo=None):
     noise, quantised to its nearest level.  Lengths n in [n_lo, N]."""
     import numpy as np
 
+    from strique_tpu_torch.synthetic import quantise
+
     lo = rng.uniform(40, 60, B)
     hi = rng.uniform(130, 150, B)
-    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
     sig = rng.uniform(60, 120, (B, N))
     for b, t in enumerate(templates):
         st = int(rng.integers(0, max(1, N // 2 - len(t))))
         sig[b, st : st + len(t)] = t + rng.normal(0, 1.0, len(t))
-    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    bins, lut = quantise(sig, rng, lo, hi)
     na = rng.integers(N // 2 if n_lo is None else n_lo, N + 1, B).astype(np.int32)
-    return bins.astype(np.uint8), lut, na
+    return bins, lut, na
+
+
+def table_entries(levels, rows: int) -> float:
+    """Score-table entries the TABLE mode evaluates: U x 258 a row, U the
+    template's distinct values (the +1e30 pad among them)."""
+    import numpy as np
+
+    u = (levels < np.float32(1e30)).sum(axis=1) + 1
+    return 258.0 * float(u.sum() if levels.shape[0] > 1 else u[0] * rows)
 
 
 def wave_bound(n_d, m_d, levels, nbytes, table: bool):
@@ -224,14 +253,11 @@ def wave_bound(n_d, m_d, levels, nbytes, table: bool):
     the score (4 f32, 2 FP64) once per table entry: U x 258 for every row
     (each read has its own level table), U the row's distinct template
     values, the +1e30 pad among them; the POW count beside it."""
-    import numpy as np
-
     cells = wave_cells(n_d, m_d)
     old = bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)
     if not table:
         return old
-    u = (levels < np.float32(1e30)).sum(axis=1) + 1
-    entries = 258.0 * float(u.sum() if levels.shape[0] > 1 else u[0] * n_d.shape[0])
+    entries = table_entries(levels, n_d.shape[0])
     new = bound(nbytes, TABLE_F32_PER_CELL * cells + SCORE_F32 * entries,
                 POW_F64_PER_CELL * entries)
     return {**new, "bound_ms_pow_per_cell": old["bound_ms"]}
@@ -647,9 +673,9 @@ def check_viterbi_edges(pm, rng) -> None:
         _build.LAUNCHES[k] = before[k]
 
 
-def written_slots(n_act, m: int, nd: int, ckpt_steps: int):
+def written_slots(n_act, m, nd: int, ckpt_steps: int):
     """(n_ck, B) mask of the checkpoint slots a row's pass 1 writes (it
-    stops at round_up(n + m, 8))."""
+    stops at round_up(n + m, 8)); ``m`` an int or the (B,) lengths."""
     import torch
 
     stop = torch.clamp_max((n_act.to(torch.int64) + m + 7) // 8 * 8, nd)
@@ -657,12 +683,26 @@ def written_slots(n_act, m: int, nd: int, ckpt_steps: int):
     return (g + 1) * ckpt_steps <= stop[None, :]
 
 
-def check_longread(template, shape_name, B, N, params, ckpt_steps, cold_rows, rng, results):
-    """Kernel rows 5 and 6 against their twins on one pass-1 state.
+def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rng,
+                   results=None):
+    """Kernel rows 5 and 6 on morph-form reads, in the row layout the
+    two-pass route launches them with: one shared template
+    (``templates`` of one), or ``templates[0]`` on the first half of the
+    rows and ``templates[1]`` on the second, each row with its own
+    levels, level indices and length (the per-row POW template stride),
+    as ``_two_pass_rows`` runs both flanks of a batch.
 
-    Rows < ``cold_rows`` carry the template near the signal's start
-    (their pass-2 window starts cold when the span bound allows it), the
-    others in its second half.
+    Where the templates fit the score table: the TABLE-mode kernels
+    against their table twins (one plain run each), and the POW-mode
+    kernels on the decoded f32 against the same runs.  Past it (the POW
+    mode alone): the POW-mode kernels against their own twins
+    (``_ckpt_plain``, ``_window_plain``).  Bottom taps, written
+    checkpoint slots and written pointer words equal.
+
+    With ``cold_odd`` the odd rows carry their template near the
+    signal's start (their pass-2 window starts cold when the span bound
+    allows it), the others in its second half.  ``results``: where
+    given, the times and bounds enter the kernel line.
     """
     import numpy as np
     import torch
@@ -670,64 +710,196 @@ def check_longread(template, shape_name, B, N, params, ckpt_steps, cold_rows, rn
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align as AL
     from strique_tpu_torch.ops import align_cuda as AC
+    from strique_tpu_torch.synthetic import quantise
 
     dev = torch.device("cuda")
-    m = len(template)
+    if len(templates) > 1:
+        rows, ms_t = AC.pad_template_rows(list(templates))
+        split = [B // 2, B - B // 2]
+        tmpl_np, ms = np.repeat(rows, split, axis=0), np.repeat(ms_t, split)
+        row_t = [templates[0]] * split[0] + [templates[1]] * split[1]
+    else:
+        tmpl_np, m1 = AC.pad_template(templates[0])
+        ms, row_t = np.array([m1]), [templates[0]] * B
+    table = AL._fits_table(tmpl_np)
     sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
-    for b in range(B):
-        lo, hi = (0, min(600, N - m)) if b < cold_rows else (N // 2, N - m)
+    for b, t in enumerate(row_t):
+        m = len(t)
+        lo, hi = (0, min(600, N - m)) if cold_odd and b % 2 else (min(N // 2, N - m), N - m)
         st = int(rng.integers(lo, max(lo + 1, hi)))
-        sig[b, st : st + m] = template + rng.normal(0, 1.0, m).astype(np.float32)
+        sig[b, st : st + m] = t + rng.normal(0, 1.0, m).astype(np.float32)
+    bins, lut = quantise(sig, rng)
+    b_d, l_d = torch.from_numpy(bins).to(dev), torch.from_numpy(lut).to(dev)
     n_d = torch.from_numpy(rng.integers(N - N // 8, N + 1, B).astype(np.int32)).to(dev)
-    st = AL._longread_pass1(torch.from_numpy(sig).to(dev), n_d, template, params, ckpt_steps)
-    cks, mp, nd = st["ckpt_steps"], st["mp"], st["N"] + st["mp"]
-    m_rows = torch.full((B,), st["m"], dtype=torch.int32, device=dev)
-    run_k = lambda: AC.align_forward_ckpt(st["sig"], n_d, st["tmpl"], params, st["m"],
-                                          cks // AC.CHUNK)
-    (bot_k, ck_k), _ = once_ms(run_k)
-    (bot_p, ck_p), plain_ms = once_ms(
-        lambda: AC._ckpt_plain(st["sig"], st["tmpl"], n_d, m_rows, params, cks))
-    slots = written_slots(n_d, st["m"], nd, cks)
-    bot_err = float((bot_k.double() - bot_p.double()).abs().max())
-    ck_eq = all(torch.equal(a[slots], b[slots]) for a, b in zip(ck_k, ck_p))
-    ms = cuda_ms(run_k, 3)
-    _build.LAUNCHES["align_forward_ckpt"] = 0
-    print(f"  align_forward_ckpt [{shape_name} B={B} N={st['N']} MP={mp} ckpt_steps={cks}]: "
-          f"{int(slots.sum())} written slots {'equal' if ck_eq else 'DIFFER'}, bottom "
-          f"max_abs_err {bot_err}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
-    if not (ck_eq and bot_err == 0.0):
-        fail(f"align_forward_ckpt disagrees with its plain twin at the {shape_name} shape")
+    entry = dict(_build.LAUNCHES)
+    st_k = AL._pass1_rows(AC.morph_decode(b_d, l_d), n_d, tmpl_np, ms, params, ckpt_steps)
+    st = AL._pass1_rows(b_d, n_d, tmpl_np, ms, params, ckpt_steps, lut=l_d) if table else st_k
+    if (_build.LAUNCHES["align_forward_ckpt_table"] != entry["align_forward_ckpt_table"] + table
+            or _build.LAUNCHES["align_forward_ckpt"] != entry["align_forward_ckpt"] + 1):
+        fail("pass 1 on morph input did not launch the TABLE mode, or on f32 the POW mode")
+    cks, mp, nd, m_rows = st_k["ckpt_steps"], st_k["mp"], st_k["N"] + st_k["mp"], st_k["m_rows"]
+    m_arg = m_rows if len(templates) > 1 else int(ms[0])
+    chunks = cks // AC.CHUNK
+    runs = {"pow": lambda: AC.align_forward_ckpt(st_k["sig"], n_d, st_k["tmpl"], params, m_arg,
+                                                 chunks)}
+    if table:
+        runs["table"] = lambda: AC.align_forward_ckpt_morph(b_d, l_d, n_d, st["levels"],
+                                                            st["lidx"], params, m_arg, chunks, nd)
+        levels, lidx = st["levels"].cpu().numpy(), st["lidx"].cpu().numpy()
+        (bot_p, ck_p), plain_ms = once_ms(lambda: AC._ckpt_table_plain(
+            b_d, l_d, st["levels"], st["lidx"], n_d, m_rows, params, cks, nd))
+    else:
+        levels, lidx = AC.template_levels(tmpl_np)
+        (bot_p, ck_p), plain_ms = once_ms(lambda: AC._ckpt_plain(
+            st_k["sig"], st_k["tmpl"], n_d, m_rows, params, cks))
+    slots = written_slots(n_d, m_rows, nd, cks)
+    errs = {mode: (all(torch.equal(a[slots], c[slots]) for a, c in zip(s_["ckpts"], ck_p)),
+                   float((s_["bottom_steps"].double() - bot_p.double()).abs().max()))
+            for mode, s_ in (("table", st), ("pow", st_k))[not table:]}
+    if table:
+        errs["table-pow"] = (all(torch.equal(a[slots], c[slots])
+                                 for a, c in zip(st["ckpts"], st_k["ckpts"])),
+                             float((st["bottom_steps"].double()
+                                    - st_k["bottom_steps"].double()).abs().max()))
+    ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
+    twin = "table twin" if table else "_ckpt_plain"
+    print(f"  align_forward_ckpt [{shape_name} B={B} N={N} (ND {nd}) MP={mp} U={levels.shape[1]} "
+          f"ckpt_steps={cks}, {'per-row' if len(templates) > 1 else 'one'} template]: "
+          f"{int(slots.sum())} written slots; vs {twin}: "
+          + "; ".join(f"{mode}: slots {'equal' if eq else 'DIFFER'}, bottom max_abs_err {err}"
+                      for mode, (eq, err) in errs.items())
+          + "".join(f"; {mode.upper()} {t:.3f} ms ({t * 1e3 / nd:.4f} us/step)"
+                    for mode, t in ms_.items())
+          + f", plain {plain_ms:.1f} ms", flush=True)
+    if not all(eq and err == 0.0 for eq, err in errs.values()):
+        fail(f"align_forward_ckpt: the kernels and the plain twin disagree at the {shape_name} "
+             f"shape")
     cells = wave_cells(n_d, m_rows)
-    nbytes = 4 * (st["sig"].numel() + mp + 2 * B + bot_k.numel() + 4 * int(slots.sum()) * mp)
-    results["align_forward_ckpt"] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
-                                     **bound(nbytes, CKPT_F32_PER_CELL * cells,
-                                             POW_F64_PER_CELL * cells)}
+    ck_bytes = 4 * (bot_p.numel() + 4 * int(slots.sum()) * mp) + 8 * B
+    entries = table_entries(levels, B)
+    ckpt_res = {"pow": {"max_abs_err": errs["pow"][1], "ms": ms_["pow"], "plain_ms": plain_ms,
+                        "us_per_step": ms_["pow"] * 1e3 / nd,
+                        **bound(4 * (st_k["sig"].numel() + st_k["tmpl"].numel()) + ck_bytes,
+                                CKPT_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}}
+    if table:
+        ckpt_res["table"] = {
+            "max_abs_err": errs["table"][1], "ms": ms_["table"], "plain_ms": plain_ms,
+            "us_per_step": ms_["table"] * 1e3 / nd,
+            **bound(bins.size + 1024 * B + 4 * (levels.size + lidx.size) + ck_bytes,
+                    CKPT_TABLE_F32_PER_CELL * cells + SCORE_F32 * entries,
+                    POW_F64_PER_CELL * entries)}
+    del ck_p, bot_p
 
-    w = AL.window_inputs(st)
-    n_cold = int(w["cold"].sum())
-    args = (w["sig_win"], w["r_init"], w["state4"], w["cold"], w["steps_needed"], st["tmpl"],
-            params)
-    run_k = lambda: AC.align_window_from_state(*args, st["m"])
-    ptr_k, _ = once_ms(run_k)
-    ptr_p, plain_ms = once_ms(lambda: AC._window_plain(*args))
-    words = valid_ptr_mask(w["steps_needed"], torch.zeros_like(n_d), ptr_k.shape[0])
-    ptr_eq = bool(torch.equal(ptr_k[words], ptr_p[words]))
-    ms = cuda_ms(run_k, 3)
-    _build.LAUNCHES["align_window_from_state"] = 0
-    print(f"  align_window_from_state [{shape_name} B={B} W={w['sig_win'].shape[1]} MP={mp}, "
-          f"{n_cold} cold / {B - n_cold} warm rows]: pointers "
-          f"{'equal' if ptr_eq else 'DIFFER'}; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms",
-          flush=True)
-    if not ptr_eq:
-        fail(f"align_window_from_state disagrees with its plain twin at the {shape_name} shape")
-    if 0 < cold_rows < B and not 0 < n_cold < B:
+    w_k = AL.window_inputs(st_k)
+    w = AL.window_inputs(st) if table else w_k
+    W, m_max = st_k["W"], st_k["m"]
+    n_cold = int(w_k["cold"].sum())
+    args = (w["t0"], w["state4"], w["cold"], w["steps_needed"], st["levels"], st["lidx"],
+            params) if table else None
+    pow_args = (w_k["sig_win"], w_k["r_init"], w_k["state4"], w_k["cold"], w_k["steps_needed"],
+                st_k["tmpl"], params)
+    runs = {"pow": lambda: AC.align_window_from_state(*pow_args, m_max)}
+    if table:
+        runs["table"] = lambda: AC.align_window_from_state_morph(b_d, l_d, *args, m_max, W)
+    before = dict(_build.LAUNCHES)
+    ptrs = {mode: run() for mode, run in runs.items()}
+    if (_build.LAUNCHES["align_window_from_state"] != before["align_window_from_state"] + 1
+            or _build.LAUNCHES["align_window_from_state_table"]
+            != before["align_window_from_state_table"] + table):
+        fail("the window calls did not launch one POW (and where the table fits one TABLE) "
+             "window kernel")
+    if table:
+        ptr_p, plain_ms = once_ms(lambda: AC._window_table_plain(b_d, l_d, *args, W))
+    else:
+        ptr_p, plain_ms = once_ms(lambda: AC._window_plain(*pow_args))
+    words = valid_ptr_mask(w_k["steps_needed"], torch.zeros_like(n_d), ptr_p.shape[0])
+    eq = {mode: bool(torch.equal(ptr[words], ptr_p[words])) for mode, ptr in ptrs.items()}
+    del ptrs, ptr_p
+    ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
+    steps = _round_up8(int(w_k["steps_needed"].max()))
+    for k in TABLE_TWO_PASS + POW_TWO_PASS:
+        _build.LAUNCHES[k] = entry[k]
+    twin = "_window_table_plain" if table else "_window_plain"
+    print(f"  align_window_from_state [{shape_name} B={B} W={W} MP={mp}, {n_cold} cold / "
+          f"{B - n_cold} warm rows, {steps} steps run]: vs {twin}: "
+          + "; ".join(f"{mode.upper()} pointers {'equal' if e else 'DIFFER'}"
+                      for mode, e in eq.items())
+          + "".join(f"; {mode.upper()} {t:.3f} ms ({t * 1e3 / steps:.4f} us/step)"
+                    for mode, t in ms_.items())
+          + f", plain {plain_ms:.1f} ms", flush=True)
+    if not all(eq.values()):
+        fail(f"align_window_from_state: the kernels and the plain twin disagree at the "
+             f"{shape_name} shape")
+    if cold_odd and not 0 < n_cold < B:
         fail(f"the {shape_name} shape was meant to cover cold and warm windows, got {n_cold} cold")
-    cells = wave_cells(w["steps_needed"], m_rows)
-    nbytes = (4 * (w["sig_win"].numel() + 5 * B * mp + mp + 2 * B)
-              + 4 * int(words.sum()) * mp)
+    if results is None:
+        return
+    cells = wave_cells(w_k["steps_needed"], m_rows)
+    # pointer words written, the restart state read, t0 / steps / cold
+    win_bytes = 4 * int(words.sum()) * mp + 16 * B * mp + 12 * B
+    samples = float(torch.clamp_max(w_k["steps_needed"].double() + mp, N).sum())
+    sig_bytes = 4 * (w_k["sig_win"].numel() + w_k["r_init"].numel() + st_k["tmpl"].numel())
+    results["align_forward_ckpt"] = ckpt_res["pow"]
     results["align_window_from_state"] = {
-        "max_abs_err": 0.0 if ptr_eq else float("inf"), "ms": ms, "plain_ms": plain_ms,
-        **bound(nbytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
+        "max_abs_err": 0.0 if eq["pow"] else float("inf"), "ms": ms_["pow"],
+        "plain_ms": plain_ms, "us_per_step": ms_["pow"] * 1e3 / steps,
+        **bound(sig_bytes + win_bytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
+    if table:
+        results["align_forward_ckpt_table"] = ckpt_res["table"]
+        results["align_window_from_state_table"] = {
+            "max_abs_err": 0.0 if eq["table"] else float("inf"), "ms": ms_["table"],
+            "plain_ms": plain_ms, "us_per_step": ms_["table"] * 1e3 / steps,
+            **bound(samples + 1024 * B + 4 * (levels.size + lidx.size) + win_bytes,
+                    TABLE_F32_PER_CELL * cells + SCORE_F32 * entries, POW_F64_PER_CELL * entries)}
+
+
+def _round_up8(x: int) -> int:
+    return (x + 7) // 8 * 8
+
+
+def check_ckpt_ultra(template, N, params, rng, results) -> None:
+    """Row 5 at the ultra-long shape (N of the bucket, ckpt_steps 16384),
+    8 and 64 rows: the TABLE-mode kernel against the POW-mode kernel on
+    the decoded f32 (zero-padded to ND - MP), bottom taps and written
+    checkpoint slots bit-equal.  (The twin would take minutes here; both
+    modes are held to it at the small and bench shapes.)"""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    out = {}
+    for B in (8, 64):
+        (levels, _, tmpl, _, _), dev_in = wave_inputs((template,), False, B, N, rng,
+                                                      n_lo=N - N // 8)
+        b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+        m, mp = int(m_d[0]), tmpl.shape[1]
+        chunks, cks, nd = AL._ckpt_geometry(N, mp, AL.CKPT_STEPS)
+        before = dict(_build.LAUNCHES)
+        (bot_t, ck_t), ms_t = once_ms(lambda: AC.align_forward_ckpt_morph(
+            b_d, l_d, n_d, lv_d, li_d, params, m, chunks, nd))
+        s_d = torch.nn.functional.pad(AC.morph_decode(b_d, l_d), (0, nd - mp - N))
+        (bot_k, ck_k), ms_k = once_ms(lambda: AC.align_forward_ckpt(s_d, n_d, t_d, params, m,
+                                                                      chunks))
+        if any(_build.LAUNCHES[k] != before[k] + 1 for k in ("align_forward_ckpt",
+                                                             "align_forward_ckpt_table")):
+            fail("the ultra-long pass-1 calls did not launch one TABLE and one POW kernel")
+        for k in POW_TWO_PASS + TABLE_TWO_PASS:
+            _build.LAUNCHES[k] = before[k]
+        slots = written_slots(n_d, m, nd, cks)
+        eq = all(torch.equal(a[slots], c[slots]) for a, c in zip(ck_t, ck_k))
+        err = float((bot_t.double() - bot_k.double()).abs().max())
+        del bot_t, ck_t, bot_k, ck_k, s_d
+        torch.cuda.empty_cache()
+        print(f"  align_forward_ckpt [ultra B={B} N={N} (ND {nd}) MP={mp} U={levels.shape[1]}]: "
+              f"TABLE vs POW: {int(slots.sum())} written slots {'equal' if eq else 'DIFFER'}, "
+              f"bottom max_abs_err {err}; TABLE {ms_t:.3f} ms ({ms_t * 1e3 / nd:.4f} us/step), "
+              f"POW {ms_k:.3f} ms ({ms_k * 1e3 / nd:.4f} us/step), one call each", flush=True)
+        if not (eq and err == 0.0):
+            fail("align_forward_ckpt: the TABLE and POW modes disagree at the ultra-long shape")
+        out.update({f"ultra_ms_{B}": ms_t, f"ultra_pow_ms_{B}": ms_k})
+    results["align_forward_ckpt_table"].update(out)
 
 
 def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
@@ -735,7 +907,10 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
     (MP 2176, ~300 distinct template levels: POW mode on both counts)
     counts 72 '+' reads in one batch (144 rows: each flank its own
     72-row call, row 1) and 24 '-' reads (one fused 48-row call, row 2),
-    all in the POW score mode.  Returns the wave launches."""
+    all in the POW score mode; then the 72 '+' reads again past a pointer
+    budget that sends them down the two-pass route (rows 5-6, POW mode,
+    both flanks a row stream), with the one-pass run's result tuples.
+    Returns the POW launches of rows 1-2 and 5-6."""
     import numpy as np
     import torch
 
@@ -756,6 +931,10 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
     for multi in (False, True):
         hold_morph((tc.prefix_ext, tc.suffix_ext), multi, 16, 4096, c.align_params, rng, "pow",
                    "over the cap")
+    # rows 5-6 in the POW mode at this MP, both flanks as per-row templates
+    # (the two-pass run below launches them so), held to their own twins
+    check_longread((tc.prefix_ext, tc.suffix_ext), "over the cap", 16, 4096, c.align_params, 512,
+                   False, rng)
     plus = make_reads(pm, 72, REPEATS, rng, "+", prefix=prefix, suffix=suffix)
     minus = make_reads(pm, 24, REPEATS, rng, "-", prefix=prefix, suffix=suffix)
     try:
@@ -766,20 +945,43 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
         res = c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+        lc = dict(_build.LAUNCHES)
+        # the '+' batch again past a 0.1 GiB budget (its width-8 plane is
+        # ~0.23 GB): the two-pass route, POW mode (MP 2176)
+        os.environ["STRIQUE_PTR_BUDGET_GB"] = "0.1"
+        _build.reset_launches()
+        t1 = time.perf_counter()
+        res_two = c.detect_many("long", plus, "+")
+        torch.cuda.synchronize()
+        dt_two = time.perf_counter() - t1
+        lc_two = dict(_build.LAUNCHES)
     except Exception as e:  # noqa: BLE001
         fail(f"the over-the-cap target raised {type(e).__name__}: {e}")
-    lc = {k: _build.LAUNCHES[k] for k in POW_WAVE + TABLE_WAVE}
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
     ok = sum(int(r[0] == REPEATS) for r in res)
     mode = AC.wave_score_mode(levels.shape[1], mp)
+    wave = {k: lc[k] for k in POW_WAVE + TABLE_WAVE}
     print(f"over the cap: prefix_ext {len(tc.prefix_ext)} samples, {levels.shape[1]} levels at "
           f"MP {mp} (mode {mode}); {ok}/{len(res)} exact in {dt:.3f} s; card: {card}; wave "
-          f"launches {json.dumps(lc)}", flush=True)
+          f"launches {json.dumps(wave)}", flush=True)
     if ok != len(res) or not all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in res):
         fail("inexact or non-finite results for the over-the-cap target")
-    if lc["align_forward_wave"] != 2 or lc["align_forward_wave_multi"] != 1 or any(
-            lc[k] for k in TABLE_WAVE):
+    if wave["align_forward_wave"] != 2 or wave["align_forward_wave_multi"] != 1 or any(
+            wave[k] for k in TABLE_WAVE):
         fail("the over-the-cap target did not run 2 + 1 POW-mode wave calls alone")
-    return {k: lc[k] for k in POW_WAVE}
+    two = {k: lc_two[k] for k in POW_TWO_PASS + TABLE_TWO_PASS + POW_WAVE + TABLE_WAVE}
+    ok_two = sum(int(r[0] == REPEATS) for r in res_two)
+    print(f"over the cap, two-pass (STRIQUE_PTR_BUDGET_GB=0.1): {ok_two}/{len(res_two)} exact in "
+          f"{dt_two:.3f} s; card: {card}; launches {json.dumps(two)}", flush=True)
+    if ok_two != len(res_two) or [tuple(r) for r in res_two] != [tuple(r) for r in res[:72]]:
+        fail("the over-the-cap two-pass run is inexact or its tuples differ from the one-pass "
+             "run's")
+    if (min(two[k] for k in POW_TWO_PASS) <= 0
+            or any(two[k] for k in TABLE_TWO_PASS + POW_WAVE + TABLE_WAVE)):
+        fail("the over-the-cap two-pass run did not go through the POW checkpoint and window "
+             "kernels alone")
+    return {**{k: wave[k] for k in POW_WAVE}, **{k: two[k] for k in POW_TWO_PASS}}
 
 
 def profile_pass(label: str, fn, card: str) -> None:
@@ -912,14 +1114,20 @@ def main() -> int:
         check_viterbi(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
         check_dense(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
         check_viterbi_edges(pm, rng)
-        check_longread(small[0], "small", 8, 4096, params, 512, 4, rng, results)
-        # the bench template's span bound (29,581 steps) exceeds ND: all windows cold
-        check_longread(tc.prefix_ext, "bench", 8, 24576, params, 16384, 0, rng, results)
+        check_longread(small[:1], "small", 8, 4096, params, 512, True, rng)
+        check_longread(small, "small", 16, 4096, params, 512, True, rng)
+        # the bench template's span bound (29,581 steps) exceeds ND: all
+        # windows cold.  16 rows of per-row templates: the row stream of
+        # phase 4b's two-pass route (both flanks of 8 reads)
+        check_longread(bench_t[:1], "bench", 8, 24576, params, 16384, False, rng)
+        check_longread(bench_t, "bench", 16, 24576, params, 16384, False, rng, results)
         torch.cuda.empty_cache()
-        # row 1 at the shape phase 4b's one-pass route launches it
-        check_wave_ultra(tc.prefix_ext, 8, signal_bucket(max(len(r) for r in ultra)), params,
-                         rng, results)
+        # row 1 at the shape phase 4b's one-pass route launches it, row 5 at
+        # its two-pass route's
+        ultra_n = signal_bucket(max(len(r) for r in ultra))
+        check_wave_ultra(tc.prefix_ext, 8, ultra_n, params, rng, results)
         torch.cuda.empty_cache()
+        check_ckpt_ultra(tc.prefix_ext, ultra_n, params, rng, results)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001
@@ -1003,10 +1211,13 @@ def main() -> int:
             fail(f"non-finite scores or log_p on the {route} route")
     two_launches = runs["two-pass"][2]
     one_launches = runs["one-pass"][2]
-    if (two_launches["align_forward_ckpt"] <= 0 or two_launches["align_window_from_state"] <= 0
-            or any(two_launches[k] for k in POW_WAVE + TABLE_WAVE)):
-        fail("the two-pass run did not go through the checkpoint and window kernels alone")
-    if one_launches["align_forward_ckpt"]:
+    # two-pass: both flanks of the 8 reads in one 16-row group, TABLE mode
+    if (two_launches["align_forward_ckpt_table"] != 1
+            or two_launches["align_window_from_state_table"] <= 0
+            or any(two_launches[k] for k in POW_TWO_PASS + POW_WAVE + TABLE_WAVE)):
+        fail("the two-pass run did not go through one TABLE pass-1 launch for both flanks and "
+             "the TABLE window kernel alone")
+    if any(one_launches[k] for k in POW_TWO_PASS + TABLE_TWO_PASS):
         fail("the one-pass run took the two-pass route")
     # one-pass: 2 x 8 rows exceed the budget as one call, so each flank
     # runs its own 8-row call against one template (row 1, TABLE mode)
@@ -1015,7 +1226,7 @@ def main() -> int:
     if [tuple(r) for r in runs["two-pass"][0]] != [tuple(r) for r in runs["one-pass"][0]]:
         fail("two-pass result tuples differ from the one-pass route's")
     print("ultra-long two-pass result tuples equal the one-pass route's", flush=True)
-    for name in ("align_forward_ckpt", "align_window_from_state"):
+    for name in TABLE_TWO_PASS:
         launches[name] = two_launches[name]
     launches["align_forward_wave_table"] = one_launches["align_forward_wave_table"]
 

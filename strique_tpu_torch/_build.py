@@ -40,6 +40,8 @@ LAUNCHES = {
     "align_forward_wave_multi_table": 0,
     "align_forward_ckpt": 0,
     "align_window_from_state": 0,
+    "align_forward_ckpt_table": 0,  # rows 5-6, TABLE score mode
+    "align_window_from_state_table": 0,
     "align_forward_col": 0,
     "traceback_pointers": 0,
     "traceback_pointers_col": 0,  # the same wrapper, column layout
@@ -65,11 +67,20 @@ _SIGNATURES = {
     # per_row, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_table_launch": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P],
     # sig, tmpl, nact, mrow, bottom, ck_s1, ck_s2, ck_ih, ck_c; B, N, MP,
-    # ckpt_steps, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
-    "wave_ckpt_launch": [_P] * 9 + [_I] * 5 + [_F] * 7 + [_P],
+    # tmpl_stride, ckpt_steps, neg_h; go_h, go_v, ge_h, ge_v, off, dmin,
+    # g; stream
+    "wave_ckpt_launch": [_P] * 9 + [_I] * 6 + [_F] * 7 + [_P],
+    # bins, lut, levels, lidx, nact, mrow, bottom, ck_s1, ck_s2, ck_ih,
+    # ck_c; B, NB, ND, MP, UP, per_row, ckpt_steps, neg_h; go_h, go_v,
+    # ge_h, ge_v, off, dmin, g; stream
+    "wave_ckpt_table_launch": [_P] * 11 + [_I] * 8 + [_F] * 7 + [_P],
     # sig_win, r_init, tmpl, steps, s1, s2, ih, c, cold, ptr; B, W, MP,
-    # neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
-    "wave_window_launch": [_P] * 10 + [_I] * 4 + [_F] * 7 + [_P],
+    # tmpl_stride, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "wave_window_launch": [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
+    # bins, lut, levels, lidx, t0, steps, s1, s2, ih, c, cold, ptr; B, NB,
+    # W, MP, UP, per_row, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g;
+    # stream
+    "wave_window_table_launch": [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P],
     # sig, tmpl, nact, ptr, bottom; B, N, MP, m, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "col_align_launch": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],

@@ -18,16 +18,21 @@
 // and two compile-time score modes:
 //   POW     every cell evaluates |d|^1.2 of its f32 signal sample and
 //           template value in double precision (all three modes).
-//   TABLE   morph-form input (PTR only, MP <= 1024): u8 bins (B, N) and a
-//           256-entry f32 level table per read, the template as its U
-//           distinct values plus each lane's index into them.  A row meets
-//           at most U x 258 distinct (template value, signal value) pairs:
-//           U levels against the 256 bins, the NEG fill before the read and
-//           the 0.0 fill past the padded end.  The CTA evaluates those
+//   TABLE   morph-form input (all three modes, MP <= 1024): u8 bins (B, NB)
+//           and a 256-entry f32 level table per read, the template as its
+//           U distinct values plus each lane's index into them.  A row
+//           meets at most U x 258 distinct (template value, signal value)
+//           pairs: U levels against the 256 bins, the NEG fill before the
+//           read and the 0.0 fill past its end.  The CTA evaluates those
 //           scores once, with POW's own expression, into shared memory
 //           behind the exchange buffers (123-147 KB for the bench
 //           templates' 119-142 levels); each cell then looks its score up
-//           by its lane's level and its bin.
+//           by its lane's level and its bin.  A bins row is read in place
+//           in every mode: CKPT runs ND steps past a row of NB samples
+//           (the POW route pads the f32 row with 0.0 up to ND - MP, which
+//           the 0.0 column stands for), and a window reads its row at the
+//           row's own offset t0, with 0.0 on both sides of the read (the
+//           POW window's gather fill).
 //
 // What bounds it on an H100: the serial chain of diagonal steps.  Step t
 // of row r needs step t-1 of the neighbouring template lane (S, C) and
@@ -40,29 +45,34 @@
 // the double-precision pow of every cell makes FP64 throughput the cost
 // of a step (~1.2 us at the bench shape).  In TABLE mode a step is the
 // recurrence's own f32 operations, its pointer code and the exchange,
-// issued by one SM for all MP lanes of its row (~0.3 us): instruction
-// issue and the barrier set it.
+// issued by one SM for all MP lanes of its row (~0.29 us; ~0.23 us in
+// CKPT, which has no pointer code): instruction issue and the barrier
+// set it.
 //
 // Design: one CTA per row (the wrapper sizes a call to the rows it has,
-// up to the card's SM count; the two-pass route runs groups of 8 rows).
+// up to the card's SM count, the two-pass route too, both flanks in one
+// call).
 // A lane's running state (S at t-1, Ih, the column cummax C, and S of
 // lane i-1 at t-2) lives in registers, one thread per template lane (LPT
 // lanes per thread when MP > 1024); S and C of lane i-1 come through a
 // shared-memory double buffer, one __syncthreads per step.  Lane i reads
 // its signal sample a[t-i] directly (NEG before the read, 0 past the
 // padded end: the reference's reversed sliding window, indexed), in TABLE
-// mode as its bin (256 before the read, 257 past its padded end) and
-// that bin's table entry; in a window it reads sig_win[t-i], or
+// mode as its bin (256 before the read, 257 past the bins row) and
+// that bin's table entry; in a POW window it reads sig_win[t-i], or
 // r_init[i-t-1] before the window, both of which carry the reference
-// window gather's 0.0 fill.  The step loop runs in unrolled groups of 8
-// steps (t_end is a multiple of 8), whose 4-bit codes pack into a
-// register and store as one int32 word [t/8, row, i].  A row stops at
-// its own last useful step, round_up(n + m, 8) (in a window:
-// round_up(steps_needed, 8)), and fills the rest of its bottom taps with
-// NEG.  The checkpoint's S2 is the
-// lane's OWN S at t-1 (the registers keep only lane i-1's, for the
-// diagonal move), so the dump takes the lane's S1 before the step's
-// update; a resumed window seeds the i-1 register from S2 of lane i-1.
+// window gather's 0.0 fill, and in a TABLE window the bin of sample
+// t0 + t - i of its row (257 outside the read).  The step loop runs in
+// unrolled groups of 8 steps (t_end is a multiple of 8), whose 4-bit
+// codes pack into a register and store as one int32 word [t/8, row, i].
+// A row stops at its own last useful step, round_up(n + m, 8) (in a
+// window: round_up(steps_needed, 8)), and fills the rest of its bottom
+// taps with NEG.  A checkpoint stride is a multiple of 128 steps, so a
+// dump falls on the last step of a group: the test runs once a group.
+// The checkpoint's S2 is the lane's OWN S at t-1 (the registers keep
+// only lane i-1's, for the diagonal move), so the dump takes the lane's
+// S1 before the step's update; a resumed window seeds the i-1 register
+// from S2 of lane i-1.
 //
 // Value contract (bit-identical to the reference's f32 stream, up to the
 // measured 1-ulp pow difference): every expression tree of the Pallas
@@ -79,7 +89,7 @@ constexpr float NEGF = -1e30f;
 constexpr double POW_EXP = 1.2000000476837158;  // (double)1.2f
 constexpr int SCORE_COLS = 258;                 // 256 bins, NEG, 0.0
 constexpr int BIN_NEG = 256;                    // before the read
-constexpr int BIN_ZERO = 257;                   // past the padded end
+constexpr int BIN_ZERO = 257;                   // 0.0: past the read (and around a window)
 constexpr size_t SMEM_MAX = 232448;             // 227 KB: a block's dynamic shared memory
 
 enum Mode { PTR = 0, CKPT = 1, WINDOW = 2 };
@@ -92,7 +102,8 @@ struct Params {
 
 // what the CKPT and WINDOW modes read or write beyond the PTR mode's
 struct Resume {
-  const float* rinit;    // WINDOW: (B, MP), lane i holds a[t0-1-i]
+  const float* rinit;    // WINDOW, POW: (B, MP), lane i holds a[t0-1-i]
+  const int* t0;         // WINDOW, TABLE: (B,), the window's first step
   const float* st[4];    // WINDOW: S1, S2, Ih, C after step t0-1, (B, MP) each
   const int* cold;       // WINDOW: (B,), 1 = the window starts at the origin
   float* ck[4];          // CKPT: S1, S2, Ih, C planes, (ND/ckpt_steps, B, MP)
@@ -101,7 +112,7 @@ struct Resume {
 
 // what the TABLE score mode reads in place of sig and tmpl
 struct Table {
-  const uint8_t* bins;   // (B, N) morph bins
+  const uint8_t* bins;   // (B, NB) morph bins
   const float* lut;      // (B, 256) each read's level values
   const float* levels;   // (R, UP) distinct template values
   const int* lidx;       // (R, MP) lane -> index into its row's levels
@@ -121,9 +132,11 @@ __device__ __forceinline__ float cell_score(float av, float tm, const Params& p)
   return fmaxf(p.off - pw, p.dmin);
 }
 
-// TABLE: the score-table column of sample ai of a row's bins
-__device__ __forceinline__ int bin_at(const uint8_t* brow, int ai, int N) {
-  return ai < 0 ? BIN_NEG : (ai < N ? (int)brow[ai] : BIN_ZERO);
+// TABLE: the score-table column of sample ai of a row of NB bins; before
+// the read it is `before` (NEG, or 0.0 in a window)
+template <int BEFORE>
+__device__ __forceinline__ int bin_at(const uint8_t* brow, int ai, int NB) {
+  return ai < 0 ? BEFORE : (ai < NB ? (int)brow[ai] : BIN_ZERO);
 }
 
 // One DP cell: lane i at step t (nibble q = t & 7 of its pointer word),
@@ -172,16 +185,18 @@ __device__ __forceinline__ void dp_cell(Lane& L, float sc, float s_prev, float c
   L.C = new_c;
 }
 
-// PTR, CKPT: sig (B, N), ND = N + MP steps, nact = n, mrow = m per row.
-// WINDOW: sig = sig_win (B, N) with N = W = ND steps, nact = the steps a
-// row needs, mrow unused.  TABLE (PTR only) reads tb in place of sig and
-// tmpl.
+// ND steps over rows of NS samples (the row stride of sig, or of the
+// bins in TABLE mode).  PTR: ND = NS + MP.  CKPT: ND >= NS + MP, a
+// multiple of ckpt_steps.  nact = n, mrow = m per row.  WINDOW: ND = W;
+// POW reads sig = sig_win (B, W), TABLE the read's bins from t0; nact =
+// the steps a row needs, mrow unused.  TABLE reads tb in place of sig
+// and tmpl.
 template <int LPT, int MODE, int SCORE>
 __global__ void __launch_bounds__(1024)
 wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, Table tb,
                   const int* __restrict__ nact, const int* __restrict__ mrow,
                   int32_t* __restrict__ ptr, float* __restrict__ bottom,
-                  int B, int N, int MP, int tmpl_stride, Params p, Resume r) {
+                  int B, int ND, int NS, int MP, int tmpl_stride, Params p, Resume r) {
   // two buffers each of S and C, MP + 1 floats: index 0 holds lane -1's
   // fill, lane i lives at index i + 1; in TABLE mode the row's U x 258
   // scores follow
@@ -190,14 +205,15 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
   float* T = smem + 4 * W;
 
   const int row = blockIdx.x;
-  const int ND = MODE == WINDOW ? N : N + MP;
   const int n = nact[row];
   const int m = MODE == WINDOW ? 0 : mrow[row];
   int t_end = (n + m + 7) & ~7;
   if (t_end > ND) t_end = ND;
-  const float* a = SCORE == POW ? sig + (size_t)row * N : nullptr;
+  const float* a = SCORE == POW ? sig + (size_t)row * NS : nullptr;
   const float* tm_row = SCORE == POW ? tmpl + (size_t)row * tmpl_stride : nullptr;
-  const uint8_t* brow = SCORE == TABLE ? tb.bins + (size_t)row * N : nullptr;
+  // a TABLE window's lane i at local step t reads sample toff + t - i
+  const int toff = MODE == WINDOW && SCORE == TABLE ? r.t0[row] : 0;
+  const uint8_t* brow = SCORE == TABLE ? tb.bins + (size_t)row * NS : nullptr;
   float* bot = MODE == WINDOW ? nullptr : bottom + (size_t)row * ND;
   const float fill_s = p.neg_h ? -p.dmin : NEGF;
   const bool cold = MODE != WINDOW || r.cold[row] != 0;
@@ -253,8 +269,13 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
   __syncthreads();
 
   // t_end is a multiple of 8 (ND and W are): groups of 8 steps, one
-  // pointer word each
+  // pointer word each.  CKPT: after step (g+1)*ckpt_steps - 1 the state
+  // goes to slot g; ckpt_steps is a multiple of 8, so that step closes a
+  // group
+  int ck_next = MODE == CKPT ? r.ckpt_steps : 0;
+  size_t ck_row = (size_t)row * MP;
   for (int t0 = 0; t0 < t_end; t0 += 8) {
+    const bool dump_group = MODE == CKPT && t0 + 8 == ck_next;
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int t = t0 + s;
@@ -262,23 +283,23 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       float* c_cur = smem + (2 + (s & 1)) * W;
       const float* s_prv = smem + ((s & 1) ^ 1) * W;
       const float* c_prv = smem + (2 + ((s & 1) ^ 1)) * W;
-      // CKPT: after step (g+1)*ckpt_steps - 1 the state goes to slot g
-      const bool dump = MODE == CKPT && (t + 1) % r.ckpt_steps == 0;
-      const size_t ck_row = dump ? ((size_t)((t + 1) / r.ckpt_steps - 1) * B + row) * MP : 0;
+      const bool dump = dump_group && s == 7;
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
         const int i = threadIdx.x + k * blockDim.x;
         if (i >= MP) continue;
         float sc;
         if (SCORE == TABLE) {
-          sc = T[tbase[k] + bin_at(brow, t - i, N)];
+          const int b = MODE == WINDOW ? bin_at<BIN_ZERO>(brow, toff + t - i, NS)
+                                       : bin_at<BIN_NEG>(brow, t - i, NS);
+          sc = T[tbase[k] + b];
         } else {
           const int ai = t - i;
           float av;
           if (MODE == WINDOW)
             av = ai >= 0 ? a[ai] : r.rinit[(size_t)row * MP + (i - t - 1)];
           else
-            av = ai < 0 ? NEGF : (ai < N ? a[ai] : 0.0f);
+            av = ai < 0 ? NEGF : (ai < NS ? a[ai] : 0.0f);
           sc = cell_score(av, tm[k], p);
         }
         dp_cell<MODE>(L[k], sc, s_prv[i], c_prv[i], i, t, s, p, m, n, cold, bot, dump, ck_row,
@@ -292,6 +313,10 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       }
       __syncthreads();
     }
+    if (dump_group) {
+      ck_next += r.ckpt_steps;
+      ck_row += (size_t)B * MP;
+    }
   }
   if (MODE != WINDOW)
     for (int t = t_end + threadIdx.x; t < ND; t += blockDim.x) bot[t] = NEGF;
@@ -299,7 +324,7 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
 
 template <int LPT, int MODE, int SCORE>
 cudaError_t launch(const float* sig, const float* tmpl, const Table& tb, const int* nact,
-                   const int* mrow, int32_t* ptr, float* bottom, int B, int N, int MP,
+                   const int* mrow, int32_t* ptr, float* bottom, int B, int ND, int NS, int MP,
                    int tmpl_stride, Params p, const Resume& r, cudaStream_t stream) {
   int threads = (MP + LPT - 1) / LPT;
   threads = (threads + 31) / 32 * 32;
@@ -313,14 +338,15 @@ cudaError_t launch(const float* sig, const float* tmpl, const Table& tb, const i
     if (e != cudaSuccess) return e;
   }
   wave_align_kernel<LPT, MODE, SCORE><<<B, threads, shmem, stream>>>(
-      sig, tmpl, tb, nact, mrow, ptr, bottom, B, N, MP, tmpl_stride, p, r);
+      sig, tmpl, tb, nact, mrow, ptr, bottom, B, ND, NS, MP, tmpl_stride, p, r);
   return cudaGetLastError();
 }
 
+// POW: the lanes a thread runs follow MP
 template <int MODE>
-int dispatch(const void* sig, const void* tmpl, const void* nact, const void* mrow, void* ptr,
-             void* bottom, int B, int N, int MP, int tmpl_stride, Params p, const Resume& r,
-             void* stream) {
+int dispatch_pow(const void* sig, const void* tmpl, const void* nact, const void* mrow,
+                 void* ptr, void* bottom, int B, int ND, int NS, int MP, int tmpl_stride,
+                 Params p, const Resume& r, void* stream) {
   auto s = (const float*)sig;
   auto tp = (const float*)tmpl;
   auto na = (const int*)nact;
@@ -329,15 +355,57 @@ int dispatch(const void* sig, const void* tmpl, const void* nact, const void* mr
   auto bt = (float*)bottom;
   auto st = (cudaStream_t)stream;
   const Table none{};
-  if (MP <= 1024)
-    return (int)launch<1, MODE, POW>(s, tp, none, na, mr, pt, bt, B, N, MP, tmpl_stride, p, r, st);
-  if (MP <= 2048)
-    return (int)launch<2, MODE, POW>(s, tp, none, na, mr, pt, bt, B, N, MP, tmpl_stride, p, r, st);
-  if (MP <= 4096)
-    return (int)launch<4, MODE, POW>(s, tp, none, na, mr, pt, bt, B, N, MP, tmpl_stride, p, r, st);
-  if (MP <= 8192)
-    return (int)launch<8, MODE, POW>(s, tp, none, na, mr, pt, bt, B, N, MP, tmpl_stride, p, r, st);
+#define WAVE_POW(LPT) \
+  (int)launch<LPT, MODE, POW>(s, tp, none, na, mr, pt, bt, B, ND, NS, MP, tmpl_stride, p, r, st)
+  if (MP <= 1024) return WAVE_POW(1);
+  if (MP <= 2048) return WAVE_POW(2);
+  if (MP <= 4096) return WAVE_POW(4);
+  if (MP <= 8192) return WAVE_POW(8);
+#undef WAVE_POW
   return (int)cudaErrorInvalidValue;
+}
+
+// TABLE: one lane a thread (MP <= 1024)
+template <int MODE>
+int dispatch_table(const void* bins, const void* lut, const void* levels, const void* lidx,
+                   const void* nact, const void* mrow, void* ptr, void* bottom, int B, int ND,
+                   int NS, int MP, int UP, int per_row, Params p, const Resume& r,
+                   void* stream) {
+  if (MP > 1024) return (int)cudaErrorInvalidValue;
+  const Table tb{(const uint8_t*)bins, (const float*)lut, (const float*)levels,
+                 (const int*)lidx, UP, per_row ? 1 : 0};
+  return (int)launch<1, MODE, TABLE>(nullptr, nullptr, tb, (const int*)nact, (const int*)mrow,
+                                     (int32_t*)ptr, (float*)bottom, B, ND, NS, MP, 0, p, r,
+                                     (cudaStream_t)stream);
+}
+
+Resume ckpt_resume(void* ck_s1, void* ck_s2, void* ck_ih, void* ck_c, int ckpt_steps) {
+  Resume r{};
+  r.ck[0] = (float*)ck_s1;
+  r.ck[1] = (float*)ck_s2;
+  r.ck[2] = (float*)ck_ih;
+  r.ck[3] = (float*)ck_c;
+  r.ckpt_steps = ckpt_steps;
+  return r;
+}
+
+Resume window_resume(const void* r_init, const void* t0, const void* s1, const void* s2,
+                     const void* ih, const void* c, const void* cold) {
+  Resume r{};
+  r.rinit = (const float*)r_init;
+  r.t0 = (const int*)t0;
+  r.st[0] = (const float*)s1;
+  r.st[1] = (const float*)s2;
+  r.st[2] = (const float*)ih;
+  r.st[3] = (const float*)c;
+  r.cold = (const int*)cold;
+  return r;
+}
+
+// a checkpoint stride the group-end test can see: a multiple of 8
+// dividing ND
+bool ckpt_ok(int ND, int ckpt_steps) {
+  return ckpt_steps > 0 && ckpt_steps % 8 == 0 && ND % ckpt_steps == 0;
 }
 
 }  // namespace
@@ -348,8 +416,8 @@ extern "C" int wave_align_launch(const void* sig, const void* tmpl, const void* 
                                  float go_h, float go_v, float ge_h, float ge_v,
                                  float off, float dmin, float g, void* stream) {
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
-  Resume r{};
-  return dispatch<PTR>(sig, tmpl, nact, mrow, ptr, bottom, B, N, MP, tmpl_stride, p, r, stream);
+  return dispatch_pow<PTR>(sig, tmpl, nact, mrow, ptr, bottom, B, N + MP, N, MP, tmpl_stride,
+                           p, Resume{}, stream);
 }
 
 extern "C" int wave_table_launch(const void* bins, const void* lut, const void* levels,
@@ -358,46 +426,61 @@ extern "C" int wave_table_launch(const void* bins, const void* lut, const void* 
                                  int per_row, int neg_h, float go_h, float go_v, float ge_h,
                                  float ge_v, float off, float dmin, float g, void* stream) {
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
-  Resume r{};
-  Table tb{(const uint8_t*)bins, (const float*)lut, (const float*)levels, (const int*)lidx, UP,
-           per_row ? 1 : 0};
-  if (MP > 1024) return (int)cudaErrorInvalidValue;  // TABLE: one lane a thread
-  return (int)launch<1, PTR, TABLE>(nullptr, nullptr, tb, (const int*)nact, (const int*)mrow,
-                                    (int32_t*)ptr, (float*)bottom, B, N, MP, 0, p, r,
-                                    (cudaStream_t)stream);
+  return dispatch_table<PTR>(bins, lut, levels, lidx, nact, mrow, ptr, bottom, B, N + MP, N,
+                             MP, UP, per_row, p, Resume{}, stream);
 }
 
 extern "C" int wave_ckpt_launch(const void* sig, const void* tmpl, const void* nact,
                                 const void* mrow, void* bottom, void* ck_s1, void* ck_s2,
-                                void* ck_ih, void* ck_c, int B, int N, int MP, int ckpt_steps,
-                                int neg_h, float go_h, float go_v, float ge_h, float ge_v,
-                                float off, float dmin, float g, void* stream) {
-  if (ckpt_steps <= 0 || (N + MP) % ckpt_steps) return (int)cudaErrorInvalidValue;
+                                void* ck_ih, void* ck_c, int B, int N, int MP, int tmpl_stride,
+                                int ckpt_steps, int neg_h, float go_h, float go_v, float ge_h,
+                                float ge_v, float off, float dmin, float g, void* stream) {
+  if (!ckpt_ok(N + MP, ckpt_steps)) return (int)cudaErrorInvalidValue;
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
-  Resume r{};
-  r.ck[0] = (float*)ck_s1;
-  r.ck[1] = (float*)ck_s2;
-  r.ck[2] = (float*)ck_ih;
-  r.ck[3] = (float*)ck_c;
-  r.ckpt_steps = ckpt_steps;
-  return dispatch<CKPT>(sig, tmpl, nact, mrow, nullptr, bottom, B, N, MP, 0, p, r, stream);
+  return dispatch_pow<CKPT>(sig, tmpl, nact, mrow, nullptr, bottom, B, N + MP, N, MP,
+                            tmpl_stride, p, ckpt_resume(ck_s1, ck_s2, ck_ih, ck_c, ckpt_steps),
+                            stream);
+}
+
+// bins (B, NB) read in place over ND >= NB + MP steps: 0.0 past the row
+extern "C" int wave_ckpt_table_launch(const void* bins, const void* lut, const void* levels,
+                                      const void* lidx, const void* nact, const void* mrow,
+                                      void* bottom, void* ck_s1, void* ck_s2, void* ck_ih,
+                                      void* ck_c, int B, int NB, int ND, int MP, int UP,
+                                      int per_row, int ckpt_steps, int neg_h, float go_h,
+                                      float go_v, float ge_h, float ge_v, float off, float dmin,
+                                      float g, void* stream) {
+  if (!ckpt_ok(ND, ckpt_steps) || ND < NB + MP) return (int)cudaErrorInvalidValue;
+  Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
+  return dispatch_table<CKPT>(bins, lut, levels, lidx, nact, mrow, nullptr, bottom, B, ND, NB,
+                              MP, UP, per_row, p,
+                              ckpt_resume(ck_s1, ck_s2, ck_ih, ck_c, ckpt_steps), stream);
 }
 
 extern "C" int wave_window_launch(const void* sig_win, const void* r_init, const void* tmpl,
                                   const void* steps, const void* s1, const void* s2,
                                   const void* ih, const void* c, const void* cold, void* ptr,
-                                  int B, int W, int MP, int neg_h,
+                                  int B, int W, int MP, int tmpl_stride, int neg_h,
                                   float go_h, float go_v, float ge_h, float ge_v,
                                   float off, float dmin, float g, void* stream) {
   if (W % 8) return (int)cudaErrorInvalidValue;
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
-  Resume r{};
-  r.rinit = (const float*)r_init;
-  r.st[0] = (const float*)s1;
-  r.st[1] = (const float*)s2;
-  r.st[2] = (const float*)ih;
-  r.st[3] = (const float*)c;
-  r.cold = (const int*)cold;
-  return dispatch<WINDOW>(sig_win, tmpl, steps, nullptr, ptr, nullptr, B, W, MP, 0, p, r,
-                         stream);
+  return dispatch_pow<WINDOW>(sig_win, tmpl, steps, nullptr, ptr, nullptr, B, W, W, MP,
+                              tmpl_stride, p,
+                              window_resume(r_init, nullptr, s1, s2, ih, c, cold), stream);
+}
+
+// the window of row r reads its bins row (B, NB) from sample t0[r] on
+extern "C" int wave_window_table_launch(const void* bins, const void* lut, const void* levels,
+                                        const void* lidx, const void* t0, const void* steps,
+                                        const void* s1, const void* s2, const void* ih,
+                                        const void* c, const void* cold, void* ptr, int B,
+                                        int NB, int W, int MP, int UP, int per_row, int neg_h,
+                                        float go_h, float go_v, float ge_h, float ge_v,
+                                        float off, float dmin, float g, void* stream) {
+  if (W % 8) return (int)cudaErrorInvalidValue;
+  Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
+  return dispatch_table<WINDOW>(bins, lut, levels, lidx, steps, nullptr, ptr, nullptr, B, W, NB,
+                                MP, UP, per_row, p,
+                                window_resume(nullptr, t0, s1, s2, ih, c, cold), stream);
 }

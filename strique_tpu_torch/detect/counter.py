@@ -7,8 +7,8 @@ path, in three phases a caller can overlap across batches:
      native library, or NumPy), upload of 1 byte per sample (u8 morph
      bins plus a 256-entry f32 level table per read), both flank
      alignments on those bins and tables (``ops.align.align_fused_pair``
-     in morph form: the wave kernel's TABLE score mode; the column and
-     two-pass routes decode ``lut[bins]`` to f32), tracebacks, segment
+     in morph form: the wave kernel's TABLE score mode, the two-pass
+     route's too; the column route decodes ``lut[bins]`` to f32), tracebacks, segment
      bounds and the QC gate, packed into a 40-byte row per read whose
      copy to a pinned host buffer is queued behind one CUDA event.
   2. :meth:`RepeatCounter.detect_middle` -- waits for that event,
@@ -26,8 +26,9 @@ dispatch (``STRIQUE_SPLIT=0``).
 Ultra-long reads (a bucket whose width-8 pointer plane exceeds
 ``ops.align_cuda.ptr_budget_bytes``; ``STRIQUE_PTR_BUDGET_GB``
 overrides it) reach the checkpointed two-pass alignment through the
-same calls: ``align_fused_pair`` declines fusion past the budget and
-``align_core`` routes the bucket to ``align_longread_sharded``.  The
+same calls: past the budget ``align_fused_pair`` runs both flanks'
+two-pass routes as one row stream on the card, and on the CPU
+``align_core`` routes each flank to ``align_longread_sharded``.  The
 reference needs an eager twin of its jitted bounds pipeline for that
 route (its ``_bounds_eager``); the port runs eagerly throughout, so
 it has none.

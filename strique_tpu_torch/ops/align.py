@@ -10,8 +10,10 @@ Both take the reads as f32 signals or, with ``lut``, in morph form: u8
 bins plus each read's 256-entry f32 level table, as the counter uploads
 them.  The wave route then runs the morph-form kernel calls
 (``align_forward_wave_morph`` / ``_multi_morph``: TABLE score mode where
-the template's score table fits shared memory); the column and two-pass
-routes decode ``lut[bins]`` to f32 first.
+the template's score table fits shared memory), and so does the
+two-pass route (``align_forward_ckpt_morph``,
+``align_window_from_state_morph``); the column route, and the two-pass
+route past the table, decode ``lut[bins]`` to f32 first.
 
 Call widths and fusion follow the device (``align_cuda.kernel_batch``,
 :func:`fuse_flanks`): on the card a call is as wide as its rows, up to
@@ -36,13 +38,17 @@ the card -- the reference runs it as an XLA ``while_loop``
 
 Ultra-long reads: where even a width-8 pointer plane exceeds
 ``ptr_budget_bytes``, ``align_core`` routes the bucket to the exact
-checkpointed two-pass route (``align_longread_sharded``, groups of 8
-rows on one device): pass 1 (``align_forward_ckpt``) gives each row's
-score and end column and checkpoints the diagonal state; pass 2
+checkpointed two-pass route (``align_longread_sharded``, groups of
+:func:`two_pass_group` rows on one device: 8 on the CPU, as wide as the
+card on a card): pass 1 (``align_forward_ckpt``) gives each row's score
+and end column and checkpoints the diagonal state; pass 2
 (``align_window_from_state``) recomputes pointers over a window that
 holds the whole optimal path, resumed from the checkpoint at its start,
-and the usual traceback walks it in window steps.  The windows are
-gathered on the device (``_gather_windows``, as the reference does).
+and the usual traceback walks it in window steps.  f32 windows are
+gathered on the device (``_gather_windows``, as the reference does);
+morph-form windows read the bins row in place.  On the card
+``align_fused_pair`` runs both flanks' two-pass routes as one
+per-row-template row stream, so a group's pass 1 covers both flanks.
 Configurations without a span bound (horizontal gaps free or positive)
 raise ``ValueError`` there.  Spreading the groups over several cards
 is not ported yet (``devices`` of more than one raises).
@@ -56,13 +62,15 @@ import torch
 
 from .. import _build
 from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
-                         align_forward_col, align_forward_wave, align_forward_wave_morph,
-                         align_forward_wave_multi, align_forward_wave_multi_morph,
-                         align_window_from_state, kernel_batch, morph_decode, pad_template,
-                         pad_template_rows, ptr_budget_bytes, sm_count, template_levels,
-                         wave_span_bound_steps)
+                         align_forward_ckpt_morph, align_forward_col, align_forward_wave,
+                         align_forward_wave_morph, align_forward_wave_multi,
+                         align_forward_wave_multi_morph, align_window_from_state,
+                         align_window_from_state_morph, kernel_batch, morph_decode,
+                         pad_template, pad_template_rows, ptr_budget_bytes, sm_count,
+                         template_levels, wave_score_mode, wave_span_bound_steps)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
+CKPT_STEPS = 16384  # the two-pass route's checkpoint stride (the reference's)
 
 # DP-cell accounting: each wave call adds its issued cells (rows x
 # diagonal steps x template lanes).  Host-side integers only.
@@ -238,8 +246,10 @@ def _align_batch_wave_multi_morph(bins, lut, n_actual, levels, lidx, m_rows, par
     return _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max)
 
 
-def _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max: int):
-    """Score, end column and traceback of a per-row-template call."""
+def _end_columns(bottom_steps, m_rows, params):
+    """Score and leftmost end column of each row from its step-space
+    bottom taps (column j at step m_row + j - 1), with the virtual column
+    0 (the whole template in one vertical gap): (j_end int32, score)."""
     # leftmost max over columns incl. the virtual column 0: argmax in
     # step space is argmax in column space (a per-row constant shift)
     tstar = torch.argmax(bottom_steps, dim=1)  # first maximum
@@ -248,9 +258,13 @@ def _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max: int):
     jstar = tstar.to(torch.int32) + 1 - m_r
     b0 = (float(np.float32(params.gap_open_v))
           + float(np.float32(params.gap_extension_v)) * (m_r.to(torch.float32) - 1.0))
-    j_end = torch.where(b0 >= smax, 0, jstar).to(torch.int32)
-    score = torch.maximum(b0, smax)
-    tb = traceback_pointers(ptr, j_end, m_max, m_start=m_r)
+    return torch.where(b0 >= smax, 0, jstar).to(torch.int32), torch.maximum(b0, smax)
+
+
+def _multi_end_and_traceback(ptr, bottom_steps, m_rows, params, m_max: int):
+    """Score, end column and traceback of a per-row-template call."""
+    j_end, score = _end_columns(bottom_steps, m_rows, params)
+    tb = traceback_pointers(ptr, j_end, m_max, m_start=m_rows.to(torch.int32))
     return {"score": score, "j_end": j_end, **tb}
 
 
@@ -294,75 +308,145 @@ def restart_state(ckpts, slot, cold):
                  for plane, cv in zip(ckpts, cold_vals))
 
 
-def _longread_pass1(signals, n_actual, template_np, params, ckpt_steps: int) -> dict:
-    """Two-pass pass 1: score-only forward with checkpoints (queued, no sync)."""
-    B, N = signals.shape
-    if B % 8:
-        raise ValueError(f"two-pass groups are multiples of 8 rows, got {B}")
-    tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
-    mp = tmpl_np.shape[1]
-    bound = wave_span_bound_steps(params, m)
-    if bound is None:
+def _ckpt_geometry(N: int, mp: int, ckpt_steps: int) -> tuple[int, int, int]:
+    """(ckpt_chunks, ckpt_steps, ND) of a pass 1 over N samples and MP
+    lanes.  The stride is whole chunks and at least MP, so every warm
+    restart t0 (a checkpoint boundary) lies past the column-0 boundary
+    region (pass 2 forces boundary state only for cold rows); ND is a
+    multiple of it."""
+    ckpt_chunks = max(ckpt_steps // CHUNK, -(-mp // CHUNK), 1)
+    ckpt_steps = ckpt_chunks * CHUNK
+    return ckpt_chunks, ckpt_steps, _round_up(N + mp, ckpt_steps)
+
+
+def _span_bounds(params, ms) -> np.ndarray:
+    """:func:`wave_span_bound_steps` of each template length."""
+    bounds = [wave_span_bound_steps(params, int(m)) for m in ms]
+    if None in bounds:
         raise ValueError(
             "two-pass alignment needs negative horizontal gap costs "
             "(no span bound exists otherwise); use the one-pass kernel")
-    # every warm restart t0 (a checkpoint boundary) lies past the column-0
-    # boundary region: pass 2 forces boundary state only for cold rows
-    ckpt_chunks = max(ckpt_steps // CHUNK, -(-mp // CHUNK), 1)
-    ckpt_steps = ckpt_chunks * CHUNK
-    nd = _round_up(N + mp, ckpt_steps)  # ND divides the checkpoint stride
-    if nd - mp > N:
-        signals = torch.nn.functional.pad(signals, (0, nd - mp - N))
-        N = nd - mp
-    tmpl = torch.from_numpy(tmpl_np).to(signals.device)
-    _count_cells(B, N + mp, mp)  # pass 1 (score-only forward)
-    bottom_steps, ckpts = align_forward_ckpt(signals, n_actual, tmpl, params, m, ckpt_chunks)
-    return {"bottom_steps": bottom_steps, "ckpts": ckpts, "sig": signals, "tmpl": tmpl,
-            "params": params, "m": m, "mp": mp, "bound": bound, "ckpt_steps": ckpt_steps,
-            "B": B, "N": N, "W": _round_up(bound + ckpt_steps, CHUNK)}
+    return np.asarray(bounds, np.int64)
+
+
+def _window_steps(bound: int, ckpt_steps: int) -> int:
+    """Pass 2's window W: the span bound plus a checkpoint stride."""
+    return _round_up(bound + ckpt_steps, CHUNK)
+
+
+def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = None) -> int:
+    """Rows per two-pass group (one pass-1 and one pass-2 launch).
+
+    Card rule (a CUDA device, or any device when ``sms`` is given):
+    :func:`kernel_batch`'s width -- the rows it has, up to the largest
+    multiple of 8 within the SM count -- narrowed (never below 8) so that
+    pass 2's (W/8, rows, MP) int32 plane fits :func:`ptr_budget_bytes`.
+    A pass-1 row holds no pointer plane, only its checkpoints.  CPU
+    rule: the reference's 8 rows, so the parity tests compare like with
+    like.
+    """
+    if sms is None:
+        sms = sm_count(device)
+    if sms is None:
+        return 8
+    return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms)
+
+
+def _pass1_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None) -> dict:
+    """Two-pass pass 1 of a group of rows (queued, no sync).
+
+    ``tmpl_np`` (1, MP) with ``ms`` one length, or (B, MP) with a length
+    per row.  ``signals`` (B, N) f32 or, with ``lut``, u8 bins read in
+    place by the TABLE score mode (the caller has checked that the
+    template fits :func:`wave_score_mode`'s table).
+    """
+    B, N = signals.shape
+    if B % 8:
+        raise ValueError(f"two-pass groups are multiples of 8 rows, got {B}")
+    dev = signals.device
+    mp = tmpl_np.shape[1]
+    bounds = _span_bounds(params, ms)
+    ckpt_chunks, ckpt_steps, nd = _ckpt_geometry(N, mp, ckpt_steps)
+    m_rows = torch.from_numpy(np.broadcast_to(np.asarray(ms, np.int32), (B,)).copy()).to(dev)
+    m_arg = int(ms[0]) if tmpl_np.shape[0] == 1 else m_rows
+    _count_cells(B, nd, mp)  # pass 1 (score-only forward)
+    if lut is None:
+        if nd - mp > N:  # the f32 row padded with 0.0 to ND - MP samples
+            signals = torch.nn.functional.pad(signals, (0, nd - mp - N))
+        tmpl = torch.from_numpy(tmpl_np).to(dev)
+        bottom_steps, ckpts = align_forward_ckpt(signals, n_actual, tmpl, params, m_arg,
+                                                 ckpt_chunks)
+        score_in = {"tmpl": tmpl}
+    else:
+        levels, lidx = (torch.from_numpy(x).to(dev) for x in template_levels(tmpl_np))
+        bottom_steps, ckpts = align_forward_ckpt_morph(signals, lut, n_actual, levels, lidx,
+                                                       params, m_arg, ckpt_chunks, nd)
+        score_in = {"levels": levels, "lidx": lidx}
+    return {"bottom_steps": bottom_steps, "ckpts": ckpts, "sig": signals, "lut": lut,
+            **score_in, "params": params, "m": int(np.max(ms)), "m_rows": m_rows, "mp": mp,
+            "bound": torch.from_numpy(np.broadcast_to(bounds, (B,)).copy()).to(dev),
+            "ckpt_steps": ckpt_steps, "B": B, "N": nd - mp,
+            "W": _window_steps(int(bounds.max()), ckpt_steps)}
+
+
+def _longread_pass1(signals, n_actual, template_np, params, ckpt_steps: int, lut=None) -> dict:
+    """Two-pass pass 1 of a group of rows against one template: score-only
+    forward with checkpoints (queued, no sync).  ``lut``: morph-form
+    input, as in :func:`align_core`."""
+    tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
+    return _pass1_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps, lut)
 
 
 def window_inputs(st: dict) -> dict:
-    """Pass-2 inputs of a pass-1 state: end columns, windows, restart state.
+    """Pass-2 inputs of a pass-1 state: end columns and restart state, and
+    for f32 rows the gathered windows.
 
     Score and leftmost ``j_end`` come from the step-space bottoms
-    (column j at step m+j-1; virtual column 0 = the full-template
-    vertical gap).  Each row's window [t0, t0+W) starts on a checkpoint
-    boundary at or before t_end - bound, so every step the traceback
-    can visit lies inside it; rows with t0 == 0 start cold.
+    (:func:`_end_columns`).  Each row's window [t0, t0+W) starts on a
+    checkpoint boundary at or before t_end - bound (its own template's
+    bound), so every step the traceback can visit lies inside it; rows
+    with t0 == 0 start cold.  Morph-form rows need no gathered window:
+    the TABLE window reads the bins row from t0 on.
     """
-    params, m, mp, B, N, W = (st[k] for k in ("params", "m", "mp", "B", "N", "W"))
-    dev = st["sig"].device
-    b0 = torch.full((B, 1), float(_b0(params, m)), device=dev)
-    bottom = torch.cat([b0, st["bottom_steps"][:, m : m + N]], dim=1)
-    j_end = torch.argmax(bottom, dim=1)  # first maximum: leftmost end column
+    params, mp, W = st["params"], st["mp"], st["W"]
+    m_r = st["m_rows"]
+    j_end, score = _end_columns(st["bottom_steps"], m_r, params)
     cks = st["ckpt_steps"]
-    t_end = j_end + m - 1
+    t_end = j_end + m_r - 1
     t0 = (t_end - st["bound"]).clamp_min(0) // cks * cks
     cold = (t0 == 0).to(torch.int32)
-    sig_win, r_init = _gather_windows(st["sig"], t0, W, mp)
-    return {"j_end": j_end, "score": bottom.gather(1, j_end[:, None])[:, 0], "t0": t0,
-            "sig_win": sig_win, "r_init": r_init,
-            "state4": restart_state(st["ckpts"], t0 // cks - 1, cold), "cold": cold,
-            "steps_needed": (t_end - t0 + 1).to(torch.int32)}
+    w = {"j_end": j_end, "score": score, "t0": t0,
+         "state4": restart_state(st["ckpts"], t0 // cks - 1, cold), "cold": cold,
+         "steps_needed": (t_end - t0 + 1).to(torch.int32)}
+    if st["lut"] is None:
+        w["sig_win"], w["r_init"] = _gather_windows(st["sig"], t0, W, mp)
+    return w
 
 
-def _longread_pass2(st: dict) -> dict:
+def _longread_pass2(st: dict, m_out: int | None = None) -> dict:
     """Two-pass pass 2: window recompute from the restart state, then the
-    traceback in window steps, shifted back by t0."""
+    traceback in window steps, shifted back by t0; ``m_out`` the output
+    width (default the group's longest template)."""
     w = window_inputs(st)
     m = st["m"]
     _count_cells(st["B"], st["W"], st["mp"])  # pass 2 (windowed pointer recompute)
-    ptr = align_window_from_state(w["sig_win"], w["r_init"], w["state4"], w["cold"],
-                                  w["steps_needed"], st["tmpl"], st["params"], m)
+    if st["lut"] is None:
+        ptr = align_window_from_state(w["sig_win"], w["r_init"], w["state4"], w["cold"],
+                                      w["steps_needed"], st["tmpl"], st["params"], m)
+    else:
+        ptr = align_window_from_state_morph(st["sig"], st["lut"], w["t0"], w["state4"],
+                                            w["cold"], w["steps_needed"], st["levels"],
+                                            st["lidx"], st["params"], m, st["W"])
     t0 = w["t0"]
-    tb = traceback_pointers(ptr, (w["j_end"] - t0).to(torch.int32), m)
+    tb = traceback_pointers(ptr, (w["j_end"] - t0).to(torch.int32), m if m_out is None else m_out,
+                            m_start=st["m_rows"])
     t0_32 = t0.to(torch.int32)
-    return {"score": w["score"], "j_end": w["j_end"].to(torch.int32), "is_gap": tb["is_gap"],
+    return {"score": w["score"], "j_end": w["j_end"], "is_gap": tb["is_gap"],
             "jpos": tb["jpos"] + t0_32[:, None], "j_begin": tb["j_begin"] + t0_32}
 
 
-def align_batch_longread(signals, n_actual, template_np, params, ckpt_steps: int = 16384):
+def align_batch_longread(signals, n_actual, template_np, params, ckpt_steps: int = CKPT_STEPS,
+                         lut=None):
     """Checkpointed two-pass alignment of a group of rows (B % 8 == 0).
 
     Exact by construction: pass 1 runs the score-only wave with
@@ -372,31 +456,68 @@ def align_batch_longread(signals, n_actual, template_np, params, ckpt_steps: int
     tracebacks equal the one-pass plane's.  Device memory per row is
     O(ND/ckpt_steps + W) instead of O(ND).  Returns align_core's dict.
     """
-    return _longread_pass2(_longread_pass1(signals, n_actual, template_np, params, ckpt_steps))
+    return _longread_pass2(_longread_pass1(signals, n_actual, template_np, params, ckpt_steps,
+                                           lut))
+
+
+def _pad_rows_np(x: np.ndarray, rows: int, value) -> np.ndarray:
+    if x.shape[0] >= rows:
+        return x
+    return np.concatenate([x, np.full((rows - x.shape[0],) + x.shape[1:], value, x.dtype)])
+
+
+def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None) -> dict:
+    """The two-pass route over a row stream: one template (``tmpl_np``
+    (1, MP), ``ms`` one length) or one per row ((B, MP), (B,) lengths;
+    pad rows get an all-+1e30 template of length 1).  Groups of
+    :func:`two_pass_group` rows; every group's pass 1 is queued before
+    the first pass 2 runs, as the reference does."""
+    B, N = signals.shape
+    mp = tmpl_np.shape[1]
+    per_row = tmpl_np.shape[0] > 1
+    n_act = n_actual.to(torch.int32)
+    m_out = int(np.max(ms))
+    _, cks, _ = _ckpt_geometry(N, mp, ckpt_steps)
+    w_steps = _window_steps(int(_span_bounds(params, np.unique(ms)).max()), cks)
+    states = []
+    g0 = 0
+    while g0 < B:
+        kb = two_pass_group(B - g0, mp, w_steps, signals.device)
+        sl = slice(g0, g0 + kb)
+        states.append(_pass1_rows(
+            _pad_rows(signals[sl], kb, 0), _pad_rows(n_act[sl], kb, 1),
+            _pad_rows_np(tmpl_np[sl], kb, 1e30) if per_row else tmpl_np,
+            _pad_rows_np(ms[sl], kb, 1) if per_row else ms, params, ckpt_steps,
+            None if lut is None else _pad_rows(lut[sl], kb, 0.0)))
+        g0 += kb
+    outs = [_longread_pass2(st, m_out) for st in states]
+    return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
 def align_longread_sharded(signals, n_actual, template_np, params, devices=None,
-                           ckpt_steps: int = 16384, group: int = 8):
-    """The two-pass route in groups of ``group`` rows on one device.
+                           ckpt_steps: int = CKPT_STEPS, lut=None):
+    """The two-pass route against one template, in groups of
+    :func:`two_pass_group` rows on one device.
 
-    Every group's pass 1 is queued before the first pass 2 runs, as the
-    reference does.  The reference round-robins the groups over
-    ``devices``; here at most one device is accepted (the multi-GPU
-    slice is not ported yet).
+    ``lut``: morph-form input read in place (TABLE score mode; the
+    caller decodes templates past the table to f32).  Every group's pass
+    1 is queued before the first pass 2 runs, as the reference does.
+    The reference round-robins the groups over ``devices``; here at most
+    one device is accepted (the multi-GPU slice is not ported yet).
     """
     if devices is not None and len(devices) > 1:
         raise NotImplementedError(
             "round-robin of two-pass groups over several devices is not ported yet (ROADMAP)")
     if devices:
         signals, n_actual = signals.to(devices[0]), n_actual.to(devices[0])
-    B = signals.shape[0]
-    n_act = n_actual.to(torch.int32)
-    states = [_longread_pass1(_pad_rows(signals[g0 : g0 + group], group, 0.0),
-                              _pad_rows(n_act[g0 : g0 + group], group, 1),
-                              template_np, params, ckpt_steps)
-              for g0 in range(0, B, group)]
-    outs = [_longread_pass2(st) for st in states]
-    return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
+        lut = None if lut is None else lut.to(devices[0])
+    tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
+    return _two_pass_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps, lut)
+
+
+def _fits_table(tmpl_np: np.ndarray) -> bool:
+    """Whether the (R, MP) template rows fit the TABLE score mode."""
+    return wave_score_mode(template_levels(tmpl_np)[0].shape[1], tmpl_np.shape[1]) == "table"
 
 
 def _pad_signals(signals, lut):
@@ -416,10 +537,12 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     host array (its length is static).  Rows run in wave calls of
     :func:`kernel_batch` rows; the tail pads with length-1 rows.  Past
     the pointer budget even at width 8, the bucket takes the two-pass
-    route (:func:`align_longread_sharded`).  ``STRIQUE_ALIGN_KERNEL=col``
-    runs column-kernel calls instead (pointer plane N/8 x rows x MP, no
-    two-pass route), as the reference does.  The column and two-pass
-    routes decode morph input to f32 first.
+    route (:func:`align_longread_sharded`), on morph input in the TABLE
+    score mode where the template fits :func:`wave_score_mode`'s table.
+    ``STRIQUE_ALIGN_KERNEL=col`` runs column-kernel calls instead
+    (pointer plane N/8 x rows x MP, no two-pass route), as the reference
+    does.  The column route, and the two-pass route past the table,
+    decode morph input to f32 first.
     """
     dev = signals.device
     B = signals.shape[0]
@@ -429,7 +552,7 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
     n_cols = signals.shape[1] + (0 if col else mp)
     two_pass = not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev)
-    if lut is not None and (col or two_pass):
+    if lut is not None and (col or two_pass and not _fits_table(tmpl_np)):
         signals, lut = morph_decode(signals, lut), None
     if two_pass:
         if wave_span_bound_steps(params, m) is None:
@@ -437,7 +560,7 @@ def align_core(signals, n_actual, template_np, params, lut=None):
                 "the pointer plane exceeds the memory budget even at width 8, and the "
                 "two-pass route needs negative horizontal gap costs (no span bound "
                 "exists otherwise)")
-        return align_longread_sharded(signals, n_actual, template_np, params)
+        return align_longread_sharded(signals, n_actual, template_np, params, lut=lut)
     if lut is None:
         tmpl = torch.from_numpy(tmpl_np).to(dev)
     else:
@@ -484,12 +607,33 @@ def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None) -> bool
     return 0 < B % BATCH_WAVE <= BATCH_WAVE // 2
 
 
+def _two_pass_pair(B: int, N: int, mp: int, params, device) -> bool:
+    """Whether :func:`align_fused_pair` runs both flanks' two-pass routes
+    as one row stream: on the card's rule (a CUDA device, and
+    ``STRIQUE_ALIGN_KERNEL`` not ``col``), where a width-8 pointer plane
+    exceeds :func:`ptr_budget_bytes` and a span bound exists.  The CPU
+    keeps the reference's two :func:`align_core` calls."""
+    return (sm_count(device) is not None and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col"
+            and (_round_up(N, CHUNK) + mp) * 8 * mp // 2 > ptr_budget_bytes(device)
+            and wave_span_bound_steps(params, 1) is not None)
+
+
+def _split_flanks(out: dict, B: int, m_pre: int, m_suf: int):
+    """(pre, suf) of a fused row stream's outputs: rows [0, B) and [B, 2B),
+    per-element fields cut to each flank's length."""
+    pre = {k: (v[:B, :m_pre] if v.ndim == 2 else v[:B]) for k, v in out.items()}
+    suf = {k: (v[B:, :m_suf] if v.ndim == 2 else v[B:]) for k, v in out.items()}
+    return pre, suf
+
+
 def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
     """Both flank alignments of a batch, fused into one row stream when
     :func:`fuse_flanks` says so: the rows [read0 x prefix .. readB x
-    prefix, read0 x suffix ..] run as per-row-template calls.  Otherwise
-    two :func:`align_core` calls.  ``lut``: morph-form input, as in
-    :func:`align_core`.  Returns (pre, suf).
+    prefix, read0 x suffix ..] run as per-row-template calls.  Past the
+    pointer budget on the card the same row stream takes the two-pass
+    route (:func:`_two_pass_pair`): pass 1 of both flanks in one launch a
+    group.  Otherwise two :func:`align_core` calls.  ``lut``: morph-form
+    input, as in :func:`align_core`.  Returns (pre, suf).
     """
     t_pre = np.asarray(t_pre, np.float32)
     t_suf = np.asarray(t_suf, np.float32)
@@ -497,7 +641,8 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
     B, N = signals.shape
     tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
     mp = tmpl_rows_np.shape[1]
-    if not fuse_flanks(B, N, mp, dev):
+    fused = fuse_flanks(B, N, mp, dev)
+    if not fused and not _two_pass_pair(B, N, mp, params, dev):
         return (align_core(signals, n_actual, t_pre, params, lut=lut),
                 align_core(signals, n_actual, t_suf, params, lut=lut))
 
@@ -506,6 +651,15 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
     n_act = n_actual.to(torch.int32)
     sig2 = torch.cat([signals, signals])
     na2 = torch.cat([n_act, n_act])
+    R = 2 * B
+    if not fused:
+        lut2 = None if lut is None else torch.cat([lut, lut])
+        if lut2 is not None and not _fits_table(tmpl_rows_np):
+            sig2, lut2 = morph_decode(sig2, lut2), None
+        out = _two_pass_rows(sig2, na2, np.repeat(tmpl_rows_np, B, axis=0), np.repeat(ms, B),
+                             params, CKPT_STEPS, lut=lut2)
+        return _split_flanks(out, B, len(t_pre), len(t_suf))
+
     def rows2(x):
         return torch.from_numpy(np.repeat(x, B, axis=0)).to(dev)
 
@@ -518,7 +672,6 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
     n_cols = sig2.shape[1] + mp
     outs = []
     b0 = 0
-    R = 2 * B
     while b0 < R:
         kb = kernel_batch(R - b0, n_cols=n_cols, mp=mp, device=dev)
         end = b0 + kb
@@ -536,9 +689,7 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
                 _pad_rows(li2[b0:end], kb, 0), mr, params, m_max))
         b0 = end
     out = {k: torch.cat([o[k] for o in outs])[:R] for k in outs[0]}
-    pre = {k: (v[:B, : len(t_pre)] if v.ndim == 2 else v[:B]) for k, v in out.items()}
-    suf = {k: (v[B:, : len(t_suf)] if v.ndim == 2 else v[B:]) for k, v in out.items()}
-    return pre, suf
+    return _split_flanks(out, B, len(t_pre), len(t_suf))
 
 
 def _nearest_positions(is_gap: np.ndarray, jpos: np.ndarray, n: int) -> np.ndarray:

@@ -12,8 +12,13 @@ the Pallas body ``_wave_kernel``, in all four of its calls:
     ``_wave_table_plain`` (see "Score modes" below);
   * ``align_forward_ckpt``: pass 1 of the ultra-long two-pass route,
     score-only with diagonal-state checkpoints; twin ``_ckpt_plain``;
+    morph form ``align_forward_ckpt_morph``, twin ``_ckpt_table_plain``;
   * ``align_window_from_state``: pass 2, pointers over a window resumed
-    from a checkpoint; twin ``_window_plain``.
+    from a checkpoint; twin ``_window_plain``; morph form
+    ``align_window_from_state_morph`` (the window read from the bins row
+    at its offset, no gathered window), twin ``_window_table_plain``.
+    Both passes take one template or one per row (both flanks in one
+    call).
 
 The kernel is ``csrc/wave_align.cu`` (one body, compile-time modes);
 each twin is the same recurrence in PyTorch ops (``_wave_recurrence``),
@@ -42,22 +47,23 @@ from this by one ulp on about 0.065% of inputs (and ``torch.pow`` in
 f32 by up to 41 ulp), so scores agree with the reference to that
 measured bound; see ROADMAP.md Queue 3.
 
-Score modes of the pointer-writing kernel (one launch counter each):
+Score modes of every kernel mode (one launch counter each):
 
-  * POW: every cell evaluates the pow above (the f32 entry points, and
-    rows 5-6 always);
+  * POW: every cell evaluates the pow above (the f32 entry points);
   * TABLE: a morph-form row meets at most U x 258 distinct
     (template value, signal value) pairs -- U distinct template values
     against the 256 bins, the NEG fill before the read and the 0.0 fill
-    past the padded end -- so the kernel evaluates that
-    :func:`score_table` once per row into shared memory and each cell
-    looks its score up.  Same expression, same values.
+    past its end -- so the kernel evaluates that :func:`score_table`
+    once per row into shared memory and each cell looks its score up.
+    Same expression, same values.  A window reads 0.0 on both sides of
+    the read, as the f32 window's gather fills.
 
 A morph-form call runs TABLE when :func:`wave_score_mode` says the
 template's lanes fit one thread each and the table fits one block's
 shared memory, and otherwise POW on the decoded f32 (``lut[bins]``, the
 template rebuilt from its levels): a rule on the shapes, decided before
-the launch.
+the launch (for rows 1-2 here, for rows 5-6 by the two-pass route in
+``ops.align``, whose morph entry points raise past the table).
 """
 from __future__ import annotations
 
@@ -266,20 +272,27 @@ def _pow_scores(sig_ext, tmpl, params):
         k["off"] - score_pow((sig_ext[:, t + mp - lane] - tmpl).abs()), k["dmin"])
 
 
-def _table_scores(bins, lut, levels, lidx, params):
-    """TABLE mode's cell scores: step t -> (B, MP), read from
-    :func:`score_table` at (lane's level index, bin of a[t - i]), with
-    bin 256 before the read and 257 past the padded end."""
-    B = bins.shape[0]
+def _table_scores(bins, lut, levels, lidx, params, nd: int | None = None, t0=None):
+    """TABLE mode's cell scores: step t < ``nd`` (default NB + MP) ->
+    (B, MP), read from :func:`score_table` at (lane's level index, bin of
+    sample t - i of the row), with bin 256 before the read and 257 past
+    its end.  With ``t0`` (B,), a window's: lane i at local step t reads
+    sample t0 + t - i, and 257 on both sides of the read."""
+    B, nb = bins.shape
     mp = lidx.shape[1]
     dev = bins.device
+    nd = nb + mp if nd is None else nd
     tab = score_table(lut, levels, params).reshape(B, -1)
-    ext = torch.cat([torch.full((B, mp), BIN_NEG, dtype=torch.int64, device=dev),
+    ext = torch.cat([torch.full((B, mp), BIN_NEG if t0 is None else BIN_ZERO, dtype=torch.int64,
+                                device=dev),
                      bins.to(torch.int64),
-                     torch.full((B, mp), BIN_ZERO, dtype=torch.int64, device=dev)], dim=1)
-    lane = torch.arange(mp, device=dev)
+                     torch.full((B, nd), BIN_ZERO, dtype=torch.int64, device=dev)], dim=1)
+    base = (mp - torch.arange(mp, device=dev)).expand(B, mp)
+    if t0 is not None:
+        base = base + t0.to(device=dev, dtype=torch.int64)[:, None]
+    last = ext.shape[1] - 1  # past the row's end, as the pad: bin 257
     row_off = (lidx.to(torch.int64) * SCORE_COLS).expand(B, mp)
-    return lambda t: tab.gather(1, row_off + ext[:, t + mp - lane])
+    return lambda t: tab.gather(1, row_off + ext.gather(1, (base + t).clamp_max(last)))
 
 
 def _wave_recurrence(scores, n_actual, m_rows, params, nd: int, t_run: int, mp: int, *,
@@ -416,6 +429,19 @@ def _ckpt_plain(signals, tmpl, n_actual, m_rows, params, ckpt_steps: int):
     return bottom, ckpts
 
 
+def _ckpt_table_plain(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps: int,
+                      nd: int):
+    """Plain twin of the TABLE-mode checkpoint kernel (row 5): nd steps
+    over the bins row read in place, 0.0 (bin 257) past it.  (bottom,
+    (S1, S2, Ih, C))."""
+    mp = lidx.shape[1]
+    _, bottom, ckpts = _wave_recurrence(_table_scores(bins, lut, levels, lidx, params, nd),
+                                        n_actual, m_rows, params, nd,
+                                        _steps_to_run(n_actual, m_rows, nd), mp,
+                                        with_ptr=False, ckpt_steps=ckpt_steps)
+    return bottom, ckpts
+
+
 def _window_plain(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
     """Plain twin of the window kernel (row 6): ptr (W/8, B, MP).
 
@@ -432,24 +458,42 @@ def _window_plain(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
     return ptr
 
 
-def _wave_cuda(signals, tmpl, n_actual, m_rows, params, counter: str):
+def _window_table_plain(bins, lut, t0, state4, cold, steps_needed, levels, lidx, params,
+                        W: int):
+    """Plain twin of the TABLE-mode window kernel (row 6): lane i at
+    local step tau reads the bin of sample t0 + tau - i of its row, 0.0
+    (bin 257) outside the read.  ptr (W/8, B, MP)."""
+    B = bins.shape[0]
+    zeros = torch.zeros(B, dtype=torch.int32, device=bins.device)
+    ptr, _, _ = _wave_recurrence(_table_scores(bins, lut, levels, lidx, params, W, t0),
+                                 steps_needed, zeros, params, W,
+                                 _steps_to_run(steps_needed, zeros, W), lidx.shape[1],
+                                 with_bottom=False, state4=state4, cold=cold)
+    return ptr
+
+
+def _param_args(params) -> list:
+    """neg_h and the seven f32 constants, as the C entry points take them."""
     k = _consts(params)
+    return [int(k["neg_h"]), k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"],
+            k["g"]]
+
+
+def _launch(name: str, dev, tensors, *args) -> None:
+    """Launch C entry point ``name`` on ``tensors`` (made contiguous and
+    held until the launch is queued), then the scalar ``args``."""
+    held = [x.contiguous() for x in tensors]
+    _build.launch(name, dev, *(x.data_ptr() for x in held), *args)
+
+
+def _wave_cuda(signals, tmpl, n_actual, m_rows, params, counter: str):
     B, N = signals.shape
     mp = tmpl.shape[1]
-    nd = N + mp
-    sig = signals.contiguous()
-    tm = tmpl.contiguous()
-    nact = n_actual.to(torch.int32).contiguous()
-    mrow = m_rows.to(torch.int32).contiguous()
-    ptr = torch.empty((nd // 8, B, mp), dtype=torch.int32, device=signals.device)
-    bottom = torch.empty((B, nd), dtype=torch.float32, device=signals.device)
-    tmpl_stride = 0 if tm.shape[0] == 1 else mp
-    _build.launch(
-        "wave_align_launch", signals.device,
-        sig.data_ptr(), tm.data_ptr(), nact.data_ptr(), mrow.data_ptr(),
-        ptr.data_ptr(), bottom.data_ptr(),
-        B, N, mp, tmpl_stride, int(k["neg_h"]),
-        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    ptr = torch.empty(((N + mp) // 8, B, mp), dtype=torch.int32, device=signals.device)
+    bottom = torch.empty((B, N + mp), dtype=torch.float32, device=signals.device)
+    _launch("wave_align_launch", signals.device,
+            (signals, tmpl, n_actual.to(torch.int32), m_rows.to(torch.int32), ptr, bottom),
+            B, N, mp, 0 if tmpl.shape[0] == 1 else mp, *_param_args(params))
     _build.LAUNCHES[counter] += 1
     return ptr, bottom
 
@@ -461,25 +505,14 @@ def _dispatch(signals, tmpl, n_actual, m_rows, params, counter):
 
 
 def _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, counter: str):
-    k = _consts(params)
     B, N = bins.shape
     mp = lidx.shape[1]
-    nd = N + mp
-    dev = bins.device
-    bn = bins.contiguous()
-    lt = lut.contiguous()
-    lv = levels.contiguous()
-    li = lidx.contiguous()
-    nact = n_actual.to(torch.int32).contiguous()
-    mrow = m_rows.to(torch.int32).contiguous()
-    ptr = torch.empty((nd // 8, B, mp), dtype=torch.int32, device=dev)
-    bottom = torch.empty((B, nd), dtype=torch.float32, device=dev)
-    _build.launch(
-        "wave_table_launch", dev,
-        bn.data_ptr(), lt.data_ptr(), lv.data_ptr(), li.data_ptr(), nact.data_ptr(),
-        mrow.data_ptr(), ptr.data_ptr(), bottom.data_ptr(),
-        B, N, mp, lv.shape[1], int(lv.shape[0] != 1), int(k["neg_h"]),
-        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    ptr = torch.empty(((N + mp) // 8, B, mp), dtype=torch.int32, device=bins.device)
+    bottom = torch.empty((B, N + mp), dtype=torch.float32, device=bins.device)
+    _launch("wave_table_launch", bins.device,
+            (bins, lut, levels, lidx, n_actual.to(torch.int32), m_rows.to(torch.int32), ptr,
+             bottom),
+            B, N, mp, levels.shape[1], int(levels.shape[0] != 1), *_param_args(params))
     _build.LAUNCHES[counter] += 1
     return ptr, bottom
 
@@ -612,75 +645,148 @@ def _on_card(x: torch.Tensor) -> bool:
     raise ValueError(f"wave alignment runs on cuda or cpu tensors, got {x.device}")
 
 
+def _ckpt_planes(nd: int, ckpt_steps: int, B: int, mp: int, dev):
+    return (torch.empty((B, nd), dtype=torch.float32, device=dev),
+            tuple(torch.empty((nd // ckpt_steps, B, mp), dtype=torch.float32, device=dev)
+                  for _ in range(4)))
+
+
 def _ckpt_cuda(signals, tmpl, n_actual, m_rows, params, ckpt_steps: int):
-    k = _consts(params)
     B, N = signals.shape
     mp = tmpl.shape[1]
-    nd = N + mp
-    dev = signals.device
-    sig = signals.contiguous()
-    tm = tmpl.contiguous()
-    nact = n_actual.to(torch.int32).contiguous()
-    mrow = m_rows.to(torch.int32).contiguous()
-    bottom = torch.empty((B, nd), dtype=torch.float32, device=dev)
-    ckpts = tuple(torch.empty((nd // ckpt_steps, B, mp), dtype=torch.float32, device=dev)
-                  for _ in range(4))
-    _build.launch(
-        "wave_ckpt_launch", dev,
-        sig.data_ptr(), tm.data_ptr(), nact.data_ptr(), mrow.data_ptr(), bottom.data_ptr(),
-        *(c.data_ptr() for c in ckpts),
-        B, N, mp, ckpt_steps, int(k["neg_h"]),
-        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    bottom, ckpts = _ckpt_planes(N + mp, ckpt_steps, B, mp, signals.device)
+    _launch(
+        "wave_ckpt_launch", signals.device,
+        (signals, tmpl, n_actual.to(torch.int32), m_rows.to(torch.int32), bottom, *ckpts),
+        B, N, mp, 0 if tmpl.shape[0] == 1 else mp, ckpt_steps, *_param_args(params))
     _build.LAUNCHES["align_forward_ckpt"] += 1
     return bottom, ckpts
 
 
+def _ckpt_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps: int,
+                     nd: int):
+    B, nb = bins.shape
+    mp = lidx.shape[1]
+    bottom, ckpts = _ckpt_planes(nd, ckpt_steps, B, mp, bins.device)
+    _launch(
+        "wave_ckpt_table_launch", bins.device,
+        (bins, lut, levels, lidx, n_actual.to(torch.int32), m_rows.to(torch.int32),
+               bottom, *ckpts),
+        B, nb, nd, mp, levels.shape[1], int(levels.shape[0] != 1), ckpt_steps,
+        *_param_args(params))
+    _build.LAUNCHES["align_forward_ckpt_table"] += 1
+    return bottom, ckpts
+
+
 def _window_cuda(sig_win, r_init, state4, cold, steps_needed, tmpl, params):
-    k = _consts(params)
     B, W = sig_win.shape
     mp = tmpl.shape[1]
-    dev = sig_win.device
-    sw = sig_win.contiguous()
-    ri = r_init.contiguous()
-    tm = tmpl.contiguous()
-    st = tuple(x.contiguous() for x in state4)
-    steps = steps_needed.to(torch.int32).contiguous()
-    cold_i = cold.to(torch.int32).contiguous()
-    ptr = torch.empty((W // 8, B, mp), dtype=torch.int32, device=dev)
-    _build.launch(
-        "wave_window_launch", dev,
-        sw.data_ptr(), ri.data_ptr(), tm.data_ptr(), steps.data_ptr(),
-        *(x.data_ptr() for x in st), cold_i.data_ptr(), ptr.data_ptr(),
-        B, W, mp, int(k["neg_h"]),
-        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    ptr = torch.empty((W // 8, B, mp), dtype=torch.int32, device=sig_win.device)
+    _launch(
+        "wave_window_launch", sig_win.device,
+        (sig_win, r_init, tmpl, steps_needed.to(torch.int32), *state4,
+               cold.to(torch.int32), ptr),
+        B, W, mp, 0 if tmpl.shape[0] == 1 else mp, *_param_args(params))
     _build.LAUNCHES["align_window_from_state"] += 1
     return ptr
 
 
-def align_forward_ckpt(signals, n_actual, template_padded, params, m_actual: int,
+def _window_table_cuda(bins, lut, t0, state4, cold, steps_needed, levels, lidx, params,
+                       W: int):
+    B, nb = bins.shape
+    mp = lidx.shape[1]
+    ptr = torch.empty((W // 8, B, mp), dtype=torch.int32, device=bins.device)
+    _launch(
+        "wave_window_table_launch", bins.device,
+        (bins, lut, levels, lidx, t0.to(torch.int32), steps_needed.to(torch.int32),
+               *state4, cold.to(torch.int32), ptr),
+        B, nb, W, mp, levels.shape[1], int(levels.shape[0] != 1), *_param_args(params))
+    _build.LAUNCHES["align_window_from_state_table"] += 1
+    return ptr
+
+
+def _two_pass_m_rows(m_actual, rows: int, B: int, mp: int, device):
+    """(B,) template lengths of a two-pass call: ``m_actual`` an int with
+    one (1, MP) template, or a (B,) int tensor with a template per row."""
+    if isinstance(m_actual, torch.Tensor):
+        if m_actual.shape != (B,) or rows not in (1, B):
+            raise ValueError("per-row lengths take one template, or one per row, and a "
+                             "length per row")
+        return m_actual.to(torch.int32)
+    if rows != 1 or not 0 < m_actual < mp:
+        raise ValueError("a two-pass call takes one (1, MP) template of m < MP samples, or a "
+                         "template and a length per row")
+    return torch.full((B,), int(m_actual), dtype=torch.int32, device=device)
+
+
+def _ckpt_stride(nd: int, ckpt_chunks: int) -> int:
+    ckpt_steps = int(ckpt_chunks) * CHUNK
+    if ckpt_steps <= 0 or nd % ckpt_steps:
+        raise ValueError(f"ND = {nd} must be a multiple of the checkpoint stride {ckpt_steps}")
+    return ckpt_steps
+
+
+def _require_table(levels, lidx) -> None:
+    if wave_score_mode(levels.shape[1], lidx.shape[1]) != "table":
+        raise ValueError(f"a template of {levels.shape[1]} levels at MP {lidx.shape[1]} does not "
+                         "fit the score table: run the f32 entry point on lut[bins]")
+
+
+def align_forward_ckpt(signals, n_actual, template_padded, params, m_actual,
                        ckpt_chunks: int):
     """Pass 1: score-only wave forward with diagonal-state checkpoints.
 
     signals (B, N) f32 with ND = N + MP a multiple of ckpt_chunks*128;
-    template_padded (1, MP).  Returns (bottom_steps (B, ND), ckpts), the
-    4-tuple of (ND/(ckpt_chunks*128), B, MP) f32 planes (S1, S2, Ih, C):
-    slot g holds the state after diagonal step (g+1)*ckpt_chunks*128-1.
-    A row stops at round_up(n + m, 8): slots past that stop are left
+    template_padded (1, MP) with ``m_actual`` an int, or (B, MP) with
+    ``m_actual`` a (B,) tensor (both flanks in one call).  Returns
+    (bottom_steps (B, ND), ckpts), the 4-tuple of
+    (ND/(ckpt_chunks*128), B, MP) f32 planes (S1, S2, Ih, C): slot g
+    holds the state after diagonal step (g+1)*ckpt_chunks*128-1.  A row
+    stops at round_up(n + m, 8): slots past that stop are left
     unwritten, and pass 2 never reads them.  No pointer plane exists.
     """
     B, N = signals.shape
     mp = template_padded.shape[1]
-    if template_padded.shape[0] != 1 or not 0 < m_actual < mp:
-        raise ValueError("align_forward_ckpt takes one (1, MP) template of m < MP samples")
-    ckpt_steps = int(ckpt_chunks) * CHUNK
-    if ckpt_steps <= 0 or (N + mp) % ckpt_steps:
-        raise ValueError(f"ND = {N + mp} must be a multiple of the checkpoint stride "
-                         f"{ckpt_steps}")
-    m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=signals.device)
+    m_rows = _two_pass_m_rows(m_actual, template_padded.shape[0], B, mp, signals.device)
+    ckpt_steps = _ckpt_stride(N + mp, ckpt_chunks)
     _check_inputs(signals, n_actual, template_padded, m_rows)
     if _on_card(signals):
         return _ckpt_cuda(signals, template_padded, n_actual, m_rows, params, ckpt_steps)
     return _ckpt_plain(signals, template_padded, n_actual, m_rows, params, ckpt_steps)
+
+
+def align_forward_ckpt_morph(bins, lut, n_actual, levels, lidx, params, m_actual,
+                             ckpt_chunks: int, nd: int):
+    """:func:`align_forward_ckpt` on morph-form reads, TABLE score mode
+    (launch counter ``align_forward_ckpt_table``): the same outputs as on
+    ``lut[bins]`` padded with 0.0 to ND - MP samples, against the
+    template rows ``levels[r, lidx[r]]``.
+
+    bins (B, NB) u8, NB a multiple of 128, read in place; lut (B, 256)
+    f32; (levels, lidx) = :func:`template_levels` of (1, MP) or (B, MP)
+    rows, ``m_actual`` as in :func:`align_forward_ckpt`; ``nd`` >= NB + MP
+    a multiple of ckpt_chunks*128.  A template past
+    :func:`wave_score_mode`'s table raises: the caller decodes to f32.
+    """
+    B, nb = bins.shape
+    mp = lidx.shape[1]
+    m_rows = _two_pass_m_rows(m_actual, lidx.shape[0], B, mp, bins.device)
+    ckpt_steps = _ckpt_stride(nd, ckpt_chunks)
+    if nd < nb + mp:
+        raise ValueError(f"ND = {nd} steps do not cover {nb} samples and {mp} lanes")
+    _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
+    _require_table(levels, lidx)
+    if _on_card(bins):
+        return _ckpt_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps,
+                                nd)
+    return _ckpt_table_plain(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps, nd)
+
+
+def _check_state(state4, B: int, mp: int, device, *extra) -> None:
+    if len(state4) != 4 or any(x.shape != (B, mp) or x.dtype != torch.float32
+                               or x.device != device for x in (*extra, *state4)):
+        raise ValueError("the four state planes (and r_init) are (B, MP) f32 on the window's "
+                         "device")
 
 
 def align_window_from_state(sig_win, r_init, state4, cold, steps_needed, template_padded,
@@ -692,21 +798,46 @@ def align_window_from_state(sig_win, r_init, state4, cold, steps_needed, templat
     gather pads); state4 (S1, S2, Ih, C), each (B, MP), the state after
     step t0-1 (cold-start values where ``cold`` is 1: only those rows
     pin the column-0 boundary); steps_needed (B,) local steps a row
-    needs (it runs round_up(steps, 8), at most W).  Returns the
-    (W/8, B, MP) pointer plane in local step space; ``m_actual`` is the
-    template length (the reference's discarded bottom tap).
+    needs (it runs round_up(steps, 8), at most W); template_padded (1,
+    MP) or (B, MP).  Returns the (W/8, B, MP) pointer plane in local
+    step space; ``m_actual`` is the (longest) template length (the
+    reference's discarded bottom tap).
     """
     B, W = sig_win.shape
     mp = template_padded.shape[1]
-    if template_padded.shape[0] != 1 or not 0 < m_actual < mp:
-        raise ValueError("align_window_from_state takes one (1, MP) template of m < MP samples")
+    if not 0 < m_actual < mp:
+        raise ValueError("align_window_from_state takes templates of m < MP samples")
     _check_inputs(sig_win, steps_needed, template_padded, cold)
-    if len(state4) != 4 or any(x.shape != (B, mp) or x.dtype != torch.float32
-                               or x.device != sig_win.device for x in (r_init, *state4)):
-        raise ValueError("r_init and the four state planes are (B, MP) f32 on the window's device")
+    _check_state(state4, B, mp, sig_win.device, r_init)
     if _on_card(sig_win):
         return _window_cuda(sig_win, r_init, state4, cold, steps_needed, template_padded, params)
     return _window_plain(sig_win, r_init, state4, cold, steps_needed, template_padded, params)
+
+
+def align_window_from_state_morph(bins, lut, t0, state4, cold, steps_needed, levels, lidx,
+                                  params, m_actual: int, W: int):
+    """:func:`align_window_from_state` on morph-form reads, TABLE score
+    mode (launch counter ``align_window_from_state_table``): row r's
+    window reads its own bins row from sample ``t0[r]`` on, in place (no
+    gathered window), with 0.0 on both sides of the read, as the f32
+    window's gather fills.  bins (B, NB) u8, lut (B, 256) f32, t0 (B,),
+    (levels, lidx) of (1, MP) or (B, MP) template rows; W a multiple of
+    128.  A template past :func:`wave_score_mode`'s table raises.
+    """
+    B = bins.shape[0]
+    mp = lidx.shape[1]
+    if W % CHUNK or W <= 0 or not 0 < m_actual < mp:
+        raise ValueError(f"a window of W % {CHUNK} == 0 steps and templates of m < MP samples")
+    _check_morph(bins, lut, steps_needed, levels, lidx, cold)
+    if t0.shape != (B,) or t0.device != bins.device:
+        raise ValueError("t0 is a (B,) tensor on the bins' device")
+    _check_state(state4, B, mp, bins.device)
+    _require_table(levels, lidx)
+    if _on_card(bins):
+        return _window_table_cuda(bins, lut, t0, state4, cold, steps_needed, levels, lidx,
+                                  params, W)
+    return _window_table_plain(bins, lut, t0, state4, cold, steps_needed, levels, lidx, params,
+                               W)
 
 
 # ---------------------------------------------------------------------------
@@ -781,20 +912,13 @@ def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
 
 
 def _col_cuda(signals, tmpl, n_actual, params, m_actual: int):
-    k = _consts(params)
     B, N = signals.shape
     mp = tmpl.shape[1]
-    dev = signals.device
-    sig = signals.contiguous()
-    tm = tmpl.contiguous()
-    nact = n_actual.to(torch.int32).contiguous()
-    ptr = torch.empty((N // 8, B, mp), dtype=torch.int32, device=dev)
-    bottom = torch.empty((B, N), dtype=torch.float32, device=dev)
-    _build.launch(
-        "col_align_launch", dev,
-        sig.data_ptr(), tm.data_ptr(), nact.data_ptr(), ptr.data_ptr(), bottom.data_ptr(),
-        B, N, mp, int(m_actual), int(k["neg_h"]),
-        k["go_h"], k["go_v"], k["ge_h"], k["ge_v"], k["off"], k["dmin"], k["g"])
+    ptr = torch.empty((N // 8, B, mp), dtype=torch.int32, device=signals.device)
+    bottom = torch.empty((B, N), dtype=torch.float32, device=signals.device)
+    _launch("col_align_launch", signals.device,
+            (signals, tmpl, n_actual.to(torch.int32), ptr, bottom),
+            B, N, mp, int(m_actual), *_param_args(params))
     _build.LAUNCHES["align_forward_col"] += 1
     return ptr, bottom
 

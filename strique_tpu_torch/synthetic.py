@@ -5,7 +5,9 @@ repeat count without any downloaded data: the model is a full 4096-row
 6-mer table of seeded random levels in the tab format ``PoreModel``
 parses (``kmer<TAB>level_mean<TAB>level_stdv``), and reads are the
 c9orf72 locus (flanks as in bench.py) around a backbone, synthesised by
-``PoreModel.generate_signal`` with per-sample model noise.  The Viterbi
+``PoreModel.generate_signal`` with per-sample model noise.  ``quantise``
+turns f32 reads into the counter's morph form (u8 bins and a 256-level
+table per read) for the tests of the TABLE score mode.  The Viterbi
 kernels' edge inputs (``viterbi_edge_case``) are one table shared by
 the ``gpu`` tests and ``chip_smoke.py``.
 """
@@ -53,6 +55,20 @@ def make_reads(pm, n_reads: int, repeats: int, rng, strand: str = "+",
         n = max(len(s) for s in sigs)
         sigs = [np.pad(s, (0, n - len(s)), mode="edge") for s in sigs]
     return sigs
+
+
+def quantise(sig, rng, lo=None, hi=None):
+    """Morph form of (B, N) reads: u8 bins and a (B, 256) f32 table per
+    read of 256 affine levels from ``lo`` to ``hi`` (as the counter's prep
+    builds one), each sample at its nearest level.  By default a read's
+    span is its own range widened by up to 5 on each side (from ``rng``)."""
+    B = sig.shape[0]
+    if lo is None:
+        lo = sig.min(axis=1) - rng.uniform(0, 5, B)
+        hi = sig.max(axis=1) + rng.uniform(0, 5, B)
+    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
+    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    return bins.astype(np.uint8), lut
 
 
 def smoke_workload(pm, seed: int, n_warm: int = 64, n_plus: int = 128,

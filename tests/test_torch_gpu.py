@@ -26,13 +26,16 @@ from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, VITERBI_EDGES, make_reads,
-                                        viterbi_edge_case, write_pore_model)
+                                        quantise, viterbi_edge_case, write_pore_model)
 
 PARAMS = [
     AlignParams(),
     AlignParams(gap_open_h=-3.0, gap_extension_h=-0.5, gap_open_v=-20.0, gap_extension_v=-4.0),
     AlignParams(gap_open_h=1.0, gap_extension_h=0.5),
 ]
+# the steep-gap corner: a short span bound (a small pass-2 window)
+STEEP = AlignParams(gap_open_h=-16.0, gap_extension_h=-16.0, gap_open_v=-0.5,
+                    gap_extension_v=-0.5)
 
 
 @pytest.fixture
@@ -100,15 +103,14 @@ def _morph_batch(rng, B, N, templates):
     templates[b] (one row runs to the padded end)."""
     lo = rng.uniform(40, 60, B)
     hi = rng.uniform(130, 150, B)
-    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
     sig = rng.uniform(60, 120, (B, N))
     for i, t in enumerate(templates):
         st = 30 + (20 * i) % (N // 2)
         sig[i, st : st + len(t)] = t + rng.normal(0, 0.5, len(t))
-    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    bins, lut = quantise(sig, rng, lo, hi)
     na = rng.integers(N // 2, N, B).astype(np.int32)
     na[0] = N
-    return bins.astype(np.uint8), lut, na
+    return bins, lut, na
 
 
 @pytest.mark.gpu
@@ -418,10 +420,57 @@ def test_gpu_ckpt_and_window_match_plain(cuda_device, pi):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("pi", [0, 1])
+def test_gpu_ckpt_and_window_table_match_plain_and_pow(cuda_device, pi):
+    """Rows 5-6 in the TABLE score mode on morph-form reads (a bins row of
+    4096 samples under an ND of 4608: 0.0 past the row) against their
+    table twins and against the POW kernels on lut[bins], bit for bit:
+    bottom taps, written checkpoint slots, written pointer words of cold
+    and warm windows."""
+    p = PARAMS[pi]
+    rng = np.random.default_rng(720 + pi)
+    signals, na, template = _longread_reads(rng)
+    bins, lut = quantise(signals, rng)
+    b, lt, n = (torch.from_numpy(x).to(cuda_device) for x in (bins, lut, na))
+    dec = TC.morph_decode(b, lt)
+    before = dict(_build.LAUNCHES)
+    st = TA._longread_pass1(b, n, template, p, ckpt_steps=512, lut=lt)
+    st_k = TA._longread_pass1(dec, n, template, p, ckpt_steps=512)
+    assert _build.LAUNCHES["align_forward_ckpt_table"] == before["align_forward_ckpt_table"] + 1
+    assert _build.LAUNCHES["align_forward_ckpt"] == before["align_forward_ckpt"] + 1
+    nd = st["N"] + st["mp"]
+    assert st["sig"].shape[1] == 4096 < st["N"]
+    mr = torch.full((8,), st["m"], dtype=torch.int32, device=cuda_device)
+    bot_p, ck_p = TC._ckpt_table_plain(b, lt, st["levels"], st["lidx"], n, mr, p,
+                                       st["ckpt_steps"], nd)
+    mask = _written_slots(n, st["m"], nd, st["ckpt_steps"])
+    for other_bot, other_ck in ((bot_p, ck_p), (st_k["bottom_steps"], st_k["ckpts"])):
+        assert torch.equal(st["bottom_steps"], other_bot)
+        for a, c in zip(st["ckpts"], other_ck):
+            assert torch.equal(a[mask], c[mask])
+    w = TA.window_inputs(st)
+    w_k = TA.window_inputs(st_k)
+    assert 0 < int(w["cold"].sum()) < 8  # both kinds of restart
+    args = (w["t0"], w["state4"], w["cold"], w["steps_needed"], st["levels"], st["lidx"], p)
+    ptr = TC.align_window_from_state_morph(b, lt, *args, st["m"], st["W"])
+    assert (_build.LAUNCHES["align_window_from_state_table"]
+            == before["align_window_from_state_table"] + 1)
+    ptr_p = TC._window_table_plain(b, lt, *args, st["W"])
+    ptr_k = TC.align_window_from_state(w_k["sig_win"], w_k["r_init"], w["state4"], w["cold"],
+                                       w["steps_needed"], st_k["tmpl"], p, st["m"])
+    words = _valid_words(w["steps_needed"], torch.zeros_like(n), ptr.shape[0])
+    assert torch.equal(ptr[words], ptr_p[words])
+    assert torch.equal(ptr[words], ptr_k[words])
+
+
+@pytest.mark.gpu
 def test_gpu_two_pass_align_core_matches_one_pass(cuda_device, monkeypatch):
     """align_core past a tiny pointer budget takes the two-pass kernels and
-    gives the one-pass route's outputs exactly."""
-    signals, na, template = _longread_reads(np.random.default_rng(710))
+    gives the one-pass route's outputs exactly: POW on f32 reads; on
+    morph-form reads a fused pair of 8 reads runs TABLE alone, pass 1 of
+    both flanks in one 16-row launch."""
+    rng = np.random.default_rng(710)
+    signals, na, template = _longread_reads(rng)
     s = torch.from_numpy(signals).to(cuda_device)
     n = torch.from_numpy(na).to(cuda_device)
     one = TA.align_core(s, n, template, AlignParams())
@@ -433,3 +482,29 @@ def test_gpu_two_pass_align_core_matches_one_pass(cuda_device, monkeypatch):
     assert _build.LAUNCHES["align_window_from_state"] == 1
     for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
         assert torch.equal(one[k], two[k]), k
+
+    if TC.sm_count(cuda_device) < 16:
+        pytest.skip("the fused two-pass group needs a card of at least 16 SMs")
+    monkeypatch.delenv("STRIQUE_ALIGN_KERNEL", raising=False)
+    t_suf = rng.uniform(60, 120, 30).astype(np.float32)
+    signals[:, 2500:2530] = t_suf
+    bins, lut = quantise(signals, rng)
+    b, lt = (torch.from_numpy(x).to(cuda_device) for x in (bins, lut))
+    p = STEEP
+    monkeypatch.delenv("STRIQUE_PTR_BUDGET_GB")
+    one = TA.align_fused_pair(b, n, template, t_suf, p, lut=lt)
+    # a width-8 one-pass plane (2.2 MB) exceeds 1 MB; at a 512-step stride
+    # 16 rows of pass 2's window plane (0.7 MB) fit
+    monkeypatch.setattr(TA, "CKPT_STEPS", 512)
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.001")
+    _build.reset_launches()
+    two = TA.align_fused_pair(b, n, template, t_suf, p, lut=lt)
+    assert _build.LAUNCHES["align_forward_ckpt_table"] == 1
+    assert _build.LAUNCHES["align_window_from_state_table"] == 1
+    assert sum(_build.LAUNCHES[k] for k in (
+        "align_forward_ckpt", "align_window_from_state", "align_forward_wave",
+        "align_forward_wave_multi", "align_forward_wave_table",
+        "align_forward_wave_multi_table")) == 0
+    for a, c in zip(one, two):
+        for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+            assert torch.equal(a[k], c[k]), k

@@ -31,7 +31,8 @@ from strique_tpu_torch.convert import align_params_from_jax, longread_state_from
 from strique_tpu_torch.detect.counter import RepeatCounter
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
-from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads, write_pore_model
+from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, make_reads, quantise,
+                                        write_pore_model)
 
 # The tier-1 run puts six pytest workers on the machine's cores, and
 # torch's intra-op threads then spin against each other (the plain
@@ -232,3 +233,183 @@ def test_counter_two_pass_matches_jax_counter(model_file, strand, monkeypatch):
     for r, g in zip(ref, got):
         assert (g[0], g[1], g[2], g[4], g[5], g[6]) == (r[0], r[1], r[2], r[4], r[5], r[6])
         assert g[3] == pytest.approx(r[3], rel=1e-9)
+
+
+# -- the TABLE score mode of rows 5-6: morph-form reads (u8 bins and a
+# 256-level table per read) read in place.  The JAX side and the POW
+# twins get the decoded lut[bins].  Tolerance: none, everything
+# bit-equal.
+
+
+def _morph(signals, seed):
+    """Each read quantised to its own affine 256-level table
+    (``synthetic.quantise``): (bins u8, lut (B, 256) f32, lut[bins])."""
+    bins, lut = quantise(signals, np.random.default_rng(seed))
+    return bins, lut, np.take_along_axis(lut, bins.astype(np.int64), axis=1)
+
+
+@pytest.fixture(scope="module", params=sorted(PARAMS))
+def pass1_morph(request):
+    """Pass 1 on one morph-form batch per params: the TABLE route on the
+    bins, the POW route and the reference on the decoded f32."""
+    p = PARAMS[request.param]
+    seed = {"default": 901, "steep": 905}[request.param]
+    signals, na, template = _reads(seed)
+    # level tables from seed + 1: the reference's f32 pow (ROADMAP Queue 3)
+    # moves 6 values of seed 905's own quantisation by one ulp
+    bins, lut, dec = _morph(signals, seed + 1)
+    tp, m = JP.pad_template(template)
+    jbot, jck = JP.align_forward_ckpt(jnp.asarray(dec), jnp.asarray(na), jnp.asarray(tp), p, m,
+                                      CKPT_STEPS // JP.CHUNK)
+    pp = align_params_from_jax(p)
+    n_t = torch.from_numpy(na)
+    st_t = TA._longread_pass1(torch.from_numpy(bins), n_t, template, pp, CKPT_STEPS,
+                              lut=torch.from_numpy(lut))
+    st_p = TA._longread_pass1(torch.from_numpy(dec), n_t, template, pp, CKPT_STEPS)
+    return {"p": p, "pp": pp, "na": na, "m": m, "tp": tp, "st_t": st_t, "st_p": st_p,
+            "jbot": np.asarray(jbot), "jck": [np.asarray(c) for c in jck]}
+
+
+def test_ckpt_table_twin_matches_pow_and_jax(pass1_morph):
+    """Row 5's TABLE twin reads the bins in place: bottom taps and every
+    written checkpoint slot equal the POW twin's on lut[bins] and the
+    reference's, bit for bit."""
+    st_t, st_p = pass1_morph["st_t"], pass1_morph["st_p"]
+    assert st_t["lut"] is not None and st_t["sig"].dtype == torch.uint8
+    assert st_t["N"] + st_t["mp"] == 4096 and st_t["ckpt_steps"] == CKPT_STEPS
+    np.testing.assert_array_equal(st_t["bottom_steps"].numpy(), pass1_morph["jbot"])
+    assert torch.equal(st_t["bottom_steps"], st_p["bottom_steps"])
+    slots = _written_slots(pass1_morph["na"], pass1_morph["m"], 4096, CKPT_STEPS)
+    assert slots.sum() > 8
+    for got, pow_, ref in zip(st_t["ckpts"], st_p["ckpts"], pass1_morph["jck"]):
+        np.testing.assert_array_equal(got.numpy()[slots], ref[slots])
+        np.testing.assert_array_equal(got.numpy()[slots], pow_.numpy()[slots])
+
+
+def test_window_table_twin_matches_pow_and_jax(pass1_morph):
+    """Row 6's TABLE twin reads each row's bins from its t0 (0.0 on both
+    sides of the read, no gathered window): written pointer words equal
+    the POW twin's and the reference's on the gathered f32 windows, on
+    cold and warm rows."""
+    st_t, st_p, m = pass1_morph["st_t"], pass1_morph["st_p"], pass1_morph["m"]
+    w = TA.window_inputs(st_t)
+    w_p = TA.window_inputs(st_p)
+    assert "sig_win" not in w
+    for k in ("j_end", "t0", "cold", "steps_needed"):
+        assert torch.equal(w[k], w_p[k]), k
+    cold = w["cold"].numpy()
+    assert 0 < cold.sum() < len(cold)
+    state = longread_state_from_jax(pass1_morph["jck"], w["t0"].numpy() // CKPT_STEPS - 1, cold)
+    tp = torch.from_numpy(pass1_morph["tp"])
+    ptr = TC.align_window_from_state_morph(st_t["sig"], st_t["lut"], w["t0"], state, w["cold"],
+                                           w["steps_needed"], st_t["levels"], st_t["lidx"],
+                                           pass1_morph["pp"], m, st_t["W"])
+    ptr_p = TC.align_window_from_state(w_p["sig_win"], w_p["r_init"], state, w["cold"],
+                                       w["steps_needed"], tp, pass1_morph["pp"], m)
+    jptr = np.asarray(JP.align_window_from_state(
+        jnp.asarray(w_p["sig_win"].numpy()), jnp.asarray(w_p["r_init"].numpy()),
+        tuple(jnp.asarray(x.numpy()) for x in state), jnp.asarray(cold),
+        jnp.asarray(w["steps_needed"].numpy()), jnp.asarray(pass1_morph["tp"]), pass1_morph["p"],
+        m))
+    assert ptr.shape == ptr_p.shape == jptr.shape
+    words = (w["steps_needed"].numpy().astype(np.int64) + 7) // 8
+    mask = np.arange(jptr.shape[0])[:, None] < words[None, :]
+    np.testing.assert_array_equal(ptr.numpy()[mask], jptr[mask])
+    np.testing.assert_array_equal(ptr.numpy()[mask], ptr_p.numpy()[mask])
+
+
+def test_ckpt_table_reads_zero_past_a_short_bins_row():
+    """A bins row shorter than ND - MP (3840 samples: ND = 4096, where the
+    f32 route pads 256 zeros): the TABLE twin's bin 257 past the row
+    gives the POW twin's outputs on the zero-padded lut[bins], and the
+    whole route's outputs equal the reference's two-pass route."""
+    signals, na, template = _reads(907, N=3840)
+    na = np.minimum(na, 3840 - 8).astype(np.int32)
+    na[0] = 3840  # a row to the end of the bins: its lanes read past it
+    bins, lut, dec = _morph(signals, 907)
+    pp = align_params_from_jax(PARAMS["default"])
+    n_t = torch.from_numpy(na)
+    st_t = TA._longread_pass1(torch.from_numpy(bins), n_t, template, pp, CKPT_STEPS,
+                              lut=torch.from_numpy(lut))
+    st_p = TA._longread_pass1(torch.from_numpy(dec), n_t, template, pp, CKPT_STEPS)
+    assert st_t["sig"].shape[1] == 3840 and st_p["sig"].shape[1] == st_t["N"] == 3968
+    assert torch.equal(st_t["bottom_steps"], st_p["bottom_steps"])
+    slots = _written_slots(na, st_t["m"], 4096, CKPT_STEPS)
+    for a, b in zip(st_t["ckpts"], st_p["ckpts"]):
+        np.testing.assert_array_equal(a.numpy()[slots], b.numpy()[slots])
+    got = TA._longread_pass2(st_t)
+    ref = JA.align_batch_longread(dec, na, template, PARAMS["default"], ckpt_steps=CKPT_STEPS)
+    for k in FIELDS:
+        a = np.asarray(ref[k])
+        np.testing.assert_array_equal(got[k].numpy().astype(a.dtype), a, err_msg=k)
+
+
+def test_align_core_two_pass_on_morph_input(monkeypatch):
+    """align_core past the pointer budget on morph input keeps the bins
+    (no lut[bins] decode: the TABLE twins run) and returns the one-pass
+    route's outputs and the reference's align_batch_longread on the
+    decoded f32, exactly."""
+    signals, na, template = _reads(901)
+    bins, lut, dec = _morph(signals, 901)
+    b_t, l_t, n_t = (torch.from_numpy(x) for x in (bins, lut, na))
+    pp = align_params_from_jax(PARAMS["default"])
+    one = TA.align_core(b_t, n_t, template, pp, lut=l_t)
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
+    decoded = []
+    monkeypatch.setattr(TA, "morph_decode", lambda *a: decoded.append(1) or TC.morph_decode(*a))
+    two = TA.align_core(b_t, n_t, template, pp, lut=l_t)
+    assert not decoded
+    ref = JA.align_batch_longread(dec, na, template, PARAMS["default"], ckpt_steps=16384)
+    for k in FIELDS:
+        assert torch.equal(one[k], two[k]), k
+        a = np.asarray(ref[k])
+        np.testing.assert_array_equal(two[k].numpy().astype(a.dtype), a, err_msg=k)
+
+
+def test_two_pass_group_card_rule(monkeypatch):
+    """Card rule: a two-pass group is as wide as its rows, up to the
+    largest multiple of 8 within the SM count, narrowed (never below 8)
+    so pass 2's (W/8, rows, MP) int32 plane fits the budget; the CPU
+    keeps the reference's 8 rows."""
+    monkeypatch.delenv("STRIQUE_PTR_BUDGET_GB", raising=False)
+    w, mp = 46080, 896  # the bench template: ~20.6 MB of pass-2 plane a row
+    assert TA.two_pass_group(16, mp, w, "cpu") == 8
+    assert TA.two_pass_group(16, mp, w, "cpu", sms=132) == 16
+    assert TA.two_pass_group(200, mp, w, "cpu", sms=132) == 128
+    assert TA.two_pass_group(3, mp, w, "cpu", sms=132) == 8
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "1")
+    assert TA.two_pass_group(128, mp, w, "cpu", sms=132) == 48  # 48 x 20.6 MB <= 1 GiB
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
+    assert TA.two_pass_group(128, mp, w, "cpu", sms=132) == 8
+
+
+@pytest.mark.parametrize("morph", [True, False])
+def test_fused_pair_two_pass_on_the_card_rule(morph, monkeypatch):
+    """Past the pointer budget on the card's rule (132 SMs), both flanks of
+    8 reads run the two-pass route as one 16-row group (one pass-1 and
+    one pass-2 call, per-row templates); the outputs equal two per-flank
+    align_core calls (the CPU rule: two two-pass groups of 8 rows each)."""
+    signals, na, t_pre = _reads(903)
+    t_suf = np.random.default_rng(904).uniform(60, 120, 30).astype(np.float32)
+    signals[:, 2500:2530] = t_suf
+    bins, lut, dec = _morph(signals, 903)
+    n_t = torch.from_numpy(na)
+    sig, l_t = ((torch.from_numpy(bins), torch.from_numpy(lut)) if morph
+                else (torch.from_numpy(dec), None))
+    pp = align_params_from_jax(PARAMS["steep"])
+    # a width-8 one-pass plane (2 MB) exceeds 1 MB; at a 512-step stride
+    # 16 rows of the steep corner's 640-step pass-2 window (0.66 MB) fit
+    monkeypatch.setattr(TA, "CKPT_STEPS", CKPT_STEPS)
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.001")
+    monkeypatch.delenv("STRIQUE_ALIGN_KERNEL", raising=False)
+    ref = TA.align_fused_pair(sig, n_t, t_pre, t_suf, pp, lut=l_t)
+    monkeypatch.setattr(TC, "sm_count", lambda device: 132)
+    monkeypatch.setattr(TA, "sm_count", lambda device: 132)
+    calls = TA.kernel_stats()["calls"]
+    cells = TA.kernel_stats()["cells"]
+    got = TA.align_fused_pair(sig, n_t, t_pre, t_suf, pp, lut=l_t)
+    assert TA.kernel_stats()["calls"] - calls == 2
+    assert TA.kernel_stats()["cells"] - cells == 16 * (4096 + 640) * 128
+    for g, r in zip(got, ref):
+        for k in FIELDS:
+            assert torch.equal(g[k], r[k]), k

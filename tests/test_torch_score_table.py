@@ -32,6 +32,7 @@ from strique_tpu.ops import align_pallas as JP
 from strique_tpu_torch import _build
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
+from strique_tpu_torch.synthetic import quantise
 from tests.test_torch_align import FIELDS, PARAMS, _assert_align_equal, _valid_words
 
 # The tier-1 run puts six pytest workers on the machine's cores, and
@@ -52,16 +53,15 @@ def _morph_reads(seed, B=B, N=N):
     t_suf = np.repeat(rng.uniform(60, 120, 5), 6).astype(np.float32)
     lo = rng.uniform(40, 60, B)
     hi = rng.uniform(130, 150, B)
-    lut = (lo[:, None] + (hi - lo)[:, None] * np.arange(256) / 255.0).astype(np.float32)
     sig = rng.uniform(60, 120, (B, N))
     for i in range(B):
         st = 40 + i * 50
         sig[i, st : st + 42] = t_pre + rng.normal(0, 0.5, 42)
         sig[i, st + 60 : st + 90] = t_suf + rng.normal(0, 0.5, 30)
-    bins = np.clip(np.rint((sig - lo[:, None]) / (hi - lo)[:, None] * 255.0), 0, 255)
+    bins, lut = quantise(sig, rng, lo, hi)
     na = rng.integers(400, N, B).astype(np.int32)
     na[0] = N
-    return bins.astype(np.uint8), lut, na, t_pre, t_suf
+    return bins, lut, na, t_pre, t_suf
 
 
 def _decoded(bins, lut):
@@ -163,6 +163,35 @@ def test_table_scores_equal_pow_scores_every_step(per_row):
     # (bin 257) from step N on
     assert t_run > N
     for t in range(t_run):
+        assert torch.equal(table(t), pow_(t)), t
+
+
+@pytest.mark.parametrize("mode", ["ckpt", "window"])
+def test_two_pass_table_scores_equal_pow_scores_every_step(mode):
+    """Rows 5-6's table lookups against the POW scores of the f32 route,
+    at every step and lane.  ckpt: ND = NB + MP + 256 steps over the
+    bins row, where the f32 row is padded with 0.0 (bin 257 past the
+    row).  window: lane i at local step t reads sample t0 + t - i, 0.0 on
+    both sides of the read (the f32 window's gather fill), on a cold row
+    (t0 = 0), rows near the end and past the row's end."""
+    p = PARAMS[1]
+    bins, lut, _, t_pre, t_suf = _morph_reads(831)
+    tmpl, _, levels, lidx = _per_row(t_pre, t_suf)
+    b_t, l_t, lv_t, li_t, tm_t = _t(bins, lut, levels, lidx, tmpl)
+    mp = tmpl.shape[1]
+    dec = TC.morph_decode(b_t, l_t)
+    if mode == "ckpt":
+        nd = N + mp + 256
+        table = TC._table_scores(b_t, l_t, lv_t, li_t, p, nd)
+        pow_ = TC._pow_scores(TC._signal_ext(torch.nn.functional.pad(dec, (0, 256)), mp), tm_t,
+                              p)
+    else:
+        nd = 384
+        t0 = torch.tensor([0, 0, 128, 256, 384, 384, 512, 128])
+        table = TC._table_scores(b_t, l_t, lv_t, li_t, p, nd, t0)
+        sig_win, r_init = TA._gather_windows(dec, t0, nd, mp)
+        pow_ = TC._pow_scores(torch.cat([torch.flip(r_init, dims=[1]), sig_win], dim=1), tm_t, p)
+    for t in range(nd):
         assert torch.equal(table(t), pow_(t)), t
 
 
@@ -311,9 +340,10 @@ def test_fused_pair_width_rule_on_a_full_batch(card, monkeypatch):
 
 @pytest.mark.parametrize("route", ["col", "two_pass"])
 def test_morph_core_routes_decode_to_f32(route, monkeypatch):
-    """align_core on morph input under STRIQUE_ALIGN_KERNEL=col and past
-    the pointer budget (two-pass) decodes lut[bins] and gives the wave
-    route's outputs exactly."""
+    """align_core on morph input under STRIQUE_ALIGN_KERNEL=col decodes
+    lut[bins]; past the pointer budget (two-pass) it keeps the bins and
+    runs the TABLE twins of rows 5-6 (the template fits the score
+    table).  Either way it gives the wave route's outputs exactly."""
     bins, lut, na, t_pre, _ = _morph_reads(880)
     b_t, l_t, n_t = _t(bins, lut, na)
     wave = TA.align_core(b_t, n_t, t_pre, PARAMS[0], lut=l_t)
@@ -321,8 +351,14 @@ def test_morph_core_routes_decode_to_f32(route, monkeypatch):
         monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
     else:
         monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
+    ran = []
+    monkeypatch.setattr(TA, "morph_decode", lambda *a: ran.append("decode") or TC.morph_decode(*a))
+    for name in ("_ckpt_table_plain", "_window_table_plain"):
+        real = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _n=name, _f=real: ran.append(_n) or _f(*a))
     _build.reset_launches()
     got = TA.align_core(b_t, n_t, t_pre, PARAMS[0], lut=l_t)
+    assert ran == (["decode"] if route == "col" else ["_ckpt_table_plain", "_window_table_plain"])
     for k in FIELDS:
         assert torch.equal(wave[k], got[k]), k
     with pytest.raises(ValueError, match="multiple of 128"):
