@@ -32,12 +32,17 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Row 5 also runs at the ultra-long shape (8 and 64 rows, the bucket's
    N), TABLE against POW.  The Viterbi pair
    also runs at the ultra-long segment length (B=8, T 55296).  The
-   column-sweep kernel and its column-layout traceback run at the small
-   and bench shapes (64 rows, N 24576, MP 896), the dense Viterbi
-   forward at the small, bench (B 64, T 6144, SP 256) and ultra shapes.
-   Rows 3-4 also run at their edges (``check_viterbi_edges``: short
-   reads, obs-chunk boundaries, constant obs, SP 512).  Print kernel and
-   plain times, and us per step for rows 3-4.
+   column-sweep kernel runs on morph-form reads at the small and bench
+   shapes (64 rows, N 24576, MP 896): its TABLE score mode against the
+   table twin, its POW mode on the decoded f32 against the POW twin, the
+   two against each other; the column-layout traceback walks the TABLE
+   plane.  The dense Viterbi forward runs in the mode ``dense_mode``
+   picks (resident: a cluster of K CTAs a read; streamed past SP 512) at
+   the small, bench (B 64, T 6144, SP 256, K 2) and ultra shapes, and at
+   the bench's B and T with SP 128 (K 1), SP 384 (K 6) and SP 512 (K 8).  Rows 3-4
+   and 7 also run at their edges (``check_viterbi_edges``: short reads,
+   obs-chunk boundaries, constant obs, SP 512).  Print kernel and plain
+   times, and us per step (a column for row 8).
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
@@ -64,7 +69,18 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    rows, N 4096), then 72 '+' and 24 '-' reads count exactly
    through the POW score mode alone (2 + 1 wave calls), and the 72 '+'
    reads again under ``STRIQUE_PTR_BUDGET_GB=0.1``: the two-pass route
-   in the POW mode, exact, with the one-pass run's tuples.
+   in the POW mode, exact, with the one-pass run's tuples; the column
+   kernel's POW mode (past its table) against its twin at 64 rows of the
+   reads' bucket, then the first 64 '+' reads under
+   ``STRIQUE_ALIGN_KERNEL=col`` through it alone, exact, with the wave
+   route's tuples.
+4f. A VNTR target of a 60-base unit, whose repeat HMM (SP 640) is past
+   the dense forward's resident rule: the streamed dense kernel against
+   its twin (8 reads, T 8192), then 8 '+' reads counted on the default
+   route and under ``STRIQUE_DENSE_VITERBI=1`` (the streamed kernel
+   alone), equal tuples, each read at the reference's count: 11 of 12
+   units, as the JAX package counts these reads on the CPU
+   (tests/test_torch_dense.py ``test_vntr_counts_match_jax_counter``).
 4c. One more pass of each path under torch.profiler: wall time, device
    time by kernel and the busy share.
 4d. The knob routes: the '+' and '-' passes of phase 4 once under
@@ -74,15 +90,18 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``STRIQUE_DENSE_VITERBI=1`` (dense forward instead of the factored
    one), each with a fresh counter so its HMM cache sees the knob.
    Counts exact, result tuples equal to phase 4's, the knob's kernels
-   launched and the ones it replaces not; reads/s of each route, and one
-   profiled '+' pass of each.
+   launched (the column kernel's TABLE mode, the dense forward's
+   resident mode) and the ones they replace not; reads/s of each route,
+   and one profiled '+' pass of each.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
    their bound with the pow counted per cell), then the final
    ``{"ok": true, "device": ...}`` line.  Row 1's TABLE launches come
    from phase 4b's one-pass route, rows 5-6's TABLE launches from its
-   two-pass route, the POW launches of rows 1-2 and 5-6 from phase 4e.
+   two-pass route, the POW launches of rows 1-2, 5-6 and 8 from phase
+   4e, row 8's TABLE and row 7's resident launches from phase 4d, row
+   7's streamed launches from phase 4f.
 """
 from __future__ import annotations
 
@@ -132,6 +151,14 @@ TABLE_WAVE = ("align_forward_wave_table", "align_forward_wave_multi_table")
 POW_TWO_PASS = ("align_forward_ckpt", "align_window_from_state")
 TABLE_TWO_PASS = ("align_forward_ckpt_table", "align_window_from_state_table")
 KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
+# the dense forward's two modes (resident: SP <= 512) and the column
+# kernel's two score modes, one launch counter each
+DENSE = ("viterbi_forward_dense_resident", "viterbi_forward_dense")
+COL = ("align_forward_col_table", "align_forward_col")
+# phase 4f's VNTR target: a 60-base unit (as MUC1's VNTR) whose repeat
+# HMM (540 states, SP 640) is past the dense forward's resident rule
+VNTR_UNIT_BASES = 60
+VNTR_UNITS = 12
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
                            "strique_tpu/ops/align_pallas.py:639"),
@@ -155,10 +182,14 @@ SOURCES = {
                                  "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                                "strique_tpu/ops/viterbi_pallas.py:308"),
+    "align_forward_col_table": ("strique_tpu_torch/csrc/col_align.cu",
+                                "strique_tpu/ops/align_pallas.py:322"),
     "align_forward_col": ("strique_tpu_torch/csrc/col_align.cu",
                           "strique_tpu/ops/align_pallas.py:322"),
     "traceback_pointers_col": ("strique_tpu_torch/csrc/traceback.cu",
                                "strique_tpu/ops/align.py:235"),
+    "viterbi_forward_dense_resident": ("strique_tpu_torch/csrc/viterbi_dense.cu",
+                                       "strique_tpu/ops/viterbi_pallas.py:183"),
     "viterbi_forward_dense": ("strique_tpu_torch/csrc/viterbi_dense.cu",
                               "strique_tpu/ops/viterbi_pallas.py:183"),
 }
@@ -488,52 +519,125 @@ def check_traceback(ptr, j_end, m_d, shape_name, results, col=False):
 
 
 def check_col(template, shape_name, B, N, params, rng, results):
-    """The column kernel (row 8) against its twin, then the column-layout
-    traceback on the plane it wrote."""
-    import numpy as np
+    """The column kernel (row 8) on morph-form reads: its TABLE mode
+    against the table twin, its POW mode on the decoded f32 against the
+    POW twin, and the two modes against each other (written pointer words
+    and every bottom tap equal); then the column-layout traceback on the
+    TABLE plane."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align as AL
     from strique_tpu_torch.ops import align_cuda as AC
 
-    dev = torch.device("cuda")
-    sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
-    for b in range(B):
-        st = int(rng.integers(0, max(1, N // 2 - len(template))))
-        sig[b, st : st + len(template)] = template + rng.normal(0, 1.0, len(template))
-    tmpl, m = AC.pad_template(template)
-    s_d = torch.from_numpy(sig).to(dev)
-    n_d = torch.from_numpy(rng.integers(N // 2, N + 1, B).astype(np.int32)).to(dev)
-    t_d = torch.from_numpy(tmpl).to(dev)
-    m_d = torch.full((B,), m, dtype=torch.int32, device=dev)
+    (levels, _, tmpl, bins, _), dev_in = wave_inputs((template,), False, B, N, rng)
+    b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+    m = int(m_d[0])
+    s_d = AC.morph_decode(b_d, l_d)
+    if AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "table":
+        fail(f"the {shape_name} template ({levels.shape[1]} levels) does not fit the column "
+             "kernel's score table")
+    run_t = lambda: AC.align_forward_col_morph(b_d, l_d, n_d, lv_d, li_d, params, m)
     run_k = lambda: AC.align_forward_col(s_d, n_d, t_d, params, m)
+    before = dict(_build.LAUNCHES)
+    (ptr_t, bot_t), _ = once_ms(run_t)
+    if (_build.LAUNCHES["align_forward_col_table"] != before["align_forward_col_table"] + 1
+            or _build.LAUNCHES["align_forward_col"] != before["align_forward_col"]):
+        fail("the morph-form column call did not launch the TABLE mode alone")
     (ptr_k, bot_k), _ = once_ms(run_k)
-    (ptr_p, bot_p), plain_ms = once_ms(lambda: AC._col_plain(s_d, t_d, n_d, params, m))
-    mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_k.shape[0])  # (j-1)//8 < ceil(n/8)
-    ptr_eq = bool(torch.equal(ptr_k[mask], ptr_p[mask]))
-    bot_err = float((bot_k.double() - bot_p.double()).abs().max())
+    mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_t.shape[0])  # (j-1)//8 < ceil(n/8)
+    errs = {}
+    (ptr_p, bot_p), plain_t = once_ms(lambda: AC._col_table_plain(b_d, l_d, lv_d, li_d, n_d,
+                                                                  params, m))
+    errs["table"] = (bool(torch.equal(ptr_t[mask], ptr_p[mask])),
+                     float((bot_t.double() - bot_p.double()).abs().max()))
     del ptr_p, bot_p
-    ms = cuda_ms(run_k, 3)
+    (ptr_p, bot_p), plain_k = once_ms(lambda: AC._col_plain(s_d, t_d, n_d, params, m))
+    errs["pow"] = (bool(torch.equal(ptr_k[mask], ptr_p[mask])),
+                   float((bot_k.double() - bot_p.double()).abs().max()))
+    del ptr_p, bot_p
+    errs["table-pow"] = (bool(torch.equal(ptr_t[mask], ptr_k[mask])),
+                         float((bot_t.double() - bot_k.double()).abs().max()))
+    del ptr_k
+    ms_t = cuda_ms(run_t, 3)
+    ms_k = cuda_ms(run_k, 3)
     _build.LAUNCHES["align_forward_col"] = 0
-    print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]}]: pointers "
-          f"{'equal' if ptr_eq else 'DIFFER'}, bottom max_abs_err {bot_err}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
-    if not (ptr_eq and bot_err == 0.0):
-        fail(f"align_forward_col disagrees with its plain twin at the {shape_name} shape")
-    cells = wave_cells(n_d, m_d)
-    nbytes = (4 * (sig.size + tmpl.size) + 4 * B + 4 * int(mask.sum()) * tmpl.shape[1]
-              + 4 * bot_k.numel())
-    results["align_forward_col"] = {"max_abs_err": bot_err, "ms": ms, "plain_ms": plain_ms,
-                                    **bound(nbytes, WAVE_F32_PER_CELL * cells,
-                                            POW_F64_PER_CELL * cells)}
-    b0 = torch.full((B, 1), float(AL._b0(params, m)), device=dev)
-    j_end = torch.argmax(torch.cat([b0, bot_k], dim=1), dim=1).to(torch.int32)
-    check_traceback(ptr_k, j_end, m_d, shape_name, results, col=True)
+    _build.LAUNCHES["align_forward_col_table"] = 0
+    cols = AC._cols_to_run(n_d, N)
+    print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]} "
+          f"U={levels.shape[1]}]: TABLE vs table twin: pointers "
+          f"{'equal' if errs['table'][0] else 'DIFFER'}, bottom max_abs_err {errs['table'][1]}; "
+          f"POW on the decoded f32 vs POW twin: pointers "
+          f"{'equal' if errs['pow'][0] else 'DIFFER'}, bottom max_abs_err {errs['pow'][1]}; "
+          f"TABLE vs POW: pointers {'equal' if errs['table-pow'][0] else 'DIFFER'}, bottom "
+          f"max_abs_err {errs['table-pow'][1]}; TABLE {ms_t:.3f} ms ({ms_t * 1e3 / cols:.4f} "
+          f"us/column), POW {ms_k:.3f} ms ({ms_k * 1e3 / cols:.4f} us/column), plain "
+          f"{plain_t:.1f} / {plain_k:.1f} ms", flush=True)
+    if not all(eq and err == 0.0 for eq, err in errs.values()):
+        fail(f"align_forward_col: the TABLE mode, the POW mode and their twins disagree at the "
+             f"{shape_name} shape")
+    words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_t.numel() + 4 * B
+    table_bytes = bins.size + 4 * (B * 256 + levels.size + tmpl.size) + words
+    pow_bytes = 4 * (bins.size + tmpl.size) + words
+    results["align_forward_col_table"] = {"max_abs_err": errs["table"][1], "ms": ms_t,
+                                          "plain_ms": plain_t, "us_per_column": ms_t * 1e3 / cols,
+                                          **wave_bound(n_d, m_d, levels, table_bytes, True)}
+    results["align_forward_col"] = {"max_abs_err": errs["pow"][1], "ms": ms_k,
+                                    "plain_ms": plain_k, "us_per_column": ms_k * 1e3 / cols,
+                                    **wave_bound(n_d, m_d, levels, pow_bytes, False)}
+    b0 = torch.full((B, 1), float(AL._b0(params, m)), device=b_d.device)
+    j_end = torch.argmax(torch.cat([b0, bot_t], dim=1), dim=1).to(torch.int32)
+    check_traceback(ptr_t, j_end, m_d, shape_name, results, col=True)
 
 
-def viterbi_inputs(pm, B, T, rng, repeats):
-    """(B, T) noisy c9orf72 segments of repeats/2..repeats units, and their lengths."""
+def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
+    """Past the column kernel's score table (more than 1024 lanes): the
+    morph-form entry point runs the POW mode on the decoded f32 alone,
+    against the POW twin (written pointer words and every bottom tap
+    equal); the kernel line's POW entry, timed on the f32 entry point."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    (levels, _, tmpl, bins, _), dev_in = wave_inputs((template,), False, B, N, rng)
+    b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+    m = int(m_d[0])
+    if AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "pow":
+        fail(f"the {shape_name} template should be past the column kernel's score table")
+    before = dict(_build.LAUNCHES)
+    ptr_k, bot_k = AC.align_forward_col_morph(b_d, l_d, n_d, lv_d, li_d, params, m)
+    if {k: _build.LAUNCHES[k] - before[k] for k in COL} != {k: int(k == "align_forward_col")
+                                                          for k in COL}:
+        fail("the morph-form column call past the table did not launch the POW mode alone")
+    s_d = AC.morph_decode(b_d, l_d)
+    (ptr_p, bot_p), plain_ms = once_ms(lambda: AC._col_plain(s_d, t_d, n_d, params, m))
+    mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_k.shape[0])
+    eq = bool(torch.equal(ptr_k[mask], ptr_p[mask]))
+    err = float((bot_k.double() - bot_p.double()).abs().max())
+    del ptr_p, bot_p
+    run_k = lambda: AC.align_forward_col(s_d, n_d, t_d, params, m)
+    ms = cuda_ms(run_k, 3)
+    for k in COL:
+        _build.LAUNCHES[k] = before[k]
+    cols = AC._cols_to_run(n_d, N)
+    print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]} "
+          f"U={levels.shape[1]}, POW]: vs POW twin: pointers {'equal' if eq else 'DIFFER'}, "
+          f"bottom max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / cols:.4f} us/column), "
+          f"plain {plain_ms:.1f} ms", flush=True)
+    if not (eq and err == 0.0):
+        fail(f"align_forward_col disagrees with its POW twin at the {shape_name} shape")
+    words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_k.numel() + 4 * B
+    results["align_forward_col"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                    "us_per_column": ms * 1e3 / cols,
+                                    **wave_bound(n_d, m_d, levels,
+                                                 4 * (bins.size + tmpl.size) + words, False)}
+
+
+def viterbi_inputs(pm, B, T, rng, repeats, flank=50, unit=None):
+    """(B, T) noisy segments of repeats/2..repeats units (c9orf72's, or
+    ``unit``) between ``flank`` bases of the c9orf72 flanks, and their
+    lengths."""
     import numpy as np
     import torch
 
@@ -543,45 +647,60 @@ def viterbi_inputs(pm, B, T, rng, repeats):
     lens = np.zeros(B, np.int32)
     for b in range(B):
         n = int(rng.integers(max(1, repeats // 2), repeats + 1))
-        s = pm.generate_signal(PREFIX[-50:] + REPEAT * n + SUFFIX[:50], samples=8, noise=True,
-                               rng=rng).astype(np.float32)[:T]
+        s = pm.generate_signal(PREFIX[-flank:] + (unit or REPEAT) * n + SUFFIX[:flank],
+                               samples=8, noise=True, rng=rng).astype(np.float32)[:T]
         obs[b, : len(s)] = s
         lens[b] = len(s)
     dev = torch.device("cuda")
     return torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev)
 
 
-def check_dense(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
-    """The dense Viterbi forward (row 7) against its twin; rows below
-    each read's length, fin and acc."""
+def check_dense(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS, flank=50,
+                unit=None):
+    """The dense Viterbi forward (row 7) against its twin: rows below each
+    read's length, fin and acc bit-equal.  The wrapper must launch the
+    mode ``dense_mode`` gives this SP (resident: a cluster of K CTAs a
+    read; streamed past SP 512) and no other.  ``results``: where given,
+    the kernel line's entry of that mode."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import viterbi_cuda as VC
 
     ph = VC.PaddedHMM(chm, torch.device("cuda"))
-    o_d, l_d = viterbi_inputs(pm, B, T, rng, repeats)
+    k = VC.dense_mode(ph.sp)
+    name = "viterbi_forward_dense_resident" if k else "viterbi_forward_dense"
+    o_d, l_d = viterbi_inputs(pm, B, T, rng, repeats, flank, unit)
     run_k = lambda: VC.viterbi_forward_dense(o_d, l_d, ph)
+    before = dict(_build.LAUNCHES)
     (sc_k, fin_k, acc_k), _ = once_ms(run_k)
+    if {n: _build.LAUNCHES[n] - before[n] for n in DENSE} != {n: int(n == name) for n in DENSE}:
+        fail(f"the dense forward at SP {ph.sp} did not launch the {name} mode alone")
     (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_dense_plain(o_d, l_d, ph))
     live = torch.arange(T, device=o_d.device)[:, None] < l_d[None, :]
     err = max(float((sc_k[live] - sc_p[live]).abs().max()),
               float((fin_k - fin_p).abs().max()), float((acc_k - acc_p).abs().max()))
     del sc_p
     ms = cuda_ms(run_k, 3)
-    _build.LAUNCHES["viterbi_forward_dense"] = 0
-    print(f"  viterbi_forward_dense [{shape_name} B={B} T={T} SP={ph.sp}]: max_abs_err {err}; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms", flush=True)
+    for n in DENSE:
+        _build.LAUNCHES[n] = before[n]
+    steps = int(l_d.max())
+    mode = f"resident, K={k}" if k else "streamed"
+    print(f"  viterbi_forward_dense [{shape_name} B={B} T={T} SP={ph.sp}, {mode}]: max_abs_err "
+          f"{err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), plain {plain_ms:.1f} ms",
+          flush=True)
     if err != 0.0:
         fail(f"dense forward kernel disagrees with its plain twin at the {shape_name} shape")
+    if results is None:
+        return
     sp = ph.sp
-    steps = float(l_d.double().sum())
+    steps_all = float(l_d.double().sum())
     # per step and state pair an add and a max; per state 8 for the
     # emission and the row-max rescale
-    f32 = steps * (2 * sp * sp + 8 * sp)
-    nbytes = 4 * (B * T + sp * sp + 6 * sp + steps * sp + B * sp + 2 * B)
-    results["viterbi_forward_dense"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                        **bound(nbytes, f32)}
+    f32 = steps_all * (2 * sp * sp + 8 * sp)
+    nbytes = 4 * (B * T + sp * sp + 6 * sp + steps_all * sp + B * sp + 2 * B)
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "us_per_step": ms * 1e3 / steps, **bound(nbytes, f32)}
 
 
 def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
@@ -637,12 +756,13 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
 
 
 def check_viterbi_edges(pm, rng) -> None:
-    """Rows 3-4 against their twins at their edge inputs
+    """Rows 3-4 and 7 against their twins at their edge inputs
     (``synthetic.VITERBI_EDGES``, shared with the ``gpu`` tests):
     lengths below the backward's 16-row score ring and around the
     forward's 32-step obs chunks, constant obs (ties in every row), and
-    an HMM of SP 512.  Forward rows below each length, fin and acc
-    bit-equal, paths equal.  These launches count toward no path."""
+    an HMM of SP 512 (the dense forward's 8-CTA clusters).  Forward rows
+    below each length, fin and acc bit-equal, paths equal.  These
+    launches count toward no path."""
     import torch
 
     from strique_tpu_torch import _build
@@ -664,12 +784,20 @@ def check_viterbi_edges(pm, rng) -> None:
         last = torch.argmax(fin + ph.end, dim=1)
         path = VC.viterbi_backward_batch(sc, last, l_d, ph.transT)
         bwd_ok = bool(torch.equal(path, VC._bwd_plain(sc, last, l_d, ph.transT)))
+        sc, fin, acc = VC.viterbi_forward_dense(o_d, l_d, ph)
+        sc_p, fin_p, acc_p = VC._fwd_dense_plain(o_d, l_d, ph)
+        dense_ok = bool(torch.equal(sc[live], sc_p[live]) and torch.equal(fin, fin_p)
+                        and torch.equal(acc, acc_p))
         print(f"  viterbi edges [{label}: SP {ph.sp}, {hmm.n_states} states, lengths "
               f"{lens.tolist()}]: forward {'equal' if fwd_ok else 'DIFFERS'}, paths "
-              f"{'equal' if bwd_ok else 'DIFFER'}", flush=True)
-        if not (fwd_ok and bwd_ok):
+              f"{'equal' if bwd_ok else 'DIFFER'}, dense forward (K={VC.dense_mode(ph.sp)}) "
+              f"{'equal' if dense_ok else 'DIFFERS'}", flush=True)
+        if not (fwd_ok and bwd_ok and dense_ok):
             fail(f"a Viterbi kernel disagrees with its plain twin at the edge case {label!r}")
-    for k in ("viterbi_forward_factored", "viterbi_backward_batch"):
+    if _build.LAUNCHES["viterbi_forward_dense_resident"] != before[
+            "viterbi_forward_dense_resident"] + len(VITERBI_EDGES):
+        fail("the edge cases' dense forwards did not run the resident mode")
+    for k in ("viterbi_forward_factored", "viterbi_backward_batch", *DENSE):
         _build.LAUNCHES[k] = before[k]
 
 
@@ -902,7 +1030,7 @@ def check_ckpt_ultra(template, N, params, rng, results) -> None:
     results["align_forward_ckpt_table"].update(out)
 
 
-def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
+def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     """Phase 4e: a target whose flanks carry 200 more backbone bases each
     (MP 2176, ~300 distinct template levels: POW mode on both counts)
     counts 72 '+' reads in one batch (144 rows: each flank its own
@@ -915,7 +1043,7 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
     import torch
 
     from strique_tpu_torch import _build
-    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.detect.counter import RepeatCounter, signal_bucket
     from strique_tpu_torch.ops import align_cuda as AC
     from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads
 
@@ -937,6 +1065,10 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
                    False, rng)
     plus = make_reads(pm, 72, REPEATS, rng, "+", prefix=prefix, suffix=suffix)
     minus = make_reads(pm, 24, REPEATS, rng, "-", prefix=prefix, suffix=suffix)
+    # the column kernel's POW mode at the shape the column run below
+    # launches it: 64 rows of the reads' bucket, MP 2176
+    check_col_pow(tc.prefix_ext, "over the cap", BATCH, signal_bucket(len(plus[0])),
+                  c.align_params, rng, results)
     try:
         c.detect_many("long", plus[:8], "+")  # first use
         torch.cuda.synchronize()
@@ -955,10 +1087,21 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
         torch.cuda.synchronize()
         dt_two = time.perf_counter() - t1
         lc_two = dict(_build.LAUNCHES)
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB")
+        # 64 '+' reads under the column knob (a full batch: no fusion):
+        # the column kernel's POW mode, past its table's 1024 lanes
+        os.environ["STRIQUE_ALIGN_KERNEL"] = "col"
+        _build.reset_launches()
+        t2 = time.perf_counter()
+        res_col = c.detect_many("long", plus[:BATCH], "+")
+        torch.cuda.synchronize()
+        dt_col = time.perf_counter() - t2
+        lc_col = dict(_build.LAUNCHES)
     except Exception as e:  # noqa: BLE001
         fail(f"the over-the-cap target raised {type(e).__name__}: {e}")
     finally:
         os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
+        os.environ.pop("STRIQUE_ALIGN_KERNEL", None)
     ok = sum(int(r[0] == REPEATS) for r in res)
     mode = AC.wave_score_mode(levels.shape[1], mp)
     wave = {k: lc[k] for k in POW_WAVE + TABLE_WAVE}
@@ -981,7 +1124,78 @@ def run_over_cap(pm, model: str, seed: int, card: str) -> dict:
             or any(two[k] for k in TABLE_TWO_PASS + POW_WAVE + TABLE_WAVE)):
         fail("the over-the-cap two-pass run did not go through the POW checkpoint and window "
              "kernels alone")
-    return {**{k: wave[k] for k in POW_WAVE}, **{k: two[k] for k in POW_TWO_PASS}}
+    col = {k: lc_col[k] for k in COL + POW_WAVE + TABLE_WAVE}
+    ok_col = sum(int(r[0] == REPEATS) for r in res_col)
+    print(f"over the cap, STRIQUE_ALIGN_KERNEL=col: {ok_col}/{len(res_col)} exact in "
+          f"{dt_col:.3f} s; card: {card}; launches {json.dumps(col)}", flush=True)
+    if ok_col != len(res_col) or [tuple(r) for r in res_col] != [tuple(r) for r in res[:BATCH]]:
+        fail("the over-the-cap column run is inexact or its tuples differ from the wave route's")
+    if (col["align_forward_col"] <= 0
+            or any(col[k] for k in ("align_forward_col_table", *POW_WAVE, *TABLE_WAVE))):
+        fail("the over-the-cap column run did not go through the POW column kernel alone")
+    return {**{k: wave[k] for k in POW_WAVE}, **{k: two[k] for k in POW_TWO_PASS},
+            "align_forward_col": col["align_forward_col"]}
+
+
+def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
+    """Phase 4f: a VNTR target of a 60-base unit (as MUC1's), whose repeat
+    HMM has 540 states (SP 640, past the dense forward's resident rule):
+    the streamed dense kernel against its twin at the route's shape (8
+    reads, T 8192), then 8 '+' reads of 12 units counted on the default
+    route (the factored forward) and under ``STRIQUE_DENSE_VITERBI=1``
+    (the streamed dense forward), with equal result tuples.  Both count
+    11, as the JAX package does on the CPU with these reads (its prefix
+    profile takes one unit this long): tests/test_torch_dense.py
+    ``test_vntr_counts_match_jax_counter`` holds the port's two routes
+    to the JAX counter there.  Returns the streamed
+    kernel's launches on the knob route."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.synthetic import PREFIX, SUFFIX, make_reads
+
+    rng = np.random.default_rng(5)
+    unit = "".join(rng.choice(list("ACGT"), VNTR_UNIT_BASES))
+    reads = make_reads(pm, 8, VNTR_UNITS, rng, "+", repeat=unit)
+    res = {}
+    for route in ("default", "dense"):
+        if route == "dense":
+            os.environ["STRIQUE_DENSE_VITERBI"] = "1"
+        try:
+            c = RepeatCounter(model, device="cuda")  # a fresh HMM cache sees the knob
+            c.add_target("vntr", unit, PREFIX, SUFFIX)
+            if route == "default":
+                check_dense(pm, c.targets["vntr"][0].repeat_hmm, "VNTR route", 8, 8192, rng,
+                            results, repeats=VNTR_UNITS, unit=unit)
+            c.detect_many("vntr", reads[:1], "+")  # first use
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = c.detect_many("vntr", reads, "+")
+            torch.cuda.synchronize()
+            res[route] = (out, time.perf_counter() - t0, dict(_build.LAUNCHES))
+        except SystemExit:
+            raise
+        except Exception as e:  # noqa: BLE001
+            fail(f"the VNTR target's {route} route raised {type(e).__name__}: {e}")
+        finally:
+            os.environ.pop("STRIQUE_DENSE_VITERBI", None)
+    for route, (out, dt, lc) in res.items():
+        vit = {k: lc[k] for k in ("viterbi_forward_factored", *DENSE)}
+        print(f"VNTR ({VNTR_UNIT_BASES}-base unit, {VNTR_UNITS} units), {route} route: counts "
+              f"{[r[0] for r in out]} in {dt:.3f} s; card: {card}; launches {json.dumps(vit)}",
+              flush=True)
+        if any(r[0] != VNTR_UNITS - 1 for r in out) or not all(np.isfinite(r[3]) for r in out):
+            fail(f"the VNTR target's {route} route did not count {VNTR_UNITS - 1} units")
+    dense_lc = res["dense"][2]
+    if (dense_lc["viterbi_forward_dense"] <= 0 or dense_lc["viterbi_forward_dense_resident"]
+            or dense_lc["viterbi_forward_factored"] or res["default"][2]["viterbi_forward_dense"]):
+        fail("the VNTR target's dense route did not decode with the streamed dense forward alone")
+    if [tuple(r) for r in res["dense"][0]] != [tuple(r) for r in res["default"][0]]:
+        fail("the VNTR target's dense route's tuples differ from the default route's")
+    return {"viterbi_forward_dense": dense_lc["viterbi_forward_dense"]}
 
 
 def profile_pass(label: str, fn, card: str) -> None:
@@ -1040,6 +1254,7 @@ def main() -> int:
 
         from strique_tpu_torch import _build, native
         from strique_tpu_torch.detect.counter import RepeatCounter, signal_bucket
+        from strique_tpu_torch.hmm.models import build_flanked_repeat
         from strique_tpu_torch.pore_model import PoreModel
         from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, smoke_workload,
                                                  ultralong_workload, write_pore_model)
@@ -1112,7 +1327,17 @@ def main() -> int:
             check_dense(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
         # the ultra-long route's segments: ~9x the bench T (rescale and acc)
         check_viterbi(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
-        check_dense(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, {}, repeats=ULTRA_REPEATS)
+        check_dense(pm, tc.repeat_hmm, "ultra", 8, ULTRA_T, rng, None, repeats=ULTRA_REPEATS)
+        # the dense forward's other resident widths at the bench's reads
+        # and T: SP 128 (25-base flanks, 116 states: the width of a mod
+        # HMM), SP 384 (75-base flanks: clusters of 6 CTAs; its own
+        # generator, so the draws after it stay as they were), SP 512
+        # (100-base flanks: clusters of 8 CTAs)
+        for flank in (25, 75, 100):
+            hmm = build_flanked_repeat(REPEAT, PREFIX[-flank:], SUFFIX[:flank], pm)
+            check_dense(pm, hmm, f"bench, {flank}-base flanks", 64, 6144,
+                        np.random.default_rng(args.seed + 75) if flank == 75 else rng, None,
+                        flank=flank)
         check_viterbi_edges(pm, rng)
         check_longread(small[:1], "small", 8, 4096, params, 512, True, rng)
         check_longread(small, "small", 16, 4096, params, 512, True, rng)
@@ -1231,7 +1456,10 @@ def main() -> int:
     launches["align_forward_wave_table"] = one_launches["align_forward_wave_table"]
 
     # -- phase 4e: flanks over the score table's cap (the POW score mode) ----
-    launches.update(run_over_cap(pm, model, args.seed, card))
+    launches.update(run_over_cap(pm, model, args.seed, card, results))
+
+    # -- phase 4f: a repeat HMM past the dense forward's resident rule -------
+    launches.update(run_vntr(pm, model, args.seed, card, results))
 
     # -- phase 4c: where the device time goes --------------------------------
     try:
@@ -1280,16 +1508,19 @@ def main() -> int:
         if route == "col":
             minus_multi = (lc["align_forward_wave_multi_table"]
                            - plus_lc["align_forward_wave_multi_table"])
-            if (plus_lc["align_forward_col"] <= 0 or plus_lc["traceback_pointers_col"] <= 0
+            if (plus_lc["align_forward_col_table"] <= 0 or plus_lc["align_forward_col"] != 0
+                    or plus_lc["traceback_pointers_col"] <= 0
                     or any(plus_lc[k] for k in POW_WAVE + TABLE_WAVE) or minus_multi <= 0):
-                fail("the column route's '+' pass did not run the column kernel and traceback "
-                     "alone, or its '-' partial batch left the fused wave kernel")
-            for name in ("align_forward_col", "traceback_pointers_col"):
+                fail("the column route's '+' pass did not run the TABLE column kernel and the "
+                     "column traceback alone, or its '-' partial batch left the fused wave "
+                     "kernel")
+            for name in ("align_forward_col_table", "traceback_pointers_col"):
                 launches[name] = lc[name]
         else:
-            if lc["viterbi_forward_dense"] <= 0 or lc["viterbi_forward_factored"] != 0:
-                fail("the dense route did not decode with the dense forward alone")
-            launches["viterbi_forward_dense"] = lc["viterbi_forward_dense"]
+            if (lc["viterbi_forward_dense_resident"] <= 0 or lc["viterbi_forward_dense"] != 0
+                    or lc["viterbi_forward_factored"] != 0):
+                fail("the dense route did not decode with the resident dense forward alone")
+            launches["viterbi_forward_dense_resident"] = lc["viterbi_forward_dense_resident"]
     print("both knob routes' result tuples equal the default route's", flush=True)
 
     # -- phase 5: report ----------------------------------------------------

@@ -43,10 +43,12 @@ LAUNCHES = {
     "align_forward_ckpt_table": 0,  # rows 5-6, TABLE score mode
     "align_window_from_state_table": 0,
     "align_forward_col": 0,
+    "align_forward_col_table": 0,  # the column kernel, TABLE score mode
     "traceback_pointers": 0,
     "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
-    "viterbi_forward_dense": 0,
+    "viterbi_forward_dense": 0,  # the streamed mode (SP past dense_mode's rule)
+    "viterbi_forward_dense_resident": 0,  # the same wrapper, resident (cluster) mode
     "viterbi_backward_batch": 0,
 }
 
@@ -84,6 +86,9 @@ _SIGNATURES = {
     # sig, tmpl, nact, ptr, bottom; B, N, MP, m, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "col_align_launch": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
+    # bins, lut, levels, lidx, nact, ptr, bottom; B, N, MP, UP, m, neg_h;
+    # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "col_table_launch": [_P] * 7 + [_I] * 6 + [_F] * 7 + [_P],
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
     "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts
@@ -92,6 +97,8 @@ _SIGNATURES = {
     # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
     # B, T, SP; stream
     "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],
+    # the same, then K (CTAs a read)
+    "viterbi_dense_resident_launch": [_P] * 12 + [_I] * 4 + [_P],
     # sc, transT, last, tact, path; B, T, SP; stream
     "viterbi_bwd_launch": [_P] * 5 + [_I] * 3 + [_P],
 }

@@ -7,8 +7,8 @@ path, in three phases a caller can overlap across batches:
      native library, or NumPy), upload of 1 byte per sample (u8 morph
      bins plus a 256-entry f32 level table per read), both flank
      alignments on those bins and tables (``ops.align.align_fused_pair``
-     in morph form: the wave kernel's TABLE score mode, the two-pass
-     route's too; the column route decodes ``lut[bins]`` to f32), tracebacks, segment
+     in morph form: the TABLE score mode of the wave kernel, of the
+     two-pass route's and of the column route's), tracebacks, segment
      bounds and the QC gate, packed into a 40-byte row per read whose
      copy to a pinned host buffer is queued behind one CUDA event.
   2. :meth:`RepeatCounter.detect_middle` -- waits for that event,

@@ -10,10 +10,12 @@ Both take the reads as f32 signals or, with ``lut``, in morph form: u8
 bins plus each read's 256-entry f32 level table, as the counter uploads
 them.  The wave route then runs the morph-form kernel calls
 (``align_forward_wave_morph`` / ``_multi_morph``: TABLE score mode where
-the template's score table fits shared memory), and so does the
+the template's score table fits shared memory), and so do the
 two-pass route (``align_forward_ckpt_morph``,
-``align_window_from_state_morph``); the column route, and the two-pass
-route past the table, decode ``lut[bins]`` to f32 first.
+``align_window_from_state_morph``) and the column route
+(``align_forward_col_morph``, by its own rule ``col_score_mode``); the
+two-pass route past the table decodes ``lut[bins]`` to f32 first, and
+the morph entry points of the other two do so past theirs.
 
 Call widths and fusion follow the device (``align_cuda.kernel_batch``,
 :func:`fuse_flanks`): on the card a call is as wide as its rows, up to
@@ -23,8 +25,9 @@ widths and partial-batch fusion rule stay.
 
 ``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` and
 ``align_fused_pair`` call, as the reference reads it) swaps the wave
-kernel for the column-sweep kernel (``align_forward_col``) and the
-column-layout traceback (``_align_batch_col``).  As in the reference,
+kernel for the column-sweep kernel (``align_forward_col`` or, on morph
+input, ``align_forward_col_morph``) and the column-layout traceback
+(``_align_batch_col``).  As in the reference,
 the fusion rule of ``align_fused_pair`` decides first -- under the knob
 the reference's partial-batch rule, on the card too, so full batches
 reach the column kernel -- and a fused partial batch still runs the
@@ -62,8 +65,8 @@ import torch
 
 from .. import _build
 from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
-                         align_forward_ckpt_morph, align_forward_col, align_forward_wave,
-                         align_forward_wave_morph, align_forward_wave_multi,
+                         align_forward_ckpt_morph, align_forward_col, align_forward_col_morph,
+                         align_forward_wave, align_forward_wave_morph, align_forward_wave_multi,
                          align_forward_wave_multi_morph, align_window_from_state,
                          align_window_from_state_morph, kernel_batch, morph_decode,
                          pad_template, pad_template_rows, ptr_budget_bytes, sm_count,
@@ -228,6 +231,13 @@ def _align_batch_col(signals, n_actual, template_padded, params, m_actual: int):
     """Column-kernel counterpart of ``_align_batch_wave`` (the reference's
     ``_align_batch_pallas``)."""
     ptr, bottom_cols = align_forward_col(signals, n_actual, template_padded, params, m_actual)
+    return _end_and_traceback(ptr, bottom_cols, params, m_actual, True)
+
+
+def _align_batch_col_morph(bins, lut, n_actual, levels, lidx, params, m_actual: int):
+    """``_align_batch_col`` on morph-form reads (as ``_align_batch_wave_morph``)."""
+    ptr, bottom_cols = align_forward_col_morph(bins, lut, n_actual, levels, lidx, params,
+                                               m_actual)
     return _end_and_traceback(ptr, bottom_cols, params, m_actual, True)
 
 
@@ -541,8 +551,9 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     score mode where the template fits :func:`wave_score_mode`'s table.
     ``STRIQUE_ALIGN_KERNEL=col`` runs column-kernel calls instead
     (pointer plane N/8 x rows x MP, no two-pass route), as the reference
-    does.  The column route, and the two-pass route past the table,
-    decode morph input to f32 first.
+    does, on morph input in the TABLE score mode where the template fits
+    ``col_score_mode``'s table.  Past its table each route decodes morph
+    input to f32.
     """
     dev = signals.device
     B = signals.shape[0]
@@ -552,7 +563,7 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
     n_cols = signals.shape[1] + (0 if col else mp)
     two_pass = not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev)
-    if lut is not None and (col or two_pass and not _fits_table(tmpl_np)):
+    if lut is not None and two_pass and not _fits_table(tmpl_np):
         signals, lut = morph_decode(signals, lut), None
     if two_pass:
         if wave_span_bound_steps(params, m) is None:
@@ -574,13 +585,12 @@ def align_core(signals, n_actual, template_np, params, lut=None):
         sl = _pad_rows(signals[b0:end], kb, 0)
         na = _pad_rows(n_act[b0:end], kb, 1)
         _count_cells(kb, n_cols, mp)
-        if col:
-            outs.append(_align_batch_col(sl, na, tmpl, params, m))
-        elif lut is None:
-            outs.append(_align_batch_wave(sl, na, tmpl, params, m))
+        if lut is None:
+            run = _align_batch_col if col else _align_batch_wave
+            outs.append(run(sl, na, tmpl, params, m))
         else:
-            outs.append(_align_batch_wave_morph(sl, _pad_rows(lut[b0:end], kb, 0.0), na, levels,
-                                                lidx, params, m))
+            run = _align_batch_col_morph if col else _align_batch_wave_morph
+            outs.append(run(sl, _pad_rows(lut[b0:end], kb, 0.0), na, levels, lidx, params, m))
         b0 = end
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 

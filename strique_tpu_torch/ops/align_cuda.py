@@ -847,7 +847,24 @@ def align_window_from_state_morph(bins, lut, t0, state4, cold, steps_needed, lev
 # The same Gotoh DP swept one signal column per step (align_pallas.py
 # ``_align_kernel``): the vertical gap is an inclusive prefix max over the
 # template lanes, and the pointer plane is column-major.  Kernel
-# ``csrc/col_align.cu``.
+# ``csrc/col_align.cu``, in the POW score mode on f32 signals
+# (``align_forward_col``) or the TABLE score mode on morph-form reads
+# (``align_forward_col_morph``, where :func:`col_score_mode` allows).
+
+# the column kernel's exchange: 5 slots x 2 step parities x 32 warps, in
+# the same shared memory as the TABLE mode's score table
+COL_EXCH_FLOATS = 5 * 2 * 32
+
+
+def col_score_mode(n_levels: int, mp: int) -> str:
+    """The score mode of a morph-form column call: "table" when the
+    template has at most TABLE_MAX_MP lanes and a row's ``n_levels`` x
+    258 f32 table fits one block's shared memory (SMEM_BYTES) beside the
+    kernel's COL_EXCH_FLOATS exchange floats, else "pow" (on the decoded
+    f32).  The cap is 224 levels at any MP up to 1024 (a ``samples=6``
+    template of the bench's c9orf72 flanks has 119-142)."""
+    fits = 4 * (COL_EXCH_FLOATS + n_levels * SCORE_COLS) <= SMEM_BYTES
+    return "table" if mp <= TABLE_MAX_MP and fits else "pow"
 
 
 def _cols_to_run(n_actual, N: int) -> int:
@@ -857,8 +874,10 @@ def _cols_to_run(n_actual, N: int) -> int:
     return int(min(N, _round_up(int(n_actual.max()), 8)))
 
 
-def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
-    """Plain twin of the column kernel: (ptr (N/8, B, MP), bottom (B, N)).
+def _col_recurrence(scores, n_actual, params, m_actual: int, N: int, mp: int):
+    """The column recurrence in plain PyTorch ops over (B, MP) rows:
+    (ptr (N/8, B, MP), bottom (B, N)).  ``scores(c)`` gives column c's
+    (B, MP) cell scores.
 
     Step c computes column j = c + 1 with the reference's expression
     trees.  The code of row i sits at lane i-1 (row 0's at lane MP-1,
@@ -867,9 +886,8 @@ def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
     rest of the plane stays 0 and of the bottom NEG.
     """
     k = _consts(params)
-    B, N = signals.shape
-    mp = tmpl.shape[1]
-    dev = signals.device
+    B = n_actual.shape[0]
+    dev = n_actual.device
     lane = torch.arange(mp, device=dev)
     lane_f = lane.to(torch.float32)
     row0 = lane == 0
@@ -885,8 +903,7 @@ def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
     n_act = n_actual.to(torch.int64)
     acc = torch.zeros((B, mp), dtype=torch.int32, device=dev)
     for c in range(_cols_to_run(n_actual, N)):
-        sc = torch.clamp_min(k["off"] - score_pow((signals[:, c : c + 1] - tmpl).abs()),
-                             k["dmin"])
+        sc = scores(c)
         ih_ext = ih + k["ge_h"]
         ih_open = s + k["go_h"]
         new_ih = torch.maximum(ih_ext, ih_open)
@@ -911,6 +928,28 @@ def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
     return ptr, bottom
 
 
+def _col_plain(signals, tmpl, n_actual, params, m_actual: int):
+    """Plain twin of the column kernel's POW mode: (ptr (N/8, B, MP),
+    bottom (B, N)), column c scored against ``signals[:, c]``."""
+    k = _consts(params)
+    return _col_recurrence(
+        lambda c: torch.clamp_min(k["off"] - score_pow((signals[:, c : c + 1] - tmpl).abs()),
+                                  k["dmin"]),
+        n_actual, params, m_actual, signals.shape[1], tmpl.shape[1])
+
+
+def _col_table_plain(bins, lut, levels, lidx, n_actual, params, m_actual: int):
+    """Plain twin of the column kernel's TABLE mode: the same recurrence,
+    lane i scoring column c as :func:`score_table` entry
+    [lidx[0, i], bins[:, c]].  (ptr (N/8, B, MP), bottom (B, N))."""
+    B = bins.shape[0]
+    tab = score_table(lut, levels, params).reshape(B, -1)
+    row_off = (lidx.to(torch.int64) * SCORE_COLS).expand(B, -1)
+    b64 = bins.to(torch.int64)
+    return _col_recurrence(lambda c: tab.gather(1, row_off + b64[:, c : c + 1]), n_actual,
+                           params, m_actual, bins.shape[1], lidx.shape[1])
+
+
 def _col_cuda(signals, tmpl, n_actual, params, m_actual: int):
     B, N = signals.shape
     mp = tmpl.shape[1]
@@ -923,6 +962,18 @@ def _col_cuda(signals, tmpl, n_actual, params, m_actual: int):
     return ptr, bottom
 
 
+def _col_table_cuda(bins, lut, levels, lidx, n_actual, params, m_actual: int):
+    B, N = bins.shape
+    mp = lidx.shape[1]
+    ptr = torch.empty((N // 8, B, mp), dtype=torch.int32, device=bins.device)
+    bottom = torch.empty((B, N), dtype=torch.float32, device=bins.device)
+    _launch("col_table_launch", bins.device,
+            (bins, lut, levels, lidx, n_actual.to(torch.int32), ptr, bottom),
+            B, N, mp, levels.shape[1], int(m_actual), *_param_args(params))
+    _build.LAUNCHES["align_forward_col_table"] += 1
+    return ptr, bottom
+
+
 def align_forward_col(signals, n_actual, template_padded, params, m_actual: int):
     """Column-sweep forward DP of B reads against one shared template.
 
@@ -932,7 +983,8 @@ def align_forward_col(signals, n_actual, template_padded, params, m_actual: int)
     row i sits in nibble (j-1) % 8 of word [(j-1)//8, row, i-1]
     (``traceback_pointers(packed=True)`` reads it), and bottom[:, j-1]
     is S(m, j), NEG for j > n.  A row stops at round_up(n, 8): pointer
-    words past it are left unwritten.
+    words past it are left unwritten.  POW score mode (launch counter
+    ``align_forward_col``).
     """
     B = signals.shape[0]
     if template_padded.shape[0] != 1 or not 0 < m_actual < template_padded.shape[1]:
@@ -942,3 +994,27 @@ def align_forward_col(signals, n_actual, template_padded, params, m_actual: int)
     if _on_card(signals):
         return _col_cuda(signals, template_padded, n_actual, params, m_actual)
     return _col_plain(signals, template_padded, n_actual, params, m_actual)
+
+
+def align_forward_col_morph(bins, lut, n_actual, levels, lidx, params, m_actual: int):
+    """:func:`align_forward_col` on morph-form reads: the same outputs as
+    on the f32 signals ``lut[bins]`` against the template
+    ``levels[0, lidx[0]]``.
+
+    bins (B, N) u8, N a multiple of 128, read in place; lut (B, 256) f32;
+    (levels, lidx) = :func:`template_levels` of a (1, MP) template.  Runs
+    the TABLE score mode (launch counter ``align_forward_col_table``)
+    where :func:`col_score_mode` allows, else the POW mode on the decoded
+    f32 (``align_forward_col``).
+    """
+    B = bins.shape[0]
+    if lidx.shape[0] != 1 or not 0 < m_actual < lidx.shape[1]:
+        raise ValueError("align_forward_col_morph takes one (1, MP) template of m < MP samples")
+    m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=bins.device)
+    _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
+    if col_score_mode(levels.shape[1], lidx.shape[1]) == "pow":
+        tmpl = levels.gather(1, lidx.to(torch.int64))
+        return align_forward_col(morph_decode(bins, lut), n_actual, tmpl, params, m_actual)
+    if _on_card(bins):
+        return _col_table_cuda(bins, lut, levels, lidx, n_actual, params, m_actual)
+    return _col_table_plain(bins, lut, levels, lidx, n_actual, params, m_actual)

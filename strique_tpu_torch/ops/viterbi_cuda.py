@@ -13,7 +13,13 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
   * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
     with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
     for HMMs without a factored form (``hmm/factor.py`` declines) or
-    under ``STRIQUE_DENSE_VITERBI=1``.  Kernel ``csrc/viterbi_dense.cu``.
+    under ``STRIQUE_DENSE_VITERBI=1``.  Kernel ``csrc/viterbi_dense.cu``
+    in one of two modes, picked by :func:`dense_mode` from SP alone:
+    RESIDENT (SP <= 512; launch counter
+    ``viterbi_forward_dense_resident``), a thread-block cluster of K CTAs
+    a read holding the transitions in registers and passing each step's
+    row by st.async, or STREAMED (past it; ``viterbi_forward_dense``), one
+    CTA a read reading them from L2.
   * ``viterbi_backward_batch`` -- ``_bwd_batch_kernel``: the backward
     walk that recomputes each visited backpointer,
     ``bp[t] = min{u : sc[t-1, u] + trans[u, path[t]] == max}``, frozen
@@ -81,6 +87,12 @@ FWD_MAX_EXIT = 3
 FWD_CHAIN_SLOTS = FWD_MAX_ENTRY + FWD_MAX_EXIT
 FWD_SLOTS = FWD_MAX_DIAG + FWD_MAX_CHAIN * FWD_CHAIN_SLOTS
 BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
+# the dense forward's resident mode (csrc/viterbi_dense.cu): a cluster of
+# at most DENSE_MAX_CLUSTER CTAs a read, each warp holding the transitions
+# into its 128/16 or 64/16 destination columns in at most DENSE_MAX_REGS
+# registers a lane
+DENSE_MAX_CLUSTER = 8  # the portable cluster size
+DENSE_MAX_REGS = 64
 
 
 def fwd_spec_fits(spec) -> bool:
@@ -314,6 +326,22 @@ def _check_obs(obs, t_actual, ph):
         raise ValueError(f"Viterbi runs on cuda or cpu tensors, got {obs.device}")
 
 
+def dense_mode(sp: int) -> int:
+    """The dense forward's mode for SP padded states: the CTAs a read
+    takes in the resident mode (its cluster size K), or 0 for the
+    streamed mode.  A resident CTA holds VC = SP / K destination columns,
+    16 warps of VC/16 columns whose lanes keep the transitions from all
+    SP source rows in SP/32 x VC/16 registers: K is the fewest CTAs, at
+    most DENSE_MAX_CLUSTER, with VC 128 (else 64) and at most
+    DENSE_MAX_REGS such registers.  1 at SP 128, 2 at 256, 6 at 384, 8
+    at 512; 0 past 512."""
+    for vc in (128, 64):
+        k = sp // vc
+        if sp % vc == 0 and k <= DENSE_MAX_CLUSTER and (sp // 32) * (vc // 16) <= DENSE_MAX_REGS:
+            return k
+    return 0
+
+
 def _fwd_dense_plain(obs, t_actual, ph):
     """Plain twin of the dense forward: the reference's step, every read
     together.  Rows past a read's length are not frozen (the reference
@@ -350,12 +378,16 @@ def _fwd_dense_cuda(obs, t_actual, ph):
     sc = torch.empty((T, B, sp), dtype=torch.float32, device=dev)
     fin = torch.empty((B, sp), dtype=torch.float32, device=dev)
     acc = torch.empty((B,), dtype=torch.float32, device=dev)
-    _build.launch(
-        "viterbi_dense_launch", dev,
-        o.data_ptr(), tact.data_ptr(), ph.trans.data_ptr(), ph.start.data_ptr(),
-        ph.mu.data_ptr(), ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
-        ph.lsig.data_ptr(), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
-    _build.LAUNCHES["viterbi_forward_dense"] += 1
+    args = (o.data_ptr(), tact.data_ptr(), ph.trans.data_ptr(), ph.start.data_ptr(),
+            ph.mu.data_ptr(), ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
+            ph.lsig.data_ptr(), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
+    k = dense_mode(sp)
+    if k:
+        _build.launch("viterbi_dense_resident_launch", dev, *args, k)
+        _build.LAUNCHES["viterbi_forward_dense_resident"] += 1
+    else:
+        _build.launch("viterbi_dense_launch", dev, *args)
+        _build.LAUNCHES["viterbi_forward_dense"] += 1
     return sc, fin, acc
 
 
@@ -367,6 +399,8 @@ def viterbi_forward_dense(obs, t_actual, ph: PaddedHMM):
     directly.  Returns (sc (T, B, SP) f32 rescaled score rows, fin (B, SP)
     the row at t_actual-1, acc (B,) the summed rescale shifts).  Rows at
     t >= t_actual are left unwritten on the card; nothing reads them.
+    On the card the kernel runs in :func:`dense_mode`'s mode; both modes
+    give ``_fwd_dense_plain``'s bits.
     """
     _check_obs(obs, t_actual, ph)
     if obs.device.type == "cuda":

@@ -38,15 +38,16 @@ def write_pore_model(path: str, seed: int = 0, k: int = 6) -> str:
 
 def make_reads(pm, n_reads: int, repeats: int, rng, strand: str = "+",
                flank_bases: int = 1000, prefix: str = PREFIX, suffix: str = SUFFIX,
-               equal_length: bool = True) -> list:
-    """``n_reads`` noisy raw signals of one locus with ``repeats`` units.
+               equal_length: bool = True, repeat: str = REPEAT) -> list:
+    """``n_reads`` noisy raw signals of one locus with ``repeats`` units
+    of ``repeat``.
 
     A '-' read is synthesised from the reverse complement.  With
     ``equal_length`` the reads are edge-padded to one length (one
     signal bucket), as bench.py does.
     """
     backbone = "".join(rng.choice(list("ACTG"), 2 * flank_bases))
-    seq = (backbone[:flank_bases] + prefix + REPEAT * repeats + suffix
+    seq = (backbone[:flank_bases] + prefix + repeat * repeats + suffix
            + backbone[-flank_bases:])
     if strand == "-":
         seq = seq.upper().translate(str.maketrans("ACGT", "TGCA"))[::-1]

@@ -12,7 +12,13 @@ decoded by the plain backward, against the reference's
     T=512, SP 128), where the dense paths must also equal the factored
     ones;
   * end to end, the port's counter against the JAX counter under the
-    knob.
+    knob;
+  * the dense forward's mode rule (``dense_mode``) and a plain emulation
+    of its resident kernel's cluster step, bit-equal to the twin;
+  * on reads cut off at SP 512, the one step where the dense and
+    factored decodes split, in both packages alike;
+  * chip_smoke.py's VNTR target (SP 640, the streamed dense mode), the
+    port's counter on both routes against the JAX counter.
 
 Tolerances.  Paths exact everywhere.  On the declined graph every
 sigma is 1 and the observations are multiples of 1/8 from integer
@@ -42,7 +48,9 @@ from strique_tpu_torch.hmm.graph import HmmGraph
 from strique_tpu_torch.hmm.models import build_flanked_repeat
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.pore_model import PoreModel
-from strique_tpu_torch.synthetic import REPEAT, write_pore_model
+from strique_tpu_torch.synthetic import PREFIX as LONG_PREFIX
+from strique_tpu_torch.synthetic import REPEAT, make_reads, write_pore_model
+from strique_tpu_torch.synthetic import SUFFIX as LONG_SUFFIX
 from tests.test_torch_counter import COUNTS, T_PREFIX, T_SUFFIX
 from tests.test_torch_counter import _reads as _counter_reads
 from tests.test_torch_viterbi import PREFIX, SUFFIX, _batch
@@ -188,3 +196,155 @@ def test_counter_dense_matches_jax_counter(counter_model, monkeypatch):
     for r, g in zip(ref, got):
         assert (g[0], g[1], g[2], g[4], g[5], g[6]) == (r[0], r[1], r[2], r[4], r[5], r[6])
         assert g[3] == pytest.approx(r[3], rel=1e-9)
+
+
+def test_dense_mode_rule():
+    """Resident mode with its cluster size K at SP 128, 256, 384 and 512
+    (K CTAs of SP/K columns, 128 else 64, whose lanes hold SP/32 x
+    SP/(16 K) transitions in registers), the streamed mode past 512."""
+    assert [TVC.dense_mode(sp) for sp in (128, 256, 384, 512)] == [1, 2, 6, 8]
+    assert [TVC.dense_mode(sp) for sp in (640, 768, 1024, 4096, 8192)] == [0] * 5
+    for sp in (128, 256, 384, 512):
+        k = TVC.dense_mode(sp)
+        assert (sp // 32) * (sp // k // 16) <= TVC.DENSE_MAX_REGS and k <= TVC.DENSE_MAX_CLUSTER
+
+
+def _fwd_dense_cluster_emulation(obs, t_actual, ph, k):
+    """The resident kernel's step in plain ops: K CTAs of VC = SP/K
+    columns; in each, lane l takes its column maxes over the source rows
+    l + 32 i, and the lanes' maxes are folded; val = best + emit; m is
+    the max of the whole val row, and the next step reads st[u] as
+    val[u] - m."""
+    B, T = obs.shape
+    sp = ph.sp
+    vc = sp // k
+    tact = t_actual.to(torch.int64).clamp_max(T)
+    sc = torch.zeros((T, B, sp))
+    fin = torch.zeros((B, sp))
+    acc = torch.zeros((B,))
+    val = m = None
+    for t in range(int(tact.max())):
+        z = (obs[:, t : t + 1] - ph.mu) / ph.sigma
+        emit = torch.where(ph.uni != 0, ph.luni, ph.lsig - 0.5 * z * z)
+        if t == 0:
+            val = ph.start + emit
+        else:
+            st = val - m[:, None]
+            slices = []
+            for r in range(k):
+                cols = slice(r * vc, (r + 1) * vc)
+                cand = st[:, :, None] + ph.trans[None, :, cols]  # (B, SP, VC)
+                lanes = cand.reshape(B, sp // 32, 32, vc).amax(dim=1)  # row u = 32 i + l
+                slices.append(lanes.amax(dim=1) + emit[:, cols])
+            val = torch.cat(slices, dim=1)
+        m = val.amax(dim=1)
+        sc[t] = val - m[:, None]
+        acc = acc + torch.where(t < tact, m, 0.0)
+        fin = torch.where((tact - 1 == t)[:, None], val - m[:, None], fin)
+    return sc, fin, acc
+
+
+@pytest.mark.parametrize("flank", [25, 50, 75])
+def test_dense_cluster_step_matches_plain(model_file, flank):
+    """On the seed-3 synthetic HMM (25-base flanks: 116 states, SP 128, K
+    1; 50-base flanks: SP 256, K 2; 75-base flanks: SP 384, K 6), the
+    emulated cluster step -- and, at SP 256, the same step cut into 4
+    slices of 64 columns -- is bit-equal to
+    ``_fwd_dense_plain`` in every row below each read's length, fin and
+    acc: the expression tree the resident kernel keeps."""
+    pm = PoreModel(model_file)
+    prefix, suffix = LONG_PREFIX[-flank:], LONG_SUFFIX[:flank]
+    chm = build_flanked_repeat(REPEAT, prefix, suffix, pm)
+    ph = TVC.PaddedHMM(chm, "cpu")
+    assert (ph.n_states, ph.sp) == {25: (116, 128), 50: (216, 256), 75: (316, 384)}[flank]
+    rng = np.random.default_rng(60 + flank)
+    B, T = 8, 256
+    obs = np.zeros((B, T), np.float32)
+    lens = rng.integers(40, T + 1, B).astype(np.int32)
+    lens[0] = 1
+    for b in range(B):
+        x = pm.generate_signal(prefix + REPEAT * 6 + suffix, samples=8,
+                               noise=True, rng=rng).astype(np.float32)
+        obs[b, : min(len(x), lens[b])] = x[: lens[b]]
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(T)[:, None] < n[None, :]
+    for k in sorted({TVC.dense_mode(ph.sp), *((4,) if ph.sp == 256 else ())}):
+        sc, fin, acc = _fwd_dense_cluster_emulation(o, n, ph, k)
+        assert torch.equal(sc[live], sc_p[live]), k
+        assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p), k
+
+
+def test_dense_and_factored_paths_split_as_in_jax(model_file, monkeypatch):
+    """On reads cut off at T 1024 (seed-3 model, 100-base flanks, SP 512,
+    the reads of tests/test_torch_gpu.py's SP 512 case), the dense and
+    factored decodes differ at one step: read 3, step 1003, where the
+    backward's candidates into state 347 sit 1 ulp apart in the dense
+    rows (336 wins) and tie in the factored ones (320 wins).  The JAX
+    package's two decodes split at the same step, and each of the port's
+    paths equals the reference's on its route (ROADMAP Queue 3)."""
+    flank, T = 100, 1024
+    prefix, suffix = LONG_PREFIX[-flank:], LONG_SUFFIX[:flank]
+    pm = PoreModel(model_file)
+    rng = np.random.default_rng(40 + flank)
+    obs = np.zeros((8, T), np.float32)
+    lens = np.zeros(8, np.int32)
+    for i, k in enumerate([1, 2, 3, 5, 8, 2, 6, 4]):
+        x = pm.generate_signal(prefix + REPEAT * k + suffix, samples=8, noise=True,
+                               rng=rng).astype(np.float32)[:T]
+        obs[i, : len(x)] = x
+        lens[i] = len(x)
+    assert (lens == T).all()  # every read cut off
+    jpm = JaxPoreModel(model_file)
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    paths = {}
+    for route in ("factored", "dense"):
+        if route == "dense":
+            monkeypatch.setenv("STRIQUE_DENSE_VITERBI", "1")
+        ph = TVC.PaddedHMM(build_flanked_repeat(REPEAT, prefix, suffix, pm), "cpu")
+        jph = JaxPaddedHMM(jax_build_flanked_repeat(REPEAT, prefix, suffix, jpm))
+        assert ph.sp == 512 and (ph.fspec is None) == (jph.fspec is None) == (route == "dense")
+        _, tp = TVC.viterbi_batch(o, n, ph)
+        _, jp = viterbi_pallas_batch(jnp.asarray(obs), jnp.asarray(lens), jph)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        paths[route] = tp.numpy()
+    split = np.nonzero(paths["dense"] != paths["factored"])
+    assert [(int(b), int(t)) for b, t in zip(*split)] == [(3, 1003)]
+    assert (paths["dense"][3, 1003], paths["factored"][3, 1003]) == (336, 320)
+    assert paths["dense"][3, 1004] == paths["factored"][3, 1004] == 347
+
+
+@pytest.fixture(scope="module")
+def smoke_model(tmp_path_factory):
+    return write_pore_model(str(tmp_path_factory.mktemp("model") / "synthetic_6mer.model"),
+                            seed=0)
+
+
+def test_vntr_counts_match_jax_counter(smoke_model, monkeypatch):
+    """chip_smoke.py phase 4f's VNTR target and reads (seed-0 model, a
+    60-base unit from rng 5, 8 '+' reads of 12 units): the JAX counter
+    counts 11 in each; the port's counter on the default route (the
+    factored forward) and under STRIQUE_DENSE_VITERBI=1 (540 states, SP
+    640: the dense forward) gives the reference's result tuples."""
+    pm = PoreModel(smoke_model)
+    rng = np.random.default_rng(5)
+    unit = "".join(rng.choice(list("ACGT"), 60))
+    reads = make_reads(pm, 8, 12, rng, "+", repeat=unit)
+    ref_counter = JaxRepeatCounter(smoke_model)
+    ref_counter.add_target("vntr", unit, LONG_PREFIX, LONG_SUFFIX)
+    ref = ref_counter.detect_many("vntr", reads, "+")
+    assert [r[0] for r in ref] == [11] * 8
+    calls = []
+    dense_fn = TVC.viterbi_forward_dense
+    monkeypatch.setattr(TVC, "viterbi_forward_dense", lambda *a: calls.append(1) or dense_fn(*a))
+    for route in ("default", "dense"):
+        if route == "dense":
+            monkeypatch.setenv("STRIQUE_DENSE_VITERBI", "1")
+        port = RepeatCounter(smoke_model, device="cpu")
+        port.add_target("vntr", unit, LONG_PREFIX, LONG_SUFFIX)
+        assert port.targets["vntr"][0].repeat_hmm.n_states == 540
+        got = port.detect_many("vntr", reads, "+")
+        assert bool(calls) == (route == "dense"), route
+        for r, g in zip(ref, got, strict=True):
+            assert (g[0], g[1], g[2], g[4], g[5], g[6]) == (r[0], r[1], r[2], r[4], r[5], r[6])
+            assert g[3] == pytest.approx(r[3], rel=1e-9)

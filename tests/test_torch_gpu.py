@@ -264,6 +264,54 @@ def test_gpu_viterbi_edges_match_plain(cuda_device, model_file, case):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", list(VITERBI_EDGES))
+def test_gpu_dense_viterbi_edges_match_plain(cuda_device, model_file, case):
+    """The dense forward (resident mode: SP 256 and 512) against its twin
+    at the Viterbi edge inputs: short lengths, lengths around 32-step
+    chunks, constant obs (ties in every row) and SP 512."""
+    pm = PoreModel(model_file)
+    chm, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(70 + len(case)))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert TVC.dense_mode(ph.sp) > 0
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    before = _build.LAUNCHES["viterbi_forward_dense_resident"]
+    sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
+    assert _build.LAUNCHES["viterbi_forward_dense_resident"] == before + 1
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(obs.shape[1], device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pi", range(len(PARAMS)))
+def test_gpu_col_table_mode_matches_pow_and_plain(cuda_device, pi):
+    """Morph-form reads (a samples=6 template): the column kernel's TABLE
+    mode, its POW mode on the decoded f32 and the table twin, bit for bit
+    in the written pointer words and every bottom tap."""
+    p = PARAMS[pi]
+    rng = np.random.default_rng(560 + pi)
+    B, N = 16, 512
+    template = np.repeat(rng.uniform(60, 120, 7), 6).astype(np.float32)
+    bins, lut, na = _morph_batch(rng, B, N, [template] * B)
+    tp, m = TC.pad_template(template)
+    levels, lidx = TC.template_levels(tp)
+    b, lt, n, lv, li, t = (torch.from_numpy(x).to(cuda_device)
+                           for x in (bins, lut, na, levels, lidx, tp))
+    before = dict(_build.LAUNCHES)
+    ptr, bot = TC.align_forward_col_morph(b, lt, n, lv, li, p, m)
+    assert _build.LAUNCHES["align_forward_col_table"] == before["align_forward_col_table"] + 1
+    assert _build.LAUNCHES["align_forward_col"] == before["align_forward_col"]
+    ptr_k, bot_k = TC.align_forward_col(TC.morph_decode(b, lt), n, t, p, m)
+    ptr_p, bot_p = TC._col_table_plain(b, lt, lv, li, n, p, m)
+    mask = _valid_words(n, torch.zeros_like(n), ptr.shape[0])
+    for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
+        assert torch.equal(got_ptr[mask], ptr_p[mask])
+        assert torch.equal(got_bot, bot_p)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("pi", range(len(PARAMS)))
 def test_gpu_col_and_traceback_match_plain(cuda_device, pi):
     """The column kernel and the column-layout traceback against their
@@ -301,7 +349,8 @@ def test_gpu_col_and_traceback_match_plain(cuda_device, pi):
 @pytest.mark.gpu
 def test_gpu_align_core_col_matches_wave(cuda_device, monkeypatch):
     """align_core under STRIQUE_ALIGN_KERNEL=col runs the column kernel
-    alone and gives the wave route's outputs exactly."""
+    alone and gives the wave route's outputs exactly: on f32 signals in
+    the POW mode, on their morph form in the TABLE mode."""
     rng = np.random.default_rng(530)
     template = rng.uniform(60, 120, 40).astype(np.float32)
     signals = rng.uniform(60, 120, (16, 512)).astype(np.float32)
@@ -318,18 +367,35 @@ def test_gpu_align_core_col_matches_wave(cuda_device, monkeypatch):
     assert _build.LAUNCHES["traceback_pointers"] == 0
     for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
         assert torch.equal(wave[k], col[k]), k
+    bins, lut = quantise(signals, rng)
+    b, lt = torch.from_numpy(bins).to(cuda_device), torch.from_numpy(lut).to(cuda_device)
+    monkeypatch.delenv("STRIQUE_ALIGN_KERNEL")
+    wave = TA.align_core(b, n, template, AlignParams(), lut=lt)
+    monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
+    _build.reset_launches()
+    col = TA.align_core(b, n, template, AlignParams(), lut=lt)
+    assert _build.LAUNCHES["align_forward_col_table"] == 1
+    assert _build.LAUNCHES["align_forward_col"] == 0
+    for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+        assert torch.equal(wave[k], col[k]), k
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("flank,sp", [(25, 128), (50, 256)])
+@pytest.mark.parametrize("flank,sp", [(25, 128), (50, 256), (75, 384), (100, 512), (130, 640)])
 def test_gpu_dense_viterbi_matches_plain(cuda_device, model_file, flank, sp):
-    """The dense forward against its twin at SP 128 and 256 (rows below
-    each read's length, fin and acc bit-equal), then decoded: its paths
-    equal the factored forward's on this factoring HMM."""
+    """The dense forward against its twin at SP 128, 256, 384 and 512
+    (the resident mode, clusters of 1, 2, 6 and 8 CTAs) and 640 (the
+    streamed mode): rows below each read's length, fin and acc
+    bit-equal; then decoded, its paths equal the factored forward's on
+    this factoring HMM.  Reads are cut off at T 1024 up to SP 384; at SP
+    512 and 640 they are whole, because on cut-off SP 512 reads the two
+    forwards' rows split a 1-ulp tie in the backward, in the JAX package
+    as in this one (tests/test_torch_dense.py
+    test_dense_and_factored_paths_split_as_in_jax)."""
     pm = PoreModel(model_file)
     chm = build_flanked_repeat(REPEAT, PREFIX[-flank:], SUFFIX[:flank], pm)
     rng = np.random.default_rng(40 + flank)
-    T = 1024
+    T = 1024 if sp <= 384 else 2560  # past SP 384 every read whole
     obs = np.zeros((8, T), np.float32)
     lens = np.zeros(8, np.int32)
     for i, k in enumerate([1, 2, 3, 5, 8, 2, 6, 4]):
@@ -341,9 +407,14 @@ def test_gpu_dense_viterbi_matches_plain(cuda_device, model_file, flank, sp):
     assert ph.sp == sp
     o = torch.from_numpy(obs).to(cuda_device)
     n = torch.from_numpy(lens).to(cuda_device)
-    before = _build.LAUNCHES["viterbi_forward_dense"]
+    name = "viterbi_forward_dense_resident" if TVC.dense_mode(sp) else "viterbi_forward_dense"
+    assert (TVC.dense_mode(sp) > 0) == (sp <= 512)
+    before = dict(_build.LAUNCHES)
     sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
-    assert _build.LAUNCHES["viterbi_forward_dense"] == before + 1
+    assert {k: _build.LAUNCHES[k] - before[k] for k in
+            ("viterbi_forward_dense_resident", "viterbi_forward_dense")} == {
+                k: int(k == name) for k in ("viterbi_forward_dense_resident",
+                                            "viterbi_forward_dense")}
     sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
     live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
     assert torch.equal(sc[live], sc_p[live])

@@ -340,10 +340,11 @@ def test_fused_pair_width_rule_on_a_full_batch(card, monkeypatch):
 
 @pytest.mark.parametrize("route", ["col", "two_pass"])
 def test_morph_core_routes_decode_to_f32(route, monkeypatch):
-    """align_core on morph input under STRIQUE_ALIGN_KERNEL=col decodes
-    lut[bins]; past the pointer budget (two-pass) it keeps the bins and
-    runs the TABLE twins of rows 5-6 (the template fits the score
-    table).  Either way it gives the wave route's outputs exactly."""
+    """align_core on morph input under STRIQUE_ALIGN_KERNEL=col keeps the
+    bins and runs the column kernel's TABLE twin; past the pointer budget
+    (two-pass) it keeps them and runs the TABLE twins of rows 5-6 (the
+    template fits both score tables).  Neither decodes lut[bins], and
+    either gives the wave route's outputs exactly."""
     bins, lut, na, t_pre, _ = _morph_reads(880)
     b_t, l_t, n_t = _t(bins, lut, na)
     wave = TA.align_core(b_t, n_t, t_pre, PARAMS[0], lut=l_t)
@@ -353,12 +354,13 @@ def test_morph_core_routes_decode_to_f32(route, monkeypatch):
         monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
     ran = []
     monkeypatch.setattr(TA, "morph_decode", lambda *a: ran.append("decode") or TC.morph_decode(*a))
-    for name in ("_ckpt_table_plain", "_window_table_plain"):
+    for name in ("_ckpt_table_plain", "_window_table_plain", "_col_table_plain"):
         real = getattr(TC, name)
         monkeypatch.setattr(TC, name, lambda *a, _n=name, _f=real: ran.append(_n) or _f(*a))
     _build.reset_launches()
     got = TA.align_core(b_t, n_t, t_pre, PARAMS[0], lut=l_t)
-    assert ran == (["decode"] if route == "col" else ["_ckpt_table_plain", "_window_table_plain"])
+    assert ran == (["_col_table_plain"] if route == "col"
+                   else ["_ckpt_table_plain", "_window_table_plain"])
     for k in FIELDS:
         assert torch.equal(wave[k], got[k]), k
     with pytest.raises(ValueError, match="multiple of 128"):
