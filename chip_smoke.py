@@ -39,7 +39,15 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    plane.  The dense Viterbi forward runs in the mode ``dense_mode``
    picks (resident: a cluster of K CTAs a read; streamed past SP 512) at
    the small, bench (B 64, T 6144, SP 256, K 2) and ultra shapes, and at
-   the bench's B and T with SP 128 (K 1), SP 384 (K 6) and SP 512 (K 8).  Rows 3-4
+   the bench's B and T with SP 128 (K 1), SP 384 (K 6) and SP 512 (K 8).  The
+   diagonal traceback walks row 2's planes (the bench's at 128 rows), the
+   column one row 8's TABLE planes; both walk the hard planes of
+   ``synthetic.traceback_plane`` at 1, 8, 48 and 128 rows, and the
+   diagonal one the ultra one-pass plane (row 1's, 8 rows) and the bench
+   two-pass window plane (16 rows): each against its twin, timed warm
+   and with L2 flushed, with us per step over the longest walk, and the
+   walks replayed to count their steps (held equal to the count read
+   from the outputs) and the distinct words they read (the bound).  Rows 3-4
    and 7 also run at their edges (``check_viterbi_edges``: short reads,
    obs-chunk boundaries, constant obs, SP 512).  Print kernel and plain
    times, and us per step (a column for row 8).
@@ -82,7 +90,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    units, as the JAX package counts these reads on the CPU
    (tests/test_torch_dense.py ``test_vntr_counts_match_jax_counter``).
 4c. One more pass of each path under torch.profiler: wall time, device
-   time by kernel and the busy share.
+   time by kernel and the busy share; the walks of each traceback launch
+   read from its outputs, and the kernel's us a step on the path.
 4d. The knob routes: the '+' and '-' passes of phase 4 once under
    ``STRIQUE_ALIGN_KERNEL=col`` (column kernel and column traceback on
    the '+' batches; the '-' partial batch stays on the fused wave
@@ -92,7 +101,7 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Counts exact, result tuples equal to phase 4's, the knob's kernels
    launched (the column kernel's TABLE mode, the dense forward's
    resident mode) and the ones they replace not; reads/s of each route,
-   and one profiled '+' pass of each.
+   and one profiled '+' pass of each (as in 4c).
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
@@ -213,6 +222,27 @@ def cuda_ms(fn, reps: int) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int, before=lambda: None) -> list:
+    """Device ms of each of ``reps`` calls ``fn(before())``, ``before``
+    outside the timed span, all queued behind a sleep so the host's time
+    per call stays off the timeline (a short kernel outruns its wrapper)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    spans = []
+    for _ in range(reps):
+        arg = before()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn(arg)
+        t1.record()
+        spans.append((t0, t1))
+    torch.cuda.synchronize()
+    return [t0.elapsed_time(t1) for t0, t1 in spans]
 
 
 def once_ms(fn):
@@ -473,7 +503,11 @@ def check_wave_ultra(template, B, N, params, rng, results) -> None:
     mask = valid_ptr_mask(n_d, m_d, ptr_t.shape[0])
     eq = not bool(((ptr_t != ptr_k) & mask[:, :, None]).any())
     err = float((bot_t.double() - bot_k.double()).abs().max())
-    del ptr_t, ptr_k
+    del ptr_k
+    # the traceback's coldest walk: the one-pass route's plane
+    j_end = (torch.argmax(bot_t, dim=1).to(torch.int32) + 1 - m_d).clamp_min(0).to(torch.int32)
+    check_traceback(ptr_t, j_end, m_d, "ultra one-pass plane", results, key="ultra_one_pass")
+    del ptr_t
     for k in ("align_forward_wave", "align_forward_wave_table"):
         _build.LAUNCHES[k] = before[k]
     nd = N + tmpl.shape[1]
@@ -486,16 +520,76 @@ def check_wave_ultra(template, B, N, params, rng, results) -> None:
     results["align_forward_wave_table"].update(ultra_ms=ms_t, ultra_pow_ms=ms_k)
 
 
-def check_traceback(ptr, j_end, m_d, shape_name, results, col=False):
+def walk_steps(out, j_end, m_start):
+    """Per row, the steps of a walk, read from its outputs: an H move
+    lowers j, a V move i, an M move (or a code-3 step, which leaves its
+    entry at the initial 0) both; below m_start the entries that are not
+    gaps count the M moves."""
+    import torch
+
+    below = torch.arange(out["is_gap"].shape[1], device=j_end.device)[None, :] < m_start[:, None]
+    diag = ((~out["is_gap"]) & below).sum(dim=1)
+    return m_start.long() + (j_end.long() - out["j_begin"].long()) - diag
+
+
+def walk_words(ptr, j_end, m_start, col=False):
+    """Per row, the steps of the walk back from (m_start, j_end) and the
+    distinct pointer words it reads, by replaying the walk's rule
+    (``_traceback_plain``'s) on the plane.  It reads the cells it visits
+    with i > 0 and j > 0 (row 0's code is never used, column 0's is
+    fixed), and never comes back to a word it has left (its lane and word
+    group only fall), so a word is new where it differs from the last."""
+    import torch
+
+    B, MP = j_end.shape[0], ptr.shape[2]
+    rows = torch.arange(B, device=ptr.device)
+    i, j = m_start.long().clone(), j_end.long().clone()
+    steps = torch.zeros(B, dtype=torch.int64, device=ptr.device)
+    words = torch.zeros_like(steps)
+    last = torch.full_like(steps, -1)
+
+    def read(ic, jc, live):
+        nonlocal words, last
+        t = (jc - 1 if col else ic + jc - 1).clamp_min(0)
+        lane = (ic - 1 if col else ic).clamp(0, MP - 1)
+        on = live & (ic > 0) & (jc > 0)
+        key = (t >> 3) * MP + lane
+        words = words + (on & (key != last)).long()
+        last = torch.where(on, key, last)
+        nib = (ptr[t >> 3, rows, lane] >> (4 * (t & 7)).to(torch.int32)) & 15
+        return torch.where(jc > 0, nib.long(), torch.full_like(jc, 2 | 8))
+
+    byte = read(i, j, i > 0)
+    cur = byte & 3
+    while bool((i > 0).any()):
+        active = i > 0
+        is_m, is_h, is_v = cur == 0, cur == 1, cur == 2
+        ni, nj = torch.where(is_h, i, i - 1), torch.where(is_v, j, j - 1)
+        nbyte = read(ni, nj, active)
+        ext = torch.where(is_h, (byte >> 2) & 1, ((byte if col else nbyte) >> 3) & 1)
+        ncur = torch.where(~is_m & (ext == 1), cur, nbyte & 3)
+        steps += active.long()
+        i, j = torch.where(active, ni, i), torch.where(active, nj, j)
+        cur, byte = torch.where(active, ncur, cur), torch.where(active, nbyte, byte)
+    return steps, words
+
+
+def check_traceback(ptr, j_end, m_d, shape_name, results, col=False, m_out=None, key=None):
     """The traceback of a diagonal (wave) or, with ``col``, a column plane
-    against its twin, walking back from ``j_end``."""
+    against its twin, walking back from ``j_end`` at rows ``m_d`` (output
+    width ``m_out``, default their largest).  Its times enter the kernel
+    line (``results[name]``) or, with ``key``, ``results[name][key]``:
+    device ms warm (the plane's walked words left in L2 by the run
+    before) and cold (L2 flushed before each launch), us a step over the
+    longest row's walk, and the bound, from the distinct pointer words
+    the walks read."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align as AL
 
     B = j_end.shape[0]
-    m_out = int(m_d.max())
+    m_out = int(m_d.max()) if m_out is None else m_out
     name = "traceback_pointers_col" if col else "traceback_pointers"
     run_k = lambda: AL.traceback_pointers(ptr, j_end, m_out, packed=True if col else "diag",
                                           m_start=m_d)
@@ -505,17 +599,52 @@ def check_traceback(ptr, j_end, m_d, shape_name, results, col=False):
     err = 0
     for k in ("is_gap", "jpos", "j_begin"):
         err = max(err, int((got[k].to(torch.int64) - ref[k].to(torch.int64)).abs().max()))
-    ms = cuda_ms(run_k, 5)
+    ms = sum(device_ms(lambda _: run_k(), 5)) / 5
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=ptr.device)  # 256 MB > the 50 MB L2
+    cold = sum(device_ms(lambda _: run_k(), 3, flush.zero_)) / 3
+    del flush
     _build.LAUNCHES[name] = 0
-    print(f"  {name} [{shape_name} B={B}]: max_abs_err {err}; kernel {ms:.3f} ms, "
-          f"plain {plain_ms:.1f} ms", flush=True)
+    row_steps, row_words = walk_words(ptr, j_end, m_d, col)
+    longest = max(int(row_steps.max()), 1)
+    words = int(row_words.sum())
+    print(f"  {name} [{shape_name} B={B} MP={ptr.shape[2]}]: max_abs_err {err}; kernel "
+          f"{ms:.3f} ms ({ms * 1e3 / longest:.4f} us/step over the longest walk, {longest} "
+          f"steps), cold L2 {cold:.3f} ms ({cold * 1e3 / longest:.4f} us/step), plain "
+          f"{plain_ms:.1f} ms, 1 launch; the walks: {int(row_steps.sum())} steps reading "
+          f"{words} distinct words", flush=True)
     if err != 0:
         fail(f"{name} kernel disagrees with its plain twin at the {shape_name} shape")
-    # the walk reads one pointer word per step: m + (j_end - j_begin) steps a row
-    steps = float((m_d.double() + (j_end - got["j_begin"]).double()).sum())
-    nbytes = 4 * steps + B * m_out * 5 + 4 * B + 8 * B
-    results[name] = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms,
-                     **bound(nbytes, 10 * steps)}
+    if not torch.equal(walk_steps(got, j_end, m_d), row_steps):
+        fail(f"{name}: the walks' lengths read from the outputs differ from the replay's at "
+             f"the {shape_name} shape")
+    # the bound: each distinct pointer word read once, the outputs written
+    # once, j_end and m_start read; ~10 integer operations a step
+    nbytes = 4 * words + B * m_out * 5 + 4 * B + 8 * B
+    entry = {"max_abs_err": float(err), "ms": ms, "plain_ms": plain_ms, "cold_ms": cold,
+             "us_per_step": ms * 1e3 / longest, "cold_us_per_step": cold * 1e3 / longest,
+             "longest_walk": longest, "steps": int(row_steps.sum()), "words": words, "rows": B,
+             **bound(nbytes, 10 * float(row_steps.sum()))}
+    if key is None:
+        results.setdefault(name, {}).update(entry)
+    else:
+        results.setdefault(name, {})[key] = entry
+
+
+def check_traceback_planes(seed: int, results) -> None:
+    """Both traceback layouts on the planes a lane window can miss
+    (``synthetic.traceback_plane``: V runs past 128 lanes, H runs across
+    more than 16 word groups, j_end 0 and below, m_start 0 and MP - 1,
+    code 3) at 1, 8, 48 and 128 rows, each against its twin."""
+    import torch
+
+    from strique_tpu_torch.synthetic import traceback_plane
+
+    for col in (False, True):
+        for rows in (1, 8, 48, 128):
+            ptr, j_end, m_start, m_out = traceback_plane(rows, seed + rows, col)
+            ptr, j_end, m_start = (torch.from_numpy(x).cuda() for x in (ptr, j_end, m_start))
+            check_traceback(ptr, j_end, m_start, f"hard plane, {rows} rows", results, col=col,
+                            m_out=m_out, key=f"hard_{rows}")
 
 
 def check_col(template, shape_name, B, N, params, rng, results):
@@ -942,6 +1071,10 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
         ptr_p, plain_ms = once_ms(lambda: AC._window_plain(*pow_args))
     words = valid_ptr_mask(w_k["steps_needed"], torch.zeros_like(n_d), ptr_p.shape[0])
     eq = {mode: bool(torch.equal(ptr[words], ptr_p[words])) for mode, ptr in ptrs.items()}
+    if results is not None:  # the traceback on the window plane, in window steps
+        check_traceback(ptrs["table" if table else "pow"], (w["j_end"] - w["t0"]).to(torch.int32),
+                        m_rows.to(torch.int32), f"{shape_name} two-pass window plane", results,
+                        m_out=m_max, key="two_pass_window")
     del ptrs, ptr_p
     ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
     steps = _round_up8(int(w_k["steps_needed"].max()))
@@ -1198,9 +1331,10 @@ def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
     return {"viterbi_forward_dense": dense_lc["viterbi_forward_dense"]}
 
 
-def profile_pass(label: str, fn, card: str) -> None:
+def profile_pass(label: str, fn, card: str) -> list:
     """Run ``fn`` once under torch.profiler; print wall time, device time
-    by kernel and the device's busy share (kernel time over wall)."""
+    by kernel and the device's busy share (kernel time over wall); return
+    the (kernel, device ms, launches) rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1218,6 +1352,44 @@ def profile_pass(label: str, fn, card: str) -> None:
           f"{total / wall_ms:.3f}; card: {card}", flush=True)
     for key, ms, n in rows[:8]:
         print(f"  {ms:10.3f} ms  {n:4d} x  {key[:90]}", flush=True)
+    return rows
+
+
+def profile_walks(label: str, fn, card: str, results) -> None:
+    """``profile_pass`` with the length of every traceback launch's walks
+    read from its outputs (``walk_steps``; the tensors are kept and read
+    after the pass, so it adds no sync): per layout, the longest walk of
+    each launch, and the profile's device time of the kernel over their
+    sum, the us a step on this path."""
+    from strique_tpu_torch.ops import align as AL
+
+    log = []
+    inner = AL._traceback_cuda
+
+    def recorded(ptr, j_end, m_start, m_out, col):
+        out = inner(ptr, j_end, m_start, m_out, col)
+        log.append((col, j_end, m_start, out))
+        return out
+
+    AL._traceback_cuda = recorded
+    try:
+        rows = profile_pass(label, fn, card)
+    finally:
+        AL._traceback_cuda = inner
+    for col in (False, True):
+        walks = [int(walk_steps(out, je, ms).max()) for c, je, ms, out in log if c == col]
+        if not walks:
+            continue
+        name = "traceback_pointers_col" if col else "traceback_pointers"
+        kern = f"traceback_kernel<{'true' if col else 'false'}>"
+        ms = sum(t for key, t, _ in rows if kern in key)
+        n = sum(c for key, _, c in rows if kern in key)
+        print(f"  {name} on this pass: {len(walks)} launches ({n} profiled), longest walk a "
+              f"launch {walks} steps; {ms:.3f} ms of device time, {ms * 1e3 / sum(walks):.4f} "
+              f"us/step over the longest walks", flush=True)
+        results.setdefault(name, {}).setdefault("passes", {})[label] = {
+            "launches": len(walks), "longest_walks": walks, "device_ms": ms,
+            "us_per_step": ms * 1e3 / sum(walks)}
 
 
 def run_pipeline(counter, sigs, strand):
@@ -1322,6 +1494,9 @@ def main() -> int:
                 torch.cuda.empty_cache()
             check_col(tmpls[0], shape_name, B, N, params, rng, results)
             torch.cuda.empty_cache()
+        # its own seeds: the draws after it stay as they were
+        check_traceback_planes(args.seed + 40, results)
+        torch.cuda.empty_cache()
         for shape_name, B, T in (("small", 8, 512), ("bench", 64, 6144)):
             check_viterbi(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
             check_dense(pm, tc.repeat_hmm, shape_name, B, T, rng, results)
@@ -1463,11 +1638,12 @@ def main() -> int:
 
     # -- phase 4c: where the device time goes --------------------------------
     try:
-        profile_pass("split path, 128 '+' reads", lambda: run_pipeline(counter, plus, "+"), card)
+        profile_walks("split path, 128 '+' reads", lambda: run_pipeline(counter, plus, "+"), card,
+                      results)
         for route, budget in (("two-pass", "2"), ("one-pass", "8")):
             os.environ["STRIQUE_PTR_BUDGET_GB"] = budget
-            profile_pass(f"ultra-long {route}, 8 reads",
-                         lambda: counter.detect_many("c9orf72", ultra, "+"), card)
+            profile_walks(f"ultra-long {route}, 8 reads",
+                          lambda: counter.detect_many("c9orf72", ultra, "+"), card, results)
     except Exception as e:  # noqa: BLE001
         fail(f"profiled pass raised {type(e).__name__}: {e}")
     finally:
@@ -1489,8 +1665,8 @@ def main() -> int:
             plus_lc = dict(_build.LAUNCHES)
             k_minus = run_pipeline(kc, minus, "-")
             lc = dict(_build.LAUNCHES)
-            profile_pass(f"{var}={value}, 128 '+' reads", lambda: run_pipeline(kc, plus, "+"),
-                         card)
+            profile_walks(f"{var}={value}, 128 '+' reads", lambda: run_pipeline(kc, plus, "+"),
+                          card, results)
         except Exception as e:  # noqa: BLE001
             fail(f"the {var}={value} route raised {type(e).__name__}: {e}")
         finally:

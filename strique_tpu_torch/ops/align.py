@@ -34,7 +34,8 @@ reach the column kernel -- and a fused partial batch still runs the
 per-row-template wave kernel; the two-pass route is the wave form's
 alone.
 
-The traceback is ``csrc/traceback.cu`` (one thread walks one row) on
+The traceback is ``csrc/traceback.cu`` (one warp walks one row from a
+shared-memory ring of the pointer plane's upcoming word groups) on
 the card -- the reference runs it as an XLA ``while_loop``
 (align.py:198-237), not as a Pallas kernel -- and
 ``_traceback_plain`` (the same walk, vectorised over rows) on the CPU.
@@ -149,7 +150,8 @@ def _traceback_cuda(ptr, j_end, m_start, m_out: int, col: bool):
     p = ptr.contiguous()
     je = j_end.to(torch.int32).contiguous()
     ms = m_start.to(torch.int32).contiguous()
-    is_gap = torch.empty((B, m_out), dtype=torch.uint8, device=dev)
+    # the kernel writes 0/1 bytes: a bool tensor's storage
+    is_gap = torch.empty((B, m_out), dtype=torch.bool, device=dev)
     jpos = torch.empty((B, m_out), dtype=torch.int32, device=dev)
     j_begin = torch.empty((B,), dtype=torch.int32, device=dev)
     _build.launch(
@@ -157,7 +159,7 @@ def _traceback_cuda(ptr, j_end, m_start, m_out: int, col: bool):
         p.data_ptr(), je.data_ptr(), ms.data_ptr(), is_gap.data_ptr(),
         jpos.data_ptr(), j_begin.data_ptr(), B, p.shape[2], m_out, int(col))
     _build.LAUNCHES["traceback_pointers_col" if col else "traceback_pointers"] += 1
-    return {"is_gap": is_gap.bool(), "jpos": jpos, "j_begin": j_begin}
+    return {"is_gap": is_gap, "jpos": jpos, "j_begin": j_begin}
 
 
 def traceback_pointers(ptr, j_end, m: int, packed="diag", m_start=None):

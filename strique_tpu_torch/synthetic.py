@@ -9,7 +9,8 @@ c9orf72 locus (flanks as in bench.py) around a backbone, synthesised by
 turns f32 reads into the counter's morph form (u8 bins and a 256-level
 table per read) for the tests of the TABLE score mode.  The Viterbi
 kernels' edge inputs (``viterbi_edge_case``) are one table shared by
-the ``gpu`` tests and ``chip_smoke.py``.
+the ``gpu`` tests and ``chip_smoke.py``, and so are the traceback's
+hard pointer planes (``traceback_plane``).
 """
 from __future__ import annotations
 
@@ -125,3 +126,53 @@ def viterbi_edge_case(pm, label: str, rng):
                                noise=True, rng=rng).astype(np.float32)[:k]
         obs[i, :k] = 100.0 if constant else x
     return chm, obs, np.array(lens, np.int32)
+
+
+# the traceback's hard planes: each row's codes (a dominant nibble and the
+# share of uniform random ones, code 3 included; None: uniform throughout)
+# and where its walk starts.  V runs longer than a 128-lane window, H runs
+# across more than 16 word groups, j_end 0 (column 0's "V, extend" walk)
+# and below, m_start 0 (the column layout's row-0 lane wraps) and at the
+# top row MP - 1, the others between m_out / 2 and m_out
+TRACEBACK_ROWS = (
+    ("random", None, 1.0, "deep"),
+    ("V runs", 2 | 8, 0.003, "top"),
+    ("H runs", 1 | 4, 0.005, "deep"),
+    ("mostly M", 0, 0.1, "deep"),
+    ("random", None, 1.0, "j_end 0"),
+    ("mostly M", 0, 0.1, "j_end < 0"),
+    ("V runs", 2 | 8, 0.003, "m_start 0"),
+    ("random", None, 1.0, "top"),
+)
+
+
+def traceback_plane(rows: int, seed: int, col: bool, n: int = 1024, mp: int = 384):
+    """A pointer plane of ``rows`` rows whose walks a lane window can miss.
+
+    Row r takes ``TRACEBACK_ROWS[r % 8]``.  ``col``: the column kernel's
+    layout, (n/8, rows, mp) words; else the wave kernel's diagonal one,
+    ((n + mp)/8, rows, mp).  Returns numpy (ptr int32, j_end (rows,)
+    int32, m_start (rows,) int32, m_out = mp - 1).
+    """
+    rng = np.random.default_rng(seed)
+    m_out = mp - 1
+    nt = n if col else n + mp  # columns or diagonals
+    words = np.zeros((nt // 8, rows, mp), np.uint32)
+    j_end = rng.integers(n // 2, n + 1, rows).astype(np.int32)
+    m_start = rng.integers(m_out // 2, m_out, rows).astype(np.int32)
+    for r in range(rows):
+        _, code, noise, start = TRACEBACK_ROWS[r % len(TRACEBACK_ROWS)]
+        nib = rng.integers(0, 16, (nt, mp), dtype=np.uint32)
+        if code is not None:
+            nib = np.where(rng.random((nt, mp)) < noise, nib, np.uint32(code))
+        for k in range(8):
+            words[:, r, :] |= nib[k::8] << np.uint32(4 * k)
+        if start == "top":
+            m_start[r] = m_out
+        elif start == "m_start 0":
+            m_start[r] = 0
+        elif start == "j_end 0":
+            j_end[r] = 0
+        elif start == "j_end < 0":
+            j_end[r] = -int(rng.integers(1, 40))
+    return words.view(np.int32), j_end, m_start, m_out

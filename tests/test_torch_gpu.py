@@ -26,7 +26,8 @@ from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, VITERBI_EDGES, make_reads,
-                                        quantise, viterbi_edge_case, write_pore_model)
+                                        quantise, traceback_plane, viterbi_edge_case,
+                                        write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -342,6 +343,27 @@ def test_gpu_col_and_traceback_match_plain(cuda_device, pi):
     got = TA.traceback_pointers(ptr, j_end, m, packed=True)
     assert _build.LAUNCHES["traceback_pointers_col"] == before + 1
     ref = TA._traceback_plain(ptr, j_end, m_start, m, col=True)
+    for k in ("is_gap", "jpos", "j_begin"):
+        assert torch.equal(got[k], ref[k]), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [1, 8, 48, 128])
+@pytest.mark.parametrize("col", [False, True])
+def test_gpu_traceback_hard_planes_match_plain(cuda_device, rows, col):
+    """Both layouts' walks on the planes a lane window can miss
+    (``synthetic.traceback_plane``: V runs past 128 lanes, H runs across
+    more than 16 word groups, j_end 0 and below, m_start 0 and MP - 1,
+    code 3), bit-equal to the plain walk, one launch each."""
+    ptr, j_end, m_start, m_out = traceback_plane(rows, 40 + rows, col)
+    ptr, j_end, m_start = (torch.from_numpy(x).to(cuda_device) for x in (ptr, j_end, m_start))
+    name = "traceback_pointers_col" if col else "traceback_pointers"
+    before = _build.LAUNCHES[name]
+    got = TA.traceback_pointers(ptr, j_end, m_out, packed=True if col else "diag",
+                                m_start=m_start)
+    assert _build.LAUNCHES[name] == before + 1
+    ref = TA._traceback_plain(ptr, j_end, m_start, m_out, col=col)
+    assert got["is_gap"].dtype == torch.bool
     for k in ("is_gap", "jpos", "j_begin"):
         assert torch.equal(got[k], ref[k]), k
 
