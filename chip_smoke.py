@@ -102,6 +102,27 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    launched (the column kernel's TABLE mode, the dense forward's
    resident mode) and the ones they replace not; reads/s of each route,
    and one profiled '+' pass of each (as in 4c).
+4g. The ``count`` path: a shuffled stream of 384 noisy reads over
+   c9orf72 (192 '+', 64 '-') and FMR1 (64 '+', 64 '-'), 20-150 units,
+   ~15k-37k samples in six signal buckets (``synthetic.count_workload``),
+   through ``run_pipeline`` with the port's RepeatDetector (an in-memory
+   index: the card's host may lack h5py), StreamScheduler and
+   OutputWriter: a warm-up run, then ``--batch`` 32, 64 and 128, twice
+   each, and one profiled run at the CLI's card default
+   (``cli.CARD_BATCH``).  Then ``strique_tpu_torch.cli count`` at its
+   defaults (``--device cuda``, ``--batch cli.CARD_BATCH``) with
+   ``--profile``, its detector's index patched to the in-memory one, and
+   where h5py imports on the reads as single-read fast5 files too: each
+   TSV equal to the in-memory run's at that ``--batch``.  Every run: one
+   row per SAM line, every row the string of ``detect_many``'s tuple for
+   its read in a fresh counter (batches of one bucket, no tail merge),
+   every c9orf72 count exact, no per-read retry; the split path's
+   kernels launched.  FMR1's exact share is printed, not required: about
+   half its '+' reads miss by a few units on the synthetic model, and
+   tests/test_torch_fmr1.py holds three of them (both overcounts and
+   the largest undercount) to the JAX package's count on the CPU.
+   Print reads/s per ``--batch``, the launches, and the profiled run's
+   busy share.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
@@ -164,6 +185,10 @@ KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERB
 # kernel's two score modes, one launch counter each
 DENSE = ("viterbi_forward_dense_resident", "viterbi_forward_dense")
 COL = ("align_forward_col_table", "align_forward_col")
+# phase 4g: the count path over a stream of both loci, at each --batch
+# twice (it must launch SPLIT_KERNELS)
+COUNT_BATCHES = (32, 64, 128)
+COUNT_REPS = 2
 # phase 4f's VNTR target: a 60-base unit (as MUC1's VNTR) whose repeat
 # HMM (540 states, SP 640) is past the dense forward's resident rule
 VNTR_UNIT_BASES = 60
@@ -1331,10 +1356,10 @@ def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
     return {"viterbi_forward_dense": dense_lc["viterbi_forward_dense"]}
 
 
-def profile_pass(label: str, fn, card: str) -> list:
+def profile_pass(label: str, fn, card: str):
     """Run ``fn`` once under torch.profiler; print wall time, device time
     by kernel and the device's busy share (kernel time over wall); return
-    the (kernel, device ms, launches) rows."""
+    the (kernel, device ms, launches) rows and the wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1352,7 +1377,7 @@ def profile_pass(label: str, fn, card: str) -> list:
           f"{total / wall_ms:.3f}; card: {card}", flush=True)
     for key, ms, n in rows[:8]:
         print(f"  {ms:10.3f} ms  {n:4d} x  {key[:90]}", flush=True)
-    return rows
+    return rows, wall_ms
 
 
 def profile_walks(label: str, fn, card: str, results) -> None:
@@ -1373,7 +1398,7 @@ def profile_walks(label: str, fn, card: str, results) -> None:
 
     AL._traceback_cuda = recorded
     try:
-        rows = profile_pass(label, fn, card)
+        rows, _ = profile_pass(label, fn, card)
     finally:
         AL._traceback_cuda = inner
     for col in (False, True):
@@ -1390,6 +1415,218 @@ def profile_walks(label: str, fn, card: str, results) -> None:
         results.setdefault(name, {}).setdefault("passes", {})[label] = {
             "launches": len(walks), "longest_walks": walks, "device_ms": ms,
             "us_per_step": ms * 1e3 / sum(walks)}
+
+
+class MemoryIndex:
+    """A fast5 index held in memory (read id -> signal): the detector's
+    ``get_raw`` on a host without h5py."""
+
+    def __init__(self, reads):
+        self.raw = {rid: sig for rid, _t, _s, _u, sig in reads}
+
+    def get_raw(self, read_id):
+        if read_id not in self.raw:
+            raise RuntimeError(f"read {read_id} is not in the index")
+        return self.raw[read_id]
+
+
+def run_count_stream(model: str, pm, seed: int, card: str, tmp: str) -> dict:
+    """Phase 4g: the count path (``run_pipeline`` through the port's
+    RepeatDetector, StreamScheduler and OutputWriter) over a shuffled
+    stream of both loci; see the module docstring.  Returns its
+    measurements."""
+    import torch
+
+    from strique_tpu_torch import _build, cli
+    from strique_tpu_torch.detect.counter import RepeatCounter, signal_bucket
+    from strique_tpu_torch.detect.detector import RepeatDetector
+    from strique_tpu_torch.detect.writer import HEADER, OutputWriter
+    from strique_tpu_torch.parallel.dispatcher import run_pipeline as run_count
+    from strique_tpu_torch.synthetic import (COUNT_GROUPS, LOCI, count_workload, sam_line,
+                                             write_repeat_config)
+    from strique_tpu_torch.utils.config import parse_config
+
+    reads = count_workload(pm, seed + 9)
+    units = {r[0]: r[3] for r in reads}
+    buckets: dict = {}
+    for r in reads:
+        nb = signal_bucket(len(r[4]))
+        buckets[nb] = buckets.get(nb, 0) + 1
+    mix = ", ".join(f"{n} {t} '{s}'" for t, s, n in COUNT_GROUPS)
+    print(f"count stream: {len(reads)} reads ({mix}), {min(len(r[4]) for r in reads)}-"
+          f"{max(len(r[4]) for r in reads)} samples, signal buckets "
+          f"{json.dumps(dict(sorted(buckets.items())))}", flush=True)
+    repeat_tsv = write_repeat_config(os.path.join(tmp, "repeats.tsv"), LOCI)
+    lines = [sam_line(rid, strand, LOCI[t][0], LOCI[t][1]) for rid, t, strand, _u, _s in reads]
+    rd = RepeatDetector(parse_config(repeat_tsv)["repeat"], model, MemoryIndex(reads),
+                        device="cuda")
+    # the scheduler calls detect only to retry a failed batch read by read
+    retried = []
+    inner = RepeatCounter.detect
+
+    def counted(self, target_name, raw, strand):
+        retried.append(target_name)
+        return inner(self, target_name, raw, strand)
+
+    def check_tsv(path, label):
+        rows = open(path).read().splitlines()
+        if not rows or rows[0] != "\t".join(HEADER):
+            fail(f"{label}: no TSV header")
+        body = rows[1:]
+        if len(body) != len(reads):
+            fail(f"{label}: {len(body)} rows for {len(reads)} SAM lines")
+        ids = [ln.split("\t", 1)[0] for ln in body]
+        bad = [(ln, expect.get(i)) for i, ln in zip(ids, body) if expect.get(i) != ln]
+        if bad or len(set(ids)) != len(reads):
+            fail(f"{label}: rows differ from detect_many's tuples in a fresh counter, e.g. "
+                 f"{bad[:2]} (row, detect_many's)")
+        miss = [ln.split("\t")[:4] for ln in body
+                if int(ln.split("\t")[3]) != units[ln.split("\t", 1)[0]]]
+        c9_miss = [m for m in miss if m[1] == "c9orf72"]
+        if c9_miss:
+            fail(f"{label}: {len(c9_miss)} inexact c9orf72 counts, e.g. {c9_miss[:4]} against "
+                 f"{[units[m[0]] for m in c9_miss[:4]]}")
+        return miss
+
+    RepeatCounter.detect = counted
+    try:
+        # every row's tuple: detect_many in a fresh counter, by (target,
+        # strand, bucket) in batches of at most 64 (no tail merge)
+        fresh = RepeatCounter(model, device="cuda")
+        for name, (_c, _b, _e, repeat, prefix, suffix) in LOCI.items():
+            fresh.add_target(name, repeat, prefix, suffix)
+        groups: dict = {}
+        for r in reads:
+            groups.setdefault((r[1], r[2], signal_bucket(len(r[4]))), []).append(r)
+        expect = {}
+        for (t, strand, _nb), rs in groups.items():
+            for i in range(0, len(rs), BATCH):
+                chunk = rs[i : i + BATCH]
+                for r, out in zip(chunk, fresh.detect_many(t, [r[4] for r in chunk], strand)):
+                    expect[r[0]] = "\t".join(str(x) for x in (r[0], t, strand, *out))
+        warm = os.path.join(tmp, "count_warm.tsv")
+        run_count(iter(lines), rd, OutputWriter(warm), batch_size=BATCH)  # first use
+        fmr1_miss = check_tsv(warm, "warm-up run")
+        torch.cuda.synchronize()
+        del retried[:]
+        _build.reset_launches()
+        rps = {b: [] for b in COUNT_BATCHES}
+        by_batch = {}
+        for rep in range(COUNT_REPS):
+            for b in COUNT_BATCHES:
+                out = os.path.join(tmp, f"count_b{b}_{rep}.tsv")
+                before = dict(_build.LAUNCHES)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                n = run_count(iter(lines), rd, OutputWriter(out), batch_size=b)
+                torch.cuda.synchronize()
+                rps[b].append(len(reads) / (time.perf_counter() - t0))
+                if n != len(lines):
+                    fail(f"run_pipeline processed {n} of {len(lines)} SAM lines")
+                check_tsv(out, f"--batch {b} run {rep + 1}")
+                by_batch[b] = {k: v - before[k] for k, v in _build.LAUNCHES.items()
+                               if v - before[k]}
+        launches = dict(_build.LAUNCHES)
+        retries_timed = len(retried)
+        rows, wall = profile_pass(
+            f"count stream, --batch {cli.CARD_BATCH} (the CLI's card default), {len(reads)} "
+            f"reads", lambda: run_count(iter(lines), rd,
+                                        OutputWriter(os.path.join(tmp, "count_prof.tsv")),
+                                        batch_size=cli.CARD_BATCH), card)
+        kernel_ms = sum(r[1] for r in rows)
+        check_tsv(os.path.join(tmp, "count_prof.tsv"), "profiled run")
+        cli_routes = run_count_cli(reads, lines, model, repeat_tsv, tmp)
+        for route in cli_routes:
+            check_tsv(os.path.join(tmp, f"count_cli_{route}.tsv"), f"count CLI run ({route})")
+    finally:
+        RepeatCounter.detect = inner
+    print(f"count stream: {len(reads)} rows a run, every tuple equal to detect_many's in a "
+          f"fresh counter, every c9orf72 count exact; {retries_timed} per-read retries in the "
+          f"timed runs, {len(retried)} in the phase", flush=True)
+    for strand in "+-":
+        n = sum(1 for r in reads if r[1] == "fmr1" and r[2] == strand)
+        ms = [(units[m[0]], int(m[3])) for m in fmr1_miss if m[2] == strand]
+        print(f"  fmr1 '{strand}': {n - len(ms)}/{n} counts exact; misses (units, count) "
+              f"{ms}", flush=True)
+    for b in COUNT_BATCHES:
+        print(f"  --batch {b:3d}: {', '.join(f'{x:.2f}' for x in rps[b])} reads/s; launches a "
+              f"run {json.dumps(by_batch[b])}; card: {card}", flush=True)
+    print(f"count stream: busy share of the profiled --batch {cli.CARD_BATCH} run "
+          f"{kernel_ms / wall:.3f} ({kernel_ms:.2f} of {wall:.2f} ms); card: {card}", flush=True)
+    print(f"count stream launches ({len(COUNT_BATCHES) * COUNT_REPS} timed runs): "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    print(f"phase 4g ran run_pipeline on an in-memory index and the count CLI at its card "
+          f"defaults on the {' and the '.join(cli_routes)} index: TSVs equal to run_pipeline's",
+          flush=True)
+    if retried:
+        fail(f"{len(retried)} per-read retries were taken in phase 4g")
+    for name in SPLIT_KERNELS:
+        if launches[name] <= 0:
+            fail(f"kernel {name} was not launched on the count path")
+    return {"reads_per_sec": {str(b): v for b, v in rps.items()},
+            "busy": kernel_ms / wall, "wall_ms": wall, "kernel_ms": kernel_ms,
+            "launches": launches, "launches_by_batch": {str(b): v for b, v in by_batch.items()},
+            "cli_routes": cli_routes, "buckets": buckets}
+
+
+def run_count_cli(reads, lines, model: str, repeat_tsv: str, tmp: str) -> list:
+    """``strique_tpu_torch.cli count`` at its card defaults (``--device
+    cuda``, ``--batch cli.CARD_BATCH``) with ``--profile``, on a SAM file
+    of ``lines``: first with the detector's ``Fast5Index`` patched to the
+    in-memory index (the fofn then only has to exist), then, where h5py
+    imports, on the reads as single-read fast5 files and their fofn.
+    Each TSV must equal the in-memory run_pipeline's at that --batch, and
+    each profile must write a trace.  Returns the routes that ran."""
+    from strique_tpu_torch import cli
+    from strique_tpu_torch.detect import detector
+
+    if cli.CARD_BATCH not in COUNT_BATCHES:
+        fail(f"the CLI's card --batch {cli.CARD_BATCH} is not among {COUNT_BATCHES}")
+    sam = os.path.join(tmp, "algn.sam")
+    with open(sam, "w") as fp:
+        fp.write("@HD\tVN:1.6\n" + "".join(lines))
+    fofn = os.path.join(tmp, "memory.fofn")
+    with open(fofn, "w") as fp:
+        fp.write("")
+    routes = {"memory": fofn}
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        from strique_tpu_torch.io import fast5
+        from strique_tpu_torch.synthetic import write_single_fast5
+
+        fdir = os.path.join(tmp, "fast5")
+        os.makedirs(fdir)
+        for rid, _t, _s, _u, sig in reads:
+            write_single_fast5(os.path.join(fdir, f"{rid}.fast5"), rid, sig)
+        routes["fast5"] = os.path.join(fdir, "reads.fofn")
+        with open(routes["fast5"], "w") as fp:
+            fp.write("\n".join(fast5.index(fdir)) + "\n")
+    with open(os.path.join(tmp, f"count_b{cli.CARD_BATCH}_0.tsv"), "rb") as fp:
+        expect = fp.read()
+    for route, index in routes.items():
+        out = os.path.join(tmp, f"count_cli_{route}.tsv")
+        prof_dir = os.path.join(tmp, f"count_profile_{route}")
+        argv = ["count", index, model, repeat_tsv, "--algn", sam, "--out", out,
+                "--profile", prof_dir]
+        inner = detector.Fast5Index
+        if route == "memory":
+            detector.Fast5Index = lambda _path: MemoryIndex(reads)
+        try:
+            rc = cli.main(argv)
+        finally:
+            detector.Fast5Index = inner
+        if rc != 0:
+            fail(f"the count CLI ({route} index) exited {rc}")
+        with open(out, "rb") as fp:
+            if fp.read() != expect:
+                fail(f"the count CLI's TSV ({route} index) differs from the in-memory "
+                     f"run_pipeline's at --batch {cli.CARD_BATCH}")
+        if not any(os.path.getsize(os.path.join(prof_dir, f)) for f in os.listdir(prof_dir)):
+            fail(f"the count CLI's --profile ({route} index) wrote no trace")
+    return list(routes)
 
 
 def run_pipeline(counter, sigs, strand):
@@ -1699,6 +1936,14 @@ def main() -> int:
             launches["viterbi_forward_dense_resident"] = lc["viterbi_forward_dense_resident"]
     print("both knob routes' result tuples equal the default route's", flush=True)
 
+    # -- phase 4g: the count path over a stream of both loci -----------------
+    try:
+        count = run_count_stream(model, pm, args.seed, card, tmp)
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the count path raised {type(e).__name__}: {e}")
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
@@ -1708,7 +1953,8 @@ def main() -> int:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "reads_per_sec": rps,
                        "plus_s": dt_plus, "minus_s": dt_minus,
                        "ultra_s": {k: v[1] for k, v in runs.items()},
-                       "knob_reads_per_sec": knob_rps, "kernels": kernels},
+                       "knob_reads_per_sec": knob_rps, "count_stream": count,
+                       "kernels": kernels},
                       fp, indent=1)
     print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),
           flush=True)

@@ -1,0 +1,172 @@
+"""Command-line interface of the port: index / count.
+
+The counterpart of ``strique_tpu/cli.py`` on PyTorch and one CUDA card:
+the same subcommands, arguments and TSV output schema, so existing
+STRique workflows can switch directly.  ``count`` runs the counter on
+the card (``--device cuda``, the default; without a card it fails with
+the counter's RuntimeError, there is no CPU fallback) or on the plain
+PyTorch path when asked (``--device cpu``).
+
+Not ported yet, and refused with the ROADMAP item that holds them:
+``--mod_model`` (Queue 1 item 2), ``--devices`` above 1 and the
+multi-host flags ``--coordinator`` / ``--num_hosts`` / ``--host_id``
+(Queue 1 item 4).  The ``plot``, ``extract`` and ``warmup`` subcommands
+are queued in ROADMAP too.
+
+Environment knobs the port honours: ``STRIQUE_ALIGN_KERNEL=col`` (the
+column-sweep alignment), ``STRIQUE_DENSE_VITERBI=1`` (the dense Viterbi
+forward), ``STRIQUE_PTR_BUDGET_GB`` (the wave call's pointer-plane
+budget, past which the two-pass route runs) and
+``STRIQUE_ASYNC_SUBMIT=0`` (inline batch submits); ``STRIQUE_SPLIT=0``
+is refused by the counter.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+from .utils import logging as ulog
+from .utils.config import parse_config
+from .utils.logging import LogLevel, log
+
+# --batch's defaults: the reference's on an accelerator (64) on the card,
+# its 8 elsewhere (strique_tpu/cli.py:110-112)
+CARD_BATCH = 64
+CPU_BATCH = 8
+
+
+def cmd_index(argv) -> int:
+    parser = argparse.ArgumentParser(description="Fast5 raw data archive indexing")
+    parser.add_argument("input", help="Input batch or directory of batches")
+    parser.add_argument("--recursive", action="store_true", help="Recursively scan input")
+    parser.add_argument("--out_prefix", default="", help="Prefix for file paths in output")
+    parser.add_argument("--tmp_prefix", default=None, help="Prefix for temporary data")
+    args = parser.parse_args(argv)
+    from .io import fast5
+
+    for record in fast5.index(args.input, recursive=args.recursive,
+                              output_prefix=args.out_prefix, tmp_prefix=args.tmp_prefix):
+        print(record)
+    return 0
+
+
+def _refuse(what: str, item: str) -> int:
+    log(f"Main: {what} is not ported to strique_tpu_torch yet (ROADMAP Queue 1 {item}).",
+        LogLevel.Error)
+    return 2
+
+
+def cmd_count(argv) -> int:
+    parser = argparse.ArgumentParser(description="STR detection in raw nanopore data")
+    parser.add_argument("f5Index", help="Fast5 index")
+    parser.add_argument("model", help="Pore model")
+    parser.add_argument("repeat", help="Repeat region config file")
+    parser.add_argument("--out", default=None, help="Output file name, if not given print to stdout")
+    parser.add_argument("--algn", default=None, help="Alignment in sam format, if not given read from stdin")
+    parser.add_argument("--mod_model", default=None,
+                        help="Base modification pore model (not ported yet: refused)")
+    parser.add_argument("--config", help="Config file with HMM transition probabilities")
+    parser.add_argument("--t", type=int, default=1, help="Host IO worker threads (fast5 reads; also per-read mode workers)")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="Reads per batched device invocation (1 disables batching; "
+                             f"default: {CARD_BATCH} on the card, {CPU_BATCH} on the CPU)")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="Where the counter runs: the CUDA card (default; fails without "
+                             "one) or the plain PyTorch path on the CPU")
+    parser.add_argument("--devices", default="auto",
+                        help="Data-parallel device count: 'auto' and 1 run one card "
+                             "(more is not ported yet: refused)")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="Multi-host coordinator address (not ported yet: refused)")
+    parser.add_argument("--num_hosts", type=int, default=None,
+                        help="Multi-host process count (not ported yet: refused)")
+    parser.add_argument("--host_id", type=int, default=None,
+                        help="Multi-host process index (not ported yet: refused)")
+    parser.add_argument("--resume", action="store_true",
+                        help="Append to --out, skipping read IDs already counted")
+    parser.add_argument("--profile", default=None, metavar="DIR",
+                        help="Write a torch.profiler chrome trace of the run to DIR")
+    parser.add_argument("--log_level", default="warning",
+                        choices=["error", "warning", "info", "debug"], help="Log level")
+    args = parser.parse_args(argv)
+    ulog.init(log_level=args.log_level)
+    if args.mod_model:
+        return _refuse("--mod_model (mod calling)", "item 2")
+    if args.devices not in ("auto", "1"):
+        return _refuse(f"--devices {args.devices} (multi-GPU)", "item 4")
+    for flag in ("coordinator", "num_hosts", "host_id"):
+        if getattr(args, flag) is not None:
+            return _refuse(f"--{flag} (multi-host)", "item 4")
+    config = parse_config(args.repeat, args.config)
+    for path, desc in ((args.f5Index, "Fast5 index"), (args.model, "Pore model")):
+        if path and not os.path.isfile(path):
+            log(f"Main: {desc} file does not exist.", LogLevel.Error)
+            return 1
+
+    from .detect.detector import RepeatDetector
+    from .detect.writer import OutputWriter, processed_ids
+    from .parallel.dispatcher import run_pipeline
+
+    batch_size = args.batch
+    if batch_size is None:
+        batch_size = CARD_BATCH if args.device == "cuda" else CPU_BATCH
+
+    rd = RepeatDetector(config["repeat"], args.model, args.f5Index,
+                        align_config=config["align"], hmm_config=config["HMM"],
+                        device=args.device)
+    done = processed_ids(args.out) if args.resume else set()
+    ow = OutputWriter(args.out, append=args.resume)
+    if done:
+        log(f"Main: Resuming; {len(done)} reads already counted.", LogLevel.Info)
+
+    def sam_lines():
+        stream = open(args.algn, "r") if args.algn else sys.stdin
+        try:
+            for line in stream:
+                if line.startswith("@"):
+                    continue
+                if done and line.split("\t", 1)[0] in done:
+                    continue
+                yield line
+        finally:
+            if args.algn:
+                stream.close()
+
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU]
+        if args.device == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            n = run_pipeline(sam_lines(), rd, ow, io_threads=args.t, batch_size=batch_size)
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, f"count_{os.getpid()}.json")
+        prof.export_chrome_trace(trace)
+        log(f"Main: Wrote the profile to {trace}.", LogLevel.Info)
+    else:
+        n = run_pipeline(sam_lines(), rd, ow, io_threads=args.t, batch_size=batch_size)
+    log(f"Main: Processed {n} alignments.", LogLevel.Info)
+    ulog.close()
+    return 0
+
+
+COMMANDS = {"index": cmd_index, "count": cmd_count}
+
+
+def main(argv=None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    parser = argparse.ArgumentParser(
+        prog="strique",
+        description="STRique on PyTorch and CUDA: nanopore raw signal repeat detection",
+        usage="strique <command> [<args>]\n\nCommands:\n"
+              "   index      Index batch(es) of bulk-fast5 or tar archived single fast5\n"
+              "   count      Count single read repeat expansions\n")
+    parser.add_argument("command", choices=sorted(COMMANDS))
+    args = parser.parse_args(argv[:1])
+    return COMMANDS[args.command](argv[1:])
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -18,6 +18,9 @@ path, in three phases a caller can overlap across batches:
   3. :meth:`RepeatCounter.detect_finish` -- waits for the paths and
      decodes counts and the float64 log_p on the host.
 
+``detect_mod_submit`` sits between 2 and 3 for the stream scheduler;
+without a mod model it returns its state unchanged.
+
 Results are ``(n, score_prefix, score_suffix, log_p, offset, ticks,
 mod)`` tuples, as the reference returns them.  Not ported yet, and
 raising ``NotImplementedError``: the mod model and the fused single
@@ -344,6 +347,14 @@ class RepeatCounter:
         if live:
             segs = [state["flt32s"][i][bounds[i][3]:bounds[i][6]] for i in live]
             state["vit"] = self._viterbi_submit(tc.repeat_hmm, segs)
+        return state
+
+    def detect_mod_submit(self, state: dict) -> dict:
+        """The mod phase of a scheduler's pipeline, between
+        :meth:`detect_middle` and :meth:`detect_finish`: a no-op, as the
+        reference's is without a mod model (the port's constructor
+        refuses one until mod calling is ported), so schedulers may call
+        it unconditionally."""
         return state
 
     def decode_bounds(self, state: dict):

@@ -10,11 +10,17 @@ turns f32 reads into the counter's morph form (u8 bins and a 256-level
 table per read) for the tests of the TABLE score mode.  The Viterbi
 kernels' edge inputs (``viterbi_edge_case``) are one table shared by
 the ``gpu`` tests and ``chip_smoke.py``, and so are the traceback's
-hard pointer planes (``traceback_plane``).
+hard pointer planes (``traceback_plane``).  ``write_repeat_config``,
+``write_single_fast5`` and ``sam_line`` write the inputs of a ``count``
+run (a repeat TSV over ``LOCI``, single-read fast5 files, SAM lines
+that span a locus), ``write_count_run`` a whole small run;
+``count_workload`` is ``chip_smoke.py``'s stream of reads over both
+loci.
 """
 from __future__ import annotations
 
 import itertools
+import os
 
 import numpy as np
 
@@ -23,6 +29,78 @@ PREFIX = ("CGGCAGCCGAACCCCAAACAGCCACCCGCCAGGATGCCGCCTCCTCACTCACCCACTCGCCACCGCCTG
           "TCCGCCGCCGCGGGCGCAGGCACCGCAACCGCAGCCCCGCCCCGGGCCCGCCCCCGGGCCCGCCCCGACCACGCCCC")
 SUFFIX = ("TAGCGCGCGACTCCTGAGTTCCAGAGCTTGCTACAGGCTGCGGTTGTTTCCCTCCTTGTTTTCTTCTGGTTAA"
           "TCTTTATCAGGTCTTTTCTTGTTCACCCTCAGCGAGTACTGTGAGAGCAAGTAGTGGGGAGAGAGGGTGGGAAAAAC")
+
+# FMR1's locus with the flanks and the repeat unit of tests/test_detection.py
+FMR1_REPEAT = "GCG"
+FMR1_PREFIX = ("AGCGGGCCGGGGGTTCGGCCTCAGTCAGGCGCTCAGCTCCGTTTCGGTTTCACTTCCGGTGGAGGGCCGCC"
+               "TCTGAGCGGGCGGCGGGCCGACGGCGAGCGCGGGCGGCGGCGGTGACGGAGGCGCCGCTGCCAGGGGGCGTGCGGCAGC")
+FMR1_SUFFIX = ("GAGGCGGCGGCGGCGGCGGCGGCGGCGGCGGCTGGGCCTCGAGCGCCCGCAGCCCACCTCTCGGGGGCGGG"
+               "CTCCCGGCGCTAGCAGGGCTGAAGAGAAGATGGAGGAGCTGGTGGTGGAAGTGCGGGGCTCCAATGGCGCTTTCTACAA")
+# target -> (chromosome, begin, end, repeat, prefix, suffix), a repeat
+# TSV's columns (hg19 coordinates of the two loci)
+LOCI = {
+    "c9orf72": ("chr9", 27573527, 27573544, REPEAT, PREFIX, SUFFIX),
+    "fmr1": ("chrX", 146993569, 146993628, FMR1_REPEAT, FMR1_PREFIX, FMR1_SUFFIX),
+}
+
+
+def write_repeat_config(path: str, loci: dict) -> str:
+    """A repeat TSV (``chr begin end name repeat prefix suffix``, with its
+    header) of ``loci``: name -> a ``LOCI`` tuple."""
+    with open(path, "w") as fp:
+        fp.write("chr\tbegin\tend\tname\trepeat\tprefix\tsuffix\n")
+        for name, (chrom, begin, end, repeat, prefix, suffix) in loci.items():
+            fp.write(f"{chrom}\t{begin}\t{end}\t{name}\t{repeat}\t{prefix}\t{suffix}\n")
+    return path
+
+
+def write_single_fast5(path: str, read_id: str, signal) -> None:
+    """A single-read fast5 holding ``signal`` as int16 under
+    ``Raw/Reads/Read_1`` (needs h5py)."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        g = f.create_group("Raw/Reads/Read_1")
+        g.attrs["read_id"] = np.bytes_(read_id.encode())
+        g.create_dataset("Signal", data=np.asarray(signal, np.int16))
+
+
+def sam_line(read_id: str, strand: str, chrom: str, begin: int) -> str:
+    """A mapped SAM line whose span covers a locus starting at ``begin``."""
+    flag = 16 if strand == "-" else 0
+    return f"{read_id}\t{flag}\t{chrom}\t{begin - 20000}\t60\t41000M\t*\t0\t0\t*\t*\n"
+
+
+def write_count_run(directory, pm, specs, seed: int, loci=None) -> dict:
+    """A small ``count`` run in ``directory`` (needs h5py): per spec
+    (target, units, strand, backbone bases on each side) one noisy read
+    from ``default_rng((seed, k))`` as a single-read fast5, a fofn from
+    ``io.fast5.index``, a SAM file and a repeat TSV of the targets.
+    Returns the paths and ``reads``: read id -> (target, strand, units)."""
+    from .io import fast5
+
+    loci = LOCI if loci is None else loci
+    sam = ["@HD\tVN:1.6\n"]
+    reads = {}
+    for k, (name, units, strand, flank) in enumerate(specs):
+        chrom, begin, _end, repeat, prefix, suffix = loci[name]
+        sig = make_reads(pm, 1, units, np.random.default_rng((seed, k)), strand=strand,
+                         flank_bases=flank, prefix=prefix, suffix=suffix, repeat=repeat)[0]
+        rid = f"read-{k}-{name}{strand}"
+        write_single_fast5(os.path.join(directory, f"{rid}.fast5"), rid,
+                           (sig * 10).astype(np.int16))
+        sam.append(sam_line(rid, strand, chrom, begin))
+        reads[rid] = (name, strand, units)
+    run = {"dir": str(directory), "reads": reads}
+    for key, name, text in (
+            ("fofn", "reads.fofn", "\n".join(fast5.index(str(directory))) + "\n"),
+            ("sam", "algn.sam", "".join(sam))):
+        run[key] = os.path.join(directory, name)
+        with open(run[key], "w") as fp:
+            fp.write(text)
+    run["repeat"] = write_repeat_config(os.path.join(directory, "repeats.tsv"),
+                                        {name: loci[name] for name, *_ in specs})
+    return run
 
 
 def write_pore_model(path: str, seed: int = 0, k: int = 6) -> str:
@@ -57,6 +135,39 @@ def make_reads(pm, n_reads: int, repeats: int, rng, strand: str = "+",
         n = max(len(s) for s in sigs)
         sigs = [np.pad(s, (0, n - len(s)), mode="edge") for s in sigs]
     return sigs
+
+
+# chip_smoke.py phase 4g's stream: (target, strand, reads) groups, units
+# drawn from COUNT_UNITS, read lengths drawn from COUNT_BASES bases (8
+# samples a base: ~16k-40k samples, six signal buckets)
+COUNT_GROUPS = (("c9orf72", "+", 192), ("c9orf72", "-", 64), ("fmr1", "+", 64),
+                ("fmr1", "-", 64))
+COUNT_UNITS = (20, 150)
+COUNT_BASES = (2000, 4900)
+
+
+def count_workload(pm, seed: int):
+    """A shuffled stream of noisy reads of ``COUNT_GROUPS`` over ``LOCI``:
+    a list of (read_id, target, strand, units, int16 signal).
+
+    Each read draws its units from ``COUNT_UNITS`` and its length in
+    bases from ``COUNT_BASES`` (the backbone on each side of the locus
+    makes up the rest), from ``default_rng(seed)``; the signal is stored
+    as int16 of 10x the model's pA, as a fast5 holds it."""
+    rng = np.random.default_rng(seed)
+    reads = []
+    for target, strand, n in COUNT_GROUPS:
+        _chrom, _b, _e, repeat, prefix, suffix = LOCI[target]
+        for _ in range(n):
+            units = int(rng.integers(COUNT_UNITS[0], COUNT_UNITS[1] + 1))
+            bases = int(rng.integers(*COUNT_BASES))
+            flank = max((bases - len(prefix) - len(suffix) - len(repeat) * units) // 2, 50)
+            sig = make_reads(pm, 1, units, rng, strand, flank_bases=flank, prefix=prefix,
+                             suffix=suffix, repeat=repeat)[0]
+            rid = f"{target}-{strand}-{len(reads):04d}"
+            reads.append((rid, target, strand, units, (sig * 10).astype(np.int16)))
+    order = rng.permutation(len(reads))
+    return [reads[i] for i in order]
 
 
 def quantise(sig, rng, lo=None, hi=None):

@@ -6,8 +6,13 @@ test_torch_imports.py), so it carries copies of the pore model, the HMM
 builders and factorizer, the NumPy signal ops, ``model_const``,
 ``AlignParams``, the native host prep and the bounds-row decoder.  Each
 is held equal to its original here: arrays exactly, the native prep's
-outputs byte for byte.
+outputs byte for byte.  The count CLI's host modules (config, SAM,
+fast5, writer, logger, dispatcher) and the scheduler's tail merge plan
+are held to theirs on seeded inputs: the same values, bytes, log lines,
+rows and plans.
 """
+import os
+
 import numpy as np
 import pytest
 
@@ -132,3 +137,269 @@ def test_unpack_meta_and_path_itemsize():
         assert a.__dict__ == b.__dict__
     for s in (1, 256, 257, 4000):
         assert TK.path_itemsize(s) == JK.path_itemsize(s)
+
+
+# -- the count CLI's host modules ---------------------------------------------
+
+def test_parse_config(tmp_path):
+    import json
+
+    from strique_tpu.utils.config import parse_config as jax_parse
+    from strique_tpu_torch.synthetic import LOCI, write_repeat_config
+    from strique_tpu_torch.utils.config import parse_config
+
+    tsv = write_repeat_config(str(tmp_path / "repeats.tsv"), LOCI)
+    with open(tsv, "a") as fp:
+        fp.write("chr1\t5\t9\tshort\tCAG\n")  # a column mismatch: logged and skipped
+    params = tmp_path / "params.json"
+    params.write_text(json.dumps({"align": {"gap_open_h": -2.0, "samples": 7},
+                                  "HMM": {"state_loop": 0.3}}))
+    for args in ((tsv,), (tsv, str(params))):
+        assert parse_config(*args) == jax_parse(*args)
+    assert set(parse_config(tsv)["repeat"]) == set(LOCI)
+    params.write_text(json.dumps({"align": {}}))
+    for fn in (parse_config, jax_parse):
+        with pytest.raises(SystemExit):
+            fn(tsv, str(params))
+
+
+SAM_LINES = [
+    "r-fwd\t0\tchr9\t27541232\t60\t5S40000M3I12D7S\t*\t0\t0\t*\t*",
+    "r-rev\t16\tchrX\t146973569\t60\t3H10S41000M2D\t*\t0\t0\t*\t*",
+    "r-unmapped\t4\t*\t0\t0\t*\t*\t0\t0\t*\t*",
+    "r-short\t0\tchr9\t27573000\t60\t100M\t*\t0\t0\t*\t*",
+    "r-bad\tnot-a-flag\tchr9\t1\t60\t10M\t*\t0\t0\t*\t*",
+    "too\tfew\tcolumns",
+]
+
+
+@pytest.mark.parametrize("line", SAM_LINES)
+def test_decode_sam_and_intersect_targets(line):
+    from strique_tpu.io import sam as jax_sam
+    from strique_tpu_torch.io import sam
+    from strique_tpu_torch.synthetic import LOCI
+
+    got, ref = sam.decode_sam(line), jax_sam.decode_sam(line)
+    assert got.__dict__ == ref.__dict__ and got.strand == ref.strand
+    loci = {}
+    for name, (chrom, begin, end, *_rest) in LOCI.items():
+        loci.setdefault(chrom, []).append((name, begin, end))
+    assert sam.intersect_targets(got, loci) == jax_sam.intersect_targets(ref, loci)
+    assert sam.decode_cigar("5S40M2I") == jax_sam.decode_cigar("5S40M2I")
+
+
+def _write_bulk(path, reads):
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        for rid, sig in reads.items():
+            g = f.create_group(f"read_{rid}/Raw")
+            g.attrs["read_id"] = np.bytes_(rid.encode())
+            g.create_dataset("Signal", data=sig)
+
+
+def _fast5_dir(d, rng):
+    from strique_tpu_torch.synthetic import write_single_fast5
+
+    d.mkdir()
+    reads = {f"read-{k}": rng.integers(300, 700, 50 + 10 * k).astype(np.int16)
+             for k in range(5)}
+    for rid in ("read-0", "read-1"):
+        write_single_fast5(str(d / f"{rid}.fast5"), rid, reads[rid])
+    _write_bulk(str(d / "bulk.fast5"), {k: reads[k] for k in ("read-2", "read-3", "read-4")})
+    (d / "broken.fast5").write_bytes(b"not an hdf5 file")  # reported and skipped
+    return reads
+
+
+def test_fast5_index_get_raw_set_raw(tmp_path):
+    from strique_tpu.io import fast5 as jax_fast5
+    from strique_tpu_torch.io import fast5
+
+    indexes = []
+    for mod, name in ((fast5, "port"), (jax_fast5, "jax")):
+        d = tmp_path / name
+        reads = _fast5_dir(d, np.random.default_rng(8))
+        lines = list(mod.index(str(d)))
+        (d / "reads.fofn").write_text("\n".join(lines) + "\n")
+        indexes.append((mod.Fast5Index(str(d / "reads.fofn")), sorted(lines)))
+    (port, port_lines), (ref, ref_lines) = indexes
+    assert port_lines == ref_lines and len(port_lines) == 5
+    for rid, sig in reads.items():
+        np.testing.assert_array_equal(port.get_raw(rid), ref.get_raw(rid))
+        np.testing.assert_array_equal(port.get_raw(rid), sig)
+    for idx in (port, ref):
+        idx.set_raw("read-1", reads["read-1"][::2])
+        idx.set_raw("read-3", reads["read-3"][5:])
+    for rid in reads:
+        np.testing.assert_array_equal(port.get_raw(rid), ref.get_raw(rid))
+    assert len(port.get_raw("read-3")) == len(reads["read-3"]) - 5
+    for idx in (port, ref):
+        with pytest.raises(RuntimeError):
+            idx.get_raw("no-such-read")
+    assert fast5.Locator.parse("a/b.fast5/read_x") == fast5.Locator(fast5.BULK, "a/b.fast5",
+                                                                     "read_x")
+
+
+def test_fast5_module_imports_without_h5py():
+    """The CLI's import chain (fast5 included) does not need h5py."""
+    import subprocess
+    import sys
+
+    code = ("import sys; sys.modules['h5py'] = None\n"
+            "import strique_tpu_torch.cli, strique_tpu_torch.io.fast5 as f\n"
+            "import strique_tpu_torch.detect.detector, strique_tpu_torch.parallel.dispatcher\n"
+            "assert f.Fast5Index(None).index_file is None\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
+    assert out.returncode == 0, out.stderr
+
+
+ROWS = [("read-a", "c9orf72", "+", 12, 8.804217333737352, 8.740056275905323,
+         -2609.5124184012366, 1686, 407, "-"),
+        ("read-b", "fmr1", "-", 0, 0.0, 0.0, 0.0, 0, 0, "-")]
+
+
+def test_writer_processed_ids_merge_shards(tmp_path, capsys):
+    from strique_tpu.detect import writer as jax_writer
+    from strique_tpu_torch.detect import writer
+
+    assert writer.HEADER == jax_writer.HEADER
+    outs = {}
+    for mod, name in ((writer, "port"), (jax_writer, "jax")):
+        d = tmp_path / name
+        d.mkdir()
+        out = d / "counts.tsv"
+        w = mod.OutputWriter(str(out))
+        w.write_line(target_counts=ROWS[:1])
+        w.write_line(target_counts=ROWS[1:])
+        mod.OutputWriter(str(out), append=True).write_line(target_counts=ROWS[:1])
+        merged = d / "merged.tsv"
+        for rank in (0, 2):  # part 1 is on another host's filesystem
+            part = mod.OutputWriter(f"{merged}.part{rank}")
+            part.write_line(target_counts=[ROWS[rank // 2]])
+        assert mod.merge_shards(str(merged), 3) == 2
+        mod.OutputWriter(None).write_line(target_counts=ROWS)  # to stdout
+        outs[name] = (out.read_bytes(), merged.read_bytes(), mod.processed_ids(str(out)),
+                      mod.processed_ids(str(tmp_path / "absent.tsv")), capsys.readouterr().out)
+    assert outs["port"] == outs["jax"]
+    assert outs["port"][2] == {"read-a", "read-b"}
+
+
+@pytest.mark.parametrize("level", ["error", "warning", "info", "debug"])
+def test_logger_levels(capsys, tmp_path, level):
+    from strique_tpu.utils import logging as jax_log
+    from strique_tpu_torch.utils import logging as ulog
+
+    emitted = []
+    for mod in (ulog, jax_log):
+        sink = tmp_path / f"{mod.__name__}.log"
+        mod.init(file=str(sink), log_level=level)
+        for lv in mod.LogLevel:
+            mod.log(f"message at {lv.name}", lv)
+        mod.close()
+        err = capsys.readouterr().err.splitlines()
+        emitted.append(([ln.split(" ", 3)[3] for ln in err],
+                        [ln.split(" ", 3)[3] for ln in sink.read_text().splitlines()]))
+    assert emitted[0] == emitted[1]
+    assert emitted[0][0] == emitted[0][1]
+    assert len(emitted[0][0]) == ["error", "warning", "info", "debug"].index(level) + 1
+
+
+def test_plan_merged_batches_matches_reference():
+    from strique_tpu.detect import stream as jax_stream
+    from strique_tpu_torch.detect import stream
+
+    rng = np.random.default_rng(21)
+    grid = sorted({stream.signal_bucket(int(n)) for n in rng.integers(2000, 120000, 60)})
+    for _ in range(40):
+        k = int(rng.integers(0, 7))
+        buckets = sorted(rng.choice(grid, k, replace=False).tolist()) if k else []
+        groups = [(int(b), int(rng.integers(1, 80))) for b in buckets]
+        rng.shuffle(groups)
+        assert stream.plan_merged_batches(groups) == jax_stream.plan_merged_batches(groups)
+        for b, n in groups:
+            assert stream._batch_cost(b, n) == jax_stream._batch_cost(b, n)
+
+
+class _FakeCounter:
+    """A counter of the scheduler's protocol: a read's result is a
+    function of its signal; reads whose first sample is negative break
+    their batch's finish, and again alone."""
+
+    def detect_submit(self, target_name, raws, strand, preps=None):
+        return {"t": target_name, "s": strand, "raws": raws}
+
+    def detect_middle(self, state):
+        return state
+
+    def detect_mod_submit(self, state):
+        return state
+
+    def detect_finish(self, state):
+        if any(r[0] < 0 for r in state["raws"]):
+            raise ValueError("poisoned batch")
+        return [self._one(state["t"], r, state["s"]) for r in state["raws"]]
+
+    def detect(self, target_name, raw, strand):
+        if raw[0] < 0:
+            raise ValueError("poisoned read")
+        return self._one(target_name, raw, strand)
+
+    @staticmethod
+    def _one(target_name, raw, strand):
+        return (len(raw) % 97, float(raw[0]), float(raw[-1]), -float(len(raw)), 3, 4, "-")
+
+
+class _FakeDetector:
+    def __init__(self, lines):
+        self.counter = _FakeCounter()
+        self.jobs = lines
+
+    def _job(self, line):
+        rid, strand, targets, n = line.split()
+        if n == "0":
+            return None
+        sig = np.full(int(n), -1.0 if rid.startswith("bad") else float(len(rid)))
+        return type("SR", (), {"QNAME": rid, "strand": strand})(), targets.split(","), sig
+
+    def decode_line(self, line):
+        return self._job(line)
+
+    def detect(self, line):
+        job = self._job(line)
+        if job is None:
+            return None
+        sr, targets, raw = job
+        return {"target_counts": [(sr.QNAME, t, sr.strand, *self.counter.detect(t, raw, sr.strand))
+                                  for t in targets]}
+
+
+@pytest.mark.parametrize("batch_size, io_threads", [(1, 1), (1, 3), (4, 1), (4, 3), (16, 2)])
+def test_run_pipeline_matches_reference(batch_size, io_threads):
+    """The dispatcher and the stream scheduler over a ragged, multi-target
+    stream with skipped and poisoned reads: the same rows in the same
+    order as the reference's."""
+    from strique_tpu.parallel.dispatcher import run_pipeline as jax_run
+    from strique_tpu_torch.parallel.dispatcher import run_pipeline
+
+    rng = np.random.default_rng(17)
+    lines = []
+    for k in range(70):
+        n = int(rng.choice([0, 1500, 2100, 3000, 5000, 9000, 20000]))
+        targets = ",".join(rng.choice(["c9", "fmr1", "c9,fmr1"], 1))
+        rid = ("bad" if k % 23 == 5 else "r") + f"-{k}"
+        lines.append(f"{rid} {'+-'[k % 2]} {targets} {n}")
+
+    class Sink:
+        def __init__(self):
+            self.rows = []
+
+        def write_line(self, target_counts=()):
+            self.rows.append(list(target_counts))
+
+    got, ref = Sink(), Sink()
+    assert (run_pipeline(iter(lines), _FakeDetector(lines), got, io_threads, batch_size)
+            == jax_run(iter(lines), _FakeDetector(lines), ref, io_threads, batch_size)
+            == len(lines))
+    assert got.rows == ref.rows
+    assert sum(len(r) for r in got.rows) > 40

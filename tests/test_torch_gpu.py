@@ -601,3 +601,33 @@ def test_gpu_two_pass_align_core_matches_one_pass(cuda_device, monkeypatch):
     for a, c in zip(one, two):
         for k in ("score", "j_end", "is_gap", "jpos", "j_begin"):
             assert torch.equal(a[k], c[k]), k
+
+
+@pytest.mark.gpu
+def test_gpu_count_cli_matches_cpu(cuda_device, tmp_path):
+    """``strique_tpu_torch.cli count`` on the card writes the TSV of
+    ``count --device cpu`` on tests/test_torch_cli.py's single-locus run
+    (3 '+' reads, two signal buckets, one read QC-gated), byte for byte,
+    through the kernels of the split path."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        pytest.skip("h5py is not installed: the run's reads are single-read fast5 files")
+    from strique_tpu_torch import cli
+    from strique_tpu_torch.synthetic import LOCI, write_count_run
+
+    model = write_pore_model(str(tmp_path / "m.model"), seed=11)
+    loci = {name: (c, b, e, r, p[-80:], s[:80]) for name, (c, b, e, r, p, s) in LOCI.items()}
+    specs = [("c9orf72", 5, "+", 20), ("c9orf72", 20, "+", 20), ("c9orf72", 8, "+", 20)]
+    (tmp_path / "run").mkdir()
+    run = write_count_run(tmp_path / "run", PoreModel(model), specs, 5, loci)
+    outs = {}
+    for device in ("cpu", "cuda"):
+        outs[device] = tmp_path / f"{device}.tsv"
+        _build.reset_launches()
+        assert cli.main(["count", run["fofn"], model, run["repeat"], "--algn", run["sam"],
+                         "--out", str(outs[device]), "--batch", "4", "--device", device]) == 0
+    assert outs["cuda"].read_bytes() == outs["cpu"].read_bytes()
+    for name in ("align_forward_wave_multi_table", "traceback_pointers",
+                 "viterbi_forward_factored", "viterbi_backward_batch"):
+        assert _build.LAUNCHES[name] > 0, name
