@@ -49,7 +49,12 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    walks replayed to count their steps (held equal to the count read
    from the outputs) and the distinct words they read (the bound).  Rows 3-4
    and 7 also run at their edges (``check_viterbi_edges``: short reads,
-   obs-chunk boundaries, constant obs, SP 512).  Print kernel and plain
+   obs-chunk boundaries, constant obs, SP 512).  Row 3's diagonal-only
+   slot layout (the mod HMM's) and row 4 run at a mod decode's shape: 64
+   clipped repeat-state segments of T 3072 through the mod HMM of
+   GGCCCC (26 states, SP 128) and of a 60-base unit (242 states, SP
+   256), against their twins, the dense resident forward's ms on the
+   same inputs beside them and its paths equal.  Print kernel and plain
    times, and us per step (a column for row 8).
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
@@ -123,6 +128,23 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    the largest undercount) to the JAX package's count on the CPU.
    Print reads/s per ``--batch``, the launches, and the profiled run's
    busy share.
+4h. Mod calling: 96 '+' and 32 '-' c9orf72 reads of 50 units, half
+   from a base model (``synthetic.MOD_MODEL_SEED``) and half from its
+   twin (CpG levels shifted by ``synthetic.MOD_SHIFT``), through
+   ``StreamScheduler`` at ``--batch`` 64 with ``mod_model_file`` (a
+   warm-up run, then a timed one), then ``cli.main(["count", ...,
+   "--mod_model", twin])`` on an in-memory index.  Every count exact
+   but the two twin '-' reads the JAX package counts at 51 on the CPU
+   (``synthetic.MOD_WORKLOAD_MISCOUNTS``, held there by
+   tests/test_torch_mod.py), which must count 51;
+   every twin read's '1' share above 0.5 and every base read's below,
+   every row equal to ``detect_many``'s tuple in a fresh counter (mod
+   string included), the CLI's rows equal to the stream's; every mod
+   forward launch on the diagonal-only layout (one a decode call of up
+   to 64 reads), none dense; each captured mod obs batch replayed
+   through the plain twins on the card gives the kernels' paths.  Print
+   reads/s, the batches and the mod decode's device ms (profiled, and
+   one decode by CUDA events).
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
@@ -131,7 +153,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    from phase 4b's one-pass route, rows 5-6's TABLE launches from its
    two-pass route, the POW launches of rows 1-2, 5-6 and 8 from phase
    4e, row 8's TABLE and row 7's resident launches from phase 4d, row
-   7's streamed launches from phase 4f.
+   7's streamed launches from phase 4f, row 3's diagonal-only layout's
+   from phase 4h's timed stream run.
 """
 from __future__ import annotations
 
@@ -214,6 +237,8 @@ SOURCES = {
                            "strique_tpu/ops/align.py:235"),
     "viterbi_forward_factored": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
                                  "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_forward_factored_diag": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                      "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                                "strique_tpu/ops/viterbi_pallas.py:308"),
     "align_forward_col_table": ("strique_tpu_torch/csrc/col_align.cu",
@@ -955,6 +980,99 @@ def check_viterbi_edges(pm, rng) -> None:
         _build.LAUNCHES[k] = before[k]
 
 
+def mod_inputs(pm, pm_mod, unit, B, T, rng):
+    """(B, T) noisy repeat-state segments of a mod decode: 25-60 units of
+    ``unit``, odd reads from the twin ``pm_mod``, clipped to the mod HMM's
+    level range as the counter clips them; and their lengths."""
+    import numpy as np
+    import torch
+
+    lo, hi = min(pm.model_min, pm_mod.model_min), max(pm.model_max, pm_mod.model_max)
+    obs = np.zeros((B, T), np.float32)
+    lens = np.zeros(B, np.int32)
+    for b in range(B):
+        n = int(rng.integers(25, 61))
+        s = (pm_mod if b % 2 else pm).generate_signal(unit * n, samples=8, noise=True, rng=rng)
+        s = np.clip(s, lo, hi).astype(np.float32)[:T]
+        obs[b, : len(s)] = s
+        lens[b] = len(s)
+    dev = torch.device("cuda")
+    return torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_viterbi_mod(pm, pm_mod, unit, shape_name, B, T, rng, results):
+    """The factored forward in its diagonal-only slot layout (the mod
+    HMM's) and the backward, each against its twin at a mod decode's
+    shape: rows below each length, fin and acc bit-equal, paths equal.
+    The wrapper must launch the diagonal-only layout alone; the dense
+    forward's ms on the same inputs stands beside it.  ``results``: where
+    given, the kernel line's entry of the layout."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.hmm.models import build_repeat_mod
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    dev = torch.device("cuda")
+    chm = build_repeat_mod(unit, pm, pm_mod)
+    ph = VC.PaddedHMM(chm, dev)
+    name = "viterbi_forward_factored_diag"
+    if ph.fwd_layout is None or ph.fwd_layout.name != name:
+        fail(f"the mod HMM of a {len(unit)}-base unit is not staged in the diagonal-only layout")
+    o_d, l_d = mod_inputs(pm, pm_mod, unit, B, T, rng)
+    fwd = ("viterbi_forward_factored", name, *DENSE)
+    before = dict(_build.LAUNCHES)
+    run_k = lambda: VC.viterbi_forward_factored(o_d, l_d, ph)
+    (sc_k, fin_k, acc_k), _ = once_ms(run_k)
+    if {n: _build.LAUNCHES[n] - before[n] for n in fwd} != {n: int(n == name) for n in fwd}:
+        fail(f"the mod HMM's forward at SP {ph.sp} did not launch the diagonal-only layout alone")
+    (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_plain(o_d, l_d, ph))
+    live = torch.arange(T, device=dev)[:, None] < l_d[None, :]
+    err = max(float((sc_k[live] - sc_p[live]).abs().max()),
+              float((fin_k - fin_p).abs().max()), float((acc_k - acc_p).abs().max()))
+    del sc_p
+    ms = cuda_ms(run_k, 3)
+    dense_ms = cuda_ms(lambda: VC.viterbi_forward_dense(o_d, l_d, ph), 3)
+    last = torch.argmax(fin_k + ph.end, dim=1)
+    run_b = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
+    path_k, _ = once_ms(run_b)
+    path_p, bwd_plain_ms = once_ms(lambda: VC._bwd_plain(sc_k, last, l_d, ph.transT))
+    perr = int((path_k.to(torch.int64) - path_p.to(torch.int64)).abs().max())
+    bwd_ms = cuda_ms(run_b, 3)
+    sc_d, fin_d, _ = VC.viterbi_forward_dense(o_d, l_d, ph)
+    path_d = VC.viterbi_backward_batch(sc_d, torch.argmax(fin_d + ph.end, dim=1), l_d, ph.transT)
+    same = bool(torch.equal(path_d, path_k))
+    for n in (*fwd, "viterbi_backward_batch"):
+        _build.LAUNCHES[n] = before[n]
+    steps = int(l_d.max())
+    print(f"  {name} [{shape_name} B={B} T={T} SP={ph.sp}, {chm.n_states} states, "
+          f"{len(ph.fspec[0])} diagonals]: max_abs_err {err}; kernel {ms:.3f} ms "
+          f"({ms * 1e3 / steps:.4f} us/step), dense resident forward on the same inputs "
+          f"{dense_ms:.3f} ms (K={VC.dense_mode(ph.sp)}), plain {plain_ms:.1f} ms", flush=True)
+    print(f"  viterbi_backward_batch [{shape_name} mod HMM B={B} T={T} SP={ph.sp}]: max_abs_err "
+          f"{perr}; kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.1f} ms; the dense forward's "
+          f"paths {'equal' if same else 'DIFFER'}", flush=True)
+    if err != 0.0:
+        fail(f"the diagonal-only forward disagrees with its plain twin at the {shape_name} shape")
+    if perr != 0:
+        fail(f"the backward kernel disagrees with its plain twin on the {shape_name} mod HMM")
+    if not same:
+        fail(f"the dense and factored forwards' paths differ on the {shape_name} mod HMM")
+    if results is None:
+        return
+    sp = ph.sp
+    live_cells = float(l_d.double().sum()) * sp
+    n_rolls = len(ph.fspec[0])
+    # per (step, state): an add and a max per roll, 8 for the emission and
+    # the row-max rescale
+    f32 = live_cells * (2 * n_rolls + 8)
+    nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + 5) * sp
+    results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "us_per_step": ms * 1e3 / steps, "dense_ms": dense_ms,
+                     "backward_ms": bwd_ms, "shape": f"B={B} T={T} SP={sp}",
+                     **bound(nbytes, f32)}
+
+
 def written_slots(n_act, m, nd: int, ckpt_steps: int):
     """(n_ck, B) mask of the checkpoint slots a row's pass 1 writes (it
     stops at round_up(n + m, 8)); ``m`` an int or the (B,) lengths."""
@@ -1629,6 +1747,208 @@ def run_count_cli(reads, lines, model: str, repeat_tsv: str, tmp: str) -> list:
     return list(routes)
 
 
+def plain_decode(obs, lens, ph):
+    """``viterbi_batch``'s paths through the plain twins of the factored
+    forward and the backward (on the tensors' device)."""
+    import torch
+
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    paths = []
+    for g in range(0, obs.shape[0], VC.GROUP):
+        o, n = VC._pad_batch(obs[g : g + VC.GROUP], lens[g : g + VC.GROUP])
+        sc, fin, _ = VC._fwd_plain(o, n, ph)
+        last = torch.argmax(fin + ph.end, dim=1)
+        paths.append(VC._bwd_plain(sc, last, n, ph.transT)[: min(VC.GROUP, obs.shape[0] - g)])
+    return torch.cat(paths)
+
+
+def run_mod(seed: int, card: str, tmp: str) -> dict:
+    """Phase 4h: mod calling (5mC per repeat unit) through the stream
+    scheduler and the count CLI; see the module docstring.  Returns its
+    measurements and the diagonal-only forward's launches."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build, cli
+    from strique_tpu_torch.detect import detector
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.detect.stream import StreamScheduler
+    from strique_tpu_torch.detect.writer import HEADER
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+    from strique_tpu_torch.pore_model import PoreModel
+    from strique_tpu_torch.synthetic import (LOCI, MOD_MODEL_SEED, MOD_REPEATS, MOD_SHIFT,
+                                             MOD_WORKLOAD_MISCOUNTS, PREFIX, REPEAT, SUFFIX,
+                                             mod_workload, sam_line, write_mod_model,
+                                             write_pore_model, write_repeat_config)
+
+    diag = "viterbi_forward_factored_diag"
+    base = write_pore_model(os.path.join(tmp, "mod_base.model"), seed=MOD_MODEL_SEED)
+    twin = write_mod_model(os.path.join(tmp, "mod_twin.model"), seed=MOD_MODEL_SEED)
+    pm, pm_mod = PoreModel(base), PoreModel(twin)
+    plus, minus = mod_workload(pm, pm_mod, seed)
+    # (read id, target, strand, 1 for a twin read, signal)
+    reads = [(f"mod{strand}{i:03d}", "c9orf72", strand, i % 2, sig)
+             for strand, sigs in (("+", plus), ("-", minus)) for i, sig in enumerate(sigs)]
+    # each read's count: MOD_REPEATS, but the JAX package's own count on the
+    # reads of the default seed that it counts off (tests/test_torch_mod.py)
+    expect = {f"mod{s}{i:03d}": MOD_REPEATS if seed else MOD_WORKLOAD_MISCOUNTS.get(
+        (s, i), MOD_REPEATS) for s, sigs in (("+", plus), ("-", minus)) for i in range(len(sigs))}
+    print(f"mod workload: {len(plus)} '+' and {len(minus)} '-' c9orf72 reads of "
+          f"{len(plus[0])} and {len(minus[0])} samples, {MOD_REPEATS} units, half from the "
+          f"base model (seed {MOD_MODEL_SEED}) and half from its twin (CpG levels "
+          f"{MOD_SHIFT:+} pA)", flush=True)
+    counter = RepeatCounter(base, mod_model_file=twin, device="cuda")
+    counter.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    mod_hmms = {id(tc.mod_hmm) for tc in counter.targets["c9orf72"]}
+    captured, batches = [], []
+    submit, vit_submit = counter.detect_submit, counter._viterbi_submit
+
+    def counted_submit(*a, **k):
+        batches.append(len(a[1]))
+        return submit(*a, **k)
+
+    def captured_submit(chm, segments):
+        h = vit_submit(chm, segments)
+        if id(chm) in mod_hmms:
+            captured.append((chm, h))
+        return h
+
+    counter.detect_submit, counter._viterbi_submit = counted_submit, captured_submit
+
+    def stream():
+        out = {}
+        sched = StreamScheduler(counter, lambda ctx, res: out.__setitem__(ctx, res),
+                                batch_size=BATCH)
+        for rid, t, strand, _k, sig in reads:
+            sched.add(rid, t, strand, sig)
+        sched.close()
+        return out
+
+    stream()  # first use
+    torch.cuda.synchronize()
+    del captured[:], batches[:]
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = stream()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    n_batches = list(batches)
+    if sorted(out) != sorted(r[0] for r in reads):
+        fail(f"the mod stream returned {len(out)} of {len(reads)} reads")
+    inexact = [(rid, out[rid][0]) for rid, *_ in reads if out[rid][0] != expect[rid]]
+    off = {rid: n for rid, n in expect.items() if n != MOD_REPEATS}
+    shares = {}
+    for rid, _t, strand, kind, _s in reads:
+        mod = out[rid][6]
+        share = mod.count("1") / len(mod) if mod not in ("", "-") else None
+        shares[rid] = (strand, kind, share)
+    bad = [rid for rid, (_s, kind, share) in shares.items()
+           if share is None or (share > 0.5) != bool(kind)]
+    for strand in "+-":
+        for kind, label in ((0, "base"), (1, "twin")):
+            sh = [v[2] for v in shares.values() if v[0] == strand and v[1] == kind]
+            ok = sum(1 for x in sh if x is not None and (x > 0.5) == bool(kind))
+            print(f"  mod '{strand}' {label} reads: {ok}/{len(sh)} separated; '1' share "
+                  f"{min(x or 0.0 for x in sh):.3f}-{max(x or 0.0 for x in sh):.3f}", flush=True)
+    print(f"mod stream: {len(reads) / dt:.2f} reads/s ({len(reads)} reads in {dt:.3f} s, "
+          f"{len(n_batches)} batches of {n_batches} reads); counts "
+          f"{len(reads) - len(inexact)}/{len(reads)} as expected ({MOD_REPEATS} units; "
+          f"{json.dumps(off)} as the JAX package counts them); card: {card}; launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}", flush=True)
+    if inexact:
+        fail(f"counts off the expected in the mod stream: {inexact[:8]}")
+    if bad:
+        fail(f"{len(bad)} reads not separated (twin '1' share > 0.5, base < 0.5): "
+             f"{[(r, shares[r]) for r in bad[:6]]}")
+
+    # every mod forward launch on the diagonal-only layout, none dense
+    groups = sum(-(-h["obs"].shape[0] // VC.GROUP) for _c, h in captured)
+    if (launches[diag] != groups or groups == 0 or any(launches[k] for k in DENSE)
+            or launches["viterbi_forward_factored"] <= 0):
+        fail(f"the mod decodes did not run the diagonal-only forward alone ({groups} mod "
+             f"decode calls, launches {json.dumps({k: launches[k] for k in (diag, *DENSE)})})")
+    # the captured mod obs batches through the plain twins on the card
+    for chm, h in captured:
+        ph = counter._padded_hmm(chm)
+        o = h["obs"].to("cuda")
+        n = torch.from_numpy(h["lens"]).to("cuda")
+        want = plain_decode(o, n, ph)[: h["B"]].cpu().to(torch.int64)
+        if not torch.equal(h["paths"][: h["B"]].to(torch.int64), want):
+            fail("a mod decode's paths differ from the plain twins' on its captured obs batch")
+    print(f"mod decodes: {len(captured)} batches of {[h['B'] for _c, h in captured]} reads "
+          f"({groups} forward launches, layout {diag}); each batch's paths equal the plain "
+          f"twins' on its captured obs", flush=True)
+
+    # every row: detect_many's tuple in a fresh counter
+    fresh = RepeatCounter(base, mod_model_file=twin, device="cuda")
+    fresh.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    for strand in "+-":
+        rs = [r for r in reads if r[2] == strand]
+        for i in range(0, len(rs), BATCH):
+            chunk = rs[i : i + BATCH]
+            for r, res in zip(chunk, fresh.detect_many("c9orf72", [r[4] for r in chunk],
+                                                       strand)):
+                if tuple(res) != tuple(out[r[0]]):
+                    fail(f"the stream's row for {r[0]} differs from detect_many's in a fresh "
+                         f"counter: {out[r[0]]} against {res}")
+    print("mod stream: every row equal to detect_many's tuple in a fresh counter, mod string "
+          "included", flush=True)
+
+    # where the device time goes in one more stream run; the mod decode of
+    # the largest captured batch by CUDA events
+    rows, wall = profile_pass(f"mod stream, {len(reads)} reads", stream, card)
+    fwd_ms = sum(t for key, t, _ in rows if "Layout<12, 0>" in key)
+    kernel_ms = sum(r[1] for r in rows)
+    chm, h = max(captured, key=lambda c: c[1]["B"])
+    ph = counter._padded_hmm(chm)
+    o = h["obs"].to("cuda")
+    n = torch.from_numpy(h["lens"]).to("cuda")
+    before = dict(_build.LAUNCHES)
+    decode_ms = cuda_ms(lambda: VC.viterbi_batch(o, n, ph), 3)
+    _build.LAUNCHES.update(before)
+    print(f"mod stream: the diagonal-only forward's device time {fwd_ms:.3f} ms of "
+          f"{kernel_ms:.3f} ms kernels in a {wall:.2f} ms run; one mod decode of {h['B']} reads "
+          f"(T {o.shape[1]}, SP {ph.sp}) {decode_ms:.3f} ms by CUDA events; card: {card}",
+          flush=True)
+
+    # the count CLI with --mod_model, on the in-memory index
+    repeat_tsv = write_repeat_config(os.path.join(tmp, "mod_repeats.tsv"),
+                                     {"c9orf72": LOCI["c9orf72"]})
+    chrom, begin = LOCI["c9orf72"][:2]
+    sam = os.path.join(tmp, "mod_algn.sam")
+    with open(sam, "w") as fp:
+        fp.write("@HD\tVN:1.6\n" + "".join(sam_line(r[0], r[2], chrom, begin) for r in reads))
+    fofn = os.path.join(tmp, "mod_memory.fofn")
+    open(fofn, "w").close()
+    tsv = os.path.join(tmp, "mod_counts.tsv")
+    inner = detector.Fast5Index
+    detector.Fast5Index = lambda _path: MemoryIndex(reads)
+    _build.reset_launches()
+    try:
+        rc = cli.main(["count", fofn, base, repeat_tsv, "--algn", sam, "--out", tsv,
+                       "--mod_model", twin])
+    finally:
+        detector.Fast5Index = inner
+    cli_launches = dict(_build.LAUNCHES)
+    if rc != 0:
+        fail(f"count --mod_model exited {rc}")
+    lines = open(tsv).read().splitlines()
+    want = sorted("\t".join(str(x) for x in (r[0], r[1], r[2], *out[r[0]])) for r in reads)
+    if not lines or lines[0] != "\t".join(HEADER) or sorted(lines[1:]) != want:
+        fail("count --mod_model's rows differ from the mod stream's")
+    if cli_launches[diag] <= 0 or any(cli_launches[k] for k in DENSE):
+        fail("count --mod_model did not decode the mod HMM on the diagonal-only forward alone")
+    print(f"count --mod_model (cli.main at its card defaults, in-memory index): "
+          f"{len(lines) - 1} rows equal to the mod stream's; {diag} launches "
+          f"{cli_launches[diag]}", flush=True)
+    return {"reads_per_sec": len(reads) / dt, "seconds": dt, "batches": n_batches,
+            "launches": launches, "mod_decode_calls": len(captured),
+            "diag_forward_device_ms": fwd_ms, "kernel_ms": kernel_ms, "wall_ms": wall,
+            "decode_ms": decode_ms, "decode_reads": h["B"], "cli_launches": cli_launches}
+
+
 def run_pipeline(counter, sigs, strand):
     """bench.py's three-stage loop: batch k's Viterbi overlaps batch k+1's align."""
     out = []
@@ -1666,7 +1986,8 @@ def main() -> int:
         from strique_tpu_torch.hmm.models import build_flanked_repeat
         from strique_tpu_torch.pore_model import PoreModel
         from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, smoke_workload,
-                                                 ultralong_workload, write_pore_model)
+                                                 ultralong_workload, write_mod_model,
+                                                 write_pore_model)
     except ImportError as e:
         fail(f"the port is not importable from this directory: {e}")
     if "jax" in sys.modules or "strique_tpu" in sys.modules:
@@ -1751,6 +2072,14 @@ def main() -> int:
                         np.random.default_rng(args.seed + 75) if flank == 75 else rng, None,
                         flank=flank)
         check_viterbi_edges(pm, rng)
+        # the mod decode's forward layout and the backward at a mod HMM's
+        # shapes (GGCCCC: 26 states, SP 128; a 60-base unit: 242, SP 256);
+        # their own generator, so the draws after them stay as they were
+        mod_pm = PoreModel(write_mod_model(os.path.join(tmp, "twin.model"), seed=args.seed))
+        mod_rng = np.random.default_rng(args.seed + 50)
+        check_viterbi_mod(pm, mod_pm, REPEAT, "mod", 64, 3072, mod_rng, results)
+        unit60 = "".join(mod_rng.choice(list("ACGT"), VNTR_UNIT_BASES))
+        check_viterbi_mod(pm, mod_pm, unit60, "mod, 60-base unit", 64, 3072, mod_rng, None)
         check_longread(small[:1], "small", 8, 4096, params, 512, True, rng)
         check_longread(small, "small", 16, 4096, params, 512, True, rng)
         # the bench template's span bound (29,581 steps) exceeds ND: all
@@ -1944,6 +2273,15 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001
         fail(f"the count path raised {type(e).__name__}: {e}")
 
+    # -- phase 4h: mod calling ------------------------------------------------
+    try:
+        mod = run_mod(args.seed, card, tmp)
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the mod path raised {type(e).__name__}: {e}")
+    launches["viterbi_forward_factored_diag"] = mod["launches"]["viterbi_forward_factored_diag"]
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
@@ -1953,7 +2291,7 @@ def main() -> int:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "reads_per_sec": rps,
                        "plus_s": dt_plus, "minus_s": dt_minus,
                        "ultra_s": {k: v[1] for k, v in runs.items()},
-                       "knob_reads_per_sec": knob_rps, "count_stream": count,
+                       "knob_reads_per_sec": knob_rps, "count_stream": count, "mod": mod,
                        "kernels": kernels},
                       fp, indent=1)
     print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),

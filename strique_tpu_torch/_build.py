@@ -47,6 +47,7 @@ LAUNCHES = {
     "traceback_pointers": 0,
     "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
+    "viterbi_forward_factored_diag": 0,  # the same wrapper, diagonal-only slot layout
     "viterbi_forward_dense": 0,  # the streamed mode (SP past dense_mode's rule)
     "viterbi_forward_dense_resident": 0,  # the same wrapper, resident (cluster) mode
     "viterbi_backward_batch": 0,
@@ -92,8 +93,8 @@ _SIGNATURES = {
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
     "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts
-    # (host), sc, fin, acc; B, T, SP; stream
-    "viterbi_fwd_launch": [_P] * 15 + [_I] * 3 + [_P],
+    # (host), sc, fin, acc; B, T, SP, layout; stream
+    "viterbi_fwd_launch": [_P] * 15 + [_I] * 4 + [_P],
     # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
     # B, T, SP; stream
     "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],

@@ -1,17 +1,19 @@
-"""Command-line interface of the port: index / count.
+"""Command-line interface of the port: index / count / warmup.
 
 The counterpart of ``strique_tpu/cli.py`` on PyTorch and one CUDA card:
 the same subcommands, arguments and TSV output schema, so existing
 STRique workflows can switch directly.  ``count`` runs the counter on
 the card (``--device cuda``, the default; without a card it fails with
 the counter's RuntimeError, there is no CPU fallback) or on the plain
-PyTorch path when asked (``--device cpu``).
+PyTorch path when asked (``--device cpu``); ``--mod_model`` adds the
+per-unit 5mC call (the TSV's ``mod`` column).  ``warmup`` builds the
+kernels and runs one batch a target, strand and signal bucket, cold
+then hot.
 
 Not ported yet, and refused with the ROADMAP item that holds them:
-``--mod_model`` (Queue 1 item 2), ``--devices`` above 1 and the
-multi-host flags ``--coordinator`` / ``--num_hosts`` / ``--host_id``
-(Queue 1 item 4).  The ``plot``, ``extract`` and ``warmup`` subcommands
-are queued in ROADMAP too.
+``--devices`` above 1 and the multi-host flags ``--coordinator`` /
+``--num_hosts`` / ``--host_id`` (Queue 1 item 4).  The ``plot`` and
+``extract`` subcommands are queued in ROADMAP too (Queue 1 item 1).
 
 Environment knobs the port honours: ``STRIQUE_ALIGN_KERNEL=col`` (the
 column-sweep alignment), ``STRIQUE_DENSE_VITERBI=1`` (the dense Viterbi
@@ -64,8 +66,7 @@ def cmd_count(argv) -> int:
     parser.add_argument("repeat", help="Repeat region config file")
     parser.add_argument("--out", default=None, help="Output file name, if not given print to stdout")
     parser.add_argument("--algn", default=None, help="Alignment in sam format, if not given read from stdin")
-    parser.add_argument("--mod_model", default=None,
-                        help="Base modification pore model (not ported yet: refused)")
+    parser.add_argument("--mod_model", default=None, help="Base modification pore model")
     parser.add_argument("--config", help="Config file with HMM transition probabilities")
     parser.add_argument("--t", type=int, default=1, help="Host IO worker threads (fast5 reads; also per-read mode workers)")
     parser.add_argument("--batch", type=int, default=None,
@@ -91,15 +92,14 @@ def cmd_count(argv) -> int:
                         choices=["error", "warning", "info", "debug"], help="Log level")
     args = parser.parse_args(argv)
     ulog.init(log_level=args.log_level)
-    if args.mod_model:
-        return _refuse("--mod_model (mod calling)", "item 2")
     if args.devices not in ("auto", "1"):
         return _refuse(f"--devices {args.devices} (multi-GPU)", "item 4")
     for flag in ("coordinator", "num_hosts", "host_id"):
         if getattr(args, flag) is not None:
             return _refuse(f"--{flag} (multi-host)", "item 4")
     config = parse_config(args.repeat, args.config)
-    for path, desc in ((args.f5Index, "Fast5 index"), (args.model, "Pore model")):
+    for path, desc in ((args.f5Index, "Fast5 index"), (args.model, "Pore model"),
+                       (args.mod_model, "Modification pore model")):
         if path and not os.path.isfile(path):
             log(f"Main: {desc} file does not exist.", LogLevel.Error)
             return 1
@@ -113,8 +113,8 @@ def cmd_count(argv) -> int:
         batch_size = CARD_BATCH if args.device == "cuda" else CPU_BATCH
 
     rd = RepeatDetector(config["repeat"], args.model, args.f5Index,
-                        align_config=config["align"], hmm_config=config["HMM"],
-                        device=args.device)
+                        mod_model_file=args.mod_model, align_config=config["align"],
+                        hmm_config=config["HMM"], device=args.device)
     done = processed_ids(args.out) if args.resume else set()
     ow = OutputWriter(args.out, append=args.resume)
     if done:
@@ -152,7 +152,117 @@ def cmd_count(argv) -> int:
     return 0
 
 
-COMMANDS = {"index": cmd_index, "count": cmd_count}
+def cmd_warmup(argv) -> int:
+    """Build the kernels and run the counting path once per shape a config
+    needs, so the first real ``count`` run starts at full speed.
+
+    The counterpart of ``strique_tpu/cli.py``'s ``warmup``: one batch of
+    a synthetic read per target x strand x signal bucket (flank
+    alignment, bounds, Viterbi, and the mod pipeline when --mod_model is
+    given), cold then hot, one line per shape.  On the card "cold" is
+    the first use of a shape (the kernel library builds before the first
+    one, and the allocator and host pools fill); the kernel library
+    builds first (its line gives the seconds) and persists in the build
+    directory the last line prints.
+    """
+    parser = argparse.ArgumentParser(description="Build the kernels and run each shape once")
+    parser.add_argument("model", help="Pore model")
+    parser.add_argument("repeat", help="Repeat region config file")
+    parser.add_argument("--config", help="Config file with HMM transition probabilities")
+    parser.add_argument("--mod_model", default=None, help="Base modification pore model")
+    parser.add_argument("--batch", type=int, default=None,
+                        help="Reads per device batch (match your count run; default: "
+                             f"{CARD_BATCH} on the card, {CPU_BATCH} on the CPU)")
+    parser.add_argument("--min_len", type=int, default=4096,
+                        help="Shortest read-length bucket to run")
+    parser.add_argument("--max_len", type=int, default=65536,
+                        help="Longest read-length bucket to run")
+    parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                        help="Where the counter runs: the CUDA card (default; fails without "
+                             "one) or the plain PyTorch path on the CPU")
+    parser.add_argument("--devices", default="1",
+                        help="Data-parallel device count to warm: 1 (more is not ported "
+                             "yet: refused)")
+    parser.add_argument("--log_level", default="warning",
+                        choices=["error", "warning", "info", "debug"])
+    args = parser.parse_args(argv)
+    ulog.init(log_level=args.log_level)
+    if args.devices not in ("auto", "1"):
+        return _refuse(f"--devices {args.devices} (multi-GPU)", "item 4")
+    config = parse_config(args.repeat, args.config)
+    for path, desc in ((args.model, "Pore model"), (args.mod_model, "Modification pore model")):
+        if path and not os.path.isfile(path):
+            log(f"Main: {desc} file does not exist.", LogLevel.Error)
+            return 1
+
+    import time
+
+    import numpy as np
+
+    from . import _build
+    from .detect.counter import RepeatCounter, reverse_complement, signal_bucket
+
+    batch = args.batch or (CARD_BATCH if args.device == "cuda" else CPU_BATCH)
+    counter = RepeatCounter(args.model, mod_model_file=args.mod_model,
+                            align_config=config["align"], hmm_config=config["HMM"],
+                            device=args.device)
+    # repeat config rows are (chr, begin, end, repeat, prefix, suffix)
+    loci = {name: {"repeat": t[3], "prefix": t[4], "suffix": t[5]}
+            for name, t in config["repeat"].items()}
+    for name, t in loci.items():
+        counter.add_target(name, t["repeat"], t["prefix"], t["suffix"])
+
+    # the distinct signal buckets in range (the stream scheduler's keys)
+    buckets, n = [], args.min_len
+    while n <= args.max_len:
+        b = signal_bucket(n)
+        if not buckets or b != buckets[-1]:
+            buckets.append(b)
+        n = b + 1
+    pm = counter.pm
+    rng = np.random.default_rng(0)
+    total_t0 = time.perf_counter()
+    if args.device == "cuda":
+        _build.lib()
+        print(f"# kernels built in {time.perf_counter() - total_t0:.1f}s")
+    n_cold = 0
+    for name, t in loci.items():
+        base = t["prefix"] + t["repeat"] * 8 + t["suffix"]
+        for strand in ("+", "-"):
+            for bucket in buckets:
+                # a detectable read whose padded length lands in this
+                # bucket: repeat units fill ~half the bucket, backbone the
+                # rest, end-sliced to fit
+                per_unit = max(len(t["repeat"]) * 9, 1)
+                k = max(int(bucket // 2 // per_unit) - len(base) // len(t["repeat"]), 2)
+                seq = t["prefix"] + t["repeat"] * k + t["suffix"]
+                bb = "".join(rng.choice(list("ACTG"), max(bucket // 9, 64)))
+                seq = bb[: len(bb) // 2] + seq + bb[len(bb) // 2 :]
+                if strand == "-":
+                    seq = reverse_complement(seq)
+                sig = pm.generate_signal(seq, samples=8, noise=True, rng=rng)
+                sig = sig[:bucket]
+                if signal_bucket(len(sig)) != bucket:
+                    sig = np.pad(sig, (0, bucket - len(sig)), mode="edge")
+                reads = [sig] * batch
+                t0 = time.perf_counter()
+                counter.detect_many(name, reads, strand)
+                cold = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                counter.detect_many(name, reads, strand)
+                hot = time.perf_counter() - t0
+                n_cold += 1
+                print(f"{name}\t{strand}\tbucket={bucket}\t"
+                      f"cold={cold:.2f}s\thot={hot:.2f}s")
+    where = (f"the kernel library persists in {_build.build_dir()}" if args.device == "cuda"
+             else "the CPU path builds no kernel")
+    print(f"# warmed {n_cold} target/strand/bucket shapes in "
+          f"{time.perf_counter() - total_t0:.1f}s; {where}")
+    ulog.close()
+    return 0
+
+
+COMMANDS = {"index": cmd_index, "count": cmd_count, "warmup": cmd_warmup}
 
 
 def main(argv=None) -> int:
@@ -162,7 +272,8 @@ def main(argv=None) -> int:
         description="STRique on PyTorch and CUDA: nanopore raw signal repeat detection",
         usage="strique <command> [<args>]\n\nCommands:\n"
               "   index      Index batch(es) of bulk-fast5 or tar archived single fast5\n"
-              "   count      Count single read repeat expansions\n")
+              "   count      Count single read repeat expansions\n"
+              "   warmup     Build the kernels and run each shape of a config once\n")
     parser.add_argument("command", choices=sorted(COMMANDS))
     args = parser.parse_args(argv[:1])
     return COMMANDS[args.command](argv[1:])

@@ -16,18 +16,21 @@
 // bandwidth.
 //
 // Design: one CTA per read, one thread per state lane v (SP = 256 for
-// the c9orf72 HMM's 216 states); a step is three barriers and
-// independent shared loads:
+// the c9orf72 HMM's 216 states, SP = 128 for its mod HMM's 26); a step
+// is three barriers (one with no chain) and independent shared loads:
 //   * every roll's source lane u = (v - o) mod SP and weight w[u] are the
 //     same at every step: the host stages them per thread
-//     (viterbi_cuda.fwd_gather_tables: DIAG_SLOTS diagonal slots, then
+//     (viterbi_cuda.fwd_gather_tables: the layout's diagonal slots, then
 //     per chain ENTRY_SLOTS entry and EXIT_SLOTS exit slots; a slot the
 //     spec leaves empty has weight -inf, the identity of the max), and
 //     each thread holds every slot in registers: no predicate or branch
-//     in the step, so every gather's load is in flight at once.  The
-//     slots fit the flanked-repeat HMMs (6 or 7 diagonals, chains of 2
-//     entries and 3 and 2 exits); the wrapper sends a wider spec to the
-//     dense forward;
+//     in the step, so every gather's load is in flight at once.  Two
+//     slot layouts are compiled, picked by the host per HMM: CHAINED (8
+//     diagonals and 2 chains of 2 entries and 3 exits) fits the
+//     flanked-repeat HMMs (6 or 7 diagonals, chains of 2 entries and 3
+//     and 2 exits); DIAG (12 diagonals, no chain) fits the mod HMMs (11
+//     diagonals), whose step has no chain scan and so one barrier.  The
+//     wrapper sends a spec that fits neither to the dense forward;
 //   * the row is published as val (before the rescale) behind ONE
 //     barrier, and every warp then takes the row max itself (NV float4
 //     reads a lane, one __reduce_max_sync on an order-preserving int key;
@@ -56,13 +59,20 @@
 namespace {
 
 constexpr float NEGF = -1e30f;
-// the host's slot layout (viterbi_cuda.fwd_gather_tables), the limits of
-// a spec the kernel takes
-constexpr int DIAG_SLOTS = 8;
-constexpr int MAX_CHAIN = 2;
+// the host's slot layouts (viterbi_cuda.FWD_LAYOUTS, staged by
+// fwd_gather_tables), the limits of a spec each takes: DIAG diagonal
+// slots, then CHAIN chains of ENTRY_SLOTS entry and EXIT_SLOTS exit slots
 constexpr int ENTRY_SLOTS = 2;
 constexpr int EXIT_SLOTS = 3;
 constexpr int CHAIN_SLOTS = ENTRY_SLOTS + EXIT_SLOTS;
+template <int D, int C>
+struct Layout {
+  static constexpr int DIAG = D;
+  static constexpr int CHAIN = C;
+  static constexpr int CHAIN_ARR = C > 0 ? C : 1;  // no zero-length arrays
+};
+using Chained = Layout<8, 2>;  // layout 0: flanked-repeat HMMs
+using DiagOnly = Layout<12, 0>;  // layout 1: mod HMMs
 constexpr int OBS_CHUNK = 32;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -100,8 +110,9 @@ __device__ __forceinline__ float lds(uint32_t addr) {
   return x;
 }
 
-// SP = 128 NV states, one thread each, every slot held in registers
-template <int NV>
+// SP = 128 NV states, one thread each, every slot of layout L held in
+// registers
+template <int NV, class L>
 __global__ void __launch_bounds__(128 * NV)
 viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
                    const float* __restrict__ start, const float* __restrict__ mu,
@@ -112,11 +123,14 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
                    float* __restrict__ fin, float* __restrict__ acc_out, int B, int T) {
   constexpr int SP = 128 * NV;
   constexpr int ROW = SP * 4;  // bytes of a row
+  constexpr int DIAG_SLOTS = L::DIAG;
+  constexpr int NC = L::CHAIN;
+  constexpr int NCA = L::CHAIN_ARR;
   extern __shared__ __align__(16) float smem[];
   float* val_sh = smem;                     // 2 x SP: the rows, by step parity
-  float* h_sh = val_sh + 2 * SP;            // MAX_CHAIN x SP
-  float* emit_sh = h_sh + MAX_CHAIN * SP;   // OBS_CHUNK x SP: a column a thread
-  __shared__ __align__(16) float wtot[MAX_CHAIN][32];
+  float* h_sh = val_sh + 2 * SP;            // NC x SP
+  float* emit_sh = h_sh + NC * SP;          // OBS_CHUNK x SP: a column a thread
+  __shared__ __align__(16) float wtot[NCA][32];
   __shared__ float obs_sh[2][OBS_CHUNK];
 
   const int b = blockIdx.x;
@@ -129,15 +143,15 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
   // shared byte addresses of every gather: a row (parity 0) and the h rows
   const uint32_t val0 = (uint32_t)__cvta_generic_to_shared(val_sh);
   const uint32_t h0 = (uint32_t)__cvta_generic_to_shared(h_sh);
-  uint32_t ad[DIAG_SLOTS], ae[MAX_CHAIN][ENTRY_SLOTS], ax[MAX_CHAIN][EXIT_SLOTS];
-  float wd[DIAG_SLOTS], we[MAX_CHAIN][ENTRY_SLOTS], wx[MAX_CHAIN][EXIT_SLOTS], rp[MAX_CHAIN];
+  uint32_t ad[DIAG_SLOTS], ae[NCA][ENTRY_SLOTS], ax[NCA][EXIT_SLOTS];
+  float wd[DIAG_SLOTS], we[NCA][ENTRY_SLOTS], wx[NCA][EXIT_SLOTS], rp[NCA];
 #pragma unroll
   for (int d = 0; d < DIAG_SLOTS; ++d) {
     ad[d] = val0 + 4 * src[d * SP + v];
     wd[d] = wts[d * SP + v];
   }
 #pragma unroll
-  for (int c = 0; c < MAX_CHAIN; ++c) {
+  for (int c = 0; c < NC; ++c) {
     rp[c] = ramp[c * SP + v];
     const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
 #pragma unroll
@@ -195,10 +209,10 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
       float out = NEGF;
 #pragma unroll
       for (int d = 0; d < DIAG_SLOTS; ++d) out = fmaxf(out, (lds<PREV>(ad[d]) - m) + wd[d]);
-      if (n_chain > 0) {
-        float xs[MAX_CHAIN];
+      if (NC > 0 && n_chain > 0) {
+        float xs[NCA];
 #pragma unroll
-        for (int c = 0; c < MAX_CHAIN; ++c) {
+        for (int c = 0; c < NC; ++c) {
           float inj = NEGF;
 #pragma unroll
           for (int e = 0; e < ENTRY_SLOTS; ++e) inj = fmaxf(inj, (lds<PREV>(ae[c][e]) - m) + we[c][e]);
@@ -208,15 +222,15 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
 #pragma unroll
         for (int d = 1; d < 32; d <<= 1)
 #pragma unroll
-          for (int c = 0; c < MAX_CHAIN; ++c)
+          for (int c = 0; c < NC; ++c)
             xs[c] = fmaxf(xs[c], __shfl_up_sync(FULL, xs[c], d));
         if (lane == 31) {
 #pragma unroll
-          for (int c = 0; c < MAX_CHAIN; ++c) wtot[c][warp] = xs[c];
+          for (int c = 0; c < NC; ++c) wtot[c][warp] = xs[c];
         }
         __syncthreads();
 #pragma unroll
-        for (int c = 0; c < MAX_CHAIN; ++c) {
+        for (int c = 0; c < NC; ++c) {
           // the totals of the warps below this one: NV broadcast float4 reads
           const float4* tot4 = reinterpret_cast<const float4*>(wtot[c]);
           float below = -INFINITY;
@@ -232,7 +246,7 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
         }
         __syncthreads();
 #pragma unroll
-        for (int c = 0; c < MAX_CHAIN; ++c)
+        for (int c = 0; c < NC; ++c)
 #pragma unroll
           for (int e = 0; e < EXIT_SLOTS; ++e) out = fmaxf(out, lds<0>(ax[c][e]) + wx[c][e]);
       }
@@ -264,14 +278,14 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
   if (v == 0) acc_out[b] = acc;
 }
 
-template <int NV>
+template <int NV, class L>
 int launch(const void* obs, const void* tact, const void* start, const void* mu,
            const void* sigma, const void* uni, const void* luni, const void* lsig,
            const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
            void* fin, void* acc, int B, int T, cudaStream_t stream) {
   constexpr int SP = 128 * NV;
-  auto kernel = viterbi_fwd_kernel<NV>;
-  const size_t shmem = (size_t)(2 + MAX_CHAIN + OBS_CHUNK) * SP * sizeof(float);
+  auto kernel = viterbi_fwd_kernel<NV, L>;
+  const size_t shmem = (size_t)(2 + L::CHAIN + OBS_CHUNK) * SP * sizeof(float);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
@@ -283,39 +297,59 @@ int launch(const void* obs, const void* tact, const void* start, const void* mu,
   return (int)cudaGetLastError();
 }
 
+template <class L>
+int check_and_launch(const void* obs, const void* tact, const void* start, const void* mu,
+                     const void* sigma, const void* uni, const void* luni, const void* lsig,
+                     const void* src, const void* wts, const void* ramp, const int* h,
+                     void* sc, void* fin, void* acc, int B, int T, int SP,
+                     cudaStream_t stream) {
+  const int n_diag = h[0], n_chain = h[1];
+  bool ok = SP % 128 == 0 && SP <= 1024 && n_diag >= 0 && n_diag <= L::DIAG &&
+            n_chain >= 0 && n_chain <= L::CHAIN;
+  for (int c = 0; c < n_chain && c < L::CHAIN; ++c) {
+    const int n_entry = h[2 + 2 * c], n_exit = h[3 + 2 * c];
+    ok = ok && n_entry >= 0 && n_entry <= ENTRY_SLOTS && n_exit >= 0 && n_exit <= EXIT_SLOTS;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
+#define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
+                 acc, B, T, stream
+  switch (SP / 128) {
+    case 1: return launch<1, L>(FWD_ARGS);
+    case 2: return launch<2, L>(FWD_ARGS);
+    case 3: return launch<3, L>(FWD_ARGS);
+    case 4: return launch<4, L>(FWD_ARGS);
+    case 5: return launch<5, L>(FWD_ARGS);
+    case 6: return launch<6, L>(FWD_ARGS);
+    case 7: return launch<7, L>(FWD_ARGS);
+    default: return launch<8, L>(FWD_ARGS);
+  }
+#undef FWD_ARGS
+}
+
 }  // namespace
 
-// src, wts: (DIAG_SLOTS + MAX_CHAIN * CHAIN_SLOTS, SP) per-thread slot
-// tables; ramp (MAX_CHAIN, SP); counts: a host array of n_diag, n_chain
-// and (n_entry, n_exit) per chain.  A spec past the slots is refused
-// (PaddedHMM sends such an HMM to the dense forward).
+// src, wts: (slots, SP) per-thread slot tables of the layout (0: CHAINED,
+// DIAG + CHAIN * CHAIN_SLOTS slots; 1: DIAG_ONLY, its diagonal slots);
+// ramp (chains, SP); counts: a host array of n_diag, n_chain and
+// (n_entry, n_exit) per chain.  A spec past the layout's slots, or an
+// unknown layout, is refused (PaddedHMM sends an HMM that fits no layout
+// to the dense forward).
 extern "C" int viterbi_fwd_launch(const void* obs, const void* tact, const void* start,
                                   const void* mu, const void* sigma, const void* uni,
                                   const void* luni, const void* lsig, const void* src,
                                   const void* wts, const void* ramp, const void* counts,
                                   void* sc, void* fin, void* acc, int B, int T, int SP,
-                                  void* stream) {
+                                  int layout, void* stream) {
   const int* h = (const int*)counts;
-  const int n_diag = h[0], n_chain = h[1];
-  bool ok = SP % 128 == 0 && SP <= 1024 && n_diag >= 0 && n_diag <= DIAG_SLOTS &&
-            n_chain >= 0 && n_chain <= MAX_CHAIN;
-  for (int c = 0; c < n_chain && c < MAX_CHAIN; ++c) {
-    const int n_entry = h[2 + 2 * c], n_exit = h[3 + 2 * c];
-    ok = ok && n_entry >= 0 && n_entry <= ENTRY_SLOTS && n_exit >= 0 && n_exit <= EXIT_SLOTS;
-  }
-  if (!ok) return (int)cudaErrorInvalidValue;
   cudaStream_t stream_ = (cudaStream_t)stream;
-#define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
-                 acc, B, T, stream_
-  switch (SP / 128) {
-    case 1: return launch<1>(FWD_ARGS);
-    case 2: return launch<2>(FWD_ARGS);
-    case 3: return launch<3>(FWD_ARGS);
-    case 4: return launch<4>(FWD_ARGS);
-    case 5: return launch<5>(FWD_ARGS);
-    case 6: return launch<6>(FWD_ARGS);
-    case 7: return launch<7>(FWD_ARGS);
-    default: return launch<8>(FWD_ARGS);
+  switch (layout) {
+    case 0:
+      return check_and_launch<Chained>(obs, tact, start, mu, sigma, uni, luni, lsig, src, wts,
+                                       ramp, h, sc, fin, acc, B, T, SP, stream_);
+    case 1:
+      return check_and_launch<DiagOnly>(obs, tact, start, mu, sigma, uni, luni, lsig, src, wts,
+                                        ramp, h, sc, fin, acc, B, T, SP, stream_);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-#undef FWD_ARGS
 }

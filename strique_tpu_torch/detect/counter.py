@@ -18,13 +18,21 @@ path, in three phases a caller can overlap across batches:
   3. :meth:`RepeatCounter.detect_finish` -- waits for the paths and
      decodes counts and the float64 log_p on the host.
 
-``detect_mod_submit`` sits between 2 and 3 for the stream scheduler;
-without a mod model it returns its state unchanged.
+With a mod model (``mod_model_file``), :meth:`RepeatCounter.detect_mod_submit`
+sits between 2 and 3: it collects the paths, cuts each gated-in read's
+repeat-state samples from its minmax-normalised raw signal, queues the
+mod HMM's Viterbi decode on them (the same kernels: the factored
+forward in its diagonal-only slot layout, and the backward) and
+decodes the counts on the host while the card runs it; 3 then reads
+the mod paths into one '0'/'1' character per repeat unit.  Without a
+mod model it returns its state unchanged, and the stream scheduler
+calls it unconditionally.
 
 Results are ``(n, score_prefix, score_suffix, log_p, offset, ticks,
-mod)`` tuples, as the reference returns them.  Not ported yet, and
-raising ``NotImplementedError``: the mod model and the fused single
-dispatch (``STRIQUE_SPLIT=0``).
+mod)`` tuples, as the reference returns them (``mod`` is '-' without a
+mod model or for a read the gate drops).  Not ported yet, and raising
+``NotImplementedError``: the fused single dispatch
+(``STRIQUE_SPLIT=0``).
 
 Ultra-long reads (a bucket whose width-8 pointer plane exceeds
 ``ops.align_cuda.ptr_budget_bytes``; ``STRIQUE_PTR_BUDGET_GB``
@@ -43,9 +51,10 @@ Two knobs of the reference are honoured, through the same calls:
     the wave kernel; a partial batch that ``align_fused_pair`` fuses
     stays on the per-row-template wave kernel, as in the reference.
   * ``STRIQUE_DENSE_VITERBI=1`` -- read when the counter first stages
-    an HMM (``PaddedHMM``, cached per counter): the decode runs the
-    dense forward over the full transition matrix instead of the
-    factored one.  HMMs that ``hmm/factor.py`` declines take it always.
+    an HMM (``PaddedHMM``, cached per counter): the decode, the mod
+    HMM's too, runs the dense forward over the full transition matrix
+    instead of the factored one.  HMMs that ``hmm/factor.py`` declines
+    take it always.
 """
 from __future__ import annotations
 
@@ -57,7 +66,7 @@ import numpy as np
 import torch
 
 from .. import native as native_lib
-from ..hmm.models import build_flanked_repeat
+from ..hmm.models import build_flanked_repeat, build_repeat_mod
 from ..ops import signal as signal_ops
 from ..ops import viterbi as viterbi_ops
 from ..ops.align import align_fused_pair
@@ -135,9 +144,9 @@ class RepeatCounter:
                  align_config: dict | None = None, hmm_config: dict | None = None,
                  device="cuda"):
         """``device``: where the kernels run; "cuda" (default) raises when
-        no card is present -- there is no silent CPU fallback."""
-        if mod_model_file is not None:
-            raise NotImplementedError("mod calling is not ported yet (ROADMAP)")
+        no card is present -- there is no silent CPU fallback.
+        ``mod_model_file``: the base-modification pore model; each target
+        then also gets the mod HMM of its repeat unit on both strands."""
         if os.environ.get("STRIQUE_SPLIT", "1") == "0":
             raise NotImplementedError(
                 "only the split pipeline is ported; the fused dispatch (STRIQUE_SPLIT=0) is not")
@@ -158,6 +167,8 @@ class RepeatCounter:
         )
         self.samples = int(cfg["samples"])
         self.pm = PoreModel(model_file)
+        self.pm_mod = PoreModel(mod_model_file) if mod_model_file else self.pm
+        self.has_mod = mod_model_file is not None
         self.hmm_config = hmm_config
         self.targets: dict[str, tuple[TargetClassifier, TargetClassifier]] = {}
         self._hmm_cache: dict = {}
@@ -166,7 +177,8 @@ class RepeatCounter:
 
     # -- model construction ------------------------------------------------
     def add_target(self, target_name: str, repeat: str, prefix: str, suffix: str) -> None:
-        """Build flank templates + HMMs for both strands."""
+        """Build flank templates + HMMs for both strands (and the mod HMMs
+        of the repeat and its reverse complement with a mod model)."""
         if target_name in self.targets:
             raise ValueError(f"target {target_name!r} already defined")
         prefix_ext = prefix.upper()
@@ -175,14 +187,16 @@ class RepeatCounter:
         suffix = suffix[:50].upper()
         repeat = repeat.upper()
         gen = lambda seq: self.pm.generate_signal(seq, samples=self.samples).astype(np.float32)
+        mod = (lambda unit: build_repeat_mod(unit, self.pm, self.pm_mod, self.hmm_config)
+               if self.has_mod else None)
         tc_plus = TargetClassifier(
             gen(prefix), gen(suffix), gen(prefix_ext), gen(suffix_ext),
-            build_flanked_repeat(repeat, prefix, suffix, self.pm, self.hmm_config), None)
+            build_flanked_repeat(repeat, prefix, suffix, self.pm, self.hmm_config), mod(repeat))
         rc = reverse_complement
         tc_minus = TargetClassifier(
             gen(rc(suffix)), gen(rc(prefix)), gen(rc(suffix_ext)), gen(rc(prefix_ext)),
             build_flanked_repeat(rc(repeat), rc(suffix), rc(prefix), self.pm, self.hmm_config),
-            None)
+            mod(rc(repeat)))
         self.targets[target_name] = (tc_plus, tc_minus)
 
     def _padded_hmm(self, chm) -> PaddedHMM:
@@ -325,7 +339,7 @@ class RepeatCounter:
         # the pinned upload buffer stays referenced until the batch finishes:
         # its non_blocking copy may still be in flight
         return {"bounds_host": meta_host, "bounds_event": ev, "upload": upload,
-                "tc": tc, "flts": flts, "flt32s": flt32s, "B": len(raws)}
+                "tc": tc, "raws": raws, "flts": flts, "flt32s": flt32s, "B": len(raws)}
 
     def detect_middle(self, state: dict) -> dict:
         """Phase 2: wait for the bounds rows, dispatch Viterbi on the segments.
@@ -350,11 +364,43 @@ class RepeatCounter:
         return state
 
     def detect_mod_submit(self, state: dict) -> dict:
-        """The mod phase of a scheduler's pipeline, between
-        :meth:`detect_middle` and :meth:`detect_finish`: a no-op, as the
-        reference's is without a mod model (the port's constructor
-        refuses one until mod calling is ported), so schedulers may call
-        it unconditionally."""
+        """The mod phase, between :meth:`detect_middle` and
+        :meth:`detect_finish`: queue the mod decode early.
+
+        A no-op without a mod model, so schedulers may call it
+        unconditionally.  With one it collects the count decode, takes
+        each gated-in read's repeat-state samples from its minmax-
+        normalised raw signal (clipped to the mod HMM's level range; the
+        prep pool fans the reads out), queues their mod Viterbi decode,
+        and decodes the count rows on the host while the card runs it.
+        Idempotent.
+        """
+        if not self.has_mod or "modsub" in state or state["tc"].mod_hmm is None:
+            return state
+        tc = state["tc"]
+        raws = state["raws"]
+        B = state["B"]
+        bounds, paths, seg_lens = self.decode_bounds(state)
+        mm = tc.mod_hmm.meta
+
+        def _mod_input(i):
+            ok, _sp, _ss, prefix_begin, _pe, _sb, suffix_end = bounds[i]
+            if not ok:
+                return None
+            mask = viterbi_ops.repeat_sample_mask(paths[i], seg_lens[i], tc.repeat_hmm)
+            nrm = self.pm.normalize2model(raws[i], mode="minmax")
+            rep_signal = nrm[prefix_begin:suffix_end][mask]
+            if not len(rep_signal):
+                return None
+            return np.clip(rep_signal, mm["model_min"], mm["model_max"]).astype(np.float32)
+
+        rep_signals = list(self._prep_pool().map(_mod_input, range(B)))
+        mod_jobs = [(i, s) for i, s in enumerate(rep_signals) if s is not None]
+        handle = (self._viterbi_submit(tc.mod_hmm, [s for _, s in mod_jobs])
+                  if mod_jobs else None)
+        # the count rows decode on the host while the mod decode runs
+        results = self._main_results(state)
+        state["modsub"] = (results, [(i, len(s)) for i, s in mod_jobs], handle)
         return state
 
     def decode_bounds(self, state: dict):
@@ -377,7 +423,8 @@ class RepeatCounter:
         return state["decoded"]
 
     def _main_results(self, state: dict) -> list:
-        """Result rows (n, scores, log_p, offset, ticks, '-')."""
+        """Result rows [n, scores, log_p, offset, ticks, '-'], as lists
+        the mod phase fills."""
         tc = state["tc"]
         flts = state["flts"]
         bounds, paths, seg_lens = self.decode_bounds(state)
@@ -391,13 +438,24 @@ class RepeatCounter:
                 segment = flts[i][prefix_begin:suffix_end]
                 n = viterbi_ops.count_repeats(path, seg_lens[i], tc.repeat_hmm)
                 p = viterbi_ops.path_logp_f64(segment, path, tc.repeat_hmm)
-            results.append((n, score_prefix, score_suffix, p, prefix_end,
-                            max(suffix_begin - prefix_end, 0), "-"))
+            results.append([n, score_prefix, score_suffix, p, prefix_end,
+                            max(suffix_begin - prefix_end, 0), "-"])
         return results
 
     def detect_finish(self, state: dict):
-        """Phase 3: collect the paths and decode the result tuples on the host."""
-        return self._main_results(state)
+        """Phase 3: collect the paths and decode the result tuples on the
+        host (with a mod model: the mod phase first, then its paths into
+        each read's mod string)."""
+        tc = state["tc"]
+        state = self.detect_mod_submit(state)
+        if "modsub" in state:
+            results, mod_info, handle = state["modsub"]
+            if handle is not None:
+                mpaths = self._viterbi_collect(handle)
+                for k, (ri, slen) in enumerate(mod_info):
+                    results[ri][6] = viterbi_ops.mod_pattern(mpaths[k], slen, tc.mod_hmm)
+            return [tuple(r) for r in results]
+        return [tuple(r) for r in self._main_results(state)]
 
     def _viterbi_submit(self, chm, segments) -> dict:
         """Queue the Viterbi decode of ``segments``; returns a collect handle."""
@@ -418,7 +476,7 @@ class RepeatCounter:
         if path_itemsize(chm.n_states) == 1:
             paths = paths.to(torch.uint8)  # 1 byte per entry for <= 256 states
         host, ev = self._to_host(paths)
-        return {"paths": host, "event": ev, "B": B, "obs": obs_host}
+        return {"paths": host, "event": ev, "B": B, "obs": obs_host, "lens": lens_p}
 
     def _viterbi_collect(self, handle) -> np.ndarray:
         """Wait for a :meth:`_viterbi_submit` handle; (B, Tpad) int32 paths."""

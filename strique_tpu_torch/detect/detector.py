@@ -25,8 +25,10 @@ class RepeatDetector:
                  hmm_config: dict | None = None, device="cuda"):
         """``fast5_index``: an index file's path, or any object with
         ``get_raw(read_id)`` (raising RuntimeError for an unknown read).
-        ``device``: the counter's ("cuda" by default; it raises without a
-        card -- pass "cpu" for the plain PyTorch path)."""
+        ``mod_model_file``: the counter's base-modification model (mod
+        calling), or None.  ``device``: the counter's ("cuda" by default;
+        it raises without a card -- pass "cpu" for the plain PyTorch
+        path)."""
         self.counter = RepeatCounter(model_file, mod_model_file=mod_model_file,
                                      align_config=align_config, hmm_config=hmm_config,
                                      device=device)

@@ -109,8 +109,9 @@ class StreamScheduler:
         # (bounds D2H + Viterbi dispatch) in ``inflight``, then their mod
         # phase in ``ready``, then their finish in ``modq`` -- so a
         # batch's Viterbi runs on the card while later batches are still
-        # aligning.  The mod phase is a no-op until the port has mod
-        # calling (counter.detect_mod_submit).
+        # aligning; with a mod model the mod phase queues batch k's mod
+        # decode while later batches align (counter.detect_mod_submit, a
+        # no-op without one).
         self.inflight: deque = deque()
         self.ready: deque = deque()
         self.modq: deque = deque()

@@ -1,11 +1,11 @@
 """Builders for the STR-counting HMM.
 
-The port's own copy of the counting builders of
-``strique_tpu/hmm/models.py`` (the mod model is not ported yet);
-tests/test_torch_copies.py pins the compiled arrays equal.  Replicates
-the state graphs of the reference's pomegranate models —
-``profileHMM`` (reference scripts/STRique.py:201-307), ``repeatHMM``
-(:313-378) and ``flankedRepeatHMM`` (:384-441) — as
+The port's own copy of the builders of ``strique_tpu/hmm/models.py``;
+tests/test_torch_copies.py and tests/test_torch_mod.py pin the compiled
+arrays equal.  Replicates the state graphs of the reference's
+pomegranate models — ``profileHMM`` (reference
+scripts/STRique.py:201-307), ``repeatHMM`` (:313-378),
+``flankedRepeatHMM`` (:384-441) and ``repeatModHMM`` (:447-500) — as
 :class:`~strique_tpu_torch.hmm.graph.HmmGraph` data, compiled to dense
 tensors by :meth:`HmmGraph.compile`.
 """
@@ -45,7 +45,7 @@ FLANKED_DEFAULTS = {
     "e1_ratio": 0.1,
 }
 
-
+MOD_DEFAULTS = {"rep_std_scale": 1.5, "rep_std_offset": 0.0, "leave_repeat": 0.002}  # reference :450-452
 
 def _merged(defaults: dict, config: dict | None) -> dict:
     tp = dict(defaults)
@@ -209,5 +209,48 @@ def build_flanked_repeat(repeat: str, prefix: str, suffix: str, pm: PoreModel,
         # deltas (2019-era scipy/skimage preprocessing).  Opt-in via HMM
         # config {"pomegranate_compat": true}; see PARITY.md.
         chm.log_uni = np.where(chm.meta["count_states"],
+                               chm.log_uni + np.log(10.0), chm.log_uni)
+    return chm
+
+
+def build_repeat_mod(repeat: str, pm_base: PoreModel, pm_mod: PoreModel,
+                     config: dict | None = None) -> CompiledHMM:
+    """Two-model methylation HMM over repeat units (reference STRique.py:461-490)."""
+    tp = _merged(MOD_DEFAULTS, config)
+    seq, _ = _extend_repeat(repeat, pm_base.kmer)
+    model_min = min(pm_base.model_min, pm_mod.model_min)
+    model_max = max(pm_base.model_max, pm_mod.model_max)
+    g = HmmGraph()
+    s0 = g.add_uniform("s0", model_min, model_max)
+    e0 = g.add_uniform("e0", model_min, model_max)
+    base = build_profile(g, seq, pm_base, tp, state_prefix="base", no_silent=True,
+                         std_scale=tp["rep_std_scale"], std_offset=tp["rep_std_offset"])
+    mod = build_profile(g, seq, pm_mod, tp, state_prefix="mod", no_silent=True,
+                        std_scale=tp["rep_std_scale"] * pm_mod.scale2stdv(pm_base),
+                        std_offset=tp["rep_std_offset"])
+    g.add_edge(g.start, s0, 1)
+    for port in (base.s1, base.s2, mod.s1, mod.s2):
+        g.add_edge(s0, port, 0.25)
+    for port in (base.e1, base.e2, mod.e1, mod.e2):
+        g.add_edge(port, e0, 1)
+    g.add_edge(e0, g.end, tp["leave_repeat"])
+    g.add_edge(e0, s0, 1 - tp["leave_repeat"])
+    chm = g.compile(meta={"kind": "repeat_mod", "repeat": repeat,
+                          "model_min": model_min, "model_max": model_max})
+    names = chm.names
+    chm.meta["anchor_states"] = np.array([n in ("s0", "e0") for n in names], dtype=bool)
+    chm.meta["mod_states"] = np.array(["mod" in n for n in names], dtype=bool)
+    if tp.get("pomegranate_compat"):
+        # The reference's mod model was pomegranate-baked too, and its
+        # s0/e0 anchors are the same uniform-emission dummy shape that
+        # carries the +ln(10)-per-visit bake artifact in the counting
+        # HMM (see build_flanked_repeat above).  The constant is shared
+        # by both branches of every unit, so the 0/1 branch choice is
+        # insensitive to it — but it rewards paths with MORE anchor
+        # visits, and on boundary-ambiguous signals it can change the
+        # unit segmentation (measured: 1/40 synthetic mixed-unit reads
+        # changed pattern length).  Applied symmetrically with the counting
+        # HMM under the same config flag; see PARITY.md.
+        chm.log_uni = np.where(chm.meta["anchor_states"],
                                chm.log_uni + np.log(10.0), chm.log_uni)
     return chm

@@ -7,9 +7,13 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     diagonals plus delete-chain flows ``cummax(inj - ramp) + ramp``,
     Gaussian/uniform emissions, a per-step row-max rescale and its
     running sum ``acc``.  Kernel ``csrc/viterbi_fwd.cu``, fed per-thread
-    gather tables (``fwd_gather_tables``: at most ``FWD_MAX_DIAG``
-    diagonals and ``FWD_MAX_CHAIN`` chains of ``FWD_MAX_ENTRY`` entries
-    and ``FWD_MAX_EXIT`` exits, the shape of every flanked-repeat HMM).
+    gather tables (``fwd_gather_tables``) in one of two slot layouts
+    (``FWD_LAYOUTS``): CHAINED, at most ``FWD_MAX_DIAG`` diagonals and
+    ``FWD_MAX_CHAIN`` chains of ``FWD_MAX_ENTRY`` entries and
+    ``FWD_MAX_EXIT`` exits, the shape of every flanked-repeat HMM
+    (launch counter ``viterbi_forward_factored``); DIAG_ONLY, at most
+    ``FWD_DIAG_ONLY`` diagonals and no chain, the shape of every mod HMM
+    (``viterbi_forward_factored_diag``).
   * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
     with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
     for HMMs without a factored form (``hmm/factor.py`` declines) or
@@ -43,7 +47,7 @@ are exact regardless and scores agree to f32 rounding (tests state the
 tolerance).
 
 ``PaddedHMM`` stages the factored form unless the HMM has none, its
-form is wider than the forward kernel's slots (``fwd_spec_fits``), or
+form fits neither slot layout of the forward kernel (``fwd_spec_fits``), or
 ``STRIQUE_DENSE_VITERBI=1`` at its construction (as the reference's
 does); ``viterbi_batch`` takes the dense forward when it has none.
 """
@@ -51,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,17 +80,37 @@ def lsig_row(sigma: np.ndarray) -> np.ndarray:
     return (-0.5 * _LOG2PI - np.log(np.asarray(sigma, np.float64))).astype(np.float32)
 
 
-# slot layout of the factored forward kernel (csrc/viterbi_fwd.cu): each
+# slot layouts of the factored forward kernel (csrc/viterbi_fwd.cu): each
 # thread holds one source lane and weight per slot in registers, and
-# applies every slot at every step; these are the limits of a spec the
-# kernel takes.  Every flanked-repeat HMM factors into 6 or 7 diagonals
-# and 2 chains of 2 entries and 3 and 2 exits.
+# applies every slot at every step; these are the limits of a spec each
+# layout takes.  Every flanked-repeat HMM factors into 6 or 7 diagonals
+# and 2 chains of 2 entries and 3 and 2 exits (CHAINED); every mod HMM
+# into 11 diagonals and no chain (DIAG_ONLY).
 FWD_MAX_DIAG = 8
 FWD_MAX_CHAIN = 2
 FWD_MAX_ENTRY = 2
 FWD_MAX_EXIT = 3
 FWD_CHAIN_SLOTS = FWD_MAX_ENTRY + FWD_MAX_EXIT
 FWD_SLOTS = FWD_MAX_DIAG + FWD_MAX_CHAIN * FWD_CHAIN_SLOTS
+FWD_DIAG_ONLY = 12
+
+
+class FwdLayout(NamedTuple):
+    """A slot layout of the factored forward kernel: ``code`` is the
+    kernel's template argument, ``name`` its launch counter."""
+
+    code: int
+    name: str
+    diag: int
+    chain: int
+
+    @property
+    def slots(self) -> int:
+        return self.diag + self.chain * FWD_CHAIN_SLOTS
+
+
+FWD_LAYOUTS = (FwdLayout(0, "viterbi_forward_factored", FWD_MAX_DIAG, FWD_MAX_CHAIN),
+               FwdLayout(1, "viterbi_forward_factored_diag", FWD_DIAG_ONLY, 0))
 BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
 # the dense forward's resident mode (csrc/viterbi_dense.cu): a cluster of
 # at most DENSE_MAX_CLUSTER CTAs a read, each warp holding the transitions
@@ -95,11 +120,16 @@ DENSE_MAX_CLUSTER = 8  # the portable cluster size
 DENSE_MAX_REGS = 64
 
 
-def fwd_spec_fits(spec) -> bool:
-    """Whether a factored spec fits the forward kernel's slots."""
+def fwd_spec_fits(spec) -> FwdLayout | None:
+    """The first slot layout of ``FWD_LAYOUTS`` a factored spec fits, or
+    None: the forward kernel takes none such."""
     diag_offs, chain_spec = spec
-    return (len(diag_offs) <= FWD_MAX_DIAG and len(chain_spec) <= FWD_MAX_CHAIN
-            and all(len(a) <= FWD_MAX_ENTRY and len(x) <= FWD_MAX_EXIT for a, x in chain_spec))
+    if not all(len(a) <= FWD_MAX_ENTRY and len(x) <= FWD_MAX_EXIT for a, x in chain_spec):
+        return None
+    for layout in FWD_LAYOUTS:
+        if len(diag_offs) <= layout.diag and len(chain_spec) <= layout.chain:
+            return layout
+    return None
 
 
 def fwd_gather_tables(spec, weights, sp: int):
@@ -107,26 +137,27 @@ def fwd_gather_tables(spec, weights, sp: int):
 
     Every roll's source lane ``u = (v - o) mod SP`` and weight ``w[u]``
     are the same at every step, so the kernel's thread ``v`` loads them
-    once into registers.  Slots: ``FWD_MAX_DIAG`` diagonals, then per
-    chain ``FWD_MAX_ENTRY`` entries and ``FWD_MAX_EXIT`` exits; a slot the
-    spec leaves empty gathers lane v with weight -inf, the identity of
-    the max, so the kernel applies its slots without a branch.  Returns
-    numpy (src (FWD_SLOTS, SP) int32, w (FWD_SLOTS, SP) f32, ramp
-    (FWD_MAX_CHAIN, SP) f32, counts int32 [n_diag, n_chain, (n_entry,
-    n_exit) per chain slot]).  Raises ValueError for a spec past the
-    slots: the kernel takes none.
+    once into registers.  Slots of the layout ``fwd_spec_fits`` picks:
+    its diagonals, then per chain ``FWD_MAX_ENTRY`` entries and
+    ``FWD_MAX_EXIT`` exits; a slot the spec leaves empty gathers lane v
+    with weight -inf, the identity of the max, so the kernel applies its
+    slots without a branch.  Returns numpy (src (slots, SP) int32, w
+    (slots, SP) f32, ramp (chains, SP) f32, counts int32 [n_diag,
+    n_chain, (n_entry, n_exit) per chain of FWD_MAX_CHAIN]).  Raises
+    ValueError for a spec that fits no layout: the kernel takes none.
     """
     diag_offs, chain_spec = spec
-    if not fwd_spec_fits(spec):
+    layout = fwd_spec_fits(spec)
+    if layout is None:
         raise ValueError(
             f"factored spec with {len(diag_offs)} diagonals and chains "
             f"{[(len(a), len(x)) for a, x in chain_spec]} exceeds the forward kernel's slots "
             f"({FWD_MAX_DIAG} diagonals, {FWD_MAX_CHAIN} chains of {FWD_MAX_ENTRY} entries "
-            f"and {FWD_MAX_EXIT} exits)")
+            f"and {FWD_MAX_EXIT} exits; or {FWD_DIAG_ONLY} diagonals and no chain)")
     lane = np.arange(sp)
-    src = np.tile(lane.astype(np.int32), (FWD_SLOTS, 1))
-    w = np.full((FWD_SLOTS, sp), -np.inf, np.float32)
-    ramp = np.zeros((FWD_MAX_CHAIN, sp), np.float32)
+    src = np.tile(lane.astype(np.int32), (layout.slots, 1))
+    w = np.full((layout.slots, sp), -np.inf, np.float32)
+    ramp = np.zeros((layout.chain, sp), np.float32)
     counts = np.zeros(2 + 2 * FWD_MAX_CHAIN, np.int32)
     counts[:2] = len(diag_offs), len(chain_spec)
     it = iter(np.asarray(x, np.float32).reshape(sp) for x in weights)
@@ -138,7 +169,7 @@ def fwd_gather_tables(spec, weights, sp: int):
     for d, o in enumerate(diag_offs):
         put(d, o)
     for c, (entry_offs, exit_offs) in enumerate(chain_spec):
-        base = FWD_MAX_DIAG + c * FWD_CHAIN_SLOTS
+        base = layout.diag + c * FWD_CHAIN_SLOTS
         for e, o in enumerate(entry_offs):
             put(base + e, o)
         ramp[c] = next(it)
@@ -154,10 +185,12 @@ class PaddedHMM:
     ``device`` defaults to the card and raises when there is none, as
     ``RepeatCounter`` does; pass "cpu" for the plain twins.
     ``fspec``/``fweights`` hold the factored form, or None: when the HMM
-    has none, when it is wider than the forward kernel's slots
+    has none, when it fits neither of the forward kernel's slot layouts
     (``fwd_spec_fits``; the factorizer takes up to 28 rolls), or when
     ``STRIQUE_DENSE_VITERBI=1`` at construction (read here, as the
     reference reads it), so decodes take the dense forward.
+    ``fwd_layout`` is the layout the factored form is staged in (None
+    without one).
     """
 
     def __init__(self, chm, device="cuda"):
@@ -216,7 +249,8 @@ class PaddedHMM:
         self.uni = t(uni, np.int32)
         self.luni = t(luni)
         self.lsig = t(lsig_row(np.asarray(sigma, np.float32).reshape(-1)))
-        if fspec is not None and not fwd_spec_fits(fspec):
+        self.fwd_layout = None if fspec is None else fwd_spec_fits(fspec)
+        if self.fwd_layout is None:
             fspec = None
         self.fspec = fspec
         self.fweights = None
@@ -298,8 +332,9 @@ def _fwd_cuda(obs, t_actual, ph):
         o.data_ptr(), tact.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
         ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
         ph.lsig.data_ptr(), src.data_ptr(), w.data_ptr(), ramp.data_ptr(),
-        ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
-    _build.LAUNCHES["viterbi_forward_factored"] += 1
+        ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp,
+        ph.fwd_layout.code)
+    _build.LAUNCHES[ph.fwd_layout.name] += 1
     return sc, fin, acc
 
 

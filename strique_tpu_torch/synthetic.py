@@ -5,7 +5,9 @@ repeat count without any downloaded data: the model is a full 4096-row
 6-mer table of seeded random levels in the tab format ``PoreModel``
 parses (``kmer<TAB>level_mean<TAB>level_stdv``), and reads are the
 c9orf72 locus (flanks as in bench.py) around a backbone, synthesised by
-``PoreModel.generate_signal`` with per-sample model noise.  ``quantise``
+``PoreModel.generate_signal`` with per-sample model noise.  Mod
+calling has a twin model (``write_mod_model``: CpG k-mers shifted) and
+reads from both (``make_mod_reads``, ``mod_workload``).  ``quantise``
 turns f32 reads into the counter's morph form (u8 bins and a 256-level
 table per read) for the tests of the TABLE score mode.  The Viterbi
 kernels' edge inputs (``viterbi_edge_case``) are one table shared by
@@ -103,16 +105,33 @@ def write_count_run(directory, pm, specs, seed: int, loci=None) -> dict:
     return run
 
 
-def write_pore_model(path: str, seed: int = 0, k: int = 6) -> str:
-    """Write a deterministic 4**k-row k-mer model (levels 60-130 pA, stdv 1-3)."""
+def _write_model(path: str, seed: int, k: int, cpg_shift: float) -> str:
     rng = np.random.default_rng(seed)
     kmers = ["".join(p) for p in itertools.product("ACGT", repeat=k)]
     means = rng.uniform(60.0, 130.0, len(kmers))
     stdvs = rng.uniform(1.0, 3.0, len(kmers))
     with open(path, "w") as fp:
         for km, mu, sd in zip(kmers, means, stdvs):
-            fp.write(f"{km}\t{mu:.4f}\t{sd:.4f}\n")
+            fp.write(f"{km}\t{mu + (cpg_shift if 'CG' in km else 0.0):.4f}\t{sd:.4f}\n")
     return path
+
+
+def write_pore_model(path: str, seed: int = 0, k: int = 6) -> str:
+    """Write a deterministic 4**k-row k-mer model (levels 60-130 pA, stdv 1-3)."""
+    return _write_model(path, seed, k, 0.0)
+
+
+# the mod twin's CpG level shift (pA); on the pair at MOD_MODEL_SEED (below)
+# the JAX package separates base and twin reads on both strands at it
+# (tools/probe_mod_twin.py)
+MOD_SHIFT = -4.0
+
+
+def write_mod_model(path: str, seed: int = 0, shift: float = MOD_SHIFT, k: int = 6) -> str:
+    """Write the 5mC twin of ``write_pore_model(path, seed, k)``: the same
+    4**k k-mers, levels and stdvs, with ``shift`` added to the level of
+    every k-mer that contains ``CG``."""
+    return _write_model(path, seed, k, shift)
 
 
 def make_reads(pm, n_reads: int, repeats: int, rng, strand: str = "+",
@@ -135,6 +154,47 @@ def make_reads(pm, n_reads: int, repeats: int, rng, strand: str = "+",
         n = max(len(s) for s in sigs)
         sigs = [np.pad(s, (0, n - len(s)), mode="edge") for s in sigs]
     return sigs
+
+
+def make_mod_reads(pm, pm_mod, n_reads: int, repeats: int, rng, strand: str = "+",
+                   flank_bases: int = 1000, prefix: str = PREFIX, suffix: str = SUFFIX,
+                   repeat: str = REPEAT) -> list:
+    """``n_reads`` noisy raw signals of one locus sequence, as bench.py's
+    mod pass makes them: even reads from the base model ``pm``, odd ones
+    from its twin ``pm_mod``, edge-padded to one length."""
+    backbone = "".join(rng.choice(list("ACTG"), 2 * flank_bases))
+    seq = (backbone[:flank_bases] + prefix + repeat * repeats + suffix
+           + backbone[-flank_bases:])
+    if strand == "-":
+        seq = seq.upper().translate(str.maketrans("ACGT", "TGCA"))[::-1]
+    sigs = [(pm_mod if i % 2 else pm).generate_signal(seq, samples=8, noise=True, rng=rng)
+            for i in range(n_reads)]
+    n = max(len(s) for s in sigs)
+    return [np.pad(s, (0, n - len(s)), mode="edge") for s in sigs]
+
+
+# the base model's seed of the mod pair (``write_pore_model`` and
+# ``write_mod_model`` at MOD_MODEL_SEED): on it the JAX package calls
+# twin reads '1' and base reads '0' on both strands at MOD_SHIFT.  Which
+# sign of shift separates depends on the model and the strand: the
+# read's minmax normalisation moves with its CpG levels (on seed 0, -4
+# separates '+' reads only and +4 '-' reads only)
+MOD_MODEL_SEED = 7
+MOD_REPEATS = 50
+# the reads of mod_workload(pm, pm_mod, 0) on the MOD_MODEL_SEED pair that
+# the JAX package counts off MOD_REPEATS on the CPU: (strand, index) ->
+# its count.  Two twin '-' reads of 128; every other read counts exact
+MOD_WORKLOAD_MISCOUNTS = {("-", 21): 51, ("-", 27): 51}
+
+
+def mod_workload(pm, pm_mod, seed: int, n_plus: int = 96, n_minus: int = 32,
+                 repeats: int = MOD_REPEATS):
+    """chip_smoke.py phase 4h's reads: (n_plus '+' reads, n_minus '-'
+    reads) of c9orf72 with ``repeats`` units, each list alternating base
+    and twin reads (``make_mod_reads``) from ``default_rng(seed + 3)``."""
+    rng = np.random.default_rng(seed + 3)
+    return (make_mod_reads(pm, pm_mod, n_plus, repeats, rng, "+"),
+            make_mod_reads(pm, pm_mod, n_minus, repeats, rng, "-"))
 
 
 # chip_smoke.py phase 4g's stream: (target, strand, reads) groups, units

@@ -74,8 +74,6 @@ def test_counter_phases_and_prep_tokens(model_file):
 
 
 def test_counter_refuses_unported_paths(model_file, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mod"):
-        RepeatCounter(model_file, mod_model_file=model_file, device="cpu")
     monkeypatch.setenv("STRIQUE_SPLIT", "0")
     with pytest.raises(NotImplementedError, match="split"):
         RepeatCounter(model_file, device="cpu")

@@ -19,15 +19,15 @@ import torch
 
 from strique_tpu_torch import _build
 from strique_tpu_torch.detect.counter import RepeatCounter
-from strique_tpu_torch.hmm.models import build_flanked_repeat
+from strique_tpu_torch.hmm.models import build_flanked_repeat, build_repeat_mod
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
-from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, VITERBI_EDGES, make_reads,
-                                        quantise, traceback_plane, viterbi_edge_case,
-                                        write_pore_model)
+from strique_tpu_torch.synthetic import (MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX, VITERBI_EDGES,
+                                        make_mod_reads, make_reads, quantise, traceback_plane,
+                                        viterbi_edge_case, write_mod_model, write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -262,6 +262,84 @@ def test_gpu_viterbi_edges_match_plain(cuda_device, model_file, case):
     path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
     assert _build.LAUNCHES["viterbi_backward_batch"] == before + 1
     assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+def _check_diag_forward(dev, ph, obs, lens):
+    """The diagonal-only forward (its launch counter alone) and the
+    backward against their twins: rows below each length, fin and acc
+    bit-equal, paths equal."""
+    o = torch.from_numpy(obs).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    keys = ("viterbi_forward_factored", "viterbi_forward_factored_diag")
+    before = {k: _build.LAUNCHES[k] for k in keys}
+    sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in keys} == {keys[0]: 0, keys[1]: 1}
+    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
+    live = torch.arange(obs.shape[1], device=dev)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    last = torch.argmax(fin + ph.end, dim=1)
+    path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
+    assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+@pytest.fixture(scope="module")
+def mod_models(tmp_path_factory):
+    d = tmp_path_factory.mktemp("mod")
+    return (write_pore_model(str(d / "base.model"), seed=MOD_MODEL_SEED),
+            write_mod_model(str(d / "twin.model"), seed=MOD_MODEL_SEED))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("unit_bases,sp", [(6, 128), (60, 256)])
+def test_gpu_diag_forward_matches_plain(cuda_device, mod_models, unit_bases, sp):
+    """The factored forward in its diagonal-only slot layout on a mod
+    HMM: GGCCCC's (26 states, SP 128) and a 60-base unit's (242, SP 256)."""
+    pm, pm_mod = (PoreModel(m) for m in mod_models)
+    rng = np.random.default_rng(20 + unit_bases)
+    unit = REPEAT if unit_bases == 6 else "".join(rng.choice(list("ACGT"), unit_bases))
+    chm = build_repeat_mod(unit, pm, pm_mod)
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == sp and ph.fwd_layout.name == "viterbi_forward_factored_diag"
+    T = 1024
+    lens = np.array([1024, 1000, 513, 100, 65, 33, 17, 2], np.int32)
+    obs = np.zeros((len(lens), T), np.float32)
+    for i, k in enumerate(lens):
+        x = (pm_mod if i % 2 else pm).generate_signal(unit * (T // (6 * len(unit)) + 2),
+                                                      samples=8, noise=True, rng=rng)
+        obs[i, :k] = np.clip(x, chm.meta["model_min"], chm.meta["model_max"])[:k]
+    _check_diag_forward(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(VITERBI_EDGES))
+def test_gpu_diag_forward_edges_match_plain(cuda_device, mod_models, case):
+    """The diagonal-only layout at the Viterbi edge inputs (short reads,
+    obs-chunk boundaries, constant obs, the longest case) with the
+    GGCCCC mod HMM."""
+    pm, pm_mod = (PoreModel(m) for m in mod_models)
+    _, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(80 + len(case)))
+    ph = TVC.PaddedHMM(build_repeat_mod(REPEAT, pm, pm_mod), cuda_device)
+    _check_diag_forward(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+def test_gpu_mod_counter_matches_cpu_counter(cuda_device, mod_models):
+    """The mod path on the card against the plain CPU path, tuple for
+    tuple, on base and twin reads of both strands."""
+    base, twin = mod_models
+    pm, pm_mod = PoreModel(base), PoreModel(twin)
+    prefix, suffix = PREFIX[-80:], SUFFIX[:80]
+    for strand in "+-":
+        reads = make_mod_reads(pm, pm_mod, 4, 30, np.random.default_rng(13), strand,
+                               flank_bases=200, prefix=prefix, suffix=suffix)
+        out = []
+        for dev in (cuda_device, "cpu"):
+            c = RepeatCounter(base, mod_model_file=twin, device=dev)
+            c.add_target("c9orf72", REPEAT, prefix, suffix)
+            out.append(c.detect_many("c9orf72", reads, strand))
+        assert out[0] == out[1]
+        assert all(r[6] not in ("", "-") for r in out[0])
 
 
 @pytest.mark.gpu
