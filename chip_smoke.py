@@ -54,7 +54,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    clipped repeat-state segments of T 3072 through the mod HMM of
    GGCCCC (26 states, SP 128) and of a 60-base unit (242 states, SP
    256), against their twins, the dense resident forward's ms on the
-   same inputs beside them and its paths equal.  Print kernel and plain
+   same inputs beside them and its paths equal.  Rows 3-4 past SP 1024
+   (``check_viterbi_wide``): the wide forward in both slot layouts and
+   the wide backward against their twins at SP 1152, 2048 and 8192
+   (``synthetic.VITERBI_WIDE``: flanked-repeat and mod HMMs, 8 reads of
+   T 1024, constant obs at SP 1152), then at phase 4f's shapes (the
+   150-base unit's repeat HMM, 8 segments of 5 units, T 7168; the
+   260-base unit's mod HMM, 8 segments of 3 units, T 6656), each with
+   its ms, us a step, bound and twin ms.  Print kernel and plain
    times, and us per step (a column for row 8).
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
@@ -94,6 +101,15 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    alone), equal tuples, each read at the reference's count: 11 of 12
    units, as the JAX package counts these reads on the CPU
    (tests/test_torch_dense.py ``test_vntr_counts_match_jax_counter``).
+   Past SP 1024: a 150-base unit's target (SP 1152), 8 '+' reads of 5
+   units on the default route (the wide forward and backward) and under
+   ``STRIQUE_DENSE_VITERBI=1`` (the streamed dense forward and the wide
+   backward), tuples equal to the port's CPU counter's
+   (tests/test_torch_wide_counter.py holds it to the JAX counter); a
+   260-base unit's target with the mod model (repeat HMM SP 1792, mod
+   HMM SP 1152), 4 base and twin reads, tuples equal to the CPU
+   counter's (tests/test_torch_wide_mod.py); and a 1345-base unit (SP
+   8320) refused by ``add_target`` on the card before any launch.
 4c. One more pass of each path under torch.profiler: wall time, device
    time by kernel and the busy share; the walks of each traceback launch
    read from its outputs, and the kernel's us a step on the path.
@@ -145,6 +161,19 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    through the plain twins on the card gives the kernels' paths.  Print
    reads/s, the batches and the mod decode's device ms (profiled, and
    one decode by CUDA events).
+4i. Several device entries: phase 4g's stream through a detector on
+   ``device=[cuda:0, cuda:0]`` (each batch's rows in two shards, each
+   on its own CUDA stream) at ``--batch`` 64, its TSV byte-equal to
+   phase 4g's; the ultra-long reads on the same entries under phase 4b's
+   two-pass budget (``STRIQUE_PTR_BUDGET_GB=2``, where one device runs
+   both flanks as one 16-row group: here each entry's shard of 4 reads
+   runs its own 8-row group) and under the card's default budget, tuples
+   equal to phase 4b's two-pass run's.
+4j. ``count`` over phase 4g's stream as two processes on the one card
+   (``--coordinator localhost:P --num_hosts 2 --host_id i``, gloo; the
+   detector's index reads an .npz of the signals): one merged TSV with
+   the single process's rows, parts removed, the reads split between
+   the processes.  Print the wall seconds.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
@@ -154,7 +183,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    two-pass route, the POW launches of rows 1-2, 5-6 and 8 from phase
    4e, row 8's TABLE and row 7's resident launches from phase 4d, row
    7's streamed launches from phase 4f, row 3's diagonal-only layout's
-   from phase 4h's timed stream run.
+   from phase 4h's timed stream run, the wide variants' from phase 4f's
+   wide targets (the default route's, and the mod target's for the
+   diagonal-only layout).
 """
 from __future__ import annotations
 
@@ -216,6 +247,23 @@ COUNT_REPS = 2
 # HMM (540 states, SP 640) is past the dense forward's resident rule
 VNTR_UNIT_BASES = 60
 VNTR_UNITS = 12
+# phase 3's wide Viterbi cases (synthetic.VITERBI_WIDE: SP 1152, 2048 and
+# 8192 in both slot layouts; SP 4480 is the gpu tests' alone)
+WIDE_CASES = ("flanked 150", "flanked 150, constant obs", "flanked 300", "flanked 1330",
+              "mod 260", "mod 500", "mod 2030")
+WIDE_KERNELS = ("viterbi_forward_factored_wide", "viterbi_forward_factored_diag_wide",
+                "viterbi_backward_wide")
+# phase 4f's wide target: '+' reads of 5 units of a 150-base unit (SP 1152)
+WIDE_UNITS = 5
+WIDE_READS = 8
+WIDE_MOD_READS = 4
+# a unit past the card's widest HMM: 1345 bases, 8250 states (SP 8320)
+TOO_WIDE_UNIT_BASES = 1345
+# phase 4i: the count stream and the ultra two-pass route over two entries
+# of the one card; phase 4j: count as two processes over gloo
+DEVICE_ENTRIES = 2
+HOSTS = 2
+HOST_TIMEOUT_S = 300
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
                            "strique_tpu/ops/align_pallas.py:639"),
@@ -241,6 +289,12 @@ SOURCES = {
                                       "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                                "strique_tpu/ops/viterbi_pallas.py:308"),
+    "viterbi_forward_factored_wide": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                      "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_forward_factored_diag_wide": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                           "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_backward_wide": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
+                              "strique_tpu/ops/viterbi_pallas.py:308"),
     "align_forward_col_table": ("strique_tpu_torch/csrc/col_align.cu",
                                 "strique_tpu/ops/align_pallas.py:322"),
     "align_forward_col": ("strique_tpu_torch/csrc/col_align.cu",
@@ -1073,6 +1127,140 @@ def check_viterbi_mod(pm, pm_mod, unit, shape_name, B, T, rng, results):
                      **bound(nbytes, f32)}
 
 
+def factored_bound(ph, l_d, B: int, T: int) -> dict:
+    """``bound()`` of the factored forward on these inputs: per (step,
+    state) an add and a max per roll, 3 per chain (ramp in, cummax, ramp
+    out), 8 for the emission and the row-max rescale; the obs, the live
+    rows, fin and acc, and the step-invariant tables."""
+    sp = ph.sp
+    live_cells = float(l_d.double().sum()) * sp
+    diag_offs, chain_spec = ph.fspec
+    n_rolls = len(diag_offs) + sum(len(a) + len(b) for a, b in chain_spec)
+    f32 = live_cells * (2 * n_rolls + 3 * len(chain_spec) + 8)
+    nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + len(chain_spec) + 5) * sp
+    return bound(nbytes, f32)
+
+
+def backward_bound(sp: int, l_d, B: int, T: int) -> dict:
+    """``bound()`` of the backward: one score row and one transition row
+    per visited step, 3 f32 operations a state."""
+    live_cells = float(l_d.double().sum()) * sp
+    return bound(4 * (live_cells + sp * sp + B * T + 2 * B), 3 * live_cells)
+
+
+def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
+    """Rows 3-4's wide variants (SP past 1024) against their twins: the
+    forward in the HMM's slot layout (rows below each length, fin and acc
+    bit-equal) and the backward (paths equal), each wrapper launching its
+    wide counter alone; ms and us a step of each, the bound and the twin's
+    ms.  ``results``: where given, the kernel line's entries of the
+    layout's wide forward and of the wide backward."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    ph = VC.PaddedHMM(chm, o_d.device)
+    layout = ph.fwd_layout
+    B, T = o_d.shape
+    keys = (layout.name, layout.wide_name, "viterbi_backward_batch", "viterbi_backward_wide",
+            *DENSE)
+    before = dict(_build.LAUNCHES)
+    run_f = lambda: VC.viterbi_forward_factored(o_d, l_d, ph)
+    (sc_k, fin_k, acc_k), _ = once_ms(run_f)
+    last = torch.argmax(fin_k + ph.end, dim=1)
+    run_b = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
+    path_k, _ = once_ms(run_b)
+    want = {k: int(k in (layout.wide_name, "viterbi_backward_wide")) for k in keys}
+    if {k: _build.LAUNCHES[k] - before[k] for k in keys} != want:
+        fail(f"the Viterbi pair at SP {ph.sp} ({label}) did not launch the wide variants alone")
+    (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_plain(o_d, l_d, ph))
+    live = torch.arange(T, device=o_d.device)[:, None] < l_d[None, :]
+    err = max(float((sc_k[live] - sc_p[live]).abs().max()),
+              float((fin_k - fin_p).abs().max()), float((acc_k - acc_p).abs().max()))
+    del sc_p
+    path_p, bwd_plain_ms = once_ms(lambda: VC._bwd_plain(sc_k, last, l_d, ph.transT))
+    perr = int((path_k.to(torch.int64) - path_p.to(torch.int64)).abs().max())
+    ms = cuda_ms(run_f, 3)
+    bwd_ms = cuda_ms(run_b, 3)
+    for k in keys:
+        _build.LAUNCHES[k] = before[k]
+    steps = int(l_d.max())
+    fb, bb = factored_bound(ph, l_d, B, T), backward_bound(ph.sp, l_d, B, T)
+    print(f"  {layout.wide_name} [{label}: B={B} T={T} SP={ph.sp}, {chm.n_states} states]: "
+          f"max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), bound "
+          f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), plain {plain_ms:.1f} ms", flush=True)
+    print(f"  viterbi_backward_wide [{label}: B={B} T={T} SP={ph.sp}]: max_abs_err {perr}; "
+          f"kernel {bwd_ms:.3f} ms ({bwd_ms * 1e3 / steps:.4f} us/step), bound "
+          f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}), plain {bwd_plain_ms:.1f} ms", flush=True)
+    if err != 0.0:
+        fail(f"the wide forward disagrees with its plain twin ({label})")
+    if perr != 0:
+        fail(f"the wide backward disagrees with its plain twin ({label})")
+    if results is None:
+        return
+    shape = f"B={B} T={T} SP={ph.sp}"
+    results[layout.wide_name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                                 "us_per_step": ms * 1e3 / steps, "shape": shape, **fb}
+    if layout.chain:
+        results["viterbi_backward_wide"] = {"max_abs_err": float(perr), "ms": bwd_ms,
+                                            "plain_ms": bwd_plain_ms,
+                                            "us_per_step": bwd_ms * 1e3 / steps,
+                                            "shape": shape, **bb}
+
+
+def wide_path_inputs(pm, pm_mod, unit: str, units: int, B: int, T: int, rng, mod: bool):
+    """(B, T) noisy segments of the wide path: ``units`` units of ``unit``
+    between the 50-base flanks of the repeat HMM, or (``mod``) the units
+    alone, odd reads from the twin ``pm_mod``, clipped to the level range
+    as the counter clips them; and their lengths."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch.synthetic import PREFIX, SUFFIX
+
+    lo, hi = min(pm.model_min, pm_mod.model_min), max(pm.model_max, pm_mod.model_max)
+    obs = np.zeros((B, T), np.float32)
+    lens = np.zeros(B, np.int32)
+    for b in range(B):
+        seq = unit * units if mod else PREFIX[-50:] + unit * units + SUFFIX[:50]
+        s = (pm_mod if mod and b % 2 else pm).generate_signal(seq, samples=8, noise=True,
+                                                              rng=rng)
+        s = (np.clip(s, lo, hi) if mod else s).astype(np.float32)[:T]
+        obs[b, : len(s)] = s
+        lens[b] = len(s)
+    dev = torch.device("cuda")
+    return torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev)
+
+
+def check_viterbi_wide(pm, pm_mod, seed: int, results) -> None:
+    """Phase 3's wide Viterbi checks: the cases of ``WIDE_CASES`` (B 8, T
+    1024), then the kernel line's shapes: the 150-base unit's repeat HMM
+    (SP 1152) on 8 segments of phase 4f's reads' length, and the 260-base
+    unit's mod HMM (SP 1152) on 8 repeat-state segments of 3 units."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch.hmm.models import build_flanked_repeat, build_repeat_mod
+    from strique_tpu_torch.synthetic import (PREFIX, SUFFIX, WIDE_MOD_UNIT_BASES,
+                                             WIDE_MOD_UNITS, WIDE_UNIT_BASES, random_unit,
+                                             viterbi_wide_case)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 110)
+    for label in WIDE_CASES:
+        chm, obs, lens = viterbi_wide_case(pm, pm_mod, label, rng)
+        check_wide(label, chm, torch.from_numpy(obs).to(dev), torch.from_numpy(lens).to(dev))
+        torch.cuda.empty_cache()
+    unit = random_unit(WIDE_UNIT_BASES, 5)
+    chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
+    o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_UNITS, WIDE_READS, 7168, rng, False)
+    check_wide("phase 4f's shape", chm, o_d, l_d, results)
+    unit = random_unit(WIDE_MOD_UNIT_BASES, WIDE_MOD_UNIT_BASES)
+    o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_MOD_UNITS, 8, 6656, rng, True)
+    check_wide("phase 4f's mod shape", build_repeat_mod(unit, pm, pm_mod), o_d, l_d, results)
+
+
 def written_slots(n_act, m, nd: int, ckpt_steps: int):
     """(n_ck, B) mask of the checkpoint slots a row's pass 1 writes (it
     stops at round_up(n + m, 8)); ``m`` an int or the (B,) lengths."""
@@ -1472,6 +1660,297 @@ def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
     if [tuple(r) for r in res["dense"][0]] != [tuple(r) for r in res["default"][0]]:
         fail("the VNTR target's dense route's tuples differ from the default route's")
     return {"viterbi_forward_dense": dense_lc["viterbi_forward_dense"]}
+
+
+def run_wide(model: str, seed: int, card: str, tmp: str) -> dict:
+    """Phase 4f's targets past SP 1024: the 150-base unit's (repeat HMM
+    of 1080 states, SP 1152) 8 '+' reads of 5 units on the default route
+    (the wide factored forward and the wide backward) and under
+    ``STRIQUE_DENSE_VITERBI=1`` (the streamed dense forward, then the wide
+    backward), tuples equal to each other and to the port's CPU counter
+    (tests/test_torch_wide_counter.py holds that counter to the JAX one);
+    the 260-base unit with the mod model (repeat HMM SP 1792, mod HMM SP
+    1152: both wide layouts), 4 '+' base and twin reads, tuples equal to
+    the CPU counter's (tests/test_torch_wide_mod.py); then a 1345-base
+    unit (8250 states, SP 8320), refused by ``add_target`` on the card
+    before any launch.  Returns the wide kernels' launches on these
+    paths."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+    from strique_tpu_torch.pore_model import PoreModel
+    from strique_tpu_torch.synthetic import (MOD_MODEL_SEED, PREFIX, SUFFIX, WIDE_UNIT_BASES,
+                                             make_reads, random_unit, wide_mod_reads,
+                                             write_mod_model, write_pore_model)
+
+    pm = PoreModel(model)
+    rng = np.random.default_rng(5)
+    unit = "".join(rng.choice(list("ACGT"), WIDE_UNIT_BASES))
+    reads = make_reads(pm, WIDE_READS, WIDE_UNITS, rng, "+", repeat=unit)
+    t0 = time.perf_counter()
+    ref_counter = RepeatCounter(model, device="cpu")
+    ref_counter.add_target("wide", unit, PREFIX, SUFFIX)
+    ref = ref_counter.detect_many("wide", reads, "+")
+    cpu_s = time.perf_counter() - t0
+    res = {}
+    for route in ("default", "dense"):
+        if route == "dense":
+            os.environ["STRIQUE_DENSE_VITERBI"] = "1"
+        try:
+            c = RepeatCounter(model, device="cuda")  # a fresh HMM cache sees the knob
+            c.add_target("wide", unit, PREFIX, SUFFIX)
+            c.detect_many("wide", reads[:1], "+")  # first use
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            out = c.detect_many("wide", reads, "+")
+            torch.cuda.synchronize()
+            res[route] = (out, time.perf_counter() - t0, dict(_build.LAUNCHES))
+        except SystemExit:
+            raise
+        except Exception as e:  # noqa: BLE001
+            fail(f"the wide target's {route} route raised {type(e).__name__}: {e}")
+        finally:
+            os.environ.pop("STRIQUE_DENSE_VITERBI", None)
+    vit = ("viterbi_forward_factored", *WIDE_KERNELS, "viterbi_backward_batch", *DENSE)
+    for route, (out, dt, lc) in res.items():
+        print(f"wide target ({WIDE_UNIT_BASES}-base unit, {WIDE_UNITS} units, SP 1152), {route} "
+              f"route: counts {[r[0] for r in out]} in {dt:.3f} s; card: {card}; launches "
+              f"{json.dumps({k: lc[k] for k in vit})}", flush=True)
+        if [tuple(r) for r in out] != [tuple(r) for r in ref]:
+            fail(f"the wide target's {route} route's tuples differ from the CPU counter's")
+        if not all(np.isfinite(r[3]) for r in out):
+            fail(f"non-finite log_p on the wide target's {route} route")
+    lc, dense_lc = res["default"][2], res["dense"][2]
+    if (lc["viterbi_forward_factored_wide"] <= 0 or lc["viterbi_backward_wide"] <= 0
+            or lc["viterbi_forward_factored"] or lc["viterbi_backward_batch"]
+            or any(lc[k] for k in DENSE)):
+        fail("the wide target's default route did not decode with the wide variants alone")
+    if (dense_lc["viterbi_forward_dense"] <= 0 or dense_lc["viterbi_backward_wide"] <= 0
+            or dense_lc["viterbi_forward_factored_wide"]):
+        fail("the wide target's dense route did not decode with the streamed dense forward "
+             "and the wide backward")
+    print(f"wide target: both routes' tuples equal the CPU counter's (its run {cpu_s:.1f} s)",
+          flush=True)
+
+    base = write_pore_model(os.path.join(tmp, "wide_base.model"), seed=MOD_MODEL_SEED)
+    twin = write_mod_model(os.path.join(tmp, "wide_twin.model"), seed=MOD_MODEL_SEED)
+    munit, mreads = wide_mod_reads(base, twin, WIDE_MOD_READS)
+    mod = {}
+    for dev in ("cpu", "cuda"):
+        c = RepeatCounter(base, mod_model_file=twin, device=dev)
+        c.add_target("wide", munit, PREFIX, SUFFIX)
+        if dev == "cuda":
+            c.detect_many("wide", mreads[:1], "+")  # first use
+            torch.cuda.synchronize()
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        mod[dev] = c.detect_many("wide", mreads, "+")
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            mod_lc = dict(_build.LAUNCHES)
+        mod[dev + "_s"] = time.perf_counter() - t0
+    tc = c.targets["wide"][0]
+    print(f"wide mod target ({len(munit)}-base unit, SP {VC.padded_sp(tc.repeat_hmm.n_states)} "
+          f"repeat HMM, SP {VC.padded_sp(tc.mod_hmm.n_states)} mod HMM): counts and mod "
+          f"strings {[(r[0], r[6]) for r in mod['cuda']]} in {mod['cuda_s']:.3f} s (CPU "
+          f"{mod['cpu_s']:.1f} s); card: {card}; launches "
+          f"{json.dumps({k: mod_lc[k] for k in vit})}", flush=True)
+    if [tuple(r) for r in mod["cuda"]] != [tuple(r) for r in mod["cpu"]]:
+        fail("the wide mod target's tuples differ from the CPU counter's")
+    if (mod_lc["viterbi_forward_factored_diag_wide"] <= 0
+            or mod_lc["viterbi_forward_factored_wide"] <= 0
+            or mod_lc["viterbi_forward_factored_diag"] or mod_lc["viterbi_backward_batch"]):
+        fail("the wide mod target did not decode with both wide layouts alone")
+
+    too_wide = random_unit(TOO_WIDE_UNIT_BASES, TOO_WIDE_UNIT_BASES)
+    c = RepeatCounter(model, device="cuda")
+    before = dict(_build.LAUNCHES)
+    t0 = time.perf_counter()
+    try:
+        c.add_target("too wide", too_wide, PREFIX, SUFFIX)
+    except ValueError as e:
+        msg = str(e)
+    else:
+        fail(f"add_target took a {TOO_WIDE_UNIT_BASES}-base unit past SP {VC.MAX_SP} on the card")
+    if f"{VC.MAX_SP} padded states" not in msg or "too wide" in c.targets:
+        fail(f"add_target's refusal past SP {VC.MAX_SP} is not the limit's: {msg}")
+    if dict(_build.LAUNCHES) != before:
+        fail("a kernel launched before add_target refused the too-wide HMM")
+    print(f"a {TOO_WIDE_UNIT_BASES}-base unit's HMM refused by add_target on the card in "
+          f"{time.perf_counter() - t0:.1f} s, before any launch: {msg}", flush=True)
+    return {"viterbi_forward_factored_wide": lc["viterbi_forward_factored_wide"],
+            "viterbi_backward_wide": lc["viterbi_backward_wide"],
+            "viterbi_forward_factored_diag_wide": mod_lc["viterbi_forward_factored_diag_wide"]}
+
+
+def run_devices(model: str, pm, seed: int, card: str, tmp: str, ultra, two_pass) -> None:
+    """Phase 4i: phase 4g's stream through ``RepeatCounter(device=[cuda:0]
+    * DEVICE_ENTRIES)`` (each batch's rows in contiguous shards, each on
+    its own CUDA stream) at ``--batch`` 64, its TSV byte-equal to phase
+    4g's single-device run's; then the ultra-long reads under phase 4b's
+    two-pass budget (each entry's row shard running its own pass-1
+    group) and under the card's default budget, tuples equal to phase
+    4b's two-pass run's (``two_pass``)."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.detect.detector import RepeatDetector
+    from strique_tpu_torch.detect.writer import OutputWriter
+    from strique_tpu_torch.parallel.dispatcher import run_pipeline as run_count
+    from strique_tpu_torch.synthetic import (LOCI, PREFIX, REPEAT, SUFFIX, count_workload,
+                                             sam_line)
+    from strique_tpu_torch.utils.config import parse_config
+
+    devices = [torch.device("cuda", 0)] * DEVICE_ENTRIES
+    reads = count_workload(pm, seed + 9)
+    lines = [sam_line(rid, strand, LOCI[t][0], LOCI[t][1]) for rid, t, strand, _u, _s in reads]
+    rd = RepeatDetector(parse_config(os.path.join(tmp, "repeats.tsv"))["repeat"], model,
+                        MemoryIndex(reads), device=devices)
+    with open(os.path.join(tmp, f"count_b{BATCH}_0.tsv"), "rb") as fp:
+        expect = fp.read()
+    rps = []
+    for rep in range(2):  # a first use, then a timed run
+        out = os.path.join(tmp, f"count_devices_{rep}.tsv")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        run_count(iter(lines), rd, OutputWriter(out), batch_size=BATCH)
+        torch.cuda.synchronize()
+        rps.append(len(reads) / (time.perf_counter() - t0))
+        with open(out, "rb") as fp:
+            if fp.read() != expect:
+                fail(f"the count stream over {DEVICE_ENTRIES} device entries wrote another TSV "
+                     f"than one device's (run {rep + 1})")
+    lc = dict(_build.LAUNCHES)
+    print(f"count stream over {DEVICE_ENTRIES} entries of cuda:0 (--batch {BATCH}): TSV equal "
+          f"to one device's byte for byte; {', '.join(f'{x:.2f}' for x in rps)} reads/s; "
+          f"card: {card}; launches {json.dumps({k: v for k, v in lc.items() if v})}",
+          flush=True)
+    for name in SPLIT_KERNELS:
+        if lc[name] <= 0:
+            fail(f"kernel {name} was not launched on the multi-device count path")
+
+    counter = RepeatCounter(model, device=devices)
+    counter.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    for budget in ("2", None):
+        if budget is not None:
+            os.environ["STRIQUE_PTR_BUDGET_GB"] = budget
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = counter.detect_many("c9orf72", ultra, "+")
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        finally:
+            os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
+        lc = dict(_build.LAUNCHES)
+        label = f"STRIQUE_PTR_BUDGET_GB={budget}" if budget else "the default budget"
+        print(f"ultra-long reads over {DEVICE_ENTRIES} entries of cuda:0 ({label}): {len(res)} "
+              f"reads in {dt:.3f} s; card: {card}; "
+              f"launches {json.dumps({k: v for k, v in lc.items() if v})}", flush=True)
+        if [tuple(r) for r in res] != [tuple(r) for r in two_pass]:
+            fail(f"the ultra-long reads over two device entries ({label}) gave other tuples "
+                 "than one device's")
+        if budget is not None and lc["align_forward_ckpt_table"] != DEVICE_ENTRIES:
+            fail(f"the ultra-long two-pass route ran {lc['align_forward_ckpt_table']} pass-1 "
+                 "groups, not one an entry")
+
+
+def count_process() -> int:
+    """One process of phase 4j (``python3 -c`` runs it with ``sys.argv``
+    = [the .npz of signals, "count", ...]): ``cli.main`` on the count
+    arguments, the detector's index reading the reads' signals from the
+    .npz (the card's host may lack h5py)."""
+    import numpy as np
+
+    from strique_tpu_torch import cli
+    from strique_tpu_torch.detect import detector
+
+    with np.load(sys.argv[1]) as npz:
+        signals = {k: npz[k] for k in npz.files}
+
+    class Index:
+        def get_raw(self, read_id):
+            if read_id not in signals:
+                raise RuntimeError(f"read {read_id} is not in the index")
+            return signals[read_id]
+
+    detector.Fast5Index = lambda _path: Index()
+    return cli.main(sys.argv[2:])
+
+
+def run_hosts(model: str, pm, seed: int, card: str, tmp: str) -> float:
+    """Phase 4j: ``count`` over phase 4g's stream as HOSTS processes on the
+    one card (``--coordinator localhost:P --num_hosts 2 --host_id i``,
+    gloo): one merged TSV, the parts removed, its rows those of phase
+    4g's single-process run at ``--batch`` 64, each read once, the SAM
+    stride splitting the reads.  Returns the wall seconds."""
+    import socket
+
+    import numpy as np
+
+    from strique_tpu_torch.synthetic import count_workload
+
+    reads = count_workload(pm, seed + 9)
+    npz = os.path.join(tmp, "hosts_reads.npz")
+    np.savez(npz, **{rid: sig for rid, _t, _s, _u, sig in reads})
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    out = os.path.join(tmp, "hosts.tsv")
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys; sys.path.insert(0, sys.argv.pop(1)); import chip_smoke; "
+            "sys.exit(chip_smoke.count_process())")
+    argv = ["count", os.path.join(tmp, "memory.fofn"), model, os.path.join(tmp, "repeats.tsv"),
+            "--algn", os.path.join(tmp, "algn.sam"), "--out", out, "--coordinator",
+            f"localhost:{port}", "--num_hosts", str(HOSTS), "--log_level", "info"]
+    # each process logs to a file: a full pipe would stall it at the barrier
+    errs = [os.path.join(tmp, f"hosts_{i}.err") for i in range(HOSTS)]
+    t0 = time.perf_counter()
+    procs = []
+    try:
+        for i in range(HOSTS):
+            with open(errs[i], "w") as err:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", code, root, npz, *argv, "--host_id", str(i)],
+                    cwd=root, stdout=subprocess.DEVNULL, stderr=err))
+        rcs = [p.wait(timeout=max(HOST_TIMEOUT_S - (time.perf_counter() - t0), 1))
+               for p in procs]
+    except subprocess.TimeoutExpired:
+        fail(f"a count process of phase 4j ran past {HOST_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    logs = []
+    for i, rc in enumerate(rcs):
+        with open(errs[i]) as fp:
+            logs.append((rc, fp.read()))
+        if rc != 0:
+            fail(f"count process {i} of {HOSTS} exited {rc}: {logs[-1][1][-1500:]}")
+    if not os.path.exists(out) or any(os.path.exists(f"{out}.part{i}") for i in range(HOSTS)):
+        fail("the count processes left no merged TSV, or left their parts")
+    with open(out) as fp:
+        got = fp.read().splitlines()
+    with open(os.path.join(tmp, f"count_b{BATCH}_0.tsv")) as fp:
+        want = fp.read().splitlines()
+    if got[:1] != want[:1] or sorted(got[1:]) != sorted(want[1:]):
+        fail("the merged TSV's rows differ from the single-process run's")
+    done = [int(err.split("Main: Processed ")[-1].split()[0]) for _rc, err in logs]
+    if sum(done) != len(reads) or min(done) <= 0:
+        fail(f"the SAM stride did not split the reads between the processes: {done}")
+    print(f"count over {HOSTS} processes (gloo, one card): merged TSV's rows equal the single "
+          f"process's, {done} reads a process, {wall:.1f} s wall (process start and kernel "
+          f"library load included); card: {card}", flush=True)
+    return wall
 
 
 def profile_pass(label: str, fn, card: str):
@@ -2080,6 +2559,8 @@ def main() -> int:
         check_viterbi_mod(pm, mod_pm, REPEAT, "mod", 64, 3072, mod_rng, results)
         unit60 = "".join(mod_rng.choice(list("ACGT"), VNTR_UNIT_BASES))
         check_viterbi_mod(pm, mod_pm, unit60, "mod, 60-base unit", 64, 3072, mod_rng, None)
+        # rows 3-4 past SP 1024 (their own generator)
+        check_viterbi_wide(pm, mod_pm, args.seed, results)
         check_longread(small[:1], "small", 8, 4096, params, 512, True, rng)
         check_longread(small, "small", 16, 4096, params, 512, True, rng)
         # the bench template's span bound (29,581 steps) exceeds ND: all
@@ -2201,6 +2682,13 @@ def main() -> int:
 
     # -- phase 4f: a repeat HMM past the dense forward's resident rule -------
     launches.update(run_vntr(pm, model, args.seed, card, results))
+    # ... and past SP 1024 (the wide Viterbi variants), and past SP 8192
+    try:
+        launches.update(run_wide(model, args.seed, card, tmp))
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the wide targets raised {type(e).__name__}: {e}")
 
     # -- phase 4c: where the device time goes --------------------------------
     try:
@@ -2282,6 +2770,16 @@ def main() -> int:
         fail(f"the mod path raised {type(e).__name__}: {e}")
     launches["viterbi_forward_factored_diag"] = mod["launches"]["viterbi_forward_factored_diag"]
 
+    # -- phase 4i: several device entries (the one card, twice) --------------
+    # -- phase 4j: count as two processes over gloo --------------------------
+    try:
+        run_devices(model, pm, args.seed, card, tmp, ultra, runs["two-pass"][0])
+        hosts_s = run_hosts(model, pm, args.seed, card, tmp)
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the multi-device or multi-host path raised {type(e).__name__}: {e}")
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
@@ -2292,7 +2790,7 @@ def main() -> int:
                        "plus_s": dt_plus, "minus_s": dt_minus,
                        "ultra_s": {k: v[1] for k, v in runs.items()},
                        "knob_reads_per_sec": knob_rps, "count_stream": count, "mod": mod,
-                       "kernels": kernels},
+                       "hosts_s": hosts_s, "kernels": kernels},
                       fp, indent=1)
     print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),
           flush=True)

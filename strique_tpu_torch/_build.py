@@ -48,9 +48,12 @@ LAUNCHES = {
     "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
     "viterbi_forward_factored_diag": 0,  # the same wrapper, diagonal-only slot layout
+    "viterbi_forward_factored_wide": 0,  # the wide variants (SP past 1024), each layout
+    "viterbi_forward_factored_diag_wide": 0,
     "viterbi_forward_dense": 0,  # the streamed mode (SP past dense_mode's rule)
     "viterbi_forward_dense_resident": 0,  # the same wrapper, resident (cluster) mode
     "viterbi_backward_batch": 0,
+    "viterbi_backward_wide": 0,  # the same wrapper, the wide variant (SP past 1024)
 }
 
 _lib = None
@@ -95,6 +98,7 @@ _SIGNATURES = {
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts
     # (host), sc, fin, acc; B, T, SP, layout; stream
     "viterbi_fwd_launch": [_P] * 15 + [_I] * 4 + [_P],
+    "viterbi_fwd_wide_launch": [_P] * 15 + [_I] * 4 + [_P],
     # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
     # B, T, SP; stream
     "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],
@@ -102,6 +106,7 @@ _SIGNATURES = {
     "viterbi_dense_resident_launch": [_P] * 12 + [_I] * 4 + [_P],
     # sc, transT, last, tact, path; B, T, SP; stream
     "viterbi_bwd_launch": [_P] * 5 + [_I] * 3 + [_P],
+    "viterbi_bwd_wide_launch": [_P] * 5 + [_I] * 3 + [_P],
 }
 
 

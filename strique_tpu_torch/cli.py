@@ -10,10 +10,15 @@ per-unit 5mC call (the TSV's ``mod`` column).  ``warmup`` builds the
 kernels and runs one batch a target, strand and signal bucket, cold
 then hot.
 
-Not ported yet, and refused with the ROADMAP item that holds them:
-``--devices`` above 1 and the multi-host flags ``--coordinator`` /
-``--num_hosts`` / ``--host_id`` (Queue 1 item 4).  The ``plot`` and
-``extract`` subcommands are queued in ROADMAP too (Queue 1 item 1).
+``--devices`` shards each batch's rows over several devices
+(``parallel/mesh.py``): every local card ("auto"), at most N of them,
+or with ``--device cpu`` N replicas of the CPU.  ``--coordinator``,
+``--num_hosts`` and ``--host_id`` run ``count`` as one of several
+processes (a gloo rendezvous at the coordinator; one that fails or
+waits past ``parallel.mesh.RENDEZVOUS_TIMEOUT_S`` ends the run): each
+counts a stride of the SAM stream into ``<out>.partN``, and after a
+barrier rank 0 merges the parts into ``--out``.  The ``plot`` and
+``extract`` subcommands are not ported yet (ROADMAP Queue 1 item 1).
 
 Environment knobs the port honours: ``STRIQUE_ALIGN_KERNEL=col`` (the
 column-sweep alignment), ``STRIQUE_DENSE_VITERBI=1`` (the dense Viterbi
@@ -53,12 +58,6 @@ def cmd_index(argv) -> int:
     return 0
 
 
-def _refuse(what: str, item: str) -> int:
-    log(f"Main: {what} is not ported to strique_tpu_torch yet (ROADMAP Queue 1 {item}).",
-        LogLevel.Error)
-    return 2
-
-
 def cmd_count(argv) -> int:
     parser = argparse.ArgumentParser(description="STR detection in raw nanopore data")
     parser.add_argument("f5Index", help="Fast5 index")
@@ -76,14 +75,16 @@ def cmd_count(argv) -> int:
                         help="Where the counter runs: the CUDA card (default; fails without "
                              "one) or the plain PyTorch path on the CPU")
     parser.add_argument("--devices", default="auto",
-                        help="Data-parallel device count: 'auto' and 1 run one card "
-                             "(more is not ported yet: refused)")
+                        help="Data-parallel device count: 'auto' shards read batches over "
+                             "every local card; an integer caps it; with --device cpu, that "
+                             "many CPU replicas ('auto': one)")
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                        help="Multi-host coordinator address (not ported yet: refused)")
+                        help="Multi-host: rank 0's rendezvous address (with --num_hosts and "
+                             "--host_id; or MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE)")
     parser.add_argument("--num_hosts", type=int, default=None,
-                        help="Multi-host process count (not ported yet: refused)")
+                        help="Multi-host: total process count")
     parser.add_argument("--host_id", type=int, default=None,
-                        help="Multi-host process index (not ported yet: refused)")
+                        help="Multi-host: this process' index (0-based)")
     parser.add_argument("--resume", action="store_true",
                         help="Append to --out, skipping read IDs already counted")
     parser.add_argument("--profile", default=None, metavar="DIR",
@@ -92,11 +93,6 @@ def cmd_count(argv) -> int:
                         choices=["error", "warning", "info", "debug"], help="Log level")
     args = parser.parse_args(argv)
     ulog.init(log_level=args.log_level)
-    if args.devices not in ("auto", "1"):
-        return _refuse(f"--devices {args.devices} (multi-GPU)", "item 4")
-    for flag in ("coordinator", "num_hosts", "host_id"):
-        if getattr(args, flag) is not None:
-            return _refuse(f"--{flag} (multi-host)", "item 4")
     config = parse_config(args.repeat, args.config)
     for path, desc in ((args.f5Index, "Fast5 index"), (args.model, "Pore model"),
                        (args.mod_model, "Modification pore model")):
@@ -105,26 +101,54 @@ def cmd_count(argv) -> int:
             return 1
 
     from .detect.detector import RepeatDetector
-    from .detect.writer import OutputWriter, processed_ids
+    from .detect.writer import OutputWriter, merge_shards, processed_ids
     from .parallel.dispatcher import run_pipeline
+    from .parallel.mesh import barrier, init_distributed, local_devices, process_count
 
+    # multi-host: each process owns its local devices and a stride of the
+    # SAM stream; per-process TSV shards merge into the final output (the
+    # reference's unordered-collector semantics, reference
+    # scripts/STRique.py:778-802).  A failed rendezvous ends the run.
+    try:
+        rank = init_distributed(args.coordinator, args.num_hosts, args.host_id)
+    except Exception as e:  # noqa: BLE001 - any rendezvous failure ends the run
+        log(f"Main: the multi-host rendezvous failed: {type(e).__name__}: {e}", LogLevel.Error)
+        return 1
+    world = process_count()
+
+    devices = local_devices(args.device, args.devices)
+    n_dev = len(devices)
+    if n_dev > 1:
+        log(f"Main: Sharding read batches over {n_dev} {args.device} devices.", LogLevel.Info)
     batch_size = args.batch
     if batch_size is None:
         batch_size = CARD_BATCH if args.device == "cuda" else CPU_BATCH
+    if n_dev > 1 and batch_size > 1:
+        batch_size = (batch_size + n_dev - 1) // n_dev * n_dev
+
+    out_path = args.out
+    if world > 1 and out_path:
+        out_path = f"{out_path}.part{rank}"
+        log(f"Main: Process {rank}/{world}; writing shard {out_path}.", LogLevel.Info)
 
     rd = RepeatDetector(config["repeat"], args.model, args.f5Index,
                         mod_model_file=args.mod_model, align_config=config["align"],
-                        hmm_config=config["HMM"], device=args.device)
-    done = processed_ids(args.out) if args.resume else set()
-    ow = OutputWriter(args.out, append=args.resume)
+                        hmm_config=config["HMM"], device=devices)
+    done = processed_ids(out_path) if args.resume else set()
+    if args.resume and world > 1:
+        # a prior run may have merged its shards already
+        done |= processed_ids(args.out)
+    ow = OutputWriter(out_path, append=args.resume)
     if done:
         log(f"Main: Resuming; {len(done)} reads already counted.", LogLevel.Info)
 
     def sam_lines():
         stream = open(args.algn, "r") if args.algn else sys.stdin
         try:
-            for line in stream:
+            for i, line in enumerate(stream):
                 if line.startswith("@"):
+                    continue
+                if world > 1 and i % world != rank:
                     continue
                 if done and line.split("\t", 1)[0] in done:
                     continue
@@ -147,6 +171,21 @@ def cmd_count(argv) -> int:
         log(f"Main: Wrote the profile to {trace}.", LogLevel.Info)
     else:
         n = run_pipeline(sam_lines(), rd, ow, io_threads=args.t, batch_size=batch_size)
+    if world > 1 and args.out:
+        # every process barriers (waiting for peers still counting, up to
+        # parallel.mesh.BARRIER_TIMEOUT), then rank 0 concatenates the
+        # .partN shards into --out (one file, unordered rows); parts on
+        # another host's filesystem stay put and a warning names them
+        barrier()
+        if rank == 0:
+            merged = merge_shards(args.out, world)
+            if merged < world:
+                log(f"Main: merged {merged}/{world} shards into {args.out}; the remaining "
+                    "processes' .partN files are not on this filesystem: concatenate them "
+                    "by hand.", LogLevel.Warning)
+            else:
+                log(f"Main: merged {world} shards into {args.out}.", LogLevel.Info)
+        barrier()
     log(f"Main: Processed {n} alignments.", LogLevel.Info)
     ulog.close()
     return 0
@@ -181,14 +220,12 @@ def cmd_warmup(argv) -> int:
                         help="Where the counter runs: the CUDA card (default; fails without "
                              "one) or the plain PyTorch path on the CPU")
     parser.add_argument("--devices", default="1",
-                        help="Data-parallel device count to warm: 1 (more is not ported "
-                             "yet: refused)")
+                        help="Data-parallel device count to warm ('auto' = every local "
+                             "card; with --device cpu, that many CPU replicas)")
     parser.add_argument("--log_level", default="warning",
                         choices=["error", "warning", "info", "debug"])
     args = parser.parse_args(argv)
     ulog.init(log_level=args.log_level)
-    if args.devices not in ("auto", "1"):
-        return _refuse(f"--devices {args.devices} (multi-GPU)", "item 4")
     config = parse_config(args.repeat, args.config)
     for path, desc in ((args.model, "Pore model"), (args.mod_model, "Modification pore model")):
         if path and not os.path.isfile(path):
@@ -201,11 +238,12 @@ def cmd_warmup(argv) -> int:
 
     from . import _build
     from .detect.counter import RepeatCounter, reverse_complement, signal_bucket
+    from .parallel.mesh import local_devices
 
     batch = args.batch or (CARD_BATCH if args.device == "cuda" else CPU_BATCH)
     counter = RepeatCounter(args.model, mod_model_file=args.mod_model,
                             align_config=config["align"], hmm_config=config["HMM"],
-                            device=args.device)
+                            device=local_devices(args.device, args.devices))
     # repeat config rows are (chr, begin, end, repeat, prefix, suffix)
     loci = {name: {"repeat": t[3], "prefix": t[4], "suffix": t[5]}
             for name, t in config["repeat"].items()}

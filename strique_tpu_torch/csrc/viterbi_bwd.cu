@@ -32,6 +32,17 @@
 //   * path entries are held one a lane and stored 32 at a time.
 // One read a CTA: the split path's 64 reads (the ultra routes' 8) leave
 // SMs to spare, and each read has an SM's L1 to itself.
+//
+// Past SP 1024 (up to 8192) a read takes the wide variant
+// (viterbi_bwd_wide_kernel): ceil(SP / 1024) warps a CTA, each warp
+// walking 1024 states exactly as the kernel above does at NV 8 (a lane
+// past SP holds -inf candidates, which never reach a maximum).  Each
+// step ends in a cross-warp first-max: every warp publishes its max and
+// its first hit, one barrier, and every thread takes the first warp
+// whose max is >= the largest, so the tie still resolves to the
+// smallest state.  The ring holds RING_W = 16, 8 or 4 rows (SP up to
+// 3072, 6144, 8192: at most 192 KB), each prefetched RING_W - 1 steps
+// ahead.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -147,6 +158,121 @@ viterbi_bwd_kernel(const float* __restrict__ sc, const float* __restrict__ trans
   if (lane < rem) prow[rem - 1 - lane] = held;
 }
 
+// SP up to 8192: blockDim.x / 32 = ceil(SP / 1024) warps of 1024 states
+template <int RING_W>
+__global__ void __launch_bounds__(256)
+viterbi_bwd_wide_kernel(const float* __restrict__ sc, const float* __restrict__ transT,
+                        const int* __restrict__ last, const int* __restrict__ tact,
+                        int32_t* __restrict__ path, int B, int T, int SP) {
+  constexpr int NV = 8;        // float4 a lane
+  constexpr int PER = 4 * NV;  // states a lane holds
+  extern __shared__ float4 ring[];  // RING_W rows of sc
+  __shared__ float wmx[2][8];       // each warp's max and first hit, by step parity
+  __shared__ int wix[2][8];
+  const int SP4 = SP / 4;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int n_warp = blockDim.x >> 5;
+  const int u0 = warp * 32 * PER + lane * PER;  // this lane's first state
+  const bool live = u0 < SP;  // SP is a multiple of PER: all PER states or none
+  const float4* tT4 = reinterpret_cast<const float4*>(transT) + u0 / 4;
+  const int ta = min(tact[b], T);
+  const int n = max(ta - 1, 0);  // steps: step i reads row n-1-i, writes path[n-1-i]
+  const size_t rstride = (size_t)B * SP4;
+  const float4* row_src = reinterpret_cast<const float4*>(sc) +
+                          (size_t)max(n - 1, 0) * rstride + (size_t)b * SP4 + u0 / 4;
+  float4* my_ring = ring + u0 / 4;  // slot j at my_ring[j * SP4 + k]
+  for (int j = 0; j < RING_W; ++j) {
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      cp_async16_if(my_ring + j * SP4 + k, row_src - (size_t)j * rstride + k, live && j < n);
+    cp_async_commit();
+  }
+
+  int32_t* prow = path + (size_t)b * T;
+  int st = last[b];
+  if (warp == 0)
+    for (int t = n + lane; t < T; t += 32) prow[t] = st;
+  int held = st;
+  for (int i = 0; i < n; ++i) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(RING_W - 2) : "memory");
+    const float4* srow = my_ring + (i & (RING_W - 1)) * SP4;
+    float c[PER];
+    if (live) {
+      float4 sv[NV], tv[NV];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) sv[k] = srow[k];
+#pragma unroll
+      for (int k = 0; k < NV; ++k) tv[k] = __ldg(tT4 + (size_t)st * SP4 + k);
+#pragma unroll
+      for (int k = 0; k < NV; ++k) {
+        c[4 * k + 0] = sv[k].x + tv[k].x;
+        c[4 * k + 1] = sv[k].y + tv[k].y;
+        c[4 * k + 2] = sv[k].z + tv[k].z;
+        c[4 * k + 3] = sv[k].w + tv[k].w;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < PER; ++j) c[j] = -INFINITY;
+    }
+    const int ahead = i - 1 + RING_W;
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      cp_async16_if(my_ring + ((i - 1) & (RING_W - 1)) * SP4 + k,
+                    row_src - (size_t)ahead * rstride + k, live && i > 0 && ahead < n);
+    cp_async_commit();
+    float mt[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) mt[j] = c[j];
+#pragma unroll
+    for (int w = 1; w < PER; w <<= 1)
+#pragma unroll
+      for (int j = 0; j + w < PER; j += 2 * w) mt[j] = fmaxf(mt[j], mt[j + w]);
+    const float mx = key_value(__reduce_max_sync(FULL, order_key(mt[0])));
+    int ft[PER];
+#pragma unroll
+    for (int j = 0; j < PER; ++j) ft[j] = c[j] >= mx ? j : PER;
+#pragma unroll
+    for (int w = 1; w < PER; w <<= 1)
+#pragma unroll
+      for (int j = 0; j + w < PER; j += 2 * w) ft[j] = min(ft[j], ft[j + w]);
+    // every warp holds a live lane, so its maximum is finite and hit
+    const int owner = __ffs(__ballot_sync(FULL, ft[0] < PER)) - 1;
+    const int first = warp * 32 * PER + owner * PER + __shfl_sync(FULL, ft[0], owner);
+    const int p = i & 1;
+    if (lane == 0) {
+      wmx[p][warp] = mx;
+      wix[p][warp] = first;
+    }
+    __syncthreads();
+    float gm = wmx[p][0];
+    for (int w = 1; w < n_warp; ++w) gm = fmaxf(gm, wmx[p][w]);
+    int w = 0;
+    while (!(wmx[p][w] >= gm)) ++w;
+    st = wix[p][w];
+    if ((i & 31) == lane) held = st;
+    if (warp == 0 && (i & 31) == 31) prow[n - 1 - (i - 31) - lane] = held;
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  const int rem = n & 31;
+  if (warp == 0 && lane < rem) prow[rem - 1 - lane] = held;
+}
+
+template <int RING_W>
+int launch_wide(const void* sc, const void* transT, const void* last, const void* tact,
+                void* path, int B, int T, int SP, cudaStream_t stream) {
+  const size_t shmem = (size_t)RING_W * SP * sizeof(float);  // 128 KB at SP 8192
+  cudaError_t e = cudaFuncSetAttribute(viterbi_bwd_wide_kernel<RING_W>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return (int)e;
+  const int warps = (SP + 1023) / 1024;
+  viterbi_bwd_wide_kernel<RING_W><<<B, 32 * warps, shmem, stream>>>(
+      (const float*)sc, (const float*)transT, (const int*)last, (const int*)tact,
+      (int32_t*)path, B, T, SP);
+  return (int)cudaGetLastError();
+}
+
 template <int NV>
 int launch_nv(const void* sc, const void* transT, const void* last, const void* tact,
               void* path, int B, int T, cudaStream_t stream) {
@@ -178,4 +304,15 @@ extern "C" int viterbi_bwd_launch(const void* sc, const void* transT, const void
     case 7: return launch_nv<7>(sc, transT, last, tact, path, B, T, s);
     default: return launch_nv<8>(sc, transT, last, tact, path, B, T, s);
   }
+}
+
+// SP a multiple of 128 in (1024, 8192].
+extern "C" int viterbi_bwd_wide_launch(const void* sc, const void* transT, const void* last,
+                                       const void* tact, void* path, int B, int T, int SP,
+                                       void* stream) {
+  if (SP % 128 != 0 || SP <= 1024 || SP > 8192) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (SP <= 3072) return launch_wide<16>(sc, transT, last, tact, path, B, T, SP, s);
+  if (SP <= 6144) return launch_wide<8>(sc, transT, last, tact, path, B, T, SP, s);
+  return launch_wide<4>(sc, transT, last, tact, path, B, T, SP, s);
 }

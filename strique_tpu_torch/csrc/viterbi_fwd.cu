@@ -50,6 +50,18 @@
 //   * score rows are stored with streaming stores (__stcs).
 // acc accumulates sequentially in f32, in step order.  A read stops at
 // its own length: later rows are frozen in the reference and never read.
+//
+// Past SP 1024 (up to 8192, the dense forward's cap) one thread a state
+// no longer fits a CTA, and neither does the emission table (OBS_CHUNK x
+// SP floats).  The wide variant (viterbi_fwd_wide_kernel) keeps one CTA
+// a read and gives each thread K contiguous states (K = 2, 4, 8 up to SP
+// 2048, 4096, 8192): the slot tables, ramps and emission parameters are
+// read through __ldg every step instead of held in registers, the
+// emission is computed inline from one broadcast obs load a step, the
+// chain scan runs each thread's K states serially before the warp and
+// block scans, and the row max goes through one shared slot a warp.  It
+// evaluates the same f32 expressions as the kernel above, so both give
+// the plain twin's bits.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -278,6 +290,177 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
   if (v == 0) acc_out[b] = acc;
 }
 
+// SP up to 8192 with K contiguous states a thread (NT = blockDim.x
+// threads, a multiple of 32 with NT * K >= SP; a thread whose states
+// start at or past SP only takes part in the barriers and shuffles).
+// Shared memory: two rows and the chains' h rows, (2 + CHAIN) x SP.
+template <int K, class L>
+__global__ void __launch_bounds__(1024)
+viterbi_fwd_wide_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
+                        const float* __restrict__ start, const float* __restrict__ mu,
+                        const float* __restrict__ sigma, const int* __restrict__ uni,
+                        const float* __restrict__ luni, const float* __restrict__ lsig,
+                        const int* __restrict__ src, const float* __restrict__ wts,
+                        const float* __restrict__ ramp, int n_chain, float* __restrict__ sc,
+                        float* __restrict__ fin, float* __restrict__ acc_out, int B, int T,
+                        int SP) {
+  constexpr int DIAG_SLOTS = L::DIAG;
+  constexpr int NC = L::CHAIN;
+  constexpr int NCA = L::CHAIN_ARR;
+  extern __shared__ __align__(16) float smem[];
+  float* val_sh = smem;           // 2 x SP: the rows, by step parity
+  float* h_sh = val_sh + 2 * SP;  // NC x SP
+  __shared__ float wmax[2][32];   // each warp's row max, by step parity
+  __shared__ float wtot[NCA][32];
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warp = blockDim.x >> 5;
+  const int v0 = tid * K;
+  const bool live = v0 < SP;  // SP is a multiple of K: all K states or none
+  const int ta = min(tact[b], T);
+  const float* x_row = obs + (size_t)b * T;
+  const bool chains = NC > 0 && n_chain > 0;
+
+  float val[K], fin_v[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) fin_v[j] = 0.0f;
+  float acc = 0.0f, m = 0.0f;
+  for (int t = 0; t < ta; ++t) {
+    const int P = t & 1;
+    const float x = __ldg(x_row + t);
+    float out[K];
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const int v = v0 + j;
+        const float z = (x - __ldg(mu + v)) / __ldg(sigma + v);
+        const float emit = __ldg(uni + v) ? __ldg(luni + v) : (__ldg(lsig + v) - (0.5f * z) * z);
+        val[j] = emit;  // the emission, until the transitions are in
+        out[j] = NEGF;
+      }
+    }
+    if (t == 0) {
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) val[j] = __ldg(start + v0 + j) + val[j];
+      }
+    } else {
+      const float* prev = val_sh + (P ^ 1) * SP;  // the previous row: st = val - m
+      if (live) {
+        for (int d = 0; d < DIAG_SLOTS; ++d)
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            out[j] = fmaxf(out[j], (prev[__ldg(src + d * SP + v0 + j)] - m) +
+                                       __ldg(wts + d * SP + v0 + j));
+      }
+      if (chains) {
+        float xs[NCA][K], pre[NCA];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
+#pragma unroll
+          for (int j = 0; j < K; ++j) {
+            float inj = NEGF;
+            if (live) {
+              for (int e = 0; e < ENTRY_SLOTS; ++e)
+                inj = fmaxf(inj, (prev[__ldg(src + (base + e) * SP + v0 + j)] - m) +
+                                     __ldg(wts + (base + e) * SP + v0 + j));
+              xs[c][j] = inj - __ldg(ramp + c * SP + v0 + j);
+            } else {
+              xs[c][j] = -INFINITY;
+            }
+          }
+          // the thread's own states in order, then its total over the warp
+#pragma unroll
+          for (int j = 1; j < K; ++j) xs[c][j] = fmaxf(xs[c][j], xs[c][j - 1]);
+          float incl = xs[c][K - 1];
+#pragma unroll
+          for (int d = 1; d < 32; d <<= 1) incl = fmaxf(incl, __shfl_up_sync(FULL, incl, d));
+          const float below_lane = __shfl_up_sync(FULL, incl, 1);
+          pre[c] = lane ? below_lane : -INFINITY;
+          if (lane == 31) wtot[c][warp] = incl;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          for (int w = 0; w < warp; ++w) pre[c] = fmaxf(pre[c], wtot[c][w]);
+          if (live) {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              h_sh[c * SP + v0 + j] = fmaxf(xs[c][j], pre[c]) + __ldg(ramp + c * SP + v0 + j);
+          }
+        }
+        __syncthreads();
+        if (live) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) {
+            const int base = DIAG_SLOTS + c * CHAIN_SLOTS + ENTRY_SLOTS;
+            for (int e = 0; e < EXIT_SLOTS; ++e)
+#pragma unroll
+              for (int j = 0; j < K; ++j)
+                out[j] = fmaxf(out[j], h_sh[c * SP + __ldg(src + (base + e) * SP + v0 + j)] +
+                                           __ldg(wts + (base + e) * SP + v0 + j));
+          }
+        }
+      }
+      if (live) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) val[j] = out[j] + val[j];
+      }
+    }
+    float lm = -INFINITY;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        val_sh[P * SP + v0 + j] = val[j];
+        lm = fmaxf(lm, val[j]);
+      }
+    }
+    lm = warp_max(lm);
+    if (lane == 0) wmax[P][warp] = lm;
+    __syncthreads();
+    m = -INFINITY;
+    for (int w = 0; w < n_warp; ++w) m = fmaxf(m, wmax[P][w]);
+    acc = acc + m;
+    if (live) {
+      float* sc_t = sc + ((size_t)t * B + b) * SP + v0;
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        const float stn = val[j] - m;
+        if (t == ta - 1) fin_v[j] = stn;
+        __stcs(sc_t + j, stn);
+      }
+    }
+  }
+  if (live) {
+#pragma unroll
+    for (int j = 0; j < K; ++j) fin[(size_t)b * SP + v0 + j] = fin_v[j];
+  }
+  if (tid == 0) acc_out[b] = acc;
+}
+
+template <int K, class L>
+int launch_wide(const void* obs, const void* tact, const void* start, const void* mu,
+                const void* sigma, const void* uni, const void* luni, const void* lsig,
+                const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
+                void* fin, void* acc, int B, int T, int SP, cudaStream_t stream) {
+  auto kernel = viterbi_fwd_wide_kernel<K, L>;
+  const int threads = (SP / K + 31) / 32 * 32;
+  const size_t shmem = (size_t)(2 + L::CHAIN) * SP * sizeof(float);  // 128 KB at SP 8192
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<B, threads, shmem, stream>>>(
+      (const float*)obs, (const int*)tact, (const float*)start, (const float*)mu,
+      (const float*)sigma, (const int*)uni, (const float*)luni, (const float*)lsig,
+      (const int*)src, (const float*)wts, (const float*)ramp, n_chain, (float*)sc, (float*)fin,
+      (float*)acc, B, T, SP);
+  return (int)cudaGetLastError();
+}
+
 template <int NV, class L>
 int launch(const void* obs, const void* tact, const void* start, const void* mu,
            const void* sigma, const void* uni, const void* luni, const void* lsig,
@@ -297,20 +480,26 @@ int launch(const void* obs, const void* tact, const void* start, const void* mu,
   return (int)cudaGetLastError();
 }
 
+// whether the slot counts fit layout L
+template <class L>
+bool counts_fit(const int* h) {
+  const int n_diag = h[0], n_chain = h[1];
+  bool ok = n_diag >= 0 && n_diag <= L::DIAG && n_chain >= 0 && n_chain <= L::CHAIN;
+  for (int c = 0; c < n_chain && c < L::CHAIN; ++c) {
+    const int n_entry = h[2 + 2 * c], n_exit = h[3 + 2 * c];
+    ok = ok && n_entry >= 0 && n_entry <= ENTRY_SLOTS && n_exit >= 0 && n_exit <= EXIT_SLOTS;
+  }
+  return ok;
+}
+
 template <class L>
 int check_and_launch(const void* obs, const void* tact, const void* start, const void* mu,
                      const void* sigma, const void* uni, const void* luni, const void* lsig,
                      const void* src, const void* wts, const void* ramp, const int* h,
                      void* sc, void* fin, void* acc, int B, int T, int SP,
                      cudaStream_t stream) {
-  const int n_diag = h[0], n_chain = h[1];
-  bool ok = SP % 128 == 0 && SP <= 1024 && n_diag >= 0 && n_diag <= L::DIAG &&
-            n_chain >= 0 && n_chain <= L::CHAIN;
-  for (int c = 0; c < n_chain && c < L::CHAIN; ++c) {
-    const int n_entry = h[2 + 2 * c], n_exit = h[3 + 2 * c];
-    ok = ok && n_entry >= 0 && n_entry <= ENTRY_SLOTS && n_exit >= 0 && n_exit <= EXIT_SLOTS;
-  }
-  if (!ok) return (int)cudaErrorInvalidValue;
+  if (SP % 128 != 0 || SP > 1024 || !counts_fit<L>(h)) return (int)cudaErrorInvalidValue;
+  const int n_chain = h[1];
 #define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
                  acc, B, T, stream
   switch (SP / 128) {
@@ -323,6 +512,23 @@ int check_and_launch(const void* obs, const void* tact, const void* start, const
     case 7: return launch<7, L>(FWD_ARGS);
     default: return launch<8, L>(FWD_ARGS);
   }
+#undef FWD_ARGS
+}
+
+template <class L>
+int check_and_launch_wide(const void* obs, const void* tact, const void* start, const void* mu,
+                          const void* sigma, const void* uni, const void* luni,
+                          const void* lsig, const void* src, const void* wts, const void* ramp,
+                          const int* h, void* sc, void* fin, void* acc, int B, int T, int SP,
+                          cudaStream_t stream) {
+  if (SP % 128 != 0 || SP <= 1024 || SP > 8192 || !counts_fit<L>(h))
+    return (int)cudaErrorInvalidValue;
+  const int n_chain = h[1];
+#define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
+                 acc, B, T, SP, stream
+  if (SP <= 2048) return launch_wide<2, L>(FWD_ARGS);
+  if (SP <= 4096) return launch_wide<4, L>(FWD_ARGS);
+  return launch_wide<8, L>(FWD_ARGS);
 #undef FWD_ARGS
 }
 
@@ -349,6 +555,28 @@ extern "C" int viterbi_fwd_launch(const void* obs, const void* tact, const void*
     case 1:
       return check_and_launch<DiagOnly>(obs, tact, start, mu, sigma, uni, luni, lsig, src, wts,
                                         ramp, h, sc, fin, acc, B, T, SP, stream_);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The wide variant: the same arguments, SP a multiple of 128 in (1024,
+// 8192] (the narrow kernel above takes SP up to 1024).
+extern "C" int viterbi_fwd_wide_launch(const void* obs, const void* tact, const void* start,
+                                       const void* mu, const void* sigma, const void* uni,
+                                       const void* luni, const void* lsig, const void* src,
+                                       const void* wts, const void* ramp, const void* counts,
+                                       void* sc, void* fin, void* acc, int B, int T, int SP,
+                                       int layout, void* stream) {
+  const int* h = (const int*)counts;
+  cudaStream_t stream_ = (cudaStream_t)stream;
+  switch (layout) {
+    case 0:
+      return check_and_launch_wide<Chained>(obs, tact, start, mu, sigma, uni, luni, lsig, src,
+                                            wts, ramp, h, sc, fin, acc, B, T, SP, stream_);
+    case 1:
+      return check_and_launch_wide<DiagOnly>(obs, tact, start, mu, sigma, uni, luni, lsig, src,
+                                             wts, ramp, h, sc, fin, acc, B, T, SP, stream_);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -28,6 +28,15 @@ the mod paths into one '0'/'1' character per repeat unit.  Without a
 mod model it returns its state unchanged, and the stream scheduler
 calls it unconditionally.
 
+Several devices (a list as ``device``, the counterpart of the
+reference's ``mesh=``): a batch's rows pad to a multiple of the device
+count and split into contiguous shards, one a device entry, each
+running phases 1-2 (and the mod decode) on its own device and CUDA
+stream; the rows come back in order, so the results are the single
+device's.  A batch past the pointer budget splits the same way, each
+shard running its own two-pass groups on its device.  The model's HMM
+tensors are kept per device.
+
 Results are ``(n, score_prefix, score_suffix, log_p, offset, ticks,
 mod)`` tuples, as the reference returns them (``mod`` is '-' without a
 mod model or for a read the gate drops).  Not ported yet, and raising
@@ -58,6 +67,7 @@ Two knobs of the reference are honoured, through the same calls:
 """
 from __future__ import annotations
 
+import math
 import os
 import threading
 from dataclasses import dataclass
@@ -74,7 +84,8 @@ from ..ops.align_cuda import CHUNK as ALIGN_CHUNK
 from ..ops.bounds import segment_bounds
 from ..ops.prep import model_const
 from ..ops.reference import AlignParams
-from ..ops.viterbi_cuda import CHUNK_T, PaddedHMM, viterbi_batch
+from ..ops.viterbi_cuda import CHUNK_T, PaddedHMM, check_card_sp, viterbi_batch
+from ..parallel.mesh import on_stream, shard_rows, shard_streams
 from ..pore_model import PoreModel, mean_abs_dev
 from .packed import pack_meta, path_itemsize, unpack_meta
 
@@ -144,19 +155,27 @@ class RepeatCounter:
                  align_config: dict | None = None, hmm_config: dict | None = None,
                  device="cuda"):
         """``device``: where the kernels run; "cuda" (default) raises when
-        no card is present -- there is no silent CPU fallback.
+        no card is present -- there is no silent CPU fallback.  A list of
+        devices (all of one kind, a device possibly repeated;
+        ``parallel.mesh.local_devices``) shards each batch's rows over
+        them; ``self.device`` is its first entry.
         ``mod_model_file``: the base-modification pore model; each target
         then also gets the mod HMM of its repeat unit on both strands."""
         if os.environ.get("STRIQUE_SPLIT", "1") == "0":
             raise NotImplementedError(
                 "only the split pipeline is ported; the fused dispatch (STRIQUE_SPLIT=0) is not")
-        self.device = torch.device(device)
+        listed = device if isinstance(device, (list, tuple)) else [device]
+        self.devices = [torch.device(d) for d in listed]
+        self.device = self.devices[0]
+        if any(d.type != self.device.type for d in self.devices):
+            raise ValueError(f"devices of one kind only, got {self.devices}")
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("RepeatCounter(device='cuda') needs a CUDA device; "
                                    "pass device='cpu' for the plain PyTorch path")
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
+        self._streams = shard_streams(self.devices)
         cfg = dict(DEFAULT_ALIGN_CONFIG)
         if align_config:
             cfg.update(align_config)
@@ -178,7 +197,11 @@ class RepeatCounter:
     # -- model construction ------------------------------------------------
     def add_target(self, target_name: str, repeat: str, prefix: str, suffix: str) -> None:
         """Build flank templates + HMMs for both strands (and the mod HMMs
-        of the repeat and its reverse complement with a mod model)."""
+        of the repeat and its reverse complement with a mod model).
+
+        On the card an HMM wider than the Viterbi kernels take
+        (``viterbi_cuda.MAX_SP`` padded states) is refused here, as soon
+        as it is built, with a ValueError naming the limit."""
         if target_name in self.targets:
             raise ValueError(f"target {target_name!r} already defined")
         prefix_ext = prefix.upper()
@@ -187,24 +210,42 @@ class RepeatCounter:
         suffix = suffix[:50].upper()
         repeat = repeat.upper()
         gen = lambda seq: self.pm.generate_signal(seq, samples=self.samples).astype(np.float32)
-        mod = (lambda unit: build_repeat_mod(unit, self.pm, self.pm_mod, self.hmm_config)
-               if self.has_mod else None)
-        tc_plus = TargetClassifier(
-            gen(prefix), gen(suffix), gen(prefix_ext), gen(suffix_ext),
-            build_flanked_repeat(repeat, prefix, suffix, self.pm, self.hmm_config), mod(repeat))
+
+        def checked(chm):
+            if chm is not None:
+                check_card_sp(chm.n_states, self.device)
+            return chm
+
+        def hmms(unit, pre, suf):
+            rep = checked(build_flanked_repeat(unit, pre, suf, self.pm, self.hmm_config))
+            mod = (checked(build_repeat_mod(unit, self.pm, self.pm_mod, self.hmm_config))
+                   if self.has_mod else None)
+            return rep, mod
+
+        tc_plus = TargetClassifier(gen(prefix), gen(suffix), gen(prefix_ext), gen(suffix_ext),
+                                   *hmms(repeat, prefix, suffix))
         rc = reverse_complement
         tc_minus = TargetClassifier(
             gen(rc(suffix)), gen(rc(prefix)), gen(rc(suffix_ext)), gen(rc(prefix_ext)),
-            build_flanked_repeat(rc(repeat), rc(suffix), rc(prefix), self.pm, self.hmm_config),
-            mod(rc(repeat)))
+            *hmms(rc(repeat), rc(suffix), rc(prefix)))
         self.targets[target_name] = (tc_plus, tc_minus)
 
-    def _padded_hmm(self, chm) -> PaddedHMM:
+    def _padded_hmm(self, chm, device=None) -> PaddedHMM:
+        """``chm``'s lane-padded tensors on ``device`` (default the first
+        device), built once a device."""
+        dev = self.device if device is None else torch.device(device)
         with self._init_lock:
-            key = id(chm)
+            key = (id(chm), dev)
             if key not in self._hmm_cache:
-                self._hmm_cache[key] = PaddedHMM(chm, self.device)
+                self._hmm_cache[key] = PaddedHMM(chm, dev)
             return self._hmm_cache[key]
+
+    def _pad_rows(self, B: int) -> int:
+        """Rows of a B-read batch: a multiple of 8 and of the device count
+        (dummies: length-1 reads, gated out), as the reference pads for
+        its mesh."""
+        step = 8 * len(self.devices) // math.gcd(8, len(self.devices))
+        return -(-B // step) * step
 
     def _prep_pool(self):
         with self._init_lock:
@@ -219,7 +260,8 @@ class RepeatCounter:
         return torch.zeros(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
     def _to_host(self, x: torch.Tensor):
-        """Queue a D2H copy of ``x``; returns (host tensor, event or None)."""
+        """Queue a D2H copy of ``x`` on the current stream; returns (host
+        tensor, event or None)."""
         if self.device.type != "cuda":
             return x, None
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
@@ -227,6 +269,15 @@ class RepeatCounter:
         ev = torch.cuda.Event()
         ev.record()
         return host, ev
+
+    @staticmethod
+    def _from_host(parts) -> torch.Tensor:
+        """Wait for :meth:`_to_host` parts; their host tensors in order."""
+        for _host, ev in parts:
+            if ev is not None:
+                ev.synchronize()
+        hosts = [h for h, _ev in parts]
+        return hosts[0] if len(hosts) == 1 else torch.cat(hosts)
 
     # -- detection ---------------------------------------------------------
     def detect(self, target_name: str, raw_signal: np.ndarray, strand: str):
@@ -256,8 +307,7 @@ class RepeatCounter:
         raws = [np.asarray(r, dtype=np.float64) for r in raw_signals]
         n_sigs = np.array([len(r) for r in raws], dtype=np.int32)
         npad = signal_bucket(int(n_sigs.max()))
-        # pad to a multiple of 8 rows (dummies: length-1 reads, gated out)
-        Bp = -(-B // 8) * 8
+        Bp = self._pad_rows(B)
         n_sigs_p = np.ones(Bp, dtype=np.int32)
         n_sigs_p[:B] = n_sigs
         return self._split_submit(tc, raws, n_sigs_p, npad, Bp,
@@ -327,18 +377,21 @@ class RepeatCounter:
                 flt32s[i] = flt_n.astype(np.float32)
                 _to_token(i, row, len(raw))
 
-        dev = self.device
-        bins, lut = _split_morph_upload(upload.to(dev, non_blocking=True))
-        n_dev = torch.from_numpy(n_sigs_p).to(dev, non_blocking=True)
-        pre, suf = align_fused_pair(bins, n_dev, tc.prefix_ext, tc.suffix_ext,
-                                    self.align_params, lut=lut)
-        b = segment_bounds(pre, suf, n_dev,
-                           trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
-                           trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
-        meta_host, ev = self._to_host(pack_meta(b))
+        parts = []
+        for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
+            dev = self.devices[k]
+            with on_stream(self._streams[k]):
+                bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
+                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                pre, suf = align_fused_pair(bins, n_dev, tc.prefix_ext, tc.suffix_ext,
+                                            self.align_params, lut=lut)
+                b = segment_bounds(pre, suf, n_dev,
+                                   trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
+                                   trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
+                parts.append(self._to_host(pack_meta(b)))
         # the pinned upload buffer stays referenced until the batch finishes:
-        # its non_blocking copy may still be in flight
-        return {"bounds_host": meta_host, "bounds_event": ev, "upload": upload,
+        # its non_blocking copies may still be in flight
+        return {"bounds_parts": parts, "upload": upload,
                 "tc": tc, "raws": raws, "flts": flts, "flt32s": flt32s, "B": len(raws)}
 
     def detect_middle(self, state: dict) -> dict:
@@ -350,9 +403,7 @@ class RepeatCounter:
             return state
         tc = state["tc"]
         B = state["B"]
-        if state["bounds_event"] is not None:
-            state["bounds_event"].synchronize()
-        rows = unpack_meta(state["bounds_host"].numpy()[:B])
+        rows = unpack_meta(self._from_host(state["bounds_parts"]).numpy()[:B])
         bounds = [(r.ok, r.score_prefix, r.score_suffix, r.prefix_begin,
                    r.prefix_end, r.suffix_begin, r.suffix_end) for r in rows]
         live = [i for i in range(B) if rows[i].ok]
@@ -458,10 +509,11 @@ class RepeatCounter:
         return [tuple(r) for r in self._main_results(state)]
 
     def _viterbi_submit(self, chm, segments) -> dict:
-        """Queue the Viterbi decode of ``segments``; returns a collect handle."""
+        """Queue the Viterbi decode of ``segments`` (its rows split over
+        the devices); returns a collect handle."""
         lens = np.array([len(s) for s in segments], dtype=np.int32)
         B = len(segments)
-        Bp = -(-B // 8) * 8
+        Bp = self._pad_rows(B)
         lens_p = np.ones(Bp, dtype=np.int32)
         lens_p[:B] = lens
         tpad = max(-(-int(lens.max()) // CHUNK_T) * CHUNK_T, CHUNK_T)
@@ -469,17 +521,21 @@ class RepeatCounter:
         obs = obs_host.numpy()
         for k, s in enumerate(segments):
             obs[k, : len(s)] = s
-        dev = self.device
-        _, paths = viterbi_batch(obs_host.to(dev, non_blocking=True),
-                                 torch.from_numpy(lens_p).to(dev, non_blocking=True),
-                                 self._padded_hmm(chm))
-        if path_itemsize(chm.n_states) == 1:
-            paths = paths.to(torch.uint8)  # 1 byte per entry for <= 256 states
-        host, ev = self._to_host(paths)
-        return {"paths": host, "event": ev, "B": B, "obs": obs_host, "lens": lens_p}
+        parts = []
+        for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
+            dev = self.devices[k]
+            with on_stream(self._streams[k]):
+                _, paths = viterbi_batch(obs_host[sl].to(dev, non_blocking=True),
+                                         torch.from_numpy(lens_p[sl]).to(dev, non_blocking=True),
+                                         self._padded_hmm(chm, dev))
+                if path_itemsize(chm.n_states) == 1:
+                    paths = paths.to(torch.uint8)  # 1 byte per entry for <= 256 states
+                parts.append(self._to_host(paths))
+        return {"parts": parts, "B": B, "obs": obs_host, "lens": lens_p}
 
     def _viterbi_collect(self, handle) -> np.ndarray:
-        """Wait for a :meth:`_viterbi_submit` handle; (B, Tpad) int32 paths."""
-        if handle["event"] is not None:
-            handle["event"].synchronize()
+        """Wait for a :meth:`_viterbi_submit` handle; (B, Tpad) int32 paths
+        (its host paths, rows in order, stay as ``handle["paths"]``)."""
+        if "paths" not in handle:
+            handle["paths"] = self._from_host(handle["parts"])
         return handle["paths"].numpy()[: handle["B"]].astype(np.int32)

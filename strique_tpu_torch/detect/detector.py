@@ -4,7 +4,8 @@ Equivalent of the reference ``repeatDetector`` (reference
 scripts/STRique.py:624-705): decode SAM line, intersect configured loci,
 fetch raw signal, run the counter per matching target.  The port's
 counterpart of ``strique_tpu/detect/detector.py``: the counter is built
-with ``device=`` where the reference takes ``mesh=``, and the index may
+with ``device=`` (a device, or a list that a batch's rows shard
+over) where the reference takes ``mesh=``, and the index may
 be any object with ``get_raw``.  The reference's ``detect_batch*``
 methods, which the dispatcher does not call, are not carried over.
 """
@@ -28,7 +29,7 @@ class RepeatDetector:
         ``mod_model_file``: the counter's base-modification model (mod
         calling), or None.  ``device``: the counter's ("cuda" by default;
         it raises without a card -- pass "cpu" for the plain PyTorch
-        path)."""
+        path), or its list of devices (``parallel.mesh.local_devices``)."""
         self.counter = RepeatCounter(model_file, mod_model_file=mod_model_file,
                                      align_config=align_config, hmm_config=hmm_config,
                                      device=device)

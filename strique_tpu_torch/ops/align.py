@@ -54,8 +54,11 @@ morph-form windows read the bins row in place.  On the card
 ``align_fused_pair`` runs both flanks' two-pass routes as one
 per-row-template row stream, so a group's pass 1 covers both flanks.
 Configurations without a span bound (horizontal gaps free or positive)
-raise ``ValueError`` there.  Spreading the groups over several cards
-is not ported yet (``devices`` of more than one raises).
+raise ``ValueError`` there.  With ``devices`` (a list, a device
+possibly repeated) the groups round-robin over them, each at most a
+device's share of the rows and every pass 1 queued before the first
+pass 2, as the reference spreads its groups over a mesh; the rows come
+back in order on the input's device.
 """
 from __future__ import annotations
 
@@ -478,13 +481,19 @@ def _pad_rows_np(x: np.ndarray, rows: int, value) -> np.ndarray:
     return np.concatenate([x, np.full((rows - x.shape[0],) + x.shape[1:], value, x.dtype)])
 
 
-def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None) -> dict:
+def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None,
+                   devices=None) -> dict:
     """The two-pass route over a row stream: one template (``tmpl_np``
     (1, MP), ``ms`` one length) or one per row ((B, MP), (B,) lengths;
     pad rows get an all-+1e30 template of length 1).  Groups of
-    :func:`two_pass_group` rows; every group's pass 1 is queued before
-    the first pass 2 runs, as the reference does."""
+    :func:`two_pass_group` rows, round-robin over ``devices`` (default
+    the input's device); with several devices a group takes at most its
+    share of the rows, so that each device gets one.  Every group's
+    pass 1 is queued before the first pass 2 runs, as the reference
+    does.  The outputs come back to the input's device, rows in order."""
     B, N = signals.shape
+    devs = list(devices) if devices else [signals.device]
+    share = -(-B // len(devs))
     mp = tmpl_np.shape[1]
     per_row = tmpl_np.shape[0] > 1
     n_act = n_actual.to(torch.int32)
@@ -494,37 +503,43 @@ def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=
     states = []
     g0 = 0
     while g0 < B:
-        kb = two_pass_group(B - g0, mp, w_steps, signals.device)
+        dev = devs[len(states) % len(devs)]
+        kb = two_pass_group(min(B - g0, share), mp, w_steps, dev)
         sl = slice(g0, g0 + kb)
         states.append(_pass1_rows(
-            _pad_rows(signals[sl], kb, 0), _pad_rows(n_act[sl], kb, 1),
+            _pad_rows(signals[sl], kb, 0).to(dev), _pad_rows(n_act[sl], kb, 1).to(dev),
             _pad_rows_np(tmpl_np[sl], kb, 1e30) if per_row else tmpl_np,
             _pad_rows_np(ms[sl], kb, 1) if per_row else ms, params, ckpt_steps,
-            None if lut is None else _pad_rows(lut[sl], kb, 0.0)))
+            None if lut is None else _pad_rows(lut[sl], kb, 0.0).to(dev)))
         g0 += kb
     outs = [_longread_pass2(st, m_out) for st in states]
-    return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
+    return {k: torch.cat([o[k].to(signals.device) for o in outs])[:B] for k in outs[0]}
 
 
 def align_longread_sharded(signals, n_actual, template_np, params, devices=None,
                            ckpt_steps: int = CKPT_STEPS, lut=None):
     """The two-pass route against one template, in groups of
-    :func:`two_pass_group` rows on one device.
+    :func:`two_pass_group` rows round-robin over ``devices`` (a list, a
+    device possibly repeated; default the input's device).
 
     ``lut``: morph-form input read in place (TABLE score mode; the
     caller decodes templates past the table to f32).  Every group's pass
-    1 is queued before the first pass 2 runs, as the reference does.
-    The reference round-robins the groups over ``devices``; here at most
-    one device is accepted (the multi-GPU slice is not ported yet).
+    1 is queued before the first pass 2 runs, as the reference does; the
+    outputs come back to the input's device.  Each group's rows are its
+    own, so any device list gives the single device's outputs.
     """
-    if devices is not None and len(devices) > 1:
-        raise NotImplementedError(
-            "round-robin of two-pass groups over several devices is not ported yet (ROADMAP)")
-    if devices:
-        signals, n_actual = signals.to(devices[0]), n_actual.to(devices[0])
-        lut = None if lut is None else lut.to(devices[0])
     tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
-    return _two_pass_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps, lut)
+    return _two_pass_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps,
+                          lut=lut, devices=devices)
+
+
+def takes_two_pass(N: int, mp: int, device) -> bool:
+    """Whether a bucket of N signal samples against MP template lanes
+    takes the two-pass route: its width-8 pointer plane is past
+    :func:`ptr_budget_bytes`.  Never under ``STRIQUE_ALIGN_KERNEL=col``,
+    whose route has no two-pass form."""
+    return (os.environ.get("STRIQUE_ALIGN_KERNEL") != "col"
+            and (_round_up(N, CHUNK) + mp) * 8 * mp // 2 > ptr_budget_bytes(device))
 
 
 def _fits_table(tmpl_np: np.ndarray) -> bool:
@@ -541,7 +556,7 @@ def _pad_signals(signals, lut):
     return torch.nn.functional.pad(signals, (0, npad)) if npad else signals
 
 
-def align_core(signals, n_actual, template_np, params, lut=None):
+def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     """Align B reads against one template; returns a dict of (B, ...) tensors.
 
     signals (B, N) f32 on the target device or, with ``lut`` (B, 256)
@@ -555,7 +570,9 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     (pointer plane N/8 x rows x MP, no two-pass route), as the reference
     does, on morph input in the TABLE score mode where the template fits
     ``col_score_mode``'s table.  Past its table each route decodes morph
-    input to f32.
+    input to f32.  ``devices``: where the two-pass route's groups run
+    (round-robin); the other routes run on the input's device, as the
+    reference's in-jit route ignores its devices.
     """
     dev = signals.device
     B = signals.shape[0]
@@ -564,7 +581,7 @@ def align_core(signals, n_actual, template_np, params, lut=None):
     mp = tmpl_np.shape[1]
     col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
     n_cols = signals.shape[1] + (0 if col else mp)
-    two_pass = not col and n_cols * 8 * mp // 2 > ptr_budget_bytes(dev)
+    two_pass = takes_two_pass(signals.shape[1], mp, dev)
     if lut is not None and two_pass and not _fits_table(tmpl_np):
         signals, lut = morph_decode(signals, lut), None
     if two_pass:
@@ -573,7 +590,7 @@ def align_core(signals, n_actual, template_np, params, lut=None):
                 "the pointer plane exceeds the memory budget even at width 8, and the "
                 "two-pass route needs negative horizontal gap costs (no span bound "
                 "exists otherwise)")
-        return align_longread_sharded(signals, n_actual, template_np, params, lut=lut)
+        return align_longread_sharded(signals, n_actual, template_np, params, devices, lut=lut)
     if lut is None:
         tmpl = torch.from_numpy(tmpl_np).to(dev)
     else:
@@ -625,8 +642,7 @@ def _two_pass_pair(B: int, N: int, mp: int, params, device) -> bool:
     ``STRIQUE_ALIGN_KERNEL`` not ``col``), where a width-8 pointer plane
     exceeds :func:`ptr_budget_bytes` and a span bound exists.  The CPU
     keeps the reference's two :func:`align_core` calls."""
-    return (sm_count(device) is not None and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col"
-            and (_round_up(N, CHUNK) + mp) * 8 * mp // 2 > ptr_budget_bytes(device)
+    return (sm_count(device) is not None and takes_two_pass(N, mp, device)
             and wave_span_bound_steps(params, 1) is not None)
 
 
@@ -638,14 +654,16 @@ def _split_flanks(out: dict, B: int, m_pre: int, m_suf: int):
     return pre, suf
 
 
-def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
+def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=None):
     """Both flank alignments of a batch, fused into one row stream when
     :func:`fuse_flanks` says so: the rows [read0 x prefix .. readB x
     prefix, read0 x suffix ..] run as per-row-template calls.  Past the
     pointer budget on the card the same row stream takes the two-pass
     route (:func:`_two_pass_pair`): pass 1 of both flanks in one launch a
     group.  Otherwise two :func:`align_core` calls.  ``lut``: morph-form
-    input, as in :func:`align_core`.  Returns (pre, suf).
+    input, as in :func:`align_core`; ``devices``: where the two-pass
+    groups run (round-robin), as in :func:`align_core`.  Returns (pre,
+    suf).
     """
     t_pre = np.asarray(t_pre, np.float32)
     t_suf = np.asarray(t_suf, np.float32)
@@ -655,8 +673,8 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
     mp = tmpl_rows_np.shape[1]
     fused = fuse_flanks(B, N, mp, dev)
     if not fused and not _two_pass_pair(B, N, mp, params, dev):
-        return (align_core(signals, n_actual, t_pre, params, lut=lut),
-                align_core(signals, n_actual, t_suf, params, lut=lut))
+        return (align_core(signals, n_actual, t_pre, params, lut=lut, devices=devices),
+                align_core(signals, n_actual, t_suf, params, lut=lut, devices=devices))
 
     signals = _pad_signals(signals, lut)
     m_max = int(ms.max())
@@ -669,7 +687,7 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None):
         if lut2 is not None and not _fits_table(tmpl_rows_np):
             sig2, lut2 = morph_decode(sig2, lut2), None
         out = _two_pass_rows(sig2, na2, np.repeat(tmpl_rows_np, B, axis=0), np.repeat(ms, B),
-                             params, CKPT_STEPS, lut=lut2)
+                             params, CKPT_STEPS, lut=lut2, devices=devices)
         return _split_flanks(out, B, len(t_pre), len(t_suf))
 
     def rows2(x):

@@ -13,7 +13,11 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     ``FWD_MAX_EXIT`` exits, the shape of every flanked-repeat HMM
     (launch counter ``viterbi_forward_factored``); DIAG_ONLY, at most
     ``FWD_DIAG_ONLY`` diagonals and no chain, the shape of every mod HMM
-    (``viterbi_forward_factored_diag``).
+    (``viterbi_forward_factored_diag``).  Up to ``NARROW_MAX_SP`` padded
+    states one thread holds one state; past it, up to ``MAX_SP``, the
+    wide variant gives each thread 2, 4 or 8 (launch counters
+    ``viterbi_forward_factored_wide`` and
+    ``viterbi_forward_factored_diag_wide``).
   * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
     with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
     for HMMs without a factored form (``hmm/factor.py`` declines) or
@@ -28,8 +32,10 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     walk that recomputes each visited backpointer,
     ``bp[t] = min{u : sc[t-1, u] + trans[u, path[t]] == max}``, frozen
     past each read's length.  Kernel ``csrc/viterbi_bwd.cu``, one warp a
-    read with its score rows prefetched into a shared ring, SP at most
-    ``BWD_MAX_SP``.
+    read with its score rows prefetched into a shared ring up to
+    ``NARROW_MAX_SP``; past it, up to ``MAX_SP``, the wide variant walks
+    with one warp per 1024 states and a cross-warp first-max a step
+    (launch counter ``viterbi_backward_wide``).
 
 Each kernel's plain PyTorch twin (``_fwd_plain``, ``_fwd_dense_plain``,
 ``_bwd_plain``) runs for CPU tensors only.  Layouts are the reference's:
@@ -50,6 +56,12 @@ tolerance).
 form fits neither slot layout of the forward kernel (``fwd_spec_fits``), or
 ``STRIQUE_DENSE_VITERBI=1`` at its construction (as the reference's
 does); ``viterbi_batch`` takes the dense forward when it has none.
+
+On the card every Viterbi kernel stops at ``MAX_SP`` padded states
+(the dense forward's cap too): ``check_card_sp`` refuses a wider HMM
+where it is staged (``PaddedHMM``, and the counter's ``add_target``),
+before any launch.  The plain twins on the CPU take any SP, as the
+reference does.
 """
 from __future__ import annotations
 
@@ -67,12 +79,31 @@ NEG = -1e30
 LANE = 128
 CHUNK_T = 512
 GROUP = 64  # reads per forward/backward call
-BWD_MAX_SP = 1024  # the backward kernel's widest row (a lane holds SP/32 states)
+NARROW_MAX_SP = 1024  # the widest SP of the narrow forward and backward kernels
+MAX_SP = 8192  # the widest SP of every Viterbi kernel (the wide variants, the dense forward)
 _LOG2PI = float(np.log(2.0 * np.pi))
 
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
+
+
+def padded_sp(n_states: int) -> int:
+    """The padded state count (lanes) of an HMM of ``n_states``."""
+    return _round_up(max(int(n_states), LANE), LANE)
+
+
+def check_card_sp(n_states: int, device) -> None:
+    """Raise ValueError when an HMM of ``n_states`` is too wide for the
+    card's Viterbi kernels (``MAX_SP`` padded states) and ``device`` is
+    a card; the CPU's plain twins take any width."""
+    sp = padded_sp(n_states)
+    if torch.device(device).type == "cuda" and sp > MAX_SP:
+        raise ValueError(
+            f"an HMM of {n_states} states pads to {sp} lanes, past the {MAX_SP} padded "
+            f"states the card's Viterbi kernels take; the reference decodes such HMMs on "
+            f"its two-phase host-bounds path, which is not ported (ROADMAP Queue 1 item 5); "
+            f"device='cpu' runs the plain path at any width")
 
 
 def lsig_row(sigma: np.ndarray) -> np.ndarray:
@@ -107,6 +138,12 @@ class FwdLayout(NamedTuple):
     @property
     def slots(self) -> int:
         return self.diag + self.chain * FWD_CHAIN_SLOTS
+
+    @property
+    def wide_name(self) -> str:
+        """The launch counter of the layout's wide variant (SP past
+        ``NARROW_MAX_SP``)."""
+        return self.name + "_wide"
 
 
 FWD_LAYOUTS = (FwdLayout(0, "viterbi_forward_factored", FWD_MAX_DIAG, FWD_MAX_CHAIN),
@@ -190,12 +227,14 @@ class PaddedHMM:
     ``STRIQUE_DENSE_VITERBI=1`` at construction (read here, as the
     reference reads it), so decodes take the dense forward.
     ``fwd_layout`` is the layout the factored form is staged in (None
-    without one).
+    without one).  On the card an HMM past ``MAX_SP`` padded states is
+    refused (``check_card_sp``).
     """
 
     def __init__(self, chm, device="cuda"):
         S = chm.n_states
-        sp = _round_up(max(S, LANE), LANE)
+        check_card_sp(S, device)
+        sp = padded_sp(S)
         trans = np.full((sp, sp), NEG, np.float32)
         trans[:S, :S] = np.maximum(chm.log_trans, NEG).astype(np.float32)
         start = np.full(sp, NEG, np.float32)
@@ -234,6 +273,7 @@ class PaddedHMM:
         sp = trans.shape[0]
         if sp % LANE:
             raise ValueError(f"padded state count must be a multiple of {LANE}, got {sp}")
+        check_card_sp(sp, dev)
 
         def t(x, dtype=np.float32):
             return torch.from_numpy(np.array(x, dtype).reshape(-1)).to(dev)
@@ -327,14 +367,15 @@ def _fwd_cuda(obs, t_actual, ph):
     sc = torch.empty((T, B, sp), dtype=torch.float32, device=dev)
     fin = torch.empty((B, sp), dtype=torch.float32, device=dev)
     acc = torch.empty((B,), dtype=torch.float32, device=dev)
+    wide = sp > NARROW_MAX_SP
     _build.launch(
-        "viterbi_fwd_launch", dev,
+        "viterbi_fwd_wide_launch" if wide else "viterbi_fwd_launch", dev,
         o.data_ptr(), tact.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
         ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
         ph.lsig.data_ptr(), src.data_ptr(), w.data_ptr(), ramp.data_ptr(),
         ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp,
         ph.fwd_layout.code)
-    _build.LAUNCHES[ph.fwd_layout.name] += 1
+    _build.LAUNCHES[ph.fwd_layout.wide_name if wide else ph.fwd_layout.name] += 1
     return sc, fin, acc
 
 
@@ -378,9 +419,11 @@ def dense_mode(sp: int) -> int:
 
 
 def _fwd_dense_plain(obs, t_actual, ph):
-    """Plain twin of the dense forward: the reference's step, every read
-    together.  Rows past a read's length are not frozen (the reference
-    does not freeze them either); they are never read."""
+    """Plain twin of the dense forward: the reference's step over the
+    reads still within their length (``max_u st[u] + trans[u, v]`` as a
+    max over transT's rows).  A finished read's row stays as it was
+    (the reference lets it run on); rows past a read's length are never
+    read."""
     B, T = obs.shape
     sp = ph.sp
     dev = obs.device
@@ -390,15 +433,16 @@ def _fwd_dense_plain(obs, t_actual, ph):
     acc = torch.zeros((B,), device=dev)
     sc = torch.zeros((T, B, sp), device=dev)
     for t in range(int(tact.max())):
-        z = (obs[:, t : t + 1] - ph.mu) / ph.sigma
+        rows = torch.nonzero(t < tact)[:, 0]
+        z = (obs[rows, t : t + 1] - ph.mu) / ph.sigma
         emit = torch.where(ph.uni != 0, ph.luni, ph.lsig - 0.5 * z * z)
         if t == 0:
             val = ph.start + emit
         else:
-            val = (st[:, :, None] + ph.trans[None]).amax(dim=1) + emit
+            val = (st[rows, None, :] + ph.transT[None]).amax(dim=2) + emit
         m = val.max(dim=1, keepdim=True).values
-        st = val - m
-        acc = acc + torch.where(t < tact, m[:, 0], 0.0)
+        st[rows] = val - m
+        acc[rows] = acc[rows] + m[:, 0]
         fin = torch.where((tact - 1 == t)[:, None], st, fin)
         sc[t] = st
     return sc, fin, acc
@@ -466,17 +510,18 @@ def _bwd_plain(sc, last, t_actual, transT):
 def _bwd_cuda(sc, last, t_actual, transT):
     T, B, sp = sc.shape
     dev = sc.device
-    if sp > BWD_MAX_SP:
-        raise ValueError(f"the backward kernel takes at most {BWD_MAX_SP} padded states, got {sp}")
+    if sp > MAX_SP:
+        raise ValueError(f"the backward kernel takes at most {MAX_SP} padded states, got {sp}")
+    wide = sp > NARROW_MAX_SP
     s = sc.contiguous()
     tt = transT.contiguous()
     la = last.to(torch.int32).contiguous()
     ta = t_actual.to(torch.int32).contiguous()
     path = torch.empty((B, T), dtype=torch.int32, device=dev)
     _build.launch(
-        "viterbi_bwd_launch", dev,
+        "viterbi_bwd_wide_launch" if wide else "viterbi_bwd_launch", dev,
         s.data_ptr(), tt.data_ptr(), la.data_ptr(), ta.data_ptr(), path.data_ptr(), B, T, sp)
-    _build.LAUNCHES["viterbi_backward_batch"] += 1
+    _build.LAUNCHES["viterbi_backward_wide" if wide else "viterbi_backward_batch"] += 1
     return path
 
 
@@ -485,7 +530,7 @@ def viterbi_backward_batch(sc, last, t_actual, transT):
 
     path[t] = last for t >= t_actual - 1; below, each step takes the
     first state u maximising sc[t-1, u] + trans[u, path[t]].  SP at most
-    ``BWD_MAX_SP`` on the card.
+    ``MAX_SP`` on the card.
     """
     T, B, sp = sc.shape
     if (sc.dtype != torch.float32 or transT.shape != (sp, sp) or last.shape != (B,)

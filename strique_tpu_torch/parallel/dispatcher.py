@@ -11,8 +11,9 @@ worker is logged and the pipeline continues (reference :764-768).
 
 The port's own copy of ``strique_tpu/parallel/dispatcher.py``
 (tests/test_torch_copies.py pins the two equal); its one device-side
-import, the stream scheduler, is the port's.  In the port a single
-process owns one card; data parallelism over cards is not ported yet.
+import, the stream scheduler, is the port's.  In the port the
+counter's device list (``parallel/mesh.py``) carries the data
+parallelism over cards: nothing here changes with it.
 """
 from __future__ import annotations
 

@@ -10,8 +10,9 @@ calling has a twin model (``write_mod_model``: CpG k-mers shifted) and
 reads from both (``make_mod_reads``, ``mod_workload``).  ``quantise``
 turns f32 reads into the counter's morph form (u8 bins and a 256-level
 table per read) for the tests of the TABLE score mode.  The Viterbi
-kernels' edge inputs (``viterbi_edge_case``) are one table shared by
-the ``gpu`` tests and ``chip_smoke.py``, and so are the traceback's
+kernels' edge inputs (``viterbi_edge_case``) and their wide inputs past
+SP 1024 (``viterbi_wide_case``) are tables shared by the ``gpu`` tests
+and ``chip_smoke.py``, and so are the traceback's
 hard pointer planes (``traceback_plane``).  ``write_repeat_config``,
 ``write_single_fast5`` and ``sam_line`` write the inputs of a ``count``
 run (a repeat TSV over ``LOCI``, single-read fast5 files, SAM lines
@@ -296,6 +297,81 @@ def viterbi_edge_case(pm, label: str, rng):
         x = pm.generate_signal(PREFIX[-flank:] + REPEAT * 20 + SUFFIX[:flank], samples=8,
                                noise=True, rng=rng).astype(np.float32)[:k]
         obs[i, :k] = 100.0 if constant else x
+    return chm, obs, np.array(lens, np.int32)
+
+
+# the wide Viterbi kernels' inputs (SP past 1024), 8 reads of T
+# VITERBI_WIDE_T: label -> (HMM, unit bases, read lengths, constant obs).
+# "flanked": the repeat HMM of a random unit between 50-base flanks (the
+# chained slot layout; 6 states a base and 180 more: SP 1152 at 150
+# bases, the unit of WIDE_UNIT_BASES, 2048 at 300, 4480 at 700, 8192 at
+# 1330); "mod": the mod HMM of a random unit (the diagonal-only layout;
+# SP 1152 at 260 bases, 2048 at 500, 8192 at 2030).  Lengths below the
+# backward's score ring and around a warp's 32 steps; constant obs ties
+# candidates across the backward's warps.  SP 4480 leaves the forward's
+# last 16 threads without states and the backward's last warp a part of
+# its lanes
+VITERBI_WIDE_T = 1024
+VITERBI_WIDE = {
+    "flanked 150": ("flanked", 150, [1024, 700, 129, 65, 33, 17, 2, 1], False),
+    "flanked 150, constant obs": ("flanked", 150, [1024, 1000, 300, 64, 32, 16, 3, 1], True),
+    "flanked 300": ("flanked", 300, [1024, 513, 400, 100, 31, 5, 2, 1], False),
+    "flanked 700": ("flanked", 700, [1024, 900, 256, 97, 40, 9, 4, 1], False),
+    "flanked 1330": ("flanked", 1330, [1024, 600, 200, 77, 33, 8, 2, 1], False),
+    "mod 260": ("mod", 260, [1024, 800, 129, 65, 33, 17, 2, 1], False),
+    "mod 500": ("mod", 500, [1024, 1000, 300, 64, 32, 16, 3, 1], False),
+    "mod 2030": ("mod", 2030, [1024, 513, 400, 100, 31, 5, 2, 1], False),
+}
+# the 150-base VNTR unit past SP 1024 (the repeat HMM of 1080 states, SP
+# 1152, on PREFIX and SUFFIX): default_rng(5)'s first draw
+WIDE_UNIT_BASES = 150
+# the mod target past SP 1024: a 260-base unit, whose repeat HMM (SP
+# 1792) and mod HMM (SP 1152) both take the wide variants
+WIDE_MOD_UNIT_BASES = 260
+WIDE_MOD_UNITS = 3
+
+
+def random_unit(bases: int, seed: int) -> str:
+    """A random repeat unit: ``default_rng(seed)``'s first ``bases`` draws."""
+    return "".join(np.random.default_rng(seed).choice(list("ACGT"), bases))
+
+
+def wide_mod_reads(base_model: str, twin_model: str, n_reads: int):
+    """The wide mod target's unit (``random_unit(WIDE_MOD_UNIT_BASES,
+    WIDE_MOD_UNIT_BASES)``) and ``n_reads`` '+' reads of WIDE_MOD_UNITS
+    units, alternately from the base and the twin model
+    (``make_mod_reads`` from ``default_rng(6)``)."""
+    from .pore_model import PoreModel
+
+    unit = random_unit(WIDE_MOD_UNIT_BASES, WIDE_MOD_UNIT_BASES)
+    reads = make_mod_reads(PoreModel(base_model), PoreModel(twin_model), n_reads,
+                           WIDE_MOD_UNITS, np.random.default_rng(6), "+", repeat=unit)
+    return unit, reads
+
+
+def viterbi_wide_case(pm, pm_mod, label: str, rng):
+    """(CompiledHMM, obs (8, VITERBI_WIDE_T) f32, lengths (8,) int32) of
+    the wide case ``label``: the HMM of a random unit (``random_unit(bases,
+    bases)``), noisy reads of 3 units (between the flanks for a flanked
+    HMM; the mod model's odd reads from ``pm_mod``, clipped to the mod
+    HMM's level range) cut to each length, or 100.0 throughout."""
+    from .hmm.models import build_flanked_repeat, build_repeat_mod
+
+    kind, bases, lens, constant = VITERBI_WIDE[label]
+    unit = random_unit(bases, bases)
+    if kind == "flanked":
+        chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
+        seq = PREFIX[-50:] + unit * 3 + SUFFIX[:50]
+    else:
+        chm = build_repeat_mod(unit, pm, pm_mod)
+        seq = unit * 3
+    obs = np.zeros((len(lens), VITERBI_WIDE_T), np.float32)
+    for i, k in enumerate(lens):
+        x = (pm_mod if kind == "mod" and i % 2 else pm).generate_signal(
+            seq, samples=8, noise=True, rng=rng)
+        if kind == "mod":
+            x = np.clip(x, chm.meta["model_min"], chm.meta["model_max"])
+        obs[i, :k] = 100.0 if constant else x.astype(np.float32)[:k]
     return chm, obs, np.array(lens, np.int32)
 
 

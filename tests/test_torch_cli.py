@@ -157,25 +157,6 @@ def test_count_without_a_card_fails_naming_cuda(runs, model_file, tmp_path):
         cli.main(_count_args(run, model_file, tmp_path / "c.tsv"))
 
 
-@pytest.mark.parametrize("command, extra, item", [
-    ("warmup", ["--devices", "2"], "item 4"),
-    ("count", ["--devices", "2"], "item 4"),
-    ("count", ["--num_hosts", "2"], "item 4"),
-    ("count", ["--coordinator", "localhost:1234"], "item 4"),
-])
-def test_unported_flags_are_refused(runs, model_file, tmp_path, capsys, command, extra, item):
-    run = runs["single"]
-    out = tmp_path / "c.tsv"
-    if command == "count":
-        argv = _count_args(run, model_file, out, [*extra, "--device", "cpu"])
-    else:
-        argv = ["warmup", model_file, run["repeat"], *extra, "--device", "cpu"]
-    assert cli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert f"ROADMAP Queue 1 {item}" in err
-    assert not out.exists()
-
-
 def test_missing_inputs_exit_1(runs, model_file, tmp_path):
     run = runs["single"]
     assert cli.main(["count", str(tmp_path / "nope.fofn"), model_file, run["repeat"],

@@ -26,8 +26,9 @@ from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import (MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX, VITERBI_EDGES,
-                                        make_mod_reads, make_reads, quantise, traceback_plane,
-                                        viterbi_edge_case, write_mod_model, write_pore_model)
+                                        VITERBI_WIDE, make_mod_reads, make_reads, quantise,
+                                        traceback_plane, viterbi_edge_case, viterbi_wide_case,
+                                        write_mod_model, write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -321,6 +322,52 @@ def test_gpu_diag_forward_edges_match_plain(cuda_device, mod_models, case):
     _, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(80 + len(case)))
     ph = TVC.PaddedHMM(build_repeat_mod(REPEAT, pm, pm_mod), cuda_device)
     _check_diag_forward(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(VITERBI_WIDE))
+def test_gpu_wide_viterbi_matches_plain(cuda_device, mod_models, case):
+    """Rows 3-4 past SP 1024 (``synthetic.VITERBI_WIDE``: SP 1152 to 8192,
+    both slot layouts): the wide forward of the HMM's layout and the wide
+    backward, their launch counters alone, against the twins: rows below
+    each length, fin and acc bit-equal, paths equal."""
+    pm, pm_mod = (PoreModel(m) for m in mod_models)
+    chm, obs, lens = viterbi_wide_case(pm, pm_mod, case, np.random.default_rng(90 + len(case)))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp > TVC.NARROW_MAX_SP
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    layout = ph.fwd_layout
+    keys = (layout.name, layout.wide_name, "viterbi_backward_batch", "viterbi_backward_wide")
+    before = {k: _build.LAUNCHES[k] for k in keys}
+    sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
+    last = torch.argmax(fin + ph.end, dim=1)
+    path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in keys} == {
+        layout.name: 0, layout.wide_name: 1, "viterbi_backward_batch": 0,
+        "viterbi_backward_wide": 1}
+    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
+    live = torch.arange(obs.shape[1], device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+@pytest.mark.gpu
+def test_gpu_card_refuses_past_max_sp(cuda_device, model_file):
+    """An HMM past MAX_SP padded states is refused on the card where it is
+    staged, before any launch."""
+    pm = PoreModel(model_file)
+    chm = build_flanked_repeat(REPEAT, PREFIX[-25:], SUFFIX[:25], pm)
+    ph = TVC.PaddedHMM(chm, "cpu")
+    sp = TVC.MAX_SP + TVC.LANE
+    trans = np.full((sp, sp), TVC.NEG, np.float32)
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{TVC.MAX_SP} padded states"):
+        TVC.PaddedHMM.from_arrays(ph.n_states, trans, *(np.zeros(sp, np.float32),) * 4,
+                                  np.zeros(sp, np.int32), np.zeros(sp, np.float32), None, None,
+                                  device=cuda_device)
+    assert dict(_build.LAUNCHES) == before
 
 
 @pytest.mark.gpu
