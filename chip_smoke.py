@@ -61,8 +61,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    T 1024, constant obs at SP 1152), then at phase 4f's shapes (the
    150-base unit's repeat HMM, 8 segments of 5 units, T 7168; the
    260-base unit's mod HMM, 8 segments of 3 units, T 6656), each with
-   its ms, us a step, bound and twin ms.  Print kernel and plain
-   times, and us per step (a column for row 8).
+   its ms, us a step, bound and twin ms.  Last, the AlignParams sweep
+   (``check_sweep``: the reference's tests/test_fuzz_params.py corners, 14
+   explicit and 12 seeded draws, at B 8, N 256, M 20): rows 1, 2 and 8
+   in the TABLE mode against their table twins and in the POW mode on
+   the decoded f32 against their POW twins, rows 5-6 in both modes where
+   a span bound exists (``ckpt_steps`` 128), and both tracebacks, every
+   output equal.  Print kernel and plain times, and us per step (a
+   column for row 8).
 4. Count the c9orf72 repeat (100 units) in 128 noisy '+' reads of
    ~22k samples, through detect_submit -> detect_middle ->
    detect_finish in batches of 64, then 24 '-' reads (a partial batch:
@@ -174,6 +180,22 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    detector's index reads an .npz of the signals): one merged TSV with
    the single process's rows, parts removed, the reads split between
    the processes.  Print the wall seconds.
+4k. The counter's other two routes over phase 4's 128 '+' and 24 '-'
+   reads, each in a fresh counter: the fused single dispatch
+   (``STRIQUE_SPLIT=0``: row 2 TABLE, the traceback, rows 3-4 over each
+   read's shifted flt row, one packed copy back) and the two-phase
+   host-bounds path (``fused = False``: row 1 TABLE once a flank, the
+   traceback, host bounds, rows 3-4).  Counts exact; fused tuples equal
+   to phase 4's; two-phase counts, offsets and ticks equal, scores and
+   log_p within 1e-6, its first 8 '+' tuples the CPU two-phase path's;
+   each route's kernels launched and the ones it replaces not.  Print
+   each route's reads/s beside phase 4's, then six rounds of one '+'
+   pass of each of the three routes (their order turning) and one
+   profiled '+' pass of each new route, and the fused Viterbi call's
+   peak device memory.  Then phase 4h's mod reads (every row phase 4h's
+   ``detect_many`` row) and phase 4f's 150-base target (SP 1152; the
+   default route's tuples, its Viterbi call's peak memory printed)
+   through the fused route.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
@@ -263,6 +285,8 @@ TOO_WIDE_UNIT_BASES = 1345
 # of the one card; phase 4j: count as two processes over gloo
 DEVICE_ENTRIES = 2
 HOSTS = 2
+# phase 4k: rounds of one '+' pass of each route (split, fused, two-phase)
+ROUTE_ROUNDS = 6
 HOST_TIMEOUT_S = 300
 SOURCES = {
     "align_forward_wave": ("strique_tpu_torch/csrc/wave_align.cu",
@@ -1445,6 +1469,134 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
                     TABLE_F32_PER_CELL * cells + SCORE_F32 * entries, POW_F64_PER_CELL * entries)}
 
 
+def check_sweep(seed: int, device="cuda") -> dict:
+    """The AlignParams sweep (``synthetic.sweep_cases``: the reference's
+    tests/test_fuzz_params.py corners, B 8, N 256, M 20), each corner's
+    reads in morph form: rows 1 and 2 (one template; the template and its
+    reverse over the two halves of the rows) and row 8, each in the TABLE
+    mode against its table twin and in the POW mode on the decoded f32
+    against its POW twin, TABLE and POW against each other; the diagonal
+    traceback on rows 1-2's planes and the column one on row 8's; where
+    ``wave_span_bound_steps`` gives a bound, rows 5-6 in both modes
+    (``ckpt_steps`` 128) against their twins and the diagonal traceback
+    on the window plane.  Written pointer words, checkpoint slots and
+    traceback outputs equal, f32 bit-equal.  The launches are put back
+    as they were.  Returns the counts of corners and checks."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+    from strique_tpu_torch.synthetic import quantise, sweep_cases
+
+    dev = torch.device(device)
+    entry = dict(_build.LAUNCHES)
+    t_start = time.perf_counter()
+    n_checks = n_two_pass = 0
+    cases = sweep_cases()
+
+    def tb_equal(ptr, j_end, m_d, col=False):
+        m_out = int(m_d.max())
+        got = AL.traceback_pointers(ptr, j_end, m_out, packed=True if col else "diag",
+                                    m_start=m_d)
+        ref = AL._traceback_plain(ptr, j_end, m_d, m_out, col=col)
+        return all(torch.equal(got[k], ref[k]) for k in ("is_gap", "jpos", "j_begin"))
+
+    for k, (p, sig, na, template) in enumerate(cases):
+        B, N = sig.shape
+        bins, lut = quantise(sig, np.random.default_rng(seed + 900 + k))
+        b_d, l_d = torch.from_numpy(bins).to(dev), torch.from_numpy(lut).to(dev)
+        n_d = torch.from_numpy(na).to(dev)
+        s_d = AC.morph_decode(b_d, l_d)
+        tmpl1, m = AC.pad_template(template)
+        rows, ms = AC.pad_template_rows([template, template[::-1].copy()])
+        halves = [B // 2, B - B // 2]
+        ok = {}
+        for row, tmpl_np, m_np in (
+                (1, tmpl1, np.full(B, m, np.int32)),
+                (2, np.repeat(rows, halves, axis=0), np.repeat(ms, halves).astype(np.int32))):
+            levels, lidx = AC.template_levels(tmpl_np)
+            if AC.wave_score_mode(levels.shape[1], tmpl_np.shape[1]) != "table":
+                fail(f"sweep corner {k}: the template does not fit the wave's score table")
+            lv, li, t_d, m_d = (torch.from_numpy(x).to(dev) for x in (levels, lidx, tmpl_np,
+                                                                        m_np))
+            if row == 1:
+                ptr_t, bot_t = AC.align_forward_wave_morph(b_d, l_d, n_d, lv, li, p, m)
+                ptr_k, bot_k = AC.align_forward_wave(s_d, n_d, t_d, p, m)
+            else:
+                ptr_t, bot_t = AC.align_forward_wave_multi_morph(b_d, l_d, n_d, lv, li, m_d, p)
+                ptr_k, bot_k = AC.align_forward_wave_multi(s_d, n_d, t_d, m_d, p)
+            ptr_pt, bot_pt = AC._wave_table_plain(b_d, l_d, lv, li, n_d, m_d, p)
+            ptr_pk, bot_pk = AC._wave_plain(s_d, t_d, n_d, m_d, p)
+            mask = valid_ptr_mask(n_d, m_d, ptr_t.shape[0])
+            for mode, (a, ab), (r, rb) in (("TABLE", (ptr_t, bot_t), (ptr_pt, bot_pt)),
+                                           ("POW", (ptr_k, bot_k), (ptr_pk, bot_pk)),
+                                           ("TABLE-POW", (ptr_t, bot_t), (ptr_k, bot_k))):
+                ok[f"row {row} {mode}"] = (torch.equal(a[mask], r[mask])
+                                           and torch.equal(ab, rb))
+            j_end, _ = AL._end_columns(bot_t, m_d, p)
+            ok[f"row {row} traceback"] = tb_equal(ptr_t, j_end, m_d)
+        levels, lidx = AC.template_levels(tmpl1)
+        if AC.col_score_mode(levels.shape[1], tmpl1.shape[1]) != "table":
+            fail(f"sweep corner {k}: the template does not fit the column score table")
+        lv, li, t_d = (torch.from_numpy(x).to(dev) for x in (levels, lidx, tmpl1))
+        ptr_t, bot_t = AC.align_forward_col_morph(b_d, l_d, n_d, lv, li, p, m)
+        ptr_k, bot_k = AC.align_forward_col(s_d, n_d, t_d, p, m)
+        ptr_pt, bot_pt = AC._col_table_plain(b_d, l_d, lv, li, n_d, p, m)
+        ptr_pk, bot_pk = AC._col_plain(s_d, t_d, n_d, p, m)
+        mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_t.shape[0])
+        for mode, (a, ab), (r, rb) in (("TABLE", (ptr_t, bot_t), (ptr_pt, bot_pt)),
+                                       ("POW", (ptr_k, bot_k), (ptr_pk, bot_pk)),
+                                       ("TABLE-POW", (ptr_t, bot_t), (ptr_k, bot_k))):
+            ok[f"row 8 {mode}"] = torch.equal(a[mask], r[mask]) and torch.equal(ab, rb)
+        b0 = torch.full((B, 1), float(AL._b0(p, m)), device=dev)
+        j_end = torch.argmax(torch.cat([b0, bot_t], dim=1), dim=1).to(torch.int32)
+        m_d = torch.full((B,), m, dtype=torch.int32, device=dev)
+        ok["row 8 traceback"] = tb_equal(ptr_t, j_end, m_d, col=True)
+        if AC.wave_span_bound_steps(p, m) is not None:
+            n_two_pass += 1
+            ms1 = np.array([m])
+            st_t = AL._pass1_rows(b_d, n_d, tmpl1, ms1, p, 128, lut=l_d)
+            st_k = AL._pass1_rows(s_d, n_d, tmpl1, ms1, p, 128)
+            cks, nd = st_k["ckpt_steps"], st_k["N"] + st_k["mp"]
+            bot_pt, ck_pt = AC._ckpt_table_plain(b_d, l_d, st_t["levels"], st_t["lidx"], n_d,
+                                                 st_t["m_rows"], p, cks, nd)
+            bot_pk, ck_pk = AC._ckpt_plain(st_k["sig"], st_k["tmpl"], n_d, st_k["m_rows"], p,
+                                           cks)
+            slots = written_slots(n_d, st_k["m_rows"], nd, cks)
+            for mode, st, bot_p, ck_p in (("TABLE", st_t, bot_pt, ck_pt),
+                                          ("POW", st_k, bot_pk, ck_pk)):
+                ok[f"row 5 {mode}"] = (torch.equal(st["bottom_steps"], bot_p) and all(
+                    torch.equal(a[slots], c[slots]) for a, c in zip(st["ckpts"], ck_p)))
+            w_t, w_k = AL.window_inputs(st_t), AL.window_inputs(st_k)
+            W, mx = st_k["W"], st_k["m"]
+            wt = (w_t["t0"], w_t["state4"], w_t["cold"], w_t["steps_needed"], st_t["levels"],
+                  st_t["lidx"], p)
+            wk = (w_k["sig_win"], w_k["r_init"], w_k["state4"], w_k["cold"],
+                  w_k["steps_needed"], st_k["tmpl"], p)
+            ptr_t = AC.align_window_from_state_morph(b_d, l_d, *wt, mx, W)
+            ptr_k = AC.align_window_from_state(*wk, mx)
+            words = valid_ptr_mask(w_k["steps_needed"], torch.zeros_like(n_d), ptr_k.shape[0])
+            ok["row 6 TABLE"] = torch.equal(
+                ptr_t[words], AC._window_table_plain(b_d, l_d, *wt, W)[words])
+            ok["row 6 POW"] = torch.equal(ptr_k[words], AC._window_plain(*wk)[words])
+            ok["row 6 TABLE-POW"] = torch.equal(ptr_t[words], ptr_k[words])
+            ok["row 6 traceback"] = tb_equal(ptr_t, (w_t["j_end"] - w_t["t0"]).to(torch.int32),
+                                             st_t["m_rows"].to(torch.int32))
+        n_checks += len(ok)
+        bad = [name for name, good in ok.items() if not good]
+        if bad:
+            fail(f"sweep corner {k} ({p}): {', '.join(bad)} disagree with the plain twins")
+    for name in entry:
+        _build.LAUNCHES[name] = entry[name]
+    dt = time.perf_counter() - t_start
+    print(f"  AlignParams sweep: {len(cases)} corners (B 8, N 256, M 20; {n_two_pass} with a "
+          f"span bound, rows 5-6 at ckpt_steps 128), {n_checks} kernel-vs-twin checks, all "
+          f"equal (integer outputs equal, f32 bit-equal); {dt:.1f} s", flush=True)
+    return {"corners": len(cases), "two_pass": n_two_pass, "checks": n_checks, "s": dt}
+
+
 def _round_up8(x: int) -> int:
     return (x + 7) // 8 * 8
 
@@ -2363,12 +2515,14 @@ def run_mod(seed: int, card: str, tmp: str) -> dict:
     # every row: detect_many's tuple in a fresh counter
     fresh = RepeatCounter(base, mod_model_file=twin, device="cuda")
     fresh.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    many = {}
     for strand in "+-":
         rs = [r for r in reads if r[2] == strand]
         for i in range(0, len(rs), BATCH):
             chunk = rs[i : i + BATCH]
             for r, res in zip(chunk, fresh.detect_many("c9orf72", [r[4] for r in chunk],
                                                        strand)):
+                many[r[0]] = list(res)
                 if tuple(res) != tuple(out[r[0]]):
                     fail(f"the stream's row for {r[0]} differs from detect_many's in a fresh "
                          f"counter: {out[r[0]]} against {res}")
@@ -2425,7 +2579,214 @@ def run_mod(seed: int, card: str, tmp: str) -> dict:
     return {"reads_per_sec": len(reads) / dt, "seconds": dt, "batches": n_batches,
             "launches": launches, "mod_decode_calls": len(captured),
             "diag_forward_device_ms": fwd_ms, "kernel_ms": kernel_ms, "wall_ms": wall,
-            "decode_ms": decode_ms, "decode_reads": h["B"], "cli_launches": cli_launches}
+            "decode_ms": decode_ms, "decode_reads": h["B"], "cli_launches": cli_launches,
+            "detect_many": many}
+
+
+def viterbi_peaks(peaks: list):
+    """A stand-in for the counter's ``viterbi_batch`` that appends each
+    call's peak device memory past what was allocated before it, the
+    obs shape and the rows a call (synchronising around the call)."""
+    import torch
+
+    from strique_tpu_torch.ops import viterbi_cuda as VC
+
+    def measured(obs, t_actual, ph, group=VC.GROUP):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = VC.viterbi_batch(obs, t_actual, ph, group)
+        torch.cuda.synchronize()
+        peaks.append((torch.cuda.max_memory_allocated() - base, tuple(obs.shape), group, ph.sp))
+        return out
+
+    return measured
+
+
+def run_routes(model: str, seed: int, card: str, tmp: str, warm, plus, minus, split,
+               split_rps: float, mod_rows: dict, split_counter) -> dict:
+    """Phase 4k: the counter's other two routes over phase 4's reads, each
+    in a fresh counter after a warm-up pass: the fused single dispatch
+    (``STRIQUE_SPLIT=0``) and the two-phase host-bounds path (``fused =
+    False``).  Every count exact; the fused tuples equal phase 4's split
+    tuples; the two-phase counts, offsets and ticks equal them, its
+    scores and log_p within 1e-6 relative, and its first 8 '+' tuples
+    equal the port's CPU two-phase path's.  The fused route must launch
+    row 2's TABLE mode, the traceback and rows 3-4 and not row 1; the
+    two-phase route row 1's TABLE mode twice a batch (one call a flank),
+    the traceback and rows 3-4, and not row 2; neither a POW, two-pass or
+    column kernel.  Then the peak device memory of the fused Viterbi
+    calls of one batch; ROUTE_ROUNDS rounds of one '+' pass of each route
+    (phase 4's split counter among them), the routes' order turning each
+    round, and one profiled '+' pass of each new route; phase 4h's mod
+    reads through the fused route (every row equal to phase 4h's
+    ``detect_many`` row, mod string included) and phase 4f's 150-base
+    target (SP 1152) through it (tuples equal to the default route's, and
+    its Viterbi call's peak memory).  Returns the rates, launches, peaks
+    and profiles."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.detect import counter as CT
+    from strique_tpu_torch.detect.counter import RepeatCounter, fused_viterbi_rows
+    from strique_tpu_torch.pore_model import PoreModel
+    from strique_tpu_torch.synthetic import (PREFIX, REPEAT, SUFFIX, WIDE_UNIT_BASES,
+                                             make_reads, mod_workload)
+
+    def fresh(route, *args, **kw):
+        if route == "fused":
+            os.environ["STRIQUE_SPLIT"] = "0"
+        try:
+            c = RepeatCounter(*args, device="cuda", **kw)
+        finally:
+            os.environ.pop("STRIQUE_SPLIT", None)
+        c.fused = route != "two-phase"
+        return c
+
+    out = {"split_reads_per_sec": split_rps}
+    runs = {}
+    for route in ("fused", "two-phase"):
+        c = fresh(route, model)
+        c.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+        run_pipeline(c, warm, "+")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res_p = run_pipeline(c, plus, "+")
+        dt = time.perf_counter() - t0
+        res_m = run_pipeline(c, minus, "-")
+        runs[route] = (c, res_p + res_m, dict(_build.LAUNCHES))
+        out[route] = {"reads_per_sec": len(plus) / dt, "plus_s": dt,
+                      "launches": {k: v for k, v in runs[route][2].items() if v}}
+        ok = sum(int(r[0] == REPEATS) for r in res_p + res_m)
+        print(f"{route} route: {ok}/{len(plus) + len(minus)} exact; {len(plus) / dt:.2f} "
+              f"reads/s on the '+' pass ({dt:.3f} s) beside the split route's {split_rps:.2f} "
+              f"(phase 4); card: {card}; launches {json.dumps(out[route]['launches'])}",
+              flush=True)
+        if ok != len(plus) + len(minus):
+            fail(f"inexact repeat counts on the {route} route")
+    split = [tuple(r) for r in split]
+    fused, two = ([tuple(r) for r in runs[k][1]] for k in ("fused", "two-phase"))
+    if fused != split:
+        fail("the fused route's tuples differ from the split route's")
+    for f, t in zip(fused, two):
+        if (f[0], f[4], f[5], f[6]) != (t[0], t[4], t[5], t[6]) or not np.allclose(
+                f[1:4], t[1:4], rtol=1e-6, atol=0):
+            fail(f"the two-phase route's tuple {t} is not the fused route's {f} within 1e-6")
+    cpu = RepeatCounter(model, device="cpu")
+    cpu.fused = False
+    cpu.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    if [tuple(r) for r in cpu.detect_many("c9orf72", plus[:8], "+")] != two[:8]:
+        fail("the first 8 '+' two-phase tuples differ from the port's CPU two-phase path's")
+    print("fused tuples equal the split route's; two-phase counts, offsets and ticks equal, "
+          "scores and log_p within 1e-6, its first 8 '+' tuples the CPU two-phase path's",
+          flush=True)
+    batches = -(-len(plus) // BATCH) + -(-len(minus) // BATCH)
+    rules = {"fused": ({"align_forward_wave_multi_table": batches, "traceback_pointers": batches},
+                       ("align_forward_wave_table",)),
+             "two-phase": ({"align_forward_wave_table": 2 * batches,
+                            "traceback_pointers": 2 * batches},
+                           ("align_forward_wave_multi_table",))}
+    banned = POW_WAVE + POW_TWO_PASS + TABLE_TWO_PASS + COL + ("traceback_pointers_col",)
+    for route, (want, replaced) in rules.items():
+        lc = runs[route][2]
+        if ({k: lc[k] for k in want} != want
+                or lc["viterbi_forward_factored"] < batches
+                or lc["viterbi_backward_batch"] < batches
+                or any(lc[k] for k in replaced + banned)):
+            fail(f"the {route} route did not launch {want} and rows 3-4 alone")
+
+    counters = {"split": split_counter, "fused": runs["fused"][0],
+                "two-phase": runs["two-phase"][0]}
+    order = list(counters)
+    rates = {k: [] for k in order}
+    for r in range(ROUTE_ROUNDS):
+        for route in order[r % 3:] + order[: r % 3]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_pipeline(counters[route], plus, "+")
+            rates[route].append(len(plus) / (time.perf_counter() - t0))
+    out["rounds"] = rates
+    print(f"'+' pass, {ROUTE_ROUNDS} rounds, the routes' order turning: "
+          + "; ".join(f"{k} {np.median(v):.2f} reads/s (median; {min(v):.2f}-{max(v):.2f})"
+                      for k, v in rates.items()) + f"; card: {card}", flush=True)
+    for route in ("fused", "two-phase"):
+        rows, wall = profile_pass(f"{route} route, {len(plus)} '+' reads",
+                                  lambda: run_pipeline(counters[route], plus, "+"), card)
+        kernel = sum(r[1] for r in rows)
+        out[route]["profile"] = {"wall_ms": wall, "kernel_ms": kernel, "busy": kernel / wall,
+                                 "kernels": rows[:6]}
+
+    fc = runs["fused"][0]
+    peaks: list = []
+    real = CT.viterbi_batch
+    CT.viterbi_batch = viterbi_peaks(peaks)
+    try:
+        if [tuple(r) for r in fc.detect_many("c9orf72", plus[:BATCH], "+")] != split[:BATCH]:
+            fail("the fused route's measured batch differs from the split route's")
+    finally:
+        CT.viterbi_batch = real
+    npad = CT.signal_bucket(len(plus[0]))
+    out["fused_viterbi"] = [{"peak_bytes": b, "obs": o, "rows": g, "sp": sp}
+                            for b, o, g, sp in peaks]
+    print(f"fused Viterbi of a {BATCH}-read batch: {len(peaks)} call(s), obs {peaks[0][1]}, "
+          f"{peaks[0][2]} rows a call (fused_viterbi_rows: "
+          f"{fused_viterbi_rows(npad, fc.targets['c9orf72'][0].repeat_hmm.n_states, 'cuda')}), "
+          f"SP {peaks[0][3]}: peak {peaks[0][0] / 2**30:.3f} GiB past the batch's tensors "
+          f"(the score plane {npad * peaks[0][2] * peaks[0][3] * 4 / 2**30:.3f} GiB)", flush=True)
+
+    # phase 4h's mod reads (its model files are in tmp) through the fused route
+    base, twin = (os.path.join(tmp, f) for f in ("mod_base.model", "mod_twin.model"))
+    mplus, mminus = mod_workload(PoreModel(base), PoreModel(twin), seed)
+    mc = fresh("fused", base, mod_model_file=twin)
+    mc.add_target("c9orf72", REPEAT, PREFIX, SUFFIX)
+    _build.reset_launches()
+    n_mod = 0
+    for strand, sigs in (("+", mplus), ("-", mminus)):
+        for i in range(0, len(sigs), BATCH):
+            for j, r in enumerate(mc.detect_many("c9orf72", sigs[i : i + BATCH], strand)):
+                rid = f"mod{strand}{i + j:03d}"
+                if list(r) != mod_rows[rid]:
+                    fail(f"the fused route's mod row for {rid} differs from phase 4h's: {r} "
+                         f"against {mod_rows[rid]}")
+                n_mod += 1
+    lc = dict(_build.LAUNCHES)
+    if (lc["align_forward_wave_multi_table"] <= 0 or lc["viterbi_forward_factored_diag"] <= 0
+            or lc["align_forward_wave_table"]):
+        fail("the fused mod run did not go through row 2 and the diagonal-only forward")
+    print(f"fused route with the mod model: {n_mod} rows equal phase 4h's detect_many rows, "
+          f"mod strings included", flush=True)
+
+    # phase 4f's 150-base target (SP 1152), default route then fused
+    pm = PoreModel(model)
+    rng = np.random.default_rng(5)
+    unit = "".join(rng.choice(list("ACGT"), WIDE_UNIT_BASES))
+    reads = make_reads(pm, WIDE_READS, WIDE_UNITS, rng, "+", repeat=unit)
+    wc = RepeatCounter(model, device="cuda")
+    wc.add_target("wide", unit, PREFIX, SUFFIX)
+    ref = wc.detect_many("wide", reads, "+")
+    wc.split = False
+    wide_peaks: list = []
+    _build.reset_launches()
+    CT.viterbi_batch = viterbi_peaks(wide_peaks)
+    try:
+        got = wc.detect_many("wide", reads, "+")
+    finally:
+        CT.viterbi_batch = real
+    lc = dict(_build.LAUNCHES)
+    if [tuple(r) for r in got] != [tuple(r) for r in ref]:
+        fail("the wide target's fused tuples differ from its default route's")
+    if (lc["align_forward_wave_multi_table"] <= 0 or lc["viterbi_forward_factored_wide"] <= 0
+            or lc["viterbi_backward_wide"] <= 0):
+        fail("the wide target's fused run did not decode with the wide variants")
+    b, o, g, sp = wide_peaks[0]
+    out["wide_fused_viterbi"] = {"peak_bytes": b, "obs": o, "rows": g, "sp": sp}
+    print(f"wide target through the fused route: counts {[r[0] for r in got]}, tuples equal "
+          f"the default route's; its Viterbi call: obs {o}, {g} rows a call, SP {sp}, peak "
+          f"{b / 2**30:.3f} GiB past the batch's tensors (the score plane "
+          f"{o[1] * o[0] * sp * 4 / 2**30:.3f} GiB); card: {card}", flush=True)
+    return out
 
 
 def run_pipeline(counter, sigs, strand):
@@ -2575,6 +2936,9 @@ def main() -> int:
         check_wave_ultra(tc.prefix_ext, 8, ultra_n, params, rng, results)
         torch.cuda.empty_cache()
         check_ckpt_ultra(tc.prefix_ext, ultra_n, params, rng, results)
+        # rows 1, 2, 5, 6 and 8 and both tracebacks over the AlignParams sweep
+        torch.cuda.empty_cache()
+        sweep = check_sweep(args.seed)
     except SystemExit:
         raise
     except Exception as e:  # noqa: BLE001
@@ -2780,6 +3144,15 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001
         fail(f"the multi-device or multi-host path raised {type(e).__name__}: {e}")
 
+    # -- phase 4k: the fused dispatch and the two-phase host-bounds path -----
+    try:
+        routes = run_routes(model, args.seed, card, tmp, warm, plus, minus,
+                            res_plus + res_minus, rps, mod.pop("detect_many"), counter)
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the fused or two-phase route raised {type(e).__name__}: {e}")
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
@@ -2790,7 +3163,8 @@ def main() -> int:
                        "plus_s": dt_plus, "minus_s": dt_minus,
                        "ultra_s": {k: v[1] for k, v in runs.items()},
                        "knob_reads_per_sec": knob_rps, "count_stream": count, "mod": mod,
-                       "hosts_s": hosts_s, "kernels": kernels},
+                       "hosts_s": hosts_s, "routes": routes, "sweep": sweep,
+                       "kernels": kernels},
                       fp, indent=1)
     print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),
           flush=True)

@@ -1,4 +1,4 @@
-"""Command-line interface of the port: index / count / warmup.
+"""Command-line interface of the port: index / count / plot / extract / warmup.
 
 The counterpart of ``strique_tpu/cli.py`` on PyTorch and one CUDA card:
 the same subcommands, arguments and TSV output schema, so existing
@@ -17,15 +17,17 @@ or with ``--device cpu`` N replicas of the CPU.  ``--coordinator``,
 processes (a gloo rendezvous at the coordinator; one that fails or
 waits past ``parallel.mesh.RENDEZVOUS_TIMEOUT_S`` ends the run): each
 counts a stride of the SAM stream into ``<out>.partN``, and after a
-barrier rank 0 merges the parts into ``--out``.  The ``plot`` and
-``extract`` subcommands are not ported yet (ROADMAP Queue 1 item 1).
+barrier rank 0 merges the parts into ``--out``.  ``plot`` draws one
+figure a counted read (matplotlib) and ``extract`` writes reads out of
+an indexed run (h5py); both import their library inside the command, so
+``count`` runs on a host that has neither.
 
 Environment knobs the port honours: ``STRIQUE_ALIGN_KERNEL=col`` (the
 column-sweep alignment), ``STRIQUE_DENSE_VITERBI=1`` (the dense Viterbi
 forward), ``STRIQUE_PTR_BUDGET_GB`` (the wave call's pointer-plane
-budget, past which the two-pass route runs) and
-``STRIQUE_ASYNC_SUBMIT=0`` (inline batch submits); ``STRIQUE_SPLIT=0``
-is refused by the counter.
+budget, past which the two-pass route runs), ``STRIQUE_ASYNC_SUBMIT=0``
+(inline batch submits) and ``STRIQUE_SPLIT=0`` (the counter's fused
+single dispatch).
 """
 from __future__ import annotations
 
@@ -300,7 +302,136 @@ def cmd_warmup(argv) -> int:
     return 0
 
 
-COMMANDS = {"index": cmd_index, "count": cmd_count, "warmup": cmd_warmup}
+def _iter_count_rows(counts_path):
+    """Yield parsed rows of a count TSV (path or stdin)."""
+    stream = open(counts_path, "r") if counts_path else sys.stdin
+    try:
+        for line in stream:
+            cols = line.rstrip("\n").split("\t")
+            if len(cols) < 9 or cols[0] == "ID":
+                continue
+            yield {"id": cols[0], "target": cols[1], "strand": cols[2],
+                   "count": cols[3], "score_prefix": float(cols[4]),
+                   "score_suffix": float(cols[5]), "offset": int(cols[7]),
+                   "ticks": int(cols[8])}
+    finally:
+        if counts_path:
+            stream.close()
+
+
+def _render_read_figure(plt, signal, row, zoom: int, margin_frac: float):
+    """One figure per counted read: an overview with the STR span shaded,
+    plus boundary close-ups of the prefix and suffix transitions."""
+    import numpy as np
+
+    accent, base, marker = "#b5543c", "#555555", "#2b6a99"
+    begin, span = row["offset"], row["ticks"]
+    end = begin + span
+    margin = int(span * margin_frac)
+    view = slice(max(0, begin - margin), min(len(signal), end + margin))
+
+    fig = plt.figure(layout="constrained")
+    grid = fig.add_gridspec(2, 2, height_ratios=(3, 2))
+
+    overview = fig.add_subplot(grid[0, :])
+    x = np.arange(view.start, view.stop)
+    overview.plot(x, signal[view], color=base, linewidth=0.4)
+    overview.axvspan(begin, end, color=accent, alpha=0.15, label=f"STR x{row['count']}")
+    overview.set_title(f"{row['target']} ({row['strand']}) | read {row['id']} | "
+                       f"{row['count']} repeat units over {span} samples")
+    overview.set_xlabel("sample")
+    overview.set_ylabel("z-score")
+    overview.legend(loc="upper right")
+
+    for col, (edge, side, score) in enumerate((
+            (begin, "prefix", row["score_prefix"]),
+            (end, "suffix", row["score_suffix"]))):
+        ax = fig.add_subplot(grid[1, col])
+        lo, hi = max(0, edge - zoom), min(len(signal), edge + zoom)
+        xs = np.arange(lo, hi)
+        inside = (xs >= begin) & (xs < end)
+        ax.plot(xs[~inside], signal[lo:hi][~inside], ".", color=base, markersize=1)
+        ax.plot(xs[inside], signal[lo:hi][inside], ".", color=marker, markersize=1)
+        ax.axvline(edge, color=accent, linewidth=1.0)
+        ax.set_title(f"{side} boundary | alignment score {score:.2f}")
+        ax.set_xlabel("sample")
+    return fig
+
+
+def cmd_plot(argv) -> int:
+    """Per-read signal figures for counted STR expansions (the role of the
+    reference's plot subcommand, reference scripts/STRique.py:948-1024;
+    rendering is this framework's own design)."""
+    parser = argparse.ArgumentParser(description="Signal plots over STR expansions")
+    parser.add_argument("f5Index", help="Fast5 index")
+    parser.add_argument("--counts", default=None, help="Count TSV from 'count', stdin if not given")
+    parser.add_argument("--output", default=None, help="Output directory for plots (else GUI)")
+    parser.add_argument("--format", default="png", choices={"png", "pdf", "svg"})
+    parser.add_argument("--width", default=16, type=int)
+    parser.add_argument("--height", default=9, type=int)
+    parser.add_argument("--dpi", default=80, type=int)
+    parser.add_argument("--extension", type=float, default=0.1,
+                        help="Overview margin as a fraction of the STR span")
+    parser.add_argument("--zoom", type=int, default=500, help="Samples around each STR boundary")
+    parser.add_argument("--log_level", default="warning",
+                        choices=["error", "warning", "info", "debug"])
+    args = parser.parse_args(argv)
+    ulog.init(log_level=args.log_level)
+    import matplotlib
+
+    if args.output:
+        matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    from .io.fast5 import Fast5Index
+    from .ops.signal import medfilt3
+
+    if not os.path.isfile(args.f5Index):
+        log("Main: Fast5 index file does not exist.", LogLevel.Error)
+        return 1
+    f5 = Fast5Index(args.f5Index)
+    if args.output:
+        os.makedirs(args.output, exist_ok=True)
+    plt.rcParams.update({"figure.figsize": (args.width, args.height),
+                         "figure.dpi": args.dpi})
+
+    for row in _iter_count_rows(args.counts):
+        try:
+            raw = f5.get_raw(row["id"])
+        except RuntimeError:
+            log(f"Plot: no indexed fast5 for read {row['id']}, skipped", LogLevel.Warning)
+            continue
+        flt = medfilt3(raw.astype(np.float64))
+        flt = (flt - np.median(flt)) / np.std(flt)
+        fig = _render_read_figure(plt, flt, row, args.zoom, args.extension)
+        if args.output:
+            name = f"{row['id']}_{row['target']}_{row['count']}.{args.format}"
+            fig.savefig(os.path.join(args.output, name))
+            plt.close(fig)
+        else:
+            plt.show()
+    ulog.close()
+    return 0
+
+
+def cmd_extract(argv) -> int:
+    parser = argparse.ArgumentParser(description="Fast5 extraction")
+    parser.add_argument("batch", help="Input batch (.tar/.fast5/.txt of read IDs)")
+    parser.add_argument("output", help="Output directory")
+    parser.add_argument("--index", default=None, help="Read index")
+    parser.add_argument("--output_format", default="single", choices=["single", "bulk", "lazy"])
+    parser.add_argument("--tmp_prefix", default=None, help="Prefix for temporary data")
+    args = parser.parse_args(argv)
+    from .io.fast5 import Fast5Index
+
+    Fast5Index(args.index, tmp_prefix=args.tmp_prefix).extract(
+        args.batch, args.output, format=args.output_format)
+    return 0
+
+
+COMMANDS = {"index": cmd_index, "count": cmd_count, "plot": cmd_plot,
+            "extract": cmd_extract, "warmup": cmd_warmup}
 
 
 def main(argv=None) -> int:
@@ -311,6 +442,8 @@ def main(argv=None) -> int:
         usage="strique <command> [<args>]\n\nCommands:\n"
               "   index      Index batch(es) of bulk-fast5 or tar archived single fast5\n"
               "   count      Count single read repeat expansions\n"
+              "   plot       Plot repeat signal after counting\n"
+              "   extract    Extract single reads from indexed sequencing run\n"
               "   warmup     Build the kernels and run each shape of a config once\n")
     parser.add_argument("command", choices=sorted(COMMANDS))
     args = parser.parse_args(argv[:1])

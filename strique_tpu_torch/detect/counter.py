@@ -1,7 +1,8 @@
-"""Per-target repeat counting on the split pipeline, in PyTorch.
+"""Per-target repeat counting in PyTorch: the split pipeline, the fused
+single dispatch and the two-phase host-bounds path.
 
-Counterpart of ``strique_tpu/detect/counter.py``'s default "split"
-path, in three phases a caller can overlap across batches:
+Counterpart of ``strique_tpu/detect/counter.py``.  Its default "split"
+path runs in three phases a caller can overlap across batches:
 
   1. :meth:`RepeatCounter.detect_submit` -- host prep (the port's
      native library, or NumPy), upload of 1 byte per sample (u8 morph
@@ -18,20 +19,39 @@ path, in three phases a caller can overlap across batches:
   3. :meth:`RepeatCounter.detect_finish` -- waits for the paths and
      decodes counts and the float64 log_p on the host.
 
+Two more routes, as in the reference:
+
+  * the fused single dispatch (``STRIQUE_SPLIT=0``, or ``split =
+    False``): one upload row a read, ``[flt f32 | LUT f32 | morph u8]``;
+    both flank alignments, bounds, a per-row shift of the flt channel to
+    each read's repeat segment, the Viterbi decode over the whole row
+    (``t_actual`` = the segment length) and :func:`packed.pack_results`,
+    whose one copy to pinned memory sits behind one CUDA event; phase 2
+    is a no-op.  The decode's score plane is (npad, rows, SP) f32: a
+    call takes :func:`fused_viterbi_rows` reads, and a bucket where 8
+    rows exceed the budget, or whose alignment takes the two-pass route,
+    runs the split path (logged).
+  * the two-phase host-bounds path (``fused = False``, and any repeat
+    HMM past ``MAX_FUSED_STATES`` states, logged): one single-template
+    alignment a flank (``ops.align.align_core``), the ``[score | jpos |
+    is_gap]`` planes copied to the host, bounds and gate in NumPy
+    (``_nearest_positions``), then the Viterbi decode of the live
+    segments, all in phase 3.
+
 With a mod model (``mod_model_file``), :meth:`RepeatCounter.detect_mod_submit`
-sits between 2 and 3: it collects the paths, cuts each gated-in read's
-repeat-state samples from its minmax-normalised raw signal, queues the
-mod HMM's Viterbi decode on them (the same kernels: the factored
-forward in its diagonal-only slot layout, and the backward) and
-decodes the counts on the host while the card runs it; 3 then reads
-the mod paths into one '0'/'1' character per repeat unit.  Without a
-mod model it returns its state unchanged, and the stream scheduler
-calls it unconditionally.
+sits between 2 and 3 on every route: it collects the paths, cuts each
+gated-in read's repeat-state samples from its minmax-normalised raw
+signal, queues the mod HMM's Viterbi decode on them (the same kernels:
+the factored forward in its diagonal-only slot layout, and the
+backward) and decodes the counts on the host while the card runs it; 3
+then reads the mod paths into one '0'/'1' character per repeat unit.
+Without a mod model it returns its state unchanged, and the stream
+scheduler calls it unconditionally.
 
 Several devices (a list as ``device``, the counterpart of the
 reference's ``mesh=``): a batch's rows pad to a multiple of the device
 count and split into contiguous shards, one a device entry, each
-running phases 1-2 (and the mod decode) on its own device and CUDA
+running its device work (and the mod decode) on its own device and CUDA
 stream; the rows come back in order, so the results are the single
 device's.  A batch past the pointer budget splits the same way, each
 shard running its own two-pass groups on its device.  The model's HMM
@@ -39,9 +59,7 @@ tensors are kept per device.
 
 Results are ``(n, score_prefix, score_suffix, log_p, offset, ticks,
 mod)`` tuples, as the reference returns them (``mod`` is '-' without a
-mod model or for a read the gate drops).  Not ported yet, and raising
-``NotImplementedError``: the fused single dispatch
-(``STRIQUE_SPLIT=0``).
+mod model or for a read the gate drops).
 
 Ultra-long reads (a bucket whose width-8 pointer plane exceeds
 ``ops.align_cuda.ptr_budget_bytes``; ``STRIQUE_PTR_BUDGET_GB``
@@ -79,15 +97,18 @@ from .. import native as native_lib
 from ..hmm.models import build_flanked_repeat, build_repeat_mod
 from ..ops import signal as signal_ops
 from ..ops import viterbi as viterbi_ops
-from ..ops.align import align_fused_pair
+from ..ops.align import _nearest_positions, align_core, align_fused_pair, takes_two_pass
 from ..ops.align_cuda import CHUNK as ALIGN_CHUNK
+from ..ops.align_cuda import LANE, _round_up, ptr_budget_bytes
 from ..ops.bounds import segment_bounds
 from ..ops.prep import model_const
 from ..ops.reference import AlignParams
-from ..ops.viterbi_cuda import CHUNK_T, PaddedHMM, check_card_sp, viterbi_batch
+from ..ops.viterbi_cuda import (CHUNK_T, GROUP, PaddedHMM, check_card_sp, padded_sp,
+                                viterbi_batch)
 from ..parallel.mesh import on_stream, shard_rows, shard_streams
 from ..pore_model import PoreModel, mean_abs_dev
-from .packed import pack_meta, path_itemsize, unpack_meta
+from ..utils.logging import LogLevel, log
+from .packed import pack_meta, pack_results, path_itemsize, unpack_meta, unpack_results
 
 DEFAULT_ALIGN_CONFIG = {
     # reference scripts/STRique.py:507-513
@@ -103,10 +124,19 @@ DEFAULT_ALIGN_CONFIG = {
 _COMPLEMENT = str.maketrans("ACGT", "TGCA")
 _LUT_LEVELS = 256
 
+# u16 path packing bounds the fused route; past it (never for real repeat
+# HMMs) the two-phase host-bounds path takes over, as in the reference
+MAX_FUSED_STATES = 65536
+
 
 def _morph_buf_bytes(npad: int) -> int:
     """Upload row size: [LUT f32 | morph u8] -- 1 byte per sample."""
     return 4 * _LUT_LEVELS + npad
+
+
+def _buf_bytes(npad: int) -> int:
+    """Fused upload row size: [flt f32 | LUT f32 | morph u8]."""
+    return 4 * npad + _morph_buf_bytes(npad)
 
 
 def _split_morph_upload(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -114,6 +144,32 @@ def _split_morph_upload(buf: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     morph bins, (B, 256) f32 level tables), both contiguous."""
     lut = buf[:, : 4 * _LUT_LEVELS].contiguous().view(torch.float32)
     return buf[:, 4 * _LUT_LEVELS :].contiguous(), lut
+
+
+def _split_fused_upload(buf: torch.Tensor, npad: int):
+    """Uploaded (B, _buf_bytes(npad)) uint8 rows -> ((B, npad) f32 flt,
+    (B, npad) u8 morph bins, (B, 256) f32 level tables)."""
+    flt = buf[:, : 4 * npad].contiguous().view(torch.float32)
+    bins, lut = _split_morph_upload(buf[:, 4 * npad :])
+    return flt, bins, lut
+
+
+def fused_viterbi_rows(npad: int, n_states: int, device) -> int:
+    """Reads per Viterbi call on the fused route: the most, in multiples
+    of 8 up to ``viterbi_cuda.GROUP``, whose (npad, rows, SP) f32 score
+    plane fits ``ptr_budget_bytes(device)`` (the budget of one call's
+    largest plane: 60% of the card's free memory, or
+    ``STRIQUE_PTR_BUDGET_GB``); 0 when 8 rows do not fit."""
+    per8 = npad * 8 * padded_sp(n_states) * 4
+    return int(min(ptr_budget_bytes(device) // per8, GROUP // 8)) * 8
+
+
+def _shift_rows(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
+    """Row i of ``x`` rolled left by ``shift[i]`` (the reference's
+    ``jnp.roll(x, -s)``), as one gather."""
+    n = x.shape[1]
+    idx = (torch.arange(n, device=x.device)[None, :] + shift.to(torch.int64)[:, None]) % n
+    return x.gather(1, idx)
 
 
 def reverse_complement(sequence: str) -> str:
@@ -161,9 +217,6 @@ class RepeatCounter:
         them; ``self.device`` is its first entry.
         ``mod_model_file``: the base-modification pore model; each target
         then also gets the mod HMM of its repeat unit on both strands."""
-        if os.environ.get("STRIQUE_SPLIT", "1") == "0":
-            raise NotImplementedError(
-                "only the split pipeline is ported; the fused dispatch (STRIQUE_SPLIT=0) is not")
         listed = device if isinstance(device, (list, tuple)) else [device]
         self.devices = [torch.device(d) for d in listed]
         self.device = self.devices[0]
@@ -193,6 +246,12 @@ class RepeatCounter:
         self._hmm_cache: dict = {}
         self._pool = None
         self._init_lock = threading.RLock()
+        # fused: the single dispatch (bounds, segment shift and Viterbi on
+        # the device, one packed D2H); off, the two-phase host-bounds path.
+        # split (default; STRIQUE_SPLIT=0 turns it off): the three-phase
+        # pipeline, which ships 1 byte a sample and decodes segments only
+        self.fused = True
+        self.split = os.environ.get("STRIQUE_SPLIT", "1") != "0"
 
     # -- model construction ------------------------------------------------
     def add_target(self, target_name: str, repeat: str, prefix: str, suffix: str) -> None:
@@ -200,8 +259,9 @@ class RepeatCounter:
         of the repeat and its reverse complement with a mod model).
 
         On the card an HMM wider than the Viterbi kernels take
-        (``viterbi_cuda.MAX_SP`` padded states) is refused here, as soon
-        as it is built, with a ValueError naming the limit."""
+        (``viterbi_cuda.MAX_SP`` padded states; the reference's chip path
+        stops earlier) is refused here, as soon as it is built, with a
+        ValueError naming the limit; ``device='cpu'`` takes any width."""
         if target_name in self.targets:
             raise ValueError(f"target {target_name!r} already defined")
         prefix_ext = prefix.upper()
@@ -290,10 +350,17 @@ class RepeatCounter:
 
     def detect_submit(self, target_name: str, raw_signals, strand: str,
                       preps=None) -> dict:
-        """Phase 1: host prep, upload and the bounds pipeline (returns a handle).
+        """Phase 1: host prep, upload and the device work of the batch's
+        route (returns a handle).
 
-        ``preps``: optional per-read share tokens (dicts); a read shared
-        by several targets preps once and later batches reuse its LUT,
+        The route is the reference's: the split path by default; with
+        ``split`` off the fused dispatch, unless the bucket's alignment
+        takes the two-pass route or 8 rows of its Viterbi score plane
+        exceed the budget (:func:`fused_viterbi_rows`); with ``fused``
+        off, or a repeat HMM past ``MAX_FUSED_STATES``, the two-phase
+        host-bounds path.  ``preps``: optional per-read share tokens
+        (dicts) of the split and two-phase paths; a read shared by
+        several targets preps once and later batches reuse its LUT,
         morph bins and flt channel (prep is target- and strand-free).
         """
         tc_plus, tc_minus = self.targets[target_name]
@@ -310,11 +377,31 @@ class RepeatCounter:
         Bp = self._pad_rows(B)
         n_sigs_p = np.ones(Bp, dtype=np.int32)
         n_sigs_p[:B] = n_sigs
-        return self._split_submit(tc, raws, n_sigs_p, npad, Bp,
-                                  native_lib.available(), preps=preps)
+        have_native = native_lib.available()
+        n_states = tc.repeat_hmm.n_states
+        fusible = self.fused and n_states <= MAX_FUSED_STATES
+        if self.fused and not fusible:
+            log(f"Counter: repeat HMM has {n_states} states (> {MAX_FUSED_STATES}); "
+                f"using the two-phase host-bounds path.", LogLevel.Info)
+        if not fusible:
+            return self._two_phase_submit(tc, raws, n_sigs_p, npad, Bp, have_native, preps)
+        if not self.split:
+            mp = _round_up(max(len(tc.prefix_ext), len(tc.suffix_ext)) + 1, LANE)
+            rows = fused_viterbi_rows(npad, n_states, self.device)
+            if takes_two_pass(npad, mp, self.device):
+                log(f"Counter: bucket {npad} takes the two-pass alignment; using the split "
+                    f"path.", LogLevel.Info)
+            elif not rows:
+                log(f"Counter: the fused Viterbi's score plane ({npad} x 8 x "
+                    f"{padded_sp(n_states)} f32) exceeds the budget; using the split path.",
+                    LogLevel.Info)
+            else:
+                return self._fused_submit(tc, raws, n_sigs_p, npad, Bp, have_native, rows)
+        return self._split_submit(tc, raws, n_sigs_p, npad, Bp, have_native, preps=preps)
 
-    def _split_submit(self, tc, raws, n_sigs_p, npad, Bp,
-                      have_native: bool, preps=None) -> dict:
+    def _prep_morph(self, raws, npad, Bp, have_native: bool, preps=None):
+        """Host prep into a (Bp, _morph_buf_bytes(npad)) upload buffer
+        (pinned on a card): returns (upload, flts f64, flt32s)."""
         upload = self._host_buffer((Bp, _morph_buf_bytes(npad)), torch.uint8)
         buf = upload.numpy()
         flt32s: list = [None] * len(raws)
@@ -376,7 +463,11 @@ class RepeatCounter:
                 flts[i] = flt_n
                 flt32s[i] = flt_n.astype(np.float32)
                 _to_token(i, row, len(raw))
+        return upload, flts, flt32s
 
+    def _split_submit(self, tc, raws, n_sigs_p, npad, Bp,
+                      have_native: bool, preps=None) -> dict:
+        upload, flts, flt32s = self._prep_morph(raws, npad, Bp, have_native, preps)
         parts = []
         for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
             dev = self.devices[k]
@@ -394,12 +485,129 @@ class RepeatCounter:
         return {"bounds_parts": parts, "upload": upload,
                 "tc": tc, "raws": raws, "flts": flts, "flt32s": flt32s, "B": len(raws)}
 
-    def detect_middle(self, state: dict) -> dict:
-        """Phase 2: wait for the bounds rows, dispatch Viterbi on the segments.
+    def _fused_submit(self, tc, raws, n_sigs_p, npad, Bp, have_native: bool,
+                      rows: int) -> dict:
+        """The fused dispatch: one upload row a read, the whole device
+        pipeline, one packed copy back behind one event a shard.
 
-        Idempotent, so schedulers may call it unconditionally.
+        With the native library a row is ``[flt f32 | LUT f32 | morph
+        u8]`` and the flanks align on the bins and table; the NumPy prep
+        uploads f32 morph and flt channels and aligns on the f32 morph,
+        as the reference's ``use_buf=False`` pipeline does.  ``rows``:
+        reads per Viterbi call (:func:`fused_viterbi_rows`)."""
+        B = len(raws)
+        n_states = tc.repeat_hmm.n_states
+        flts: list = [None] * B
+        if have_native:
+            mc = model_const(self.pm)
+            upload = self._host_buffer((Bp, _buf_bytes(npad)), torch.uint8)
+            buf = upload.numpy()
+
+            def _prep_row(i_raw):
+                i, raw = i_raw
+                n = len(raw)
+                row = buf[i]
+                flt32 = row[: 4 * npad].view(np.float32)[:n]
+                lut = row[4 * npad : 4 * npad + 4 * _LUT_LEVELS].view(np.float32)
+                q = row[4 * npad + 4 * _LUT_LEVELS :][:n]
+                flts[i] = native_lib.preprocess_read_lut(raw, mc, flt32, q, lut)
+
+            list(self._prep_pool().map(_prep_row, enumerate(raws)))
+        else:
+            upload = self._host_buffer((2, Bp, npad), torch.float32)
+            both = upload.numpy()
+            for i, raw in enumerate(raws):
+                flt = signal_ops.medfilt3(raw)
+                morph = signal_ops.quantize_morph_np(flt, float(np.median(flt)),
+                                                     mean_abs_dev(flt))
+                morph = signal_ops.open_close_np(morph)
+                both[0, i, : len(raw)] = self.pm.normalize2model(morph, mode="minmax")
+                flts[i] = self.pm.normalize2model(flt, mode="minmax")
+                both[1, i, : len(raw)] = flts[i]
+        parts = []
+        for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
+            dev = self.devices[k]
+            with on_stream(self._streams[k]):
+                if have_native:
+                    flt, sig, lut = _split_fused_upload(upload[sl].to(dev, non_blocking=True),
+                                                        npad)
+                else:
+                    both_d = upload[:, sl].to(dev, non_blocking=True)
+                    sig, flt, lut = both_d[0], both_d[1], None
+                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                pre, suf = align_fused_pair(sig, n_dev, tc.prefix_ext, tc.suffix_ext,
+                                            self.align_params, lut=lut)
+                b = segment_bounds(pre, suf, n_dev,
+                                   trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
+                                   trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
+                _, paths = viterbi_batch(_shift_rows(flt, b["prefix_begin"]), b["seg_len"],
+                                         self._padded_hmm(tc.repeat_hmm, dev), group=rows)
+                parts.append(self._to_host(pack_results(b, paths, n_states)))
+        return {"fused_parts": parts, "upload": upload, "tc": tc, "raws": raws, "flts": flts,
+                "B": B}
+
+    def _two_phase_submit(self, tc, raws, n_sigs_p, npad, Bp, have_native: bool,
+                          preps=None) -> dict:
+        """The two-phase host-bounds path's device half: one single-template
+        alignment a flank on the morph upload (``align_core``: row 1 on
+        the card, row 8 under ``STRIQUE_ALIGN_KERNEL=col``), the
+        ``[score | jpos | is_gap]`` planes of both flanks as f32 copied
+        back behind one event a shard."""
+        upload, flts, _ = self._prep_morph(raws, npad, Bp, have_native, preps)
+        parts = []
+        for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
+            dev = self.devices[k]
+            with on_stream(self._streams[k]):
+                bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
+                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                planes = []
+                for tmpl in (tc.prefix_ext, tc.suffix_ext):
+                    a = align_core(bins, n_dev, tmpl, self.align_params, lut=lut)
+                    planes += [a["score"][:, None], a["jpos"].to(torch.float32),
+                               a["is_gap"].to(torch.float32)]
+                parts.append(self._to_host(torch.cat(planes, dim=1)))
+        return {"planes_parts": parts, "upload": upload, "tc": tc, "raws": raws, "flts": flts,
+                "B": len(raws)}
+
+    def _two_phase_bounds(self, state: dict) -> list:
+        """Bounds and gate of a two-phase state on the host, from its
+        flank planes (the reference's loop)."""
+        tc = state["tc"]
+        mp_, ms_ = len(tc.prefix_ext), len(tc.suffix_ext)
+        trim_prefix = len(tc.prefix_ext) - len(tc.prefix)
+        trim_suffix = len(tc.suffix_ext) - len(tc.suffix)
+        packed = self._from_host(state["planes_parts"]).numpy()[: state["B"]]
+        o = 0
+        pre_score = packed[:, o]; o += 1
+        pre_jpos = packed[:, o : o + mp_].astype(np.int64); o += mp_
+        pre_gap = packed[:, o : o + mp_] != 0.0; o += mp_
+        suf_score = packed[:, o]; o += 1
+        suf_jpos = packed[:, o : o + ms_].astype(np.int64); o += ms_
+        suf_gap = packed[:, o : o + ms_] != 0.0
+        bounds = []
+        for i, raw in enumerate(state["raws"]):
+            n_sig = len(raw)
+            pos_p = _nearest_positions(pre_gap[i], pre_jpos[i], n_sig)
+            pos_s = _nearest_positions(suf_gap[i], suf_jpos[i], n_sig)
+            span = int(pos_p[-1]) - int(pos_p[0])
+            score_prefix = float(pre_score[i]) / span if span > 0 else 0.0
+            span = int(pos_s[-1]) - int(pos_s[0])
+            score_suffix = float(suf_score[i]) / span if span > 0 else 0.0
+            prefix_begin, prefix_end = int(pos_p[trim_prefix]), int(pos_p[-1])
+            suffix_begin, suffix_end = int(pos_s[0]), int(pos_s[len(pos_s) - 1 - trim_suffix])
+            ok = prefix_begin < suffix_end and score_prefix > 0.0 and score_suffix > 0.0
+            bounds.append((ok, score_prefix, score_suffix, prefix_begin, prefix_end,
+                           suffix_begin, suffix_end))
+        return bounds
+
+    def detect_middle(self, state: dict) -> dict:
+        """Phase 2 of the split path: wait for the bounds rows, dispatch
+        Viterbi on the segments.
+
+        Idempotent and a no-op on fused and two-phase states, so
+        schedulers may call it unconditionally.
         """
-        if "bounds" in state:
+        if "bounds" in state or "bounds_parts" not in state:
             return state
         tc = state["tc"]
         B = state["B"]
@@ -461,16 +669,38 @@ class RepeatCounter:
         prefix_end, suffix_begin, suffix_end); paths/seg_lens keyed by
         read index for gated-in reads.
         """
-        if "decoded" not in state:
+        if "decoded" in state:
+            return state["decoded"]
+        tc = state["tc"]
+        paths, seg_lens = {}, {}
+        if "fused_parts" in state:
+            rows = unpack_results(self._from_host(state["fused_parts"]).numpy()[: state["B"]],
+                                  tc.repeat_hmm.n_states)
+            bounds = [(r.ok, r.score_prefix, r.score_suffix, r.prefix_begin, r.prefix_end,
+                       r.suffix_begin, r.suffix_end) for r in rows]
+            for i, r in enumerate(rows):
+                if r.ok:
+                    paths[i] = r.path
+                    seg_lens[i] = r.seg_len
+        elif "planes_parts" in state:
+            bounds = self._two_phase_bounds(state)
+            live = [i for i, b in enumerate(bounds) if b[0]]
+            if live:
+                segs = [state["flts"][i][bounds[i][3]:bounds[i][6]].astype(np.float32)
+                        for i in live]
+                mat = self._viterbi_collect(self._viterbi_submit(tc.repeat_hmm, segs))
+                for k, i in enumerate(live):
+                    paths[i] = mat[k]
+                    seg_lens[i] = len(segs[k])
+        else:
             state = self.detect_middle(state)
             bounds = state["bounds"]
-            paths, seg_lens = {}, {}
             if state["live"]:
                 mat = self._viterbi_collect(state["vit"])
                 for k, i in enumerate(state["live"]):
                     paths[i] = mat[k]
                     seg_lens[i] = bounds[i][6] - bounds[i][3]
-            state["decoded"] = (bounds, paths, seg_lens)
+        state["decoded"] = (bounds, paths, seg_lens)
         return state["decoded"]
 
     def _main_results(self, state: dict) -> list:

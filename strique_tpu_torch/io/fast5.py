@@ -1,4 +1,4 @@
-"""Fast5 raw-signal store: indexing, retrieval, in-place edits.
+"""Fast5 raw-signal store: indexing, retrieval, extraction, in-place edits.
 
 Fills the role of the reference's ``fast5Index`` module (reference
 STRique_lib/fast5Index.py:45-245) with a first-party design on h5py —
@@ -16,20 +16,20 @@ entry.  The on-disk index format is the reference's (``container[/member]
 <TAB> read_id`` with container paths relative to the index file's
 directory), so existing STRique indices load unchanged.
 
-The port's copy of ``strique_tpu/io/fast5.py`` up to ``Fast5Index``'s
-reads and writes (tests/test_torch_copies.py pins the two equal), with
-one difference: ``h5py`` is imported inside the functions that open a
+The port's copy of ``strique_tpu/io/fast5.py`` (tests/test_torch_copies.py
+and tests/test_torch_extract.py pin the two equal), with one
+difference: ``h5py`` is imported inside the functions that open a
 container, not when the module loads, so the CLI imports on a host
-without h5py.  The reference's extraction half (``materialize_reads``,
-``extract`` and the container conversions) waits for the ``extract``
-subcommand (ROADMAP).
+without h5py.
 """
 from __future__ import annotations
 
 import glob
 import os
+import shutil
 import tarfile
 import tempfile
+from collections import defaultdict
 from dataclasses import dataclass
 
 import numpy as np
@@ -233,6 +233,94 @@ class Fast5Index:
         _write_signal(self._abs(loc.container), signal,
                       base=loc.member if loc.kind == BULK else "")
 
+    # -- extraction ----------------------------------------------------------
+
+    def materialize_reads(self, read_ids, output: str) -> None:
+        """Write the given reads into ``output`` as single-read fast5s.
+
+        Reads are grouped by container so each bulk file / tar archive is
+        opened once.
+        """
+        os.makedirs(output, exist_ok=True)
+        by_container: dict[Locator, list[tuple[str, Locator]]] = defaultdict(list)
+        for rid in read_ids:
+            if rid not in self._entries:
+                log(f"Fast5: read {rid} not in index, skipped for extraction",
+                    LogLevel.Warning)
+                continue
+            loc = self._locate(rid)
+            by_container[(loc.kind, loc.container)].append((rid, loc))
+
+        for (kind, container), members in sorted(by_container.items()):
+            src = self._abs(container)
+            if kind == SINGLE:
+                for _, loc in members:
+                    shutil.copy(src, output)
+            elif kind == TAR:
+                # exact-path match: a read ID that is a substring of
+                # another member path must not over-extract
+                wanted = {os.path.normpath(loc.member) for _, loc in members}
+                with tarfile.open(src) as archive:
+                    for member in archive.getmembers():
+                        if os.path.normpath(member.name) in wanted:
+                            member.name = os.path.basename(member.name)
+                            archive.extract(member, path=output, filter="data")
+            else:  # BULK
+                import h5py
+
+                with h5py.File(src, "r") as bulk:
+                    for rid, loc in members:
+                        multi_group_to_single(
+                            bulk, loc.member, os.path.join(output, f"{rid}.fast5"))
+
+    def extract(self, input_path: str, output: str, format: str = "single") -> None:
+        """Extract a batch (.tar / .fast5 / .txt ID list) into ``output``.
+
+        ``format``: 'single' (one fast5 per read), 'bulk' (one multi-read
+        fast5), or 'lazy' (keep the cheapest representation).
+        """
+        os.makedirs(output, exist_ok=True)
+        stem, ext = os.path.splitext(input_path)
+        as_bulk = format == "bulk"
+        if ext == ".tar":
+            if as_bulk:
+                with tempfile.TemporaryDirectory(prefix=self.tmp_prefix) as staging, \
+                        tarfile.open(input_path) as archive:
+                    archive.extractall(path=staging, filter="data")
+                    singles_to_multi(
+                        _candidate_files(staging, recursive=True),
+                        os.path.join(output, os.path.basename(stem) + ".fast5"))
+            else:
+                with tarfile.open(input_path) as archive:
+                    archive.extractall(path=output, filter="data")
+        elif ext == ".fast5":
+            if format == "single":
+                import h5py
+
+                with h5py.File(input_path, "r") as bulk:
+                    for group in bulk:
+                        rid = _raw_group_id(bulk, group)
+                        multi_group_to_single(bulk, group,
+                                              os.path.join(output, f"{rid}.fast5"))
+            else:
+                shutil.copy(input_path, output)
+        elif ext == ".txt":
+            if not self._entries:
+                raise RuntimeError("extracting by read ID requires an index file")
+            with open(input_path, "r") as fp:
+                ids = [line.strip() for line in fp if line.strip()]
+            if as_bulk:
+                with tempfile.TemporaryDirectory(prefix=self.tmp_prefix) as staging:
+                    self.materialize_reads(ids, staging)
+                    singles_to_multi(
+                        _candidate_files(staging, recursive=True),
+                        os.path.join(output, os.path.basename(stem) + ".fast5"))
+            else:
+                self.materialize_reads(ids, output)
+        else:
+            raise RuntimeError(f"unsupported batch extension {ext!r} "
+                               "(expected .tar, .fast5 or .txt)")
+
 
 def _read_signal(f5_file: str, base: str = "") -> np.ndarray:
     import h5py
@@ -251,3 +339,102 @@ def _write_signal(f5_file: str, signal: np.ndarray, base: str = "") -> None:
         del raw[rel]
         ds = raw.create_dataset(rel, data=signal)
         ds.parent.attrs["duration"] = len(signal)
+
+
+# ---------------------------------------------------------------------------
+# container conversion (ont_fast5_api-compatible layouts)
+# ---------------------------------------------------------------------------
+
+# The multi-read layout written here matches what ont_fast5_api's
+# single_to_multi converter produces (the reference extracts through it,
+# STRique_lib/fast5Index.py:96-135,195,216), so downstream nanopore tools
+# accept the output: root attr ``file_version`` = "2.0"; one
+# ``read_<read_id>`` group per read carrying attr ``run_id`` and the
+# subgroups ``Raw`` (read attrs + Signal dataset directly beneath) plus
+# ``channel_id`` / ``context_tags`` / ``tracking_id`` lifted out of the
+# single file's ``UniqueGlobalKey``.
+MULTI_FILE_VERSION = "2.0"
+_UGK_GROUPS = ("channel_id", "context_tags", "tracking_id")
+
+
+def _copy_attrs(src, dst) -> None:
+    for k, v in src.attrs.items():
+        dst.attrs[k] = v
+
+
+def multi_group_to_single(bulk, group: str, out_file: str) -> None:
+    """Copy one bulk read group into a standalone single-read fast5.
+
+    ont_fast5_api-shaped groups (Signal directly under ``Raw``) convert
+    to the canonical single layout (``Raw/Reads/Read_<n>`` +
+    ``UniqueGlobalKey``); anything else copies through unchanged.
+    """
+    import h5py
+
+    g = bulk[group]
+    raw = g.get("Raw")
+    ont_shaped = isinstance(raw, h5py.Group) and isinstance(raw.get("Signal"), h5py.Dataset)
+    with h5py.File(out_file, "w") as out:
+        if not ont_shaped:
+            for key in g:
+                bulk.copy(g[key], out, name=key)
+            _copy_attrs(g, out)
+            return
+        read_number = int(raw.attrs.get("read_number", 0))
+        read_grp = out.create_group(f"Raw/Reads/Read_{read_number}")
+        _copy_attrs(raw, read_grp)
+        for key in raw:  # Signal plus any sibling datasets/groups
+            bulk.copy(raw[key], read_grp, name=key)
+        ugk = out.create_group("UniqueGlobalKey")
+        for name in _UGK_GROUPS:
+            if name in g:
+                bulk.copy(g[name], ugk, name=name)  # attrs AND children
+            else:
+                ugk.create_group(name)
+        # anything else the read group carries (Analyses, extra UGK-style
+        # groups, ...) passes through at the single file's top level;
+        # a child literally named UniqueGlobalKey would collide with the
+        # group created above, so merge its children into it instead
+        for key in g:
+            if key == "Raw" or key in _UGK_GROUPS:
+                continue
+            if key == "UniqueGlobalKey":
+                for sub in g[key]:
+                    if sub not in ugk:
+                        bulk.copy(g[key][sub], ugk, name=sub)
+                continue
+            bulk.copy(g[key], out, name=key)
+        _copy_attrs(g, out)
+
+
+def singles_to_multi(f5_files, out_file: str) -> None:
+    """Pack single-read fast5 files into one ont-compatible multi-read fast5."""
+    import h5py
+
+    with h5py.File(out_file, "w") as out:
+        out.attrs["file_version"] = MULTI_FILE_VERSION
+        for f5_file in f5_files:
+            with h5py.File(f5_file, "r") as src:
+                grp = out.create_group(f"read_{read_id_single(f5_file)}")
+                raw_holder = src["Raw"]
+                sig_rel = _signal_path(raw_holder)
+                sig = raw_holder[sig_rel]
+                raw_out = grp.create_group("Raw")
+                _copy_attrs(sig.parent, raw_out)
+                sig_leaf = sig.name.rsplit("/", 1)[-1]
+                for key in sig.parent:  # Signal plus any sibling content
+                    src.copy(sig.parent[key], raw_out,
+                             name="Signal" if key == sig_leaf else key)
+                ugk = src.get("UniqueGlobalKey")
+                run_id = b""
+                if ugk is not None:
+                    for name in ugk:  # attrs AND children, all groups
+                        src.copy(ugk[name], grp, name=name)
+                        if name == "tracking_id" and "run_id" in ugk[name].attrs:
+                            run_id = ugk[name].attrs["run_id"]
+                # non-Raw top-level content (Analyses, ...) rides along
+                # inside the read group, as ont_fast5_api lays it out
+                for key in src:
+                    if key not in ("Raw", "UniqueGlobalKey"):
+                        src.copy(src[key], grp, name=key)
+                grp.attrs["run_id"] = run_id

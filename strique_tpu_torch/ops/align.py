@@ -177,9 +177,9 @@ def traceback_pointers(ptr, j_end, m: int, packed="diag", m_start=None):
     for step, in either layout.
     """
     if packed is not True and packed != "diag":
-        raise NotImplementedError(
-            "only the wave kernel's diagonal layout (packed='diag') and the column kernel's "
-            "(packed=True) are ported")
+        raise ValueError(
+            "the pointer layout is the wave kernel's diagonal one (packed='diag') or the "
+            "column kernel's (packed=True)")
     col = packed is True
     B = j_end.shape[0]
     if (ptr.dtype != torch.int32 or ptr.dim() != 3 or ptr.shape[1] != B

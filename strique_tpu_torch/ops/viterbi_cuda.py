@@ -101,9 +101,9 @@ def check_card_sp(n_states: int, device) -> None:
     if torch.device(device).type == "cuda" and sp > MAX_SP:
         raise ValueError(
             f"an HMM of {n_states} states pads to {sp} lanes, past the {MAX_SP} padded "
-            f"states the card's Viterbi kernels take; the reference decodes such HMMs on "
-            f"its two-phase host-bounds path, which is not ported (ROADMAP Queue 1 item 5); "
-            f"device='cpu' runs the plain path at any width")
+            f"states the card's Viterbi kernels take (the reference's chip path stops "
+            f"earlier: its backward stages the (SP, SP) transitions in VMEM, "
+            f"strique_tpu/ops/viterbi_pallas.py:318); device='cpu' decodes at any width")
 
 
 def lsig_row(sigma: np.ndarray) -> np.ndarray:
@@ -554,18 +554,19 @@ def _pad_batch(obs, t_actual):
     return obs, t_actual
 
 
-def viterbi_batch(obs, t_actual, ph: PaddedHMM):
+def viterbi_batch(obs, t_actual, ph: PaddedHMM, group: int = GROUP):
     """Decode a (B, T) batch: returns (logp (B,) f32, path (B, T) int32).
 
-    Runs in GROUP-read calls; each call pads its rows to a multiple of
-    8 with length-1 dummies.  logp = (fin + end)[last] + acc with
+    Runs in ``group``-read calls (at most GROUP; the forward's score
+    plane is (T, group, SP) f32); each call pads its rows to a multiple
+    of 8 with length-1 dummies.  logp = (fin + end)[last] + acc with
     last = argmax(fin + end), first maximum.  The forward is the
     factored one, or the dense one when ``ph`` has no factored form.
     """
     B = obs.shape[0]
-    if B > GROUP:
-        outs = [viterbi_batch(obs[g : g + GROUP], t_actual[g : g + GROUP], ph)
-                for g in range(0, B, GROUP)]
+    if B > group:
+        outs = [viterbi_batch(obs[g : g + group], t_actual[g : g + group], ph, group)
+                for g in range(0, B, group)]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
     obs_p, tact_p = _pad_batch(obs.to(torch.float32), t_actual.to(torch.int32))
     forward = viterbi_forward_dense if ph.fspec is None else viterbi_forward_factored

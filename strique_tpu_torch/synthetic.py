@@ -423,3 +423,74 @@ def traceback_plane(rows: int, seed: int, col: bool, n: int = 1024, mp: int = 38
         elif start == "j_end < 0":
             j_end[r] = -int(rng.integers(1, 40))
     return words.view(np.int32), j_end, m_start, m_out
+
+
+# The AlignParams sweep of the reference's tests/test_fuzz_params.py:33-76
+# (its corner values a parameter, 14 explicit corners, then seeded draws),
+# for the port's tests and chip_smoke.py's phase 3; positive gap "costs"
+# (rewards) are legal inputs and must stay kernel-consistent.
+SWEEP_GAPS_H = (-16.0, -1.0, -0.25, 0.0, 0.5)
+SWEEP_GAPS_V = (-16.0, -4.0, -0.5, 0.0, 1.0)
+SWEEP_OFFSETS = (0.0, 4.0, 16.0, 32.0)
+SWEEP_DMINS = (0.0, 2.0, 8.0, -4.0)
+SWEEP_SHAPE = (8, 256, 20)  # B, N, M of the kernel sweep
+SWEEP_SEED = 1005
+
+
+def sweep_params(rng, n_random: int = 12) -> list:
+    """The sweep's AlignParams: the explicit corners, then ``n_random``
+    draws from ``rng``, duplicates dropped (order kept)."""
+    from .ops.reference import AlignParams
+
+    out = [
+        AlignParams(),
+        AlignParams(dist_min=8.0),
+        AlignParams(dist_min=8.0, dist_offset=0.0),
+        AlignParams(dist_min=-4.0),
+        AlignParams(gap_open_v=-4.0, gap_extension_v=-16.0),
+        AlignParams(gap_open_h=-0.25, gap_extension_h=-16.0),
+        AlignParams(gap_open_h=0.5, gap_extension_h=0.5),
+        AlignParams(gap_open_v=1.0, gap_extension_v=0.0),
+        AlignParams(gap_open_h=0.0, gap_extension_h=0.0),
+        AlignParams(gap_open_v=0.0, gap_extension_v=0.0),
+        AlignParams(dist_offset=32.0, gap_open_v=-32.0, gap_extension_v=-32.0),
+        AlignParams(gap_open_h=-16.0, gap_extension_h=-16.0,
+                    gap_open_v=-0.5, gap_extension_v=-0.5),
+        AlignParams(dist_offset=0.0),
+        AlignParams(gap_open_v=-16.0, gap_extension_v=-0.5),
+    ]
+    for _ in range(n_random):
+        out.append(AlignParams(
+            dist_offset=float(rng.choice(SWEEP_OFFSETS)),
+            dist_min=float(rng.choice(SWEEP_DMINS)),
+            gap_open_h=float(rng.choice(SWEEP_GAPS_H)),
+            gap_extension_h=float(rng.choice(SWEEP_GAPS_H)),
+            gap_open_v=float(rng.choice(SWEEP_GAPS_V)),
+            gap_extension_v=float(rng.choice(SWEEP_GAPS_V)),
+        ))
+    seen, uniq = set(), []
+    for p in out:
+        if p not in seen:
+            seen.add(p)
+            uniq.append(p)
+    return uniq
+
+
+def sweep_reads(rng, B: int, N: int, M: int):
+    """One sweep corner's inputs: (B, N) f32 signals, half of them
+    carrying a noisy copy of the (M,) template, and lengths in [N/2, N-4)."""
+    template = rng.uniform(60, 120, M).astype(np.float32)
+    signals = rng.uniform(60, 120, (B, N)).astype(np.float32)
+    for i in range(B // 2):
+        st = int(rng.integers(0, N - 2 * M))
+        signals[i, st : st + M] = template + rng.normal(0, 0.5, M).astype(np.float32)
+    na = rng.integers(N // 2, N - 4, B).astype(np.int32)
+    return signals, na, template
+
+
+def sweep_cases(seed: int = SWEEP_SEED, shape=SWEEP_SHAPE, n_random: int = 12) -> list:
+    """(params, signals, lengths, template) of each sweep corner, drawn as
+    the reference's sweep draws them (the params first, then each
+    corner's reads from the same generator)."""
+    rng = np.random.default_rng(seed)
+    return [(p, *sweep_reads(rng, *shape)) for p in sweep_params(rng, n_random)]

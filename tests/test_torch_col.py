@@ -77,7 +77,7 @@ def test_col_traceback_on_jax_plane():
                                torch.from_numpy(np.array(ref["j_end"])), m, packed=True)
     for k in ("is_gap", "jpos", "j_begin"):
         np.testing.assert_array_equal(tb[k].numpy(), np.asarray(ref[k]), err_msg=k)
-    with pytest.raises(NotImplementedError, match="layout"):
+    with pytest.raises(ValueError, match="layout"):
         TA.traceback_pointers(torch.from_numpy(np.array(jptr)),
                               torch.from_numpy(np.array(ref["j_end"])), m, packed=False)
 

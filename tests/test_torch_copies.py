@@ -9,7 +9,9 @@ is held equal to its original here: arrays exactly, the native prep's
 outputs byte for byte.  The count CLI's host modules (config, SAM,
 fast5, writer, logger, dispatcher) and the scheduler's tail merge plan
 are held to theirs on seeded inputs: the same values, bytes, log lines,
-rows and plans.
+rows and plans; tests/test_io.py's extraction cases run on the port's
+fast5 copy, and the fused route's packed rows decode as the reference
+decodes them.
 """
 import os
 
@@ -241,17 +243,173 @@ def test_fast5_index_get_raw_set_raw(tmp_path):
 
 
 def test_fast5_module_imports_without_h5py():
-    """The CLI's import chain (fast5 included) does not need h5py."""
+    """The CLI's import chain (fast5 and the masker included) needs
+    neither h5py nor matplotlib."""
     import subprocess
     import sys
 
-    code = ("import sys; sys.modules['h5py'] = None\n"
+    code = ("import sys; sys.modules['h5py'] = None; sys.modules['matplotlib'] = None\n"
             "import strique_tpu_torch.cli, strique_tpu_torch.io.fast5 as f\n"
+            "import strique_tpu_torch.io.masker\n"
             "import strique_tpu_torch.detect.detector, strique_tpu_torch.parallel.dispatcher\n"
             "assert f.Fast5Index(None).index_file is None\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.returncode == 0, out.stderr
+
+
+def _single_f5(path, read_id, signal):
+    """tests/test_io.py's ``make_single_f5``."""
+    import h5py
+
+    with h5py.File(path, "w") as f:
+        g = f.create_group("Raw/Reads/Read_1")
+        g.attrs["read_id"] = np.bytes_(read_id.encode())
+        g.attrs["duration"] = np.uint32(len(signal))
+        g.create_dataset("Signal", data=signal.astype(np.int16))
+
+
+def test_extract_subset(tmp_path):
+    """tests/test_io.py::test_extract_subset on the port's copy."""
+    from strique_tpu_torch.io import fast5
+
+    rids = [f"xtr-read-{i}" for i in range(3)]
+    for i, rid in enumerate(rids):
+        _single_f5(tmp_path / f"s{i}.fast5", rid, np.full(10 + i, i, np.int16))
+    fofn = tmp_path / "reads.fofn"
+    fofn.write_text("\n".join(fast5.index(str(tmp_path))) + "\n")
+    ids_txt = tmp_path / "subset.txt"
+    ids_txt.write_text("\n".join(rids[:2]) + "\n")
+    out = tmp_path / "out"
+    fast5.Fast5Index(str(fofn)).extract(str(ids_txt), str(out), format="single")
+    assert sorted(os.listdir(out)) == ["s0.fast5", "s1.fast5"]
+
+
+def test_tar_extract_exact_member_match(tmp_path):
+    """tests/test_io.py::test_tar_extract_exact_member_match on the port's
+    copy: a member path that is a suffix of another must not over-extract."""
+    import tarfile
+
+    from strique_tpu_torch.io import fast5
+
+    sigs = {"a.fast5": np.arange(10, dtype=np.int16),
+            "sub/a.fast5": np.arange(20, dtype=np.int16)}
+    work = tmp_path / "work"
+    os.makedirs(work / "sub")
+    rids = {}
+    for arc, sig in sigs.items():
+        rids[arc] = f"rid-{arc.replace('/', '-')}"
+        _single_f5(work / arc, rids[arc], sig)
+    with tarfile.open(tmp_path / "batch.tar", "w") as tf:
+        for arc in sigs:
+            tf.add(work / arc, arcname=arc)
+    fofn = tmp_path / "reads.fofn"
+    fofn.write_text("".join(f"batch.tar/{arc}\t{rid}\n" for arc, rid in rids.items()))
+    out = tmp_path / "out"
+    fast5.Fast5Index(str(fofn)).materialize_reads([rids["a.fast5"]], str(out))
+    assert sorted(os.listdir(out)) == ["a.fast5"]
+    np.testing.assert_array_equal(fast5._read_signal(str(out / "a.fast5")), sigs["a.fast5"])
+
+
+def test_singles_to_multi_ont_layout(tmp_path):
+    """tests/test_io.py::test_singles_to_multi_ont_layout on the port's copy,
+    with a synthetic single read in the layout of the reference's data
+    file (read number 2628, UniqueGlobalKey groups): single -> multi in
+    ont_fast5_api's layout, and back."""
+    import h5py
+
+    from strique_tpu_torch.io import fast5
+
+    rid = "ce47b364-synthetic"
+    src = tmp_path / "single.fast5"
+    orig = np.random.default_rng(2).integers(300, 700, 500).astype(np.int16)
+    with h5py.File(src, "w") as f:
+        g = f.create_group("Raw/Reads/Read_2628")
+        g.attrs["read_id"] = np.bytes_(rid.encode())
+        g.attrs["read_number"] = np.int32(2628)
+        g.create_dataset("Signal", data=orig)
+        f.create_group("UniqueGlobalKey/tracking_id").attrs["run_id"] = np.bytes_(b"run7")
+        ch = f.create_group("UniqueGlobalKey/channel_id")
+        ch.attrs["digitisation"] = 8192.0
+        ch.attrs["offset"] = 49.0
+        f.create_group("UniqueGlobalKey/context_tags")
+    bulk = tmp_path / "packed.fast5"
+    fast5.singles_to_multi([str(src)], str(bulk))
+    with h5py.File(bulk) as f:
+        assert f.attrs["file_version"] == "2.0"
+        g = f[f"read_{rid}"]
+        assert g.attrs["run_id"] == b"run7"
+        assert isinstance(g["Raw/Signal"], h5py.Dataset)
+        assert g["Raw"].attrs["read_id"] == rid.encode()
+        assert g["Raw"].attrs["read_number"] == 2628
+        for name in ("channel_id", "context_tags", "tracking_id"):
+            assert name in g
+        assert g["channel_id"].attrs["digitisation"] == 8192.0
+    fofn = tmp_path / "reads.fofn"
+    fofn.write_text("\n".join(fast5.index(str(bulk))) + "\n")
+    idx = fast5.Fast5Index(str(fofn))
+    np.testing.assert_array_equal(idx.get_raw(rid), orig)
+    out = tmp_path / "unpacked"
+    idx.extract(str(bulk), str(out), format="single")
+    single = out / f"{rid}.fast5"
+    assert fast5.read_id_single(str(single)) == rid
+    with h5py.File(single) as f:
+        np.testing.assert_array_equal(f["Raw/Reads/Read_2628/Signal"][()], orig)
+        assert f["UniqueGlobalKey/channel_id"].attrs["offset"] == 49.0
+
+
+def test_multi_to_single_ugk_named_child(tmp_path):
+    """tests/test_io.py::test_multi_to_single_ugk_named_child on the port's
+    copy: a bulk read group's child named UniqueGlobalKey merges into the
+    created group."""
+    import h5py
+
+    from strique_tpu_torch.io import fast5
+
+    rid = "read-ugk-child"
+    src = tmp_path / f"{rid}.fast5"
+    sig = np.arange(32, dtype=np.int16)
+    _single_f5(src, rid, sig)
+    bulk = tmp_path / "packed.fast5"
+    fast5.singles_to_multi([str(src)], str(bulk))
+    with h5py.File(bulk, "r+") as f:
+        f.create_group(f"read_{rid}/UniqueGlobalKey/context_args").attrs["note"] = \
+            np.bytes_(b"kept")
+    out = tmp_path / "single_out.fast5"
+    with h5py.File(bulk) as f:
+        fast5.multi_group_to_single(f, f"read_{rid}", str(out))
+    with h5py.File(out) as f:
+        assert f["UniqueGlobalKey/context_args"].attrs["note"] == b"kept"
+        np.testing.assert_array_equal(f["Raw/Reads/Read_0/Signal"][()], sig)
+
+
+def test_pack_results_round_trip_and_unpack_copy():
+    """The port's pack_results (torch) through its unpack_results copy
+    gives the JAX package's unpack_results of the same bytes, at u8 and
+    u16 path entries; gated rows decode with no path."""
+    import torch
+
+    rng = np.random.default_rng(6)
+    B, T = 5, 37
+    bounds = {k: torch.from_numpy(rng.integers(0, 3000, B).astype(np.int32))
+              for k in TK.META_FIELDS}
+    bounds["score_p"] = torch.from_numpy(rng.uniform(-5, 900, B).astype(np.float32))
+    bounds["score_s"] = torch.from_numpy(rng.uniform(-5, 900, B).astype(np.float32))
+    bounds["ok"] = torch.tensor([True, False, True, True, False])
+    for n_states in (200, 256, 257, 4000):
+        paths = torch.from_numpy(rng.integers(0, n_states, (B, T)).astype(np.int32))
+        packed = TK.pack_results(bounds, paths, n_states).numpy()
+        assert packed.dtype == np.uint8
+        assert packed.shape == (B, TK.META_BYTES + T * TK.path_itemsize(n_states))
+        got, ref = TK.unpack_results(packed, n_states), JK.unpack_results(packed, n_states)
+        for i, (a, b) in enumerate(zip(got, ref)):
+            assert {k: v for k, v in a.__dict__.items() if k != "path"} == \
+                {k: v for k, v in b.__dict__.items() if k != "path"}
+            if a.ok:
+                np.testing.assert_array_equal(a.path, b.path)
+                np.testing.assert_array_equal(a.path, paths[i].numpy())
+            else:
+                assert a.path is None and b.path is None
 
 
 ROWS = [("read-a", "c9orf72", "+", 12, 8.804217333737352, 8.740056275905323,

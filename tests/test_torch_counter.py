@@ -73,12 +73,6 @@ def test_counter_phases_and_prep_tokens(model_file):
     assert first == again == port.detect_many("c9orf72", reads, "+")
 
 
-def test_counter_refuses_unported_paths(model_file, monkeypatch):
-    monkeypatch.setenv("STRIQUE_SPLIT", "0")
-    with pytest.raises(NotImplementedError, match="split"):
-        RepeatCounter(model_file, device="cpu")
-
-
 def test_counter_cuda_default_needs_a_card(model_file):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")

@@ -589,6 +589,99 @@ def test_gpu_counter_matches_cpu_counter(cuda_device, model_file):
     assert out[0] == out[1]
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["fused", "two-phase"])
+def test_gpu_counter_routes_match_cpu_counter(cuda_device, model_file, route):
+    """The fused dispatch (row 2 TABLE, no row 1) and the two-phase
+    host-bounds path (row 1 TABLE, one call a flank, no row 2) on the card
+    against the same route on the plain CPU path; the last read, its
+    flanks swapped, is gated."""
+    pm = PoreModel(model_file)
+    rng = np.random.default_rng(12)
+    prefix, suffix = PREFIX[-80:], SUFFIX[:80]
+    reads = [make_reads(pm, 1, k, rng, strand="+", flank_bases=200, prefix=prefix,
+                        suffix=suffix)[0] for k in (5, 9, 14)]
+    reads.append(make_reads(pm, 1, 9, rng, strand="+", flank_bases=200, prefix=suffix,
+                            suffix=prefix)[0])
+    n = max(len(r) for r in reads)
+    reads = [np.pad(r, (0, n - len(r)), mode="edge") for r in reads]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        c = RepeatCounter(model_file, device=dev)
+        c.split = False
+        c.fused = route == "fused"
+        c.add_target("c9orf72", REPEAT, prefix, suffix)
+        _build.reset_launches()
+        out.append(c.detect_many("c9orf72", reads, "+"))
+        if dev == cuda_device:
+            lc = dict(_build.LAUNCHES)
+    assert out[0] == out[1]
+    assert [r[0] for r in out[0]] == [5, 9, 14, 0] and out[0][3][3] == 0.0
+    row1, row2 = lc["align_forward_wave_table"], lc["align_forward_wave_multi_table"]
+    assert (row1, row2) == ((0, 1) if route == "fused" else (2, 0))
+    assert lc["viterbi_forward_factored"] == lc["viterbi_backward_batch"] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["split", "fused", "two-phase"])
+def test_gpu_flat_read_matches_cpu_counter(cuda_device, model_file, route):
+    """A flat read (every sample equal: the prep's level table and flt
+    channel are all NaN, on the JAX package's prep too) is gated on every
+    route; its row must be the CPU path's, offset included.  Open fault
+    (ROADMAP Queue 3): the card's alignment kernels take the max of NaN
+    and a number as the number (fmaxf) where the plain twins and the
+    reference propagate the NaN, so the card's gated row ends its prefix
+    elsewhere (offset 449 against 0 on the CPU, NVIDIA H100)."""
+    reads = [np.full(3000, 90.0)]
+    out = []
+    for dev in (cuda_device, "cpu"):
+        c = RepeatCounter(model_file, device=dev)
+        c.split = route == "split"
+        c.fused = route != "two-phase"
+        c.add_target("c9orf72", REPEAT, PREFIX[-80:], SUFFIX[:80])
+        out.append(c.detect_many("c9orf72", reads, "+"))
+    assert out[1] == [(0, 0.0, 0.0, 0.0, 0, 0, "-")]
+    assert out[0] == out[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [0, 2, 3, 6, 7, 9, 11, 20])
+def test_gpu_sweep_corner_matches_cpu(cuda_device, k, monkeypatch):
+    """A handful of the AlignParams sweep's corners (``synthetic.sweep_cases``:
+    dist_min 8 with and without the curve, dist_min -4, positive h and v
+    gaps, free v gaps, steep h gaps, a seeded draw): ``align_core`` on the
+    wave and column routes and the two-pass route where a span bound
+    exists, in f32 and in morph form, on the card against the same calls
+    on the plain CPU path."""
+    from strique_tpu_torch.synthetic import sweep_cases
+
+    p, signals, na, template = sweep_cases()[k]
+    bins, lut = quantise(signals, np.random.default_rng(k))
+    inputs = {"f32": (signals, None), "morph": (bins, lut)}
+
+    def run(dev, form, route):
+        sig, lt = inputs[form]
+        s_d = torch.from_numpy(sig).to(dev)
+        n_d = torch.from_numpy(na).to(dev)
+        l_d = None if lt is None else torch.from_numpy(lt).to(dev)
+        if route == "two-pass":
+            return TA.align_batch_longread(s_d, n_d, template, p, ckpt_steps=128, lut=l_d)
+        return TA.align_core(s_d, n_d, template, p, lut=l_d)
+
+    routes = ["wave", "col"]
+    if TC.wave_span_bound_steps(p, len(template)) is not None:
+        routes.append("two-pass")
+    for route in routes:
+        if route == "col":
+            monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
+        else:
+            monkeypatch.delenv("STRIQUE_ALIGN_KERNEL", raising=False)
+        for form in inputs:
+            got, ref = run(cuda_device, form, route), run("cpu", form, route)
+            for key in ("score", "j_end", "is_gap", "jpos", "j_begin"):
+                assert torch.equal(got[key].cpu(), ref[key]), (k, route, form, key)
+
+
 def _longread_reads(rng, B=8, N=4096, M=40):
     """Reads whose template sits early (cold pass-2 windows) or late (warm)."""
     template = rng.uniform(60, 120, M).astype(np.float32)

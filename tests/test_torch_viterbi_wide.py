@@ -110,13 +110,13 @@ def test_wide_twins_match_jax_interpret(models, case):
 
 def test_check_card_sp_limit():
     """Up to MAX_SP padded states the card takes an HMM; past it only the
-    CPU does, and the refusal names the limit and the reference's
-    two-phase host-bounds path."""
+    CPU does, and the refusal names the limit and the reference's own
+    chip reach (its backward's (SP, SP) block in VMEM)."""
     assert TVC.padded_sp(1) == 128 and TVC.padded_sp(1080) == 1152
     assert TVC.padded_sp(TVC.MAX_SP) == TVC.MAX_SP == 8192
     TVC.check_card_sp(TVC.MAX_SP, "cuda")
     TVC.check_card_sp(TVC.MAX_SP + 1, "cpu")
-    with pytest.raises(ValueError, match="8192 padded states.*two-phase host-bounds path"):
+    with pytest.raises(ValueError, match="8192 padded states.*VMEM.*device='cpu'"):
         TVC.check_card_sp(TVC.MAX_SP + 1, torch.device("cuda"))
     assert TVC.NARROW_MAX_SP == 1024
 
