@@ -17,9 +17,10 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``samples=6`` templates; row 2 at the bench shape with 128 rows, both
    flanks of 64 reads): its TABLE score mode against the table twin,
    and its POW mode on the decoded f32 against the same twin run, with
-   each mode's ms and us per diagonal step.  The TABLE/POW rule is held
-   in both directions (at the shared-memory cap at MP 256, and past
-   1024 lanes), each call against the table twin; row 1 also runs at the
+   each mode's ms and us per diagonal step.  The score-mode rule is held
+   in every direction (at one CTA's shared-memory cap at MP 256, past
+   1024 lanes, the cluster's split form at both, and POW past every
+   cluster's table at MP 2176), each call against the table twin; row 1 also runs at the
    ultra-long one-pass shape (8 rows, the bucket's N), TABLE against POW
    on the decoded f32.  The two-pass kernels (rows 5-6) run on morph-form
    reads at N=4096, M=42, ckpt_steps 512 (cold and warm windows) and
@@ -88,18 +89,25 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    Counts 8/8 exact on both routes, and the two routes' result tuples
    equal.  Print each route's seconds.
 4e. A target whose flanks are 200 bases longer each (MP 2176: more
-   lanes than the TABLE mode runs, and more levels than its table
-   holds): both wave calls' POW dispatch at that MP against the table
-   twin (16 rows, N 4096), rows 5-6 in the POW mode with both flanks as
-   per-row templates against ``_ckpt_plain`` / ``_window_plain`` (16
-   rows, N 4096), then 72 '+' and 24 '-' reads count exactly
-   through the POW score mode alone (2 + 1 wave calls), and the 72 '+'
-   reads again under ``STRIQUE_PTR_BUDGET_GB=0.1``: the two-pass route
-   in the POW mode, exact, with the one-pass run's tuples; the column
-   kernel's POW mode (past its table) against its twin at 64 rows of the
-   reads' bucket, then the first 64 '+' reads under
-   ``STRIQUE_ALIGN_KERNEL=col`` through it alone, exact, with the wave
-   route's tuples.
+   lanes than one CTA runs, and more levels than one CTA's table holds;
+   the TABLE mode on a thread-block cluster of 2 CTAs a row, each with a
+   table of its own lanes' levels): both wave calls held to the table
+   twin in the one-CTA form (POW) and the split form (the cluster), 16
+   rows, N 4096; rows 5-6 with both flanks as per-row templates, the
+   cluster and POW modes against their twins (16 rows, N 4096); then at
+   the shapes the runs launch, the cluster mode against the POW mode on
+   the decoded f32, timed in turns (POW, cluster, cluster, POW): row 8
+   and row 1 at 64 rows of the '+' reads' bucket and row 2 at 48 rows
+   (each also against its table twin), rows 5-6 at 8-row groups.  Then
+   72 '+' and 24 '-' reads count exactly through the cluster TABLE mode
+   alone (row 1: 64 + 8 rows a flank, as many rows as their CTAs fit
+   the SMs; row 2: one fused 48-row call), the 72 '+' reads again under
+   ``STRIQUE_PTR_BUDGET_GB=0.1`` (the two-pass route, rows 5-6 on the
+   cluster) and the first 64 under ``STRIQUE_ALIGN_KERNEL=col`` (row 8
+   on the cluster), each with the one-pass run's tuples and no POW
+   launch.  Last, the f32 route (``run_f32_route``): the alignment API
+   on f32 reads at the same shapes runs rows 1, 2, 5-6 and 8 in the POW
+   mode, each call's outputs equal to its morph form's (the cluster's).
 4f. A VNTR target of a 60-base unit, whose repeat HMM (SP 640) is past
    the dense forward's resident rule: the streamed dense kernel against
    its twin (8 reads, T 8192), then 8 '+' reads counted on the default
@@ -196,14 +204,22 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    ``detect_many`` row) and phase 4f's 150-base target (SP 1152; the
    default route's tuples, its Viterbi call's peak memory printed)
    through the fused route.
+4l. A NaN level table (a flat read's: all samples equal) in row 0 of 8
+   in rows 1, 2, 5-6 and 8, in the TABLE mode on one CTA and on a
+   cluster (MP 1152) and in the POW mode, each against its twin: equal
+   NaN masks and equal values elsewhere in the bottom taps and written
+   checkpoint slots, equal written pointer words.  Then a flat read
+   through the split, fused and two-phase routes on the card: each the
+   CPU counter's tuple, offset 0.
 5. Print the kernel table as one JSON line (per kernel: launches on its
    path, max_abs_err against its twin, ms, plain_ms, the bound of
    ``bound()`` and library_ms; ``--out`` adds rows 1-2's us per step and
    their bound with the pow counted per cell), then the final
    ``{"ok": true, "device": ...}`` line.  Row 1's TABLE launches come
    from phase 4b's one-pass route, rows 5-6's TABLE launches from its
-   two-pass route, the POW launches of rows 1-2, 5-6 and 8 from phase
-   4e, row 8's TABLE and row 7's resident launches from phase 4d, row
+   two-pass route, the cluster launches of rows 1-2, 5-6 and 8 from
+   phase 4e's count runs and their POW launches from its f32 route, row
+   8's TABLE and row 7's resident launches from phase 4d, row
    7's streamed launches from phase 4f, row 3's diagonal-only layout's
    from phase 4h's timed stream run, the wide variants' from phase 4f's
    wide targets (the default route's, and the mod target's for the
@@ -256,11 +272,15 @@ KERNEL_KEYS = ("name", "route", "source", "replaces", "launches", "max_abs_err",
 TABLE_WAVE = ("align_forward_wave_table", "align_forward_wave_multi_table")
 POW_TWO_PASS = ("align_forward_ckpt", "align_window_from_state")
 TABLE_TWO_PASS = ("align_forward_ckpt_table", "align_window_from_state_table")
+# the TABLE score mode on a thread-block cluster of CTAs a row (past one
+# CTA's table), one launch counter each
+CLUSTER_WAVE = ("align_forward_wave_cluster", "align_forward_wave_multi_cluster")
+CLUSTER_TWO_PASS = ("align_forward_ckpt_cluster", "align_window_from_state_cluster")
 KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
 # the dense forward's two modes (resident: SP <= 512) and the column
 # kernel's two score modes, one launch counter each
 DENSE = ("viterbi_forward_dense_resident", "viterbi_forward_dense")
-COL = ("align_forward_col_table", "align_forward_col")
+COL = ("align_forward_col_table", "align_forward_col", "align_forward_col_cluster")
 # phase 4g: the count path over a stream of both loci, at each --batch
 # twice (it must launch SPLIT_KERNELS)
 COUNT_BATCHES = (32, 64, 128)
@@ -305,6 +325,14 @@ SOURCES = {
                                  "strique_tpu/ops/align_pallas.py:788"),
     "align_window_from_state_table": ("strique_tpu_torch/csrc/wave_align.cu",
                                       "strique_tpu/ops/align_pallas.py:834"),
+    "align_forward_wave_cluster": ("strique_tpu_torch/csrc/wave_align.cu",
+                                   "strique_tpu/ops/align_pallas.py:639"),
+    "align_forward_wave_multi_cluster": ("strique_tpu_torch/csrc/wave_align.cu",
+                                         "strique_tpu/ops/align_pallas.py:684"),
+    "align_forward_ckpt_cluster": ("strique_tpu_torch/csrc/wave_align.cu",
+                                   "strique_tpu/ops/align_pallas.py:788"),
+    "align_window_from_state_cluster": ("strique_tpu_torch/csrc/wave_align.cu",
+                                        "strique_tpu/ops/align_pallas.py:834"),
     "traceback_pointers": ("strique_tpu_torch/csrc/traceback.cu",
                            "strique_tpu/ops/align.py:235"),
     "viterbi_forward_factored": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
@@ -323,6 +351,8 @@ SOURCES = {
                                 "strique_tpu/ops/align_pallas.py:322"),
     "align_forward_col": ("strique_tpu_torch/csrc/col_align.cu",
                           "strique_tpu/ops/align_pallas.py:322"),
+    "align_forward_col_cluster": ("strique_tpu_torch/csrc/col_align.cu",
+                                  "strique_tpu/ops/align_pallas.py:322"),
     "traceback_pointers_col": ("strique_tpu_torch/csrc/traceback.cu",
                                "strique_tpu/ops/align.py:235"),
     "viterbi_forward_dense_resident": ("strique_tpu_torch/csrc/viterbi_dense.cu",
@@ -428,11 +458,12 @@ def morph_reads(templates, B, N, rng, n_lo=None):
 
 
 def table_entries(levels, rows: int) -> float:
-    """Score-table entries the TABLE mode evaluates: U x 258 a row, U the
-    template's distinct values (the +1e30 pad among them)."""
+    """Score-table entries the TABLE mode evaluates: U x 258 a row (a CTA
+    of the row in the split form), U the distinct values of the
+    template's (or the CTA's) lanes, the +1e30 pad among them."""
     import numpy as np
 
-    u = (levels < np.float32(1e30)).sum(axis=1) + 1
+    u = ((levels < np.float32(1e30)).sum(axis=-1) + 1).reshape(levels.shape[0], -1).sum(axis=1)
     return 258.0 * float(u.sum() if levels.shape[0] > 1 else u[0] * rows)
 
 
@@ -452,11 +483,13 @@ def wave_bound(n_d, m_d, levels, nbytes, table: bool):
     return {**new, "bound_ms_pow_per_cell": old["bound_ms"]}
 
 
-def wave_inputs(templates, multi, B, N, rng, n_lo=None):
+def wave_inputs(templates, multi, B, N, rng, n_lo=None, ctas=None):
     """Morph-form wave inputs on the card: one shared template
     (``templates[0]``) or, with ``multi``, the two templates over the two
-    halves of the rows.  Returns (numpy (levels, lidx, tmpl, bins, lut),
-    device (bins, lut, n, m_rows, levels, lidx, tmpl))."""
+    halves of the rows; with ``ctas`` the levels in the split form of a
+    cluster of that many CTAs a row.  Returns (numpy (levels, lidx,
+    tmpl, bins, lut), device (bins, lut, n, m_rows, levels, lidx,
+    tmpl))."""
     import numpy as np
     import torch
 
@@ -472,7 +505,7 @@ def wave_inputs(templates, multi, B, N, rng, n_lo=None):
         mr = np.full(B, m, np.int32)
         row_t = [templates[0]] * B
     bins, lut, na = morph_reads(row_t, B, N, rng, n_lo)
-    levels, lidx = AC.template_levels(tmpl)
+    levels, lidx = AC.template_levels(tmpl, ctas)
     dev = torch.device("cuda")
     return ((levels, lidx, tmpl, bins, lut),
             tuple(torch.from_numpy(x).to(dev) for x in (bins, lut, na, mr, levels, lidx, tmpl)))
@@ -559,49 +592,68 @@ def check_wave(templates, shape_name, B, N, params, multi, rng, results):
 
 def hold_morph(templates, multi, B, N, params, rng, mode, label) -> None:
     """One morph-form wave call on the card: it must launch the ``mode``
-    score mode alone and equal the table twin (written pointer words and
-    bottom taps).  The launch does not count toward any path's launches."""
+    score mode alone ("table": one CTA a row, in the one-CTA form of the
+    levels; "pow": that form past one CTA's table; "cluster": the split
+    form on the CTAs its rule gives) and equal the table twin (written
+    pointer words and bottom taps).  The launch does not count toward
+    any path's launches."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align_cuda as AC
 
-    (levels, _, tmpl, _, _), dev_in = wave_inputs(templates, multi, B, N, rng)
+    rows = AC.pad_template_rows(list(templates))[0] if multi else AC.pad_template(templates[0])[0]
+    ctas = AC.wave_table_ctas(rows) if mode == "cluster" else None
+    (levels, _, tmpl, _, _), dev_in = wave_inputs(templates, multi, B, N, rng, ctas=ctas)
     b_d, l_d, n_d, m_d, lv_d, li_d, _ = dev_in
     name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    counters = {"pow": name, "table": name + "_table", "cluster": name + "_cluster"}
     before = dict(_build.LAUNCHES)
     ptr, bot = morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params)
-    ran = {k: _build.LAUNCHES[k] - before[k] for k in (name, name + "_table")}
-    want = {name: int(mode == "pow"), name + "_table": int(mode == "table")}
-    ptr_p, bot_p = AC._wave_table_plain(b_d, l_d, lv_d, li_d, n_d, m_d, params)
+    ran = {k: _build.LAUNCHES[k] - before[k] for k in counters.values()}
+    want = {k: int(k == counters[mode]) for k in counters.values()}
+    flat = AC.flat_levels(lv_d, li_d) if lv_d.dim() == 3 else (lv_d, li_d)
+    ptr_p, bot_p = AC._wave_table_plain(b_d, l_d, *flat, n_d, m_d, params)
     mask = valid_ptr_mask(n_d, m_d, ptr.shape[0])
     ok = bool(torch.equal(ptr[mask], ptr_p[mask]) and torch.equal(bot, bot_p))
-    print(f"  {label} [{name}, B={B} N={N} MP={tmpl.shape[1]}, {levels.shape[1]} levels]: "
+    form = (f"{levels.shape[1]} CTAs of up to {levels.shape[2]} levels" if levels.ndim == 3
+            else f"{levels.shape[1]} levels")
+    print(f"  {label} [{name}, B={B} N={N} MP={tmpl.shape[1]}, {form}]: "
           f"launches {ran}, {'equal to' if ok else 'DIFFERS from'} the table twin", flush=True)
     if ran != want or not ok:
         fail(f"{label}: the morph call did not run {mode} mode alone, or disagrees with the "
              "table twin")
-    for k in (name, name + "_table"):
+    for k in counters.values():
         _build.LAUNCHES[k] = before[k]
 
 
 def check_mode_rule(params, rng) -> None:
-    """The TABLE/POW rule in both directions: at MP 256 a template at the
-    shared-memory cap runs TABLE and one with a level more runs POW (on
-    the decoded f32); at MP 1152 (more lanes than TABLE runs) a template
-    of 9 levels runs POW.  Each equals the table twin."""
+    """The score-mode rule in every direction, each call against the
+    table twin.  At MP 256 a template at one CTA's shared-memory cap runs
+    TABLE on one CTA, and one with a level more runs POW (on the decoded
+    f32) in the one-CTA form, and TABLE on the 2 CTAs its rule gives in
+    the split form; at MP 1152 (more lanes than one CTA runs) a template
+    of 9 levels runs POW in the one-CTA form and TABLE on 2 CTAs in the
+    split form; at MP 2176 a template whose every CTA of every split
+    holds more levels than its table (219 values cycled over the lanes)
+    gets no CTAs from the rule: POW."""
     import numpy as np
 
     from strique_tpu_torch.ops import align_cuda as AC
 
     mp = 256
     cap = next(u for u in range(1, 1024) if AC.wave_score_mode(u + 1, mp) == "pow")
-    for n_lv, mode in ((cap, "table"), (cap + 1, "pow")):
+    for n_lv, mode in ((cap, "table"), (cap + 1, "pow"), (cap + 1, "cluster")):
         # n_lv - 1 distinct values (the +1e30 pad is a level too)
         t = rng.permutation(np.linspace(60, 120, n_lv - 1)).astype(np.float32)
         hold_morph((t,), False, 8, 512, params, rng, mode, f"score mode rule (cap {cap})")
     t = np.resize(np.linspace(60, 120, 8), 1100).astype(np.float32)
-    hold_morph((t,), False, 8, 2048, params, rng, "pow", "score mode rule (lanes)")
+    for mode in ("pow", "cluster"):
+        hold_morph((t,), False, 8, 2048, params, rng, mode, "score mode rule (lanes)")
+    t = np.resize(rng.permutation(np.linspace(60, 120, 219)), 2175).astype(np.float32)
+    if AC.wave_table_ctas(AC.pad_template(t)[0]) != 0:
+        fail("a template past every cluster's table got CTAs from the rule")
+    hold_morph((t,), False, 8, 2560, params, rng, "pow", "score mode rule (past every cluster)")
 
 
 def check_wave_ultra(template, B, N, params, rng, results) -> None:
@@ -847,11 +899,24 @@ def check_col(template, shape_name, B, N, params, rng, results):
     check_traceback(ptr_t, j_end, m_d, shape_name, results, col=True)
 
 
+def turns_ms(run_a, run_b, reps: int = 3):
+    """Mean ms of ``run_a`` and ``run_b`` by CUDA events, timed in turns
+    (a, b, b, a): ((a1, a2), (b1, b2))."""
+    a1 = cuda_ms(run_a, reps)
+    b1 = cuda_ms(run_b, reps)
+    b2 = cuda_ms(run_b, reps)
+    a2 = cuda_ms(run_a, reps)
+    return (a1, a2), (b1, b2)
+
+
 def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
-    """Past the column kernel's score table (more than 1024 lanes): the
-    morph-form entry point runs the POW mode on the decoded f32 alone,
-    against the POW twin (written pointer words and every bottom tap
-    equal); the kernel line's POW entry, timed on the f32 entry point."""
+    """Past one CTA's column table (more than 1024 lanes): the
+    morph-form entry point in the one-CTA form of the levels runs the
+    POW mode on the decoded f32 alone, and in the split form the TABLE
+    mode on the cluster ``col_table_ctas`` gives alone; both against one
+    POW twin run (written pointer words and every bottom tap equal), then
+    timed in turns (POW, cluster, cluster, POW).  The kernel line's POW
+    entry (timed on the f32 entry point) and cluster entry."""
     import torch
 
     from strique_tpu_torch import _build
@@ -860,35 +925,114 @@ def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
     (levels, _, tmpl, bins, _), dev_in = wave_inputs((template,), False, B, N, rng)
     b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
     m = int(m_d[0])
-    if AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "pow":
-        fail(f"the {shape_name} template should be past the column kernel's score table")
+    ctas = AC.col_table_ctas(tmpl)
+    if AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "pow" or ctas < 2:
+        fail(f"the {shape_name} template should be past one CTA's column table and fit a "
+             "cluster's")
+    lv_c, li_c = (torch.from_numpy(x).to(b_d.device) for x in AC.template_levels(tmpl, ctas))
     before = dict(_build.LAUNCHES)
     ptr_k, bot_k = AC.align_forward_col_morph(b_d, l_d, n_d, lv_d, li_d, params, m)
-    if {k: _build.LAUNCHES[k] - before[k] for k in COL} != {k: int(k == "align_forward_col")
-                                                          for k in COL}:
-        fail("the morph-form column call past the table did not launch the POW mode alone")
+    ran_k = {k: _build.LAUNCHES[k] - before[k] for k in COL}
+    ptr_c, bot_c = AC.align_forward_col_morph(b_d, l_d, n_d, lv_c, li_c, params, m)
+    ran_c = {k: _build.LAUNCHES[k] - before[k] - ran_k[k] for k in COL}
+    if (ran_k != {k: int(k == "align_forward_col") for k in COL}
+            or ran_c != {k: int(k == "align_forward_col_cluster") for k in COL}):
+        fail("the morph-form column calls past one CTA's table did not launch the POW mode "
+             "(one-CTA form) and the cluster TABLE mode (split form) alone")
     s_d = AC.morph_decode(b_d, l_d)
     (ptr_p, bot_p), plain_ms = once_ms(lambda: AC._col_plain(s_d, t_d, n_d, params, m))
     mask = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr_k.shape[0])
-    eq = bool(torch.equal(ptr_k[mask], ptr_p[mask]))
-    err = float((bot_k.double() - bot_p.double()).abs().max())
-    del ptr_p, bot_p
+    errs = {mode: (bool(torch.equal(ptr[mask], ptr_p[mask])),
+                   float((bot.double() - bot_p.double()).abs().max()))
+            for mode, ptr, bot in (("pow", ptr_k, bot_k), ("cluster", ptr_c, bot_c))}
+    del ptr_p, bot_p, ptr_k, ptr_c
     run_k = lambda: AC.align_forward_col(s_d, n_d, t_d, params, m)
-    ms = cuda_ms(run_k, 3)
+    run_c = lambda: AC.align_forward_col_morph(b_d, l_d, n_d, lv_c, li_c, params, m)
+    (k1, k2), (c1, c2) = turns_ms(run_k, run_c)
+    ms, ms_c = (k1 + k2) / 2, (c1 + c2) / 2
     for k in COL:
         _build.LAUNCHES[k] = before[k]
     cols = AC._cols_to_run(n_d, N)
     print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]} "
-          f"U={levels.shape[1]}, POW]: vs POW twin: pointers {'equal' if eq else 'DIFFER'}, "
-          f"bottom max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / cols:.4f} us/column), "
-          f"plain {plain_ms:.1f} ms", flush=True)
-    if not (eq and err == 0.0):
+          f"U={levels.shape[1]}; {ctas} CTAs of up to {lv_c.shape[2]} levels]: vs POW twin: "
+          + "; ".join(f"{mode.upper()} pointers {'equal' if eq else 'DIFFER'}, bottom "
+                      f"max_abs_err {err}" for mode, (eq, err) in errs.items())
+          + f"; POW {k1:.3f} / {k2:.3f} ms ({ms * 1e3 / cols:.4f} us/column), cluster TABLE "
+          f"{c1:.3f} / {c2:.3f} ms ({ms_c * 1e3 / cols:.4f} us/column), in turns; plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    if not all(eq and err == 0.0 for eq, err in errs.values()):
         fail(f"align_forward_col disagrees with its POW twin at the {shape_name} shape")
     words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_k.numel() + 4 * B
-    results["align_forward_col"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+    results["align_forward_col"] = {"max_abs_err": errs["pow"][1], "ms": ms, "plain_ms": plain_ms,
                                     "us_per_column": ms * 1e3 / cols,
                                     **wave_bound(n_d, m_d, levels,
                                                  4 * (bins.size + tmpl.size) + words, False)}
+    lv_np = lv_c.cpu().numpy()
+    table_bytes = bins.size + 4 * (B * 256 + lv_np.size + tmpl.size) + words
+    results["align_forward_col_cluster"] = {
+        "max_abs_err": errs["cluster"][1], "ms": ms_c, "plain_ms": plain_ms, "pow_ms": ms,
+        "us_per_column": ms_c * 1e3 / cols, **wave_bound(n_d, m_d, lv_np, table_bytes, True)}
+
+
+def check_wave_over_cap(templates, multi, B, N, params, rng, results) -> None:
+    """Row 1 (``multi`` False: one flank's template) or row 2 (both
+    flanks as per-row templates) past one CTA's table, at the shape
+    phase 4e launches it: the cluster TABLE mode (the split form on the
+    CTAs ``wave_table_ctas`` gives) and the POW mode on the decoded f32,
+    each against one table-twin run (written pointer words and every
+    bottom tap), then timed in turns (POW, cluster, cluster, POW).  The
+    kernel line's cluster entry, the POW ms at this shape beside it."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    rows = AC.pad_template_rows(list(templates))[0] if multi else AC.pad_template(templates[0])[0]
+    ctas = AC.wave_table_ctas(rows)
+    if ctas < 2:
+        fail("the over-the-cap templates should take a cluster of CTAs a row")
+    (levels, _, tmpl, bins, lut), dev_in = wave_inputs(templates, multi, B, N, rng, ctas=ctas)
+    b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+    s_d = AC.morph_decode(b_d, l_d)
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    names = (name, name + "_table", name + "_cluster")
+    run_c = lambda: morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params)
+    run_k = lambda: pow_call(multi, s_d, n_d, m_d, t_d, params)
+    before = dict(_build.LAUNCHES)
+    ptr_c, bot_c = run_c()
+    if {k: _build.LAUNCHES[k] - before[k] for k in names} != {k: int(k == names[2])
+                                                             for k in names}:
+        fail(f"the split-form {name} call did not launch the cluster TABLE mode alone")
+    ptr_k, bot_k = run_k()
+    (ptr_p, bot_p), plain_ms = once_ms(lambda: AC._wave_table_plain(
+        b_d, l_d, *AC.flat_levels(lv_d, li_d), n_d, m_d, params))
+    mask = valid_ptr_mask(n_d, m_d, ptr_c.shape[0])
+    errs = {mode: (bool(torch.equal(ptr[mask], ptr_p[mask])),
+                   float((bot.double() - bot_p.double()).abs().max()))
+            for mode, ptr, bot in (("cluster", ptr_c, bot_c), ("pow", ptr_k, bot_k))}
+    del ptr_p, bot_p, ptr_k, ptr_c
+    (k1, k2), (c1, c2) = turns_ms(run_k, run_c)
+    ms_k, ms_c = (k1 + k2) / 2, (c1 + c2) / 2
+    for k in names:
+        _build.LAUNCHES[k] = before[k]
+    nd = N + tmpl.shape[1]
+    print(f"  {name} [over the cap B={B} N={N} MP={tmpl.shape[1]}, {ctas} CTAs of up to "
+          f"{levels.shape[2]} levels]: vs table twin: "
+          + "; ".join(f"{mode.upper()} pointers {'equal' if eq else 'DIFFER'}, bottom "
+                      f"max_abs_err {err}" for mode, (eq, err) in errs.items())
+          + f"; POW {k1:.3f} / {k2:.3f} ms ({ms_k * 1e3 / nd:.4f} us/step), cluster TABLE "
+          f"{c1:.3f} / {c2:.3f} ms ({ms_c * 1e3 / nd:.4f} us/step), in turns; plain "
+          f"{plain_ms:.1f} ms", flush=True)
+    if not all(eq and err == 0.0 for eq, err in errs.values()):
+        fail(f"{name}: the cluster TABLE mode, the POW mode and the table twin disagree over "
+             "the cap")
+    words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_c.numel() + 8 * B
+    table_bytes = bins.size + lut.size * 4 + levels.size * 4 + tmpl.size * 4 + words
+    results[name + "_cluster"] = {"max_abs_err": errs["cluster"][1], "ms": ms_c,
+                                  "plain_ms": plain_ms, "pow_ms": ms_k,
+                                  "us_per_step": ms_c * 1e3 / nd,
+                                  **wave_bound(n_d, m_d, levels, table_bytes, True)}
+    results[name].update(over_cap_ms=ms_k, over_cap_shape=[B, N, tmpl.shape[1]])
 
 
 def viterbi_inputs(pm, B, T, rng, repeats, flank=50, unit=None):
@@ -1296,7 +1440,7 @@ def written_slots(n_act, m, nd: int, ckpt_steps: int):
 
 
 def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rng,
-                   results=None):
+                   results=None, twin=True):
     """Kernel rows 5 and 6 on morph-form reads, in the row layout the
     two-pass route launches them with: one shared template
     (``templates`` of one), or ``templates[0]`` on the first half of the
@@ -1304,9 +1448,10 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     levels, level indices and length (the per-row POW template stride),
     as ``_two_pass_rows`` runs both flanks of a batch.
 
-    Where the templates fit the score table: the TABLE-mode kernels
-    against their table twins (one plain run each), and the POW-mode
-    kernels on the decoded f32 against the same runs.  Past it (the POW
+    Where the templates fit the score table (one CTA a row, or the
+    cluster ``wave_table_ctas`` gives): the TABLE-mode kernels against
+    their table twins (one plain run each), and the POW-mode kernels on
+    the decoded f32 against the same runs.  Past every table (the POW
     mode alone): the POW-mode kernels against their own twins
     (``_ckpt_plain``, ``_window_plain``).  Bottom taps, written
     checkpoint slots and written pointer words equal.
@@ -1314,7 +1459,9 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     With ``cold_odd`` the odd rows carry their template near the
     signal's start (their pass-2 window starts cold when the span bound
     allows it), the others in its second half.  ``results``: where
-    given, the times and bounds enter the kernel line.
+    given, the times and bounds enter the kernel line.  Without
+    ``twin`` (a shape where the twins would take minutes) the TABLE
+    modes are held to the POW kernels alone, and plain_ms is None.
     """
     import numpy as np
     import torch
@@ -1333,7 +1480,9 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     else:
         tmpl_np, m1 = AC.pad_template(templates[0])
         ms, row_t = np.array([m1]), [templates[0]] * B
-    table = AL._fits_table(tmpl_np)
+    ctas = AC.wave_table_ctas(tmpl_np)
+    table = ctas > 0
+    form = "_cluster" if ctas > 1 else "_table"  # the TABLE launches' counters
     sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
     for b, t in enumerate(row_t):
         m = len(t)
@@ -1345,8 +1494,9 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     n_d = torch.from_numpy(rng.integers(N - N // 8, N + 1, B).astype(np.int32)).to(dev)
     entry = dict(_build.LAUNCHES)
     st_k = AL._pass1_rows(AC.morph_decode(b_d, l_d), n_d, tmpl_np, ms, params, ckpt_steps)
-    st = AL._pass1_rows(b_d, n_d, tmpl_np, ms, params, ckpt_steps, lut=l_d) if table else st_k
-    if (_build.LAUNCHES["align_forward_ckpt_table"] != entry["align_forward_ckpt_table"] + table
+    st = (AL._pass1_rows(b_d, n_d, tmpl_np, ms, params, ckpt_steps, lut=l_d, ctas=ctas)
+          if table else st_k)
+    if (_build.LAUNCHES["align_forward_ckpt" + form] != entry["align_forward_ckpt" + form] + table
             or _build.LAUNCHES["align_forward_ckpt"] != entry["align_forward_ckpt"] + 1):
         fail("pass 1 on morph input did not launch the TABLE mode, or on f32 the POW mode")
     cks, mp, nd, m_rows = st_k["ckpt_steps"], st_k["mp"], st_k["N"] + st_k["mp"], st_k["m_rows"]
@@ -1358,8 +1508,13 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
         runs["table"] = lambda: AC.align_forward_ckpt_morph(b_d, l_d, n_d, st["levels"],
                                                             st["lidx"], params, m_arg, chunks, nd)
         levels, lidx = st["levels"].cpu().numpy(), st["lidx"].cpu().numpy()
+        flat = (AC.flat_levels(st["levels"], st["lidx"]) if ctas > 1
+                else (st["levels"], st["lidx"]))
+    if not twin:
+        (bot_p, ck_p), plain_ms = (st_k["bottom_steps"], st_k["ckpts"]), None
+    elif table:
         (bot_p, ck_p), plain_ms = once_ms(lambda: AC._ckpt_table_plain(
-            b_d, l_d, st["levels"], st["lidx"], n_d, m_rows, params, cks, nd))
+            b_d, l_d, *flat, n_d, m_rows, params, cks, nd))
     else:
         levels, lidx = AC.template_levels(tmpl_np)
         (bot_p, ck_p), plain_ms = once_ms(lambda: AC._ckpt_plain(
@@ -1374,15 +1529,18 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
                              float((st["bottom_steps"].double()
                                     - st_k["bottom_steps"].double()).abs().max()))
     ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
-    twin = "table twin" if table else "_ckpt_plain"
-    print(f"  align_forward_ckpt [{shape_name} B={B} N={N} (ND {nd}) MP={mp} U={levels.shape[1]} "
+    ref = ("the POW kernel" if not twin else "table twin" if table else "_ckpt_plain")
+    plain = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
+    lv_form = (f"{ctas} CTAs of up to {levels.shape[2]} levels" if ctas > 1
+               else f"U={levels.shape[1]}")
+    print(f"  align_forward_ckpt [{shape_name} B={B} N={N} (ND {nd}) MP={mp} {lv_form} "
           f"ckpt_steps={cks}, {'per-row' if len(templates) > 1 else 'one'} template]: "
-          f"{int(slots.sum())} written slots; vs {twin}: "
+          f"{int(slots.sum())} written slots; vs {ref}: "
           + "; ".join(f"{mode}: slots {'equal' if eq else 'DIFFER'}, bottom max_abs_err {err}"
                       for mode, (eq, err) in errs.items())
           + "".join(f"; {mode.upper()} {t:.3f} ms ({t * 1e3 / nd:.4f} us/step)"
                     for mode, t in ms_.items())
-          + f", plain {plain_ms:.1f} ms", flush=True)
+          + plain, flush=True)
     if not all(eq and err == 0.0 for eq, err in errs.values()):
         fail(f"align_forward_ckpt: the kernels and the plain twin disagree at the {shape_name} "
              f"shape")
@@ -1416,12 +1574,15 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     before = dict(_build.LAUNCHES)
     ptrs = {mode: run() for mode, run in runs.items()}
     if (_build.LAUNCHES["align_window_from_state"] != before["align_window_from_state"] + 1
-            or _build.LAUNCHES["align_window_from_state_table"]
-            != before["align_window_from_state_table"] + table):
+            or _build.LAUNCHES["align_window_from_state" + form]
+            != before["align_window_from_state" + form] + table):
         fail("the window calls did not launch one POW (and where the table fits one TABLE) "
              "window kernel")
-    if table:
-        ptr_p, plain_ms = once_ms(lambda: AC._window_table_plain(b_d, l_d, *args, W))
+    if not twin:
+        ptr_p, plain_ms = ptrs["pow"], None
+    elif table:
+        ptr_p, plain_ms = once_ms(lambda: AC._window_table_plain(b_d, l_d, *args[:4], *flat,
+                                                                 params, W))
     else:
         ptr_p, plain_ms = once_ms(lambda: AC._window_plain(*pow_args))
     words = valid_ptr_mask(w_k["steps_needed"], torch.zeros_like(n_d), ptr_p.shape[0])
@@ -1433,16 +1594,18 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     del ptrs, ptr_p
     ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
     steps = _round_up8(int(w_k["steps_needed"].max()))
-    for k in TABLE_TWO_PASS + POW_TWO_PASS:
+    for k in TABLE_TWO_PASS + POW_TWO_PASS + CLUSTER_TWO_PASS:
         _build.LAUNCHES[k] = entry[k]
-    twin = "_window_table_plain" if table else "_window_plain"
+    ref = ("the POW kernel" if not twin else "_window_table_plain" if table
+           else "_window_plain")
+    plain = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
     print(f"  align_window_from_state [{shape_name} B={B} W={W} MP={mp}, {n_cold} cold / "
-          f"{B - n_cold} warm rows, {steps} steps run]: vs {twin}: "
+          f"{B - n_cold} warm rows, {steps} steps run]: vs {ref}: "
           + "; ".join(f"{mode.upper()} pointers {'equal' if e else 'DIFFER'}"
                       for mode, e in eq.items())
           + "".join(f"; {mode.upper()} {t:.3f} ms ({t * 1e3 / steps:.4f} us/step)"
                     for mode, t in ms_.items())
-          + f", plain {plain_ms:.1f} ms", flush=True)
+          + plain, flush=True)
     if not all(eq.values()):
         fail(f"align_window_from_state: the kernels and the plain twin disagree at the "
              f"{shape_name} shape")
@@ -1461,8 +1624,8 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
         "plain_ms": plain_ms, "us_per_step": ms_["pow"] * 1e3 / steps,
         **bound(sig_bytes + win_bytes, WAVE_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}
     if table:
-        results["align_forward_ckpt_table"] = ckpt_res["table"]
-        results["align_window_from_state_table"] = {
+        results["align_forward_ckpt" + form] = ckpt_res["table"]
+        results["align_window_from_state" + form] = {
             "max_abs_err": 0.0 if eq["table"] else float("inf"), "ms": ms_["table"],
             "plain_ms": plain_ms, "us_per_step": ms_["table"] * 1e3 / steps,
             **bound(samples + 1024 * B + 4 * (levels.size + lidx.size) + win_bytes,
@@ -1648,13 +1811,26 @@ def check_ckpt_ultra(template, N, params, rng, results) -> None:
 
 def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     """Phase 4e: a target whose flanks carry 200 more backbone bases each
-    (MP 2176, ~300 distinct template levels: POW mode on both counts)
-    counts 72 '+' reads in one batch (144 rows: each flank its own
-    72-row call, row 1) and 24 '-' reads (one fused 48-row call, row 2),
-    all in the POW score mode; then the 72 '+' reads again past a pointer
-    budget that sends them down the two-pass route (rows 5-6, POW mode,
-    both flanks a row stream), with the one-pass run's result tuples.
-    Returns the POW launches of rows 1-2 and 5-6."""
+    (MP 2176, ~300 distinct template levels: past one CTA's table; the
+    TABLE mode on the 2 CTAs a row ``wave_table_ctas`` gives) counts 72
+    '+' reads in one batch (144 rows, each flank its own calls of row 1:
+    64 + 8 rows, as many rows as their CTAs fit the SMs) and 24 '-' reads
+    (one fused 48-row call, row 2), all in the cluster TABLE mode; then
+    the 72 '+' reads again past a pointer budget that sends them down the
+    two-pass route (rows 5-6, both flanks a row stream in 8-row groups),
+    and the first 64 under ``STRIQUE_ALIGN_KERNEL=col`` (row 8): each
+    with the one-pass run's tuples, the cluster modes alone, no POW
+    launch.  Before the runs every kernel holds its cluster and POW
+    modes to the twins: the one-CTA form's POW dispatch and the split
+    form's cluster against the table twin (16 rows, N 4096), rows 5-6
+    both ways against their twins (16 rows, N 4096), and at the shapes
+    the runs launch (row 1 at 64 rows, row 2 at 48, rows 5-6 at 8-row
+    groups, row 8 at 64 rows, the reads' bucket) the cluster mode
+    against the POW mode on the decoded f32 (and the twin for rows 1, 2
+    and 8), the two timed in turns.  Last the f32 route
+    (:func:`run_f32_route`).  Returns the cluster launches of rows 1-2,
+    5-6 and 8 of the count runs and the POW launches of the f32
+    route."""
     import numpy as np
     import torch
 
@@ -1669,88 +1845,257 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     c = RepeatCounter(model, device="cuda")
     c.add_target("long", REPEAT, prefix, suffix)
     tc = c.targets["long"][0]
-    levels, _ = AC.template_levels(AC.pad_template(tc.prefix_ext)[0])
-    mp = AC.pad_template(tc.prefix_ext)[0].shape[1]
-    # the POW dispatch of both wave calls at this MP, held to the table twin
+    flanks = (tc.prefix_ext, tc.suffix_ext)
+    rows = AC.pad_template_rows(list(flanks))[0]
+    levels, _ = AC.template_levels(rows)
+    mp, ctas = rows.shape[1], AC.wave_table_ctas(rows)
+    # the one-CTA form's POW dispatch and the split form's cluster at this
+    # MP, each held to the table twin
     for multi in (False, True):
-        hold_morph((tc.prefix_ext, tc.suffix_ext), multi, 16, 4096, c.align_params, rng, "pow",
-                   "over the cap")
-    # rows 5-6 in the POW mode at this MP, both flanks as per-row templates
-    # (the two-pass run below launches them so), held to their own twins
-    check_longread((tc.prefix_ext, tc.suffix_ext), "over the cap", 16, 4096, c.align_params, 512,
-                   False, rng)
+        for mode in ("pow", "cluster"):
+            hold_morph(flanks, multi, 16, 4096, c.align_params, rng, mode, "over the cap")
+    # rows 5-6 with both flanks as per-row templates (the two-pass run
+    # below launches them so): the cluster modes and the POW modes
+    # against their twins
+    small = {}
+    check_longread(flanks, "over the cap", 16, 4096, c.align_params, 512, False, rng, small)
     plus = make_reads(pm, 72, REPEATS, rng, "+", prefix=prefix, suffix=suffix)
     minus = make_reads(pm, 24, REPEATS, rng, "-", prefix=prefix, suffix=suffix)
-    # the column kernel's POW mode at the shape the column run below
-    # launches it: 64 rows of the reads' bucket, MP 2176
-    check_col_pow(tc.prefix_ext, "over the cap", BATCH, signal_bucket(len(plus[0])),
-                  c.align_params, rng, results)
+    # each kernel at the shape the runs below launch it: the cluster mode
+    # against POW in turns (the kernel line's cluster entries)
+    n_plus, n_minus = signal_bucket(len(plus[0])), signal_bucket(len(minus[0]))
+    check_col_pow(tc.prefix_ext, "over the cap", BATCH, n_plus, c.align_params, rng, results)
+    check_wave_over_cap(flanks[:1], False, BATCH, n_plus, c.align_params, rng, results)
+    check_wave_over_cap(flanks, True, 2 * len(minus), n_minus, c.align_params, rng, results)
+    groups = {}
+    check_longread(flanks, "over the cap, the two-pass run's groups", 8, n_plus, c.align_params,
+                   16384, False, rng, groups, twin=False)
+    for name in CLUSTER_TWO_PASS:
+        pow_name = name.replace("_cluster", "")
+        results[name] = {**groups[name], "plain_ms": small[name]["plain_ms"],
+                         "pow_ms": groups[pow_name]["ms"]}
+        results[pow_name].update(over_cap_ms=groups[pow_name]["ms"])
+    runs = {}
     try:
         c.detect_many("long", plus[:8], "+")  # first use
-        torch.cuda.synchronize()
-        _build.reset_launches()
-        t0 = time.perf_counter()
-        res = c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        lc = dict(_build.LAUNCHES)
-        # the '+' batch again past a 0.1 GiB budget (its width-8 plane is
-        # ~0.23 GB): the two-pass route, POW mode (MP 2176)
-        os.environ["STRIQUE_PTR_BUDGET_GB"] = "0.1"
-        _build.reset_launches()
-        t1 = time.perf_counter()
-        res_two = c.detect_many("long", plus, "+")
-        torch.cuda.synchronize()
-        dt_two = time.perf_counter() - t1
-        lc_two = dict(_build.LAUNCHES)
-        os.environ.pop("STRIQUE_PTR_BUDGET_GB")
-        # 64 '+' reads under the column knob (a full batch: no fusion):
-        # the column kernel's POW mode, past its table's 1024 lanes
-        os.environ["STRIQUE_ALIGN_KERNEL"] = "col"
-        _build.reset_launches()
-        t2 = time.perf_counter()
-        res_col = c.detect_many("long", plus[:BATCH], "+")
-        torch.cuda.synchronize()
-        dt_col = time.perf_counter() - t2
-        lc_col = dict(_build.LAUNCHES)
+        for run, env, reads in (("one-pass", {}, None),
+                                ("two-pass", {"STRIQUE_PTR_BUDGET_GB": "0.1"}, plus),
+                                ("col", {"STRIQUE_ALIGN_KERNEL": "col"}, plus[:BATCH])):
+            # 0.1 GiB: the '+' batch's width-8 plane (~0.23 GB) does not
+            # fit, the two-pass route; col: a full batch, no fusion
+            os.environ.update(env)
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            res = (c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
+                   if reads is None else c.detect_many("long", reads, "+"))
+            torch.cuda.synchronize()
+            runs[run] = (res, time.perf_counter() - t0, dict(_build.LAUNCHES))
+            for k in env:
+                os.environ.pop(k)
     except Exception as e:  # noqa: BLE001
         fail(f"the over-the-cap target raised {type(e).__name__}: {e}")
     finally:
         os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
         os.environ.pop("STRIQUE_ALIGN_KERNEL", None)
-    ok = sum(int(r[0] == REPEATS) for r in res)
-    mode = AC.wave_score_mode(levels.shape[1], mp)
-    wave = {k: lc[k] for k in POW_WAVE + TABLE_WAVE}
-    print(f"over the cap: prefix_ext {len(tc.prefix_ext)} samples, {levels.shape[1]} levels at "
-          f"MP {mp} (mode {mode}); {ok}/{len(res)} exact in {dt:.3f} s; card: {card}; wave "
-          f"launches {json.dumps(wave)}", flush=True)
-    if ok != len(res) or not all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in res):
-        fail("inexact or non-finite results for the over-the-cap target")
-    if wave["align_forward_wave"] != 2 or wave["align_forward_wave_multi"] != 1 or any(
-            wave[k] for k in TABLE_WAVE):
-        fail("the over-the-cap target did not run 2 + 1 POW-mode wave calls alone")
-    two = {k: lc_two[k] for k in POW_TWO_PASS + TABLE_TWO_PASS + POW_WAVE + TABLE_WAVE}
-    ok_two = sum(int(r[0] == REPEATS) for r in res_two)
-    print(f"over the cap, two-pass (STRIQUE_PTR_BUDGET_GB=0.1): {ok_two}/{len(res_two)} exact in "
-          f"{dt_two:.3f} s; card: {card}; launches {json.dumps(two)}", flush=True)
-    if ok_two != len(res_two) or [tuple(r) for r in res_two] != [tuple(r) for r in res[:72]]:
-        fail("the over-the-cap two-pass run is inexact or its tuples differ from the one-pass "
-             "run's")
-    if (min(two[k] for k in POW_TWO_PASS) <= 0
-            or any(two[k] for k in TABLE_TWO_PASS + POW_WAVE + TABLE_WAVE)):
-        fail("the over-the-cap two-pass run did not go through the POW checkpoint and window "
-             "kernels alone")
-    col = {k: lc_col[k] for k in COL + POW_WAVE + TABLE_WAVE}
-    ok_col = sum(int(r[0] == REPEATS) for r in res_col)
-    print(f"over the cap, STRIQUE_ALIGN_KERNEL=col: {ok_col}/{len(res_col)} exact in "
-          f"{dt_col:.3f} s; card: {card}; launches {json.dumps(col)}", flush=True)
-    if ok_col != len(res_col) or [tuple(r) for r in res_col] != [tuple(r) for r in res[:BATCH]]:
-        fail("the over-the-cap column run is inexact or its tuples differ from the wave route's")
-    if (col["align_forward_col"] <= 0
-            or any(col[k] for k in ("align_forward_col_table", *POW_WAVE, *TABLE_WAVE))):
-        fail("the over-the-cap column run did not go through the POW column kernel alone")
-    return {**{k: wave[k] for k in POW_WAVE}, **{k: two[k] for k in POW_TWO_PASS},
-            "align_forward_col": col["align_forward_col"]}
+    pow_all = POW_WAVE + POW_TWO_PASS + ("align_forward_col",)
+    table_all = TABLE_WAVE + TABLE_TWO_PASS + ("align_forward_col_table",)
+    want = {"one-pass": {"align_forward_wave_cluster": 2 * -(-len(plus) // BATCH),
+                         "align_forward_wave_multi_cluster": 1},
+            "two-pass": {k: None for k in CLUSTER_TWO_PASS},
+            "col": {"align_forward_col_cluster": None}}
+    res_one = runs["one-pass"][0]
+    for run, (res, dt, lc) in runs.items():
+        ok = sum(int(r[0] == REPEATS) for r in res)
+        shown = {k: lc[k] for k in pow_all + table_all + CLUSTER_WAVE + CLUSTER_TWO_PASS
+                 + ("align_forward_col_cluster",) if lc[k]}
+        print(f"over the cap, {run}: prefix_ext {len(tc.prefix_ext)} samples, "
+              f"{levels.shape[1]} levels at MP {mp} ({ctas} CTAs a row); {ok}/{len(res)} exact "
+              f"in {dt:.3f} s; card: {card}; launches {json.dumps(shown)}", flush=True)
+        if ok != len(res) or not all(np.isfinite(r[1]) and np.isfinite(r[3]) for r in res):
+            fail(f"inexact or non-finite results for the over-the-cap target ({run})")
+        if [tuple(r) for r in res] != [tuple(r) for r in res_one[: len(res)]]:
+            fail(f"the over-the-cap {run} run's tuples differ from the one-pass run's")
+        cluster = {k: lc[k] for k in want[run]}
+        if (any(v <= 0 or (want[run][k] is not None and v != want[run][k])
+                for k, v in cluster.items())
+                or any(lc[k] for k in pow_all + table_all)):
+            fail(f"the over-the-cap {run} run did not go through the cluster TABLE mode alone "
+                 f"({json.dumps(cluster)} against {json.dumps(want[run])}, no POW launch)")
+    results["over_cap_s"] = {run: v[1] for run, v in runs.items()}
+    f32 = run_f32_route(flanks, c.align_params, rng, len(plus), n_plus, len(minus), n_minus,
+                        card)
+    return {**{k: runs[run][2][k] for run in runs for k in want[run]}, **f32}
+
+
+def run_f32_route(flanks, params, rng, n_plus: int, N_plus: int, n_minus: int, N_minus: int,
+                  card: str) -> dict:
+    """Phase 4e's f32 route: the alignment API (``align_fused_pair``,
+    ``align_core``) on f32 reads, as the fused dispatch's NumPy prep
+    passes them (``lut`` None: the POW score mode at any MP), over the
+    over-the-cap flanks at the count runs' shapes: ``n_plus`` '+' rows
+    (each flank its own row-1 call), ``n_minus`` '-' rows (one fused
+    row-2 call), the '+' rows past the 0.1 GiB pointer budget (rows
+    5-6) and 64 of them under ``STRIQUE_ALIGN_KERNEL=col`` (row 8).  The
+    launch counts are zeroed before each call and read after it; each
+    call's outputs must equal the same call's on the reads' morph form
+    (u8 bins and level tables: the cluster TABLE mode).  Returns the POW
+    launches."""
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    dev = torch.device("cuda")
+    pow_all = POW_WAVE + POW_TWO_PASS + ("align_forward_col",)
+    cluster_all = CLUSTER_WAVE + CLUSTER_TWO_PASS + ("align_forward_col_cluster",)
+    out, shown = {}, {}
+    for run, env, B, N, want in (
+            ("'+'", {}, n_plus, N_plus, ("align_forward_wave",)),
+            ("'-'", {}, n_minus, N_minus, ("align_forward_wave_multi",)),
+            ("two-pass", {"STRIQUE_PTR_BUDGET_GB": "0.1"}, n_plus, N_plus, POW_TWO_PASS),
+            ("col", {"STRIQUE_ALIGN_KERNEL": "col"}, BATCH, N_plus, ("align_forward_col",))):
+        bins, lut, na = morph_reads([flanks[b % 2][:600] for b in range(B)], B, N, rng)
+        b_d, l_d, n_d = (torch.from_numpy(x).to(dev) for x in (bins, lut, na))
+        s_d = AC.morph_decode(b_d, l_d)
+        os.environ.update(env)
+        try:
+            def call(sig, lut_=None):
+                if run == "col":
+                    return (AL.align_core(sig, n_d, flanks[0], params, lut=lut_),)
+                return AL.align_fused_pair(sig, n_d, *flanks, params, lut=lut_)
+
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            got = call(s_d)
+            torch.cuda.synchronize()
+            lc = dict(_build.LAUNCHES)
+            ref = call(b_d, l_d)
+            lc_ref = {k: _build.LAUNCHES[k] - lc[k] for k in cluster_all}
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        same = all(torch.equal(g[k], r[k]) for g, r in zip(got, ref) for k in g)
+        shown[run] = {k: lc[k] for k in pow_all if lc[k]}
+        print(f"  f32 route, {run} ({B} reads, N {N}): POW launches {json.dumps(shown[run])}, "
+              f"the morph form's {json.dumps({k: v for k, v in lc_ref.items() if v})}; "
+              f"outputs {'equal' if same else 'DIFFER'}", flush=True)
+        if not same or any(lc[k] <= 0 for k in want) or any(
+                lc[k] for k in pow_all + cluster_all if k not in want):
+            fail(f"the f32 route ({run}) did not launch {want} alone, or its outputs differ "
+                 "from the cluster TABLE mode's")
+        for k in want:
+            out[k] = out.get(k, 0) + lc[k]
+    print(f"over the cap, f32 route: POW launches {json.dumps(out)}; card: {card}", flush=True)
+    return out
+
+
+def check_nan(model: str, params, rng, card: str) -> None:
+    """Phase 4l: a read whose level table is all NaN (a flat read's: the
+    prep's MAD is 0, on the JAX package's prep too) beside 7 finite rows,
+    in rows 1, 2, 5-6 and 8 in the TABLE mode (one CTA a row, and a
+    cluster: MP 1152 templates) and the POW mode, each against its twin:
+    equal NaN masks and equal values elsewhere in the bottom taps and
+    written checkpoint slots, equal written pointer words.  Then a flat
+    read through the split, fused and two-phase routes on the card: each
+    row the CPU counter's, offset 0.  (With fmaxf, which drops a NaN,
+    the card's row had offset 449.)"""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+    from strique_tpu_torch.ops.reference import AlignParams
+    from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX
+
+    def equal_nan(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+
+    steep = AlignParams(gap_open_h=-16.0, gap_extension_h=-16.0, gap_open_v=-0.5,
+                        gap_extension_v=-0.5)  # a short pass-2 window
+    B, N = 8, 512
+    small = [np.repeat(rng.uniform(60, 120, k), 6).astype(np.float32) for k in (7, 5)]
+    m = (1152 - 2) // 6 * 6
+    big = [np.repeat(rng.uniform(60, 120, k // 6), 6).astype(np.float32) for k in (m, m - 120)]
+    held = []
+    for mode, tmpls, n_sig in (("table", small, N), ("pow", small, N), ("cluster", big, 4 * N)):
+        for kind in ("row 1", "row 2", "rows 5-6", "row 8"):
+            multi = kind in ("row 2", "rows 5-6")
+            rows = AC.pad_template_rows(tmpls)[0] if multi else AC.pad_template(tmpls[0])[0]
+            rule = AC.col_table_ctas if kind == "row 8" else AC.wave_table_ctas
+            ctas = rule(rows)
+            if ctas != (2 if mode == "cluster" else 1):
+                fail(f"the {mode} templates of the NaN phase got {ctas} CTAs a row")
+            (_, _, tmpl, _, _), dev_in = wave_inputs(
+                tmpls, multi, B, 2 * n_sig if kind == "rows 5-6" else n_sig, rng,
+                ctas=ctas if mode == "cluster" else None)
+            b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
+            l_d[0] = float("nan")
+            s_d = AC.morph_decode(b_d, l_d)
+            flat = AC.flat_levels(lv_d, li_d) if mode == "cluster" else (lv_d, li_d)
+            ok = True
+            if kind == "rows 5-6":
+                ms = m_d.cpu().numpy()
+                if mode == "pow":
+                    st = AL._pass1_rows(s_d, n_d, tmpl, ms, steep, 512)
+                    bot_p, ck_p = AC._ckpt_plain(st["sig"], st["tmpl"], n_d, m_d, steep,
+                                                 st["ckpt_steps"])
+                else:
+                    st = AL._pass1_rows(b_d, n_d, tmpl, ms, steep, 512, lut=l_d, ctas=ctas)
+                    bot_p, ck_p = AC._ckpt_table_plain(b_d, l_d, *flat, n_d, m_d, steep,
+                                                       st["ckpt_steps"], st["N"] + st["mp"])
+                slots = written_slots(n_d, m_d, st["N"] + st["mp"], st["ckpt_steps"])
+                ok = (equal_nan(st["bottom_steps"], bot_p) and bool(torch.isnan(bot_p[0]).any())
+                      and all(equal_nan(a[slots], c[slots]) for a, c in zip(st["ckpts"], ck_p)))
+                w = AL.window_inputs(st)
+                if mode == "pow":
+                    args = (w["sig_win"], w["r_init"], w["state4"], w["cold"],
+                            w["steps_needed"], st["tmpl"], steep)
+                    ptr, ptr_p = AC.align_window_from_state(*args, st["m"]), \
+                        AC._window_plain(*args)
+                else:
+                    args = (w["t0"], w["state4"], w["cold"], w["steps_needed"])
+                    ptr = AC.align_window_from_state_morph(b_d, l_d, *args, st["levels"],
+                                                           st["lidx"], steep, st["m"], st["W"])
+                    ptr_p = AC._window_table_plain(b_d, l_d, *args, *flat, steep, st["W"])
+                words = valid_ptr_mask(w["steps_needed"], torch.zeros_like(n_d), ptr.shape[0])
+            else:
+                m0 = int(m_d[0])
+                if kind == "row 8":
+                    ptr, bot = (AC.align_forward_col(s_d, n_d, t_d, params, m0) if mode == "pow"
+                                else AC.align_forward_col_morph(b_d, l_d, n_d, lv_d, li_d,
+                                                                params, m0))
+                    ptr_p, bot_p = (AC._col_plain(s_d, t_d, n_d, params, m0) if mode == "pow"
+                                    else AC._col_table_plain(b_d, l_d, *flat, n_d, params, m0))
+                    words = valid_ptr_mask(n_d, torch.zeros_like(n_d), ptr.shape[0])
+                else:
+                    ptr, bot = (pow_call(multi, s_d, n_d, m_d, t_d, params) if mode == "pow"
+                                else morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d, params))
+                    ptr_p, bot_p = (AC._wave_plain(s_d, t_d, n_d, m_d, params) if mode == "pow"
+                                    else AC._wave_table_plain(b_d, l_d, *flat, n_d, m_d, params))
+                    words = valid_ptr_mask(n_d, m_d, ptr.shape[0])
+                ok = equal_nan(bot, bot_p) and bool(torch.isnan(bot[0]).any())
+            ok = ok and bool(torch.equal(ptr[words], ptr_p[words]))
+            held.append(f"{kind} {mode} {'equal' if ok else 'DIFFERS'}")
+            if not ok:
+                fail(f"a NaN level table: {kind} in the {mode} mode disagrees with its twin")
+    print(f"  NaN level table (row 0 of {B}) against the twins: {'; '.join(held)}", flush=True)
+    reads = [np.full(3000, 90.0)]
+    out = {}
+    for route in ("cpu", "split", "fused", "two-phase"):
+        fc = RepeatCounter(model, device="cpu" if route == "cpu" else "cuda")
+        fc.split = route in ("cpu", "split")
+        fc.fused = route != "two-phase"
+        fc.add_target("c9orf72", REPEAT, PREFIX[-80:], SUFFIX[:80])
+        out[route] = fc.detect_many("c9orf72", reads, "+")
+    print(f"  a flat read (3000 samples of 90.0, 80-base flanks): "
+          + "; ".join(f"{route} {out[route][0]}" for route in out) + f"; card: {card}",
+          flush=True)
+    if out["cpu"][0][4] != 0 or any(out[r] != out["cpu"] for r in out):
+        fail("a flat read's row on the card differs from the CPU counter's")
 
 
 def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
@@ -3041,8 +3386,16 @@ def main() -> int:
         launches[name] = two_launches[name]
     launches["align_forward_wave_table"] = one_launches["align_forward_wave_table"]
 
-    # -- phase 4e: flanks over the score table's cap (the POW score mode) ----
+    # -- phase 4e: flanks past one CTA's score table (the cluster TABLE mode) -
     launches.update(run_over_cap(pm, model, args.seed, card, results))
+
+    # -- phase 4l: a NaN level table in every alignment kernel, a flat read --
+    try:
+        check_nan(model, params, np.random.default_rng(args.seed + 60), card)
+    except SystemExit:
+        raise
+    except Exception as e:  # noqa: BLE001
+        fail(f"the NaN phase raised {type(e).__name__}: {e}")
 
     # -- phase 4f: a repeat HMM past the dense forward's resident rule -------
     launches.update(run_vntr(pm, model, args.seed, card, results))

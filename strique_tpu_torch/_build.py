@@ -38,12 +38,17 @@ LAUNCHES = {
     "align_forward_wave_multi": 0,
     "align_forward_wave_table": 0,  # the same kernels, TABLE score mode
     "align_forward_wave_multi_table": 0,
+    "align_forward_wave_cluster": 0,  # TABLE mode on a cluster of CTAs a row
+    "align_forward_wave_multi_cluster": 0,
     "align_forward_ckpt": 0,
     "align_window_from_state": 0,
     "align_forward_ckpt_table": 0,  # rows 5-6, TABLE score mode
     "align_window_from_state_table": 0,
+    "align_forward_ckpt_cluster": 0,  # rows 5-6, TABLE mode on a cluster
+    "align_window_from_state_cluster": 0,
     "align_forward_col": 0,
     "align_forward_col_table": 0,  # the column kernel, TABLE score mode
+    "align_forward_col_cluster": 0,  # ... on a cluster of CTAs a row
     "traceback_pointers": 0,
     "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
@@ -70,29 +75,30 @@ _SIGNATURES = {
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_align_launch": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P],
     # bins, lut, levels, lidx, nact, mrow, ptr, bottom; B, N, MP, UP,
-    # per_row, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
-    "wave_table_launch": [_P] * 8 + [_I] * 6 + [_F] * 7 + [_P],
+    # per_row, ctas, mpc, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g;
+    # stream
+    "wave_table_launch": [_P] * 8 + [_I] * 8 + [_F] * 7 + [_P],
     # sig, tmpl, nact, mrow, bottom, ck_s1, ck_s2, ck_ih, ck_c; B, N, MP,
     # tmpl_stride, ckpt_steps, neg_h; go_h, go_v, ge_h, ge_v, off, dmin,
     # g; stream
     "wave_ckpt_launch": [_P] * 9 + [_I] * 6 + [_F] * 7 + [_P],
     # bins, lut, levels, lidx, nact, mrow, bottom, ck_s1, ck_s2, ck_ih,
-    # ck_c; B, NB, ND, MP, UP, per_row, ckpt_steps, neg_h; go_h, go_v,
-    # ge_h, ge_v, off, dmin, g; stream
-    "wave_ckpt_table_launch": [_P] * 11 + [_I] * 8 + [_F] * 7 + [_P],
+    # ck_c; B, NB, ND, MP, UP, per_row, ctas, mpc, ckpt_steps, neg_h;
+    # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "wave_ckpt_table_launch": [_P] * 11 + [_I] * 10 + [_F] * 7 + [_P],
     # sig_win, r_init, tmpl, steps, s1, s2, ih, c, cold, ptr; B, W, MP,
     # tmpl_stride, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_window_launch": [_P] * 10 + [_I] * 5 + [_F] * 7 + [_P],
     # bins, lut, levels, lidx, t0, steps, s1, s2, ih, c, cold, ptr; B, NB,
-    # W, MP, UP, per_row, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g;
-    # stream
-    "wave_window_table_launch": [_P] * 12 + [_I] * 7 + [_F] * 7 + [_P],
+    # W, MP, UP, per_row, ctas, mpc, neg_h; go_h, go_v, ge_h, ge_v, off,
+    # dmin, g; stream
+    "wave_window_table_launch": [_P] * 12 + [_I] * 9 + [_F] * 7 + [_P],
     # sig, tmpl, nact, ptr, bottom; B, N, MP, m, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "col_align_launch": [_P] * 5 + [_I] * 5 + [_F] * 7 + [_P],
-    # bins, lut, levels, lidx, nact, ptr, bottom; B, N, MP, UP, m, neg_h;
-    # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
-    "col_table_launch": [_P] * 7 + [_I] * 6 + [_F] * 7 + [_P],
+    # bins, lut, levels, lidx, nact, ptr, bottom; B, N, MP, UP, ctas,
+    # mpc, m, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
+    "col_table_launch": [_P] * 7 + [_I] * 8 + [_F] * 7 + [_P],
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
     "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts

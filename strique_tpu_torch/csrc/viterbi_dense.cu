@@ -53,6 +53,8 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+#include "cluster.cuh"
+
 constexpr float NEGF = -1e30f;
 constexpr int MAX_THREADS = 1024;
 constexpr unsigned FULL = 0xffffffffu;
@@ -172,48 +174,6 @@ cudaError_t launch(const float* obs, const int* tact, const float* trans, const 
 // ---------------------------------------------------------------------------
 // RESIDENT mode: a cluster of K CTAs a read, the transitions in registers
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// arm mbarrier `bar` for one phase: one arrival (this thread's) and
-// `bytes` of st.async data
-__device__ __forceinline__ void expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` of `bar` to complete; a phase
-// that never completes (a broken exchange) traps instead of hanging
-__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
-  for (uint32_t spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n .reg .pred P;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 P, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, P;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (spins > (1u << 26)) __trap();
-  }
-}
-
-// 16 bytes into CTA `rank`'s copy of shared address `addr`, completing
-// 16 bytes on that CTA's copy of mbarrier `bar`
-__device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar,
-                                            uint32_t rank) {
-  asm volatile(
-      "{\n .reg .b32 ra, rb;\n"
-      " mapa.shared::cluster.u32 ra, %0, %5;\n"
-      " mapa.shared::cluster.u32 rb, %6, %5;\n"
-      " st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [ra], {%1, %2, %3, %4}, "
-      "[rb];\n}\n" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(rank), "r"(bar)
-      : "memory");
-}
 
 // R = SP / 32 source rows a lane, C destination columns a warp (VC = 16 C
 // a CTA, K = SP / VC CTAs a read).  Lane l of warp w in CTA r holds

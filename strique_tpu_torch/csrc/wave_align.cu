@@ -74,16 +74,48 @@
 // S1 before the step's update; a resumed window seeds the i-1 register
 // from S2 of lane i-1.
 //
+// TABLE past one CTA (a template of more than 1024 lanes, or a table too
+// large beside the row's exchange buffers): a thread-block cluster of K
+// CTAs a row (K <= 8, picked on the host by ops/align_cuda.py
+// `wave_table_ctas`).  CTA k owns the contiguous lanes [k MPC, (k+1)
+// MPC), MPC a multiple of 128 up to 2048, one lane a thread (two past
+// 1024), and builds the score table of only the levels its own lanes use
+// (the host's per-CTA `template_levels`), so each CTA's table fits its
+// SM.  Lane k MPC needs S and C of lane k MPC - 1 at step t - 1, and
+// nothing flows the other way, so CTA k runs behind CTA k - 1 with no
+// cluster barrier a step: the thread of CTA k - 1 that owns its last
+// lane sends each step's (S, C) by st.async into a ring slot of CTA k's
+// shared memory (one slot an 8-step group, RING slots, one "full"
+// mbarrier each, on which the bytes complete); thread 0 of CTA k waits
+// on a slot once a group and then frees it by a remote arrive on CTA k -
+// 1's "empty" mbarrier of that slot, which the sender waits on before it
+// reuses the slot.  Each CTA keeps its single __syncthreads a step; a
+// cluster barrier at the start (the mbarriers initialised) and at the
+// end (no CTA leaves while a peer may still write into it) are the only
+// others.  Every lane computes what the one-CTA kernel computes for it,
+// from the same operands, so the cluster form is bit-equal to it (and to
+// its twin).
+//
 // Value contract (bit-identical to the reference's f32 stream, up to the
 // measured 1-ulp pow difference): every expression tree of the Pallas
 // body is kept, and the build uses -fmad=false so no a + b*c contracts
 // into an FMA.  |d|^1.2 is (float)pow((double)d, (double)1.2f); the +1e30
 // template pad still yields sc = dmin.  TABLE and POW share one score
 // function, so a table entry is the value POW computes for its pair.
+// Every max is `max_nan` (PTX max.NaN.f32): NaN when either operand is
+// NaN, as jnp.maximum and torch.maximum give it; fmaxf dropped the NaN of
+// a flat read's all-NaN level table, and the read's gated row then ended
+// elsewhere than the reference's.  On other operands it is max.f32,
+// fmaxf's own instruction: the same bits.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+#include "cluster.cuh"
 
 constexpr float NEGF = -1e30f;
 constexpr double POW_EXP = 1.2000000476837158;  // (double)1.2f
@@ -91,6 +123,15 @@ constexpr int SCORE_COLS = 258;                 // 256 bins, NEG, 0.0
 constexpr int BIN_NEG = 256;                    // before the read
 constexpr int BIN_ZERO = 257;                   // 0.0: past the read (and around a window)
 constexpr size_t SMEM_MAX = 232448;             // 227 KB: a block's dynamic shared memory
+// the cluster form's ring, at the start of shared memory: RING slots of
+// an 8-step group's (S, C) pairs, then a "full" and an "empty" mbarrier a
+// slot (ops/align_cuda.py WAVE_RING_BYTES = 4 RING_FLOATS)
+constexpr int RING = 8;
+constexpr int SLOT_FLOATS = 16;
+constexpr int RING_FLOATS = RING * SLOT_FLOATS + RING * 2 * 2;
+constexpr uint32_t SLOT_BYTES = 4 * SLOT_FLOATS;
+constexpr int MAX_CTAS = 8;                     // a portable cluster
+constexpr int CL_MAX_LANES = 2048;              // a cluster CTA's lanes: 1024 threads of 2
 
 enum Mode { PTR = 0, CKPT = 1, WINDOW = 2 };
 enum Score { POW = 0, TABLE = 1 };
@@ -114,8 +155,8 @@ struct Resume {
 struct Table {
   const uint8_t* bins;   // (B, NB) morph bins
   const float* lut;      // (B, 256) each read's level values
-  const float* levels;   // (R, UP) distinct template values
-  const int* lidx;       // (R, MP) lane -> index into its row's levels
+  const float* levels;   // (R, K, UP) distinct template values of each CTA's lanes
+  const int* lidx;       // (R, MP) lane -> index into its CTA's levels of its row
   int up;                // UP
   int per_row;           // R == B (1) or R == 1 (0)
 };
@@ -129,7 +170,7 @@ struct Lane {
 __device__ __forceinline__ float cell_score(float av, float tm, const Params& p) {
   const float diff = fabsf(av - tm);
   const float pw = (float)pow((double)diff, POW_EXP);
-  return fmaxf(p.off - pw, p.dmin);
+  return max_nan(p.off - pw, p.dmin);
 }
 
 // TABLE: the score-table column of sample ai of a row of NB bins; before
@@ -152,14 +193,14 @@ __device__ __forceinline__ void dp_cell(Lane& L, float sc, float s_prev, float c
   L.hS = s_prev;
   const float ih_ext = L.Ih + p.ge_h;
   const float ih_open = L.S1 + p.go_h;
-  float new_ih = fmaxf(ih_ext, ih_open);
+  float new_ih = max_nan(ih_ext, ih_open);
   const float new_m = s2 + sc;
-  float q_s = fmaxf(new_m, new_ih);
+  float q_s = max_nan(new_m, new_ih);
   if (!p.neg_h && i == 0) q_s = 0.0f;
   const float cvec = (q_s + p.go_v) - ((fi + 1.0f) * p.g);
-  const float new_c = fmaxf(c_sh, cvec);
+  const float new_c = max_nan(c_sh, cvec);
   const float new_iv = c_sh + fi * p.g;
-  float new_s = fmaxf(q_s, new_iv);
+  float new_s = max_nan(q_s, new_iv);
   if (MODE != CKPT) {
     const int which = new_m >= new_s ? 0 : (new_iv >= new_s ? 2 : 1);
     const uint32_t code = which | ((ih_ext >= ih_open) ? 4 : 0)
@@ -190,21 +231,29 @@ __device__ __forceinline__ void dp_cell(Lane& L, float sc, float s_prev, float c
 // multiple of ckpt_steps.  nact = n, mrow = m per row.  WINDOW: ND = W;
 // POW reads sig = sig_win (B, W), TABLE the read's bins from t0; nact =
 // the steps a row needs, mrow unused.  TABLE reads tb in place of sig
-// and tmpl.
-template <int LPT, int MODE, int SCORE>
+// and tmpl.  CL: the cluster form (TABLE only), a row's K CTAs MPC lanes
+// each; one CTA a row has MPC = MP.
+template <int LPT, int MODE, int SCORE, bool CL>
 __global__ void __launch_bounds__(1024)
 wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, Table tb,
                   const int* __restrict__ nact, const int* __restrict__ mrow,
                   int32_t* __restrict__ ptr, float* __restrict__ bottom,
-                  int B, int ND, int NS, int MP, int tmpl_stride, Params p, Resume r) {
-  // two buffers each of S and C, MP + 1 floats: index 0 holds lane -1's
-  // fill, lane i lives at index i + 1; in TABLE mode the row's U x 258
-  // scores follow
-  extern __shared__ float smem[];
-  const int W = MP + 1;
+                  int B, int ND, int NS, int MP, int MPC, int tmpl_stride, Params p, Resume r) {
+  // CL: the ring first (RING_FLOATS).  Then two buffers each of S and C,
+  // MPC + 1 floats: index 0 holds lane -1's fill, the CTA's lane li lives
+  // at index li + 1; in TABLE mode the CTA's U x 258 scores follow
+  extern __shared__ __align__(16) float smem_all[];
+  float* smem = smem_all + (CL ? RING_FLOATS : 0);
+  const int W = MPC + 1;
   float* T = smem + 4 * W;
 
-  const int row = blockIdx.x;
+  int K = 1, rank = 0;  // CTAs of the row, this CTA's place among them
+  if constexpr (CL) {
+    K = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int row = blockIdx.x / K;
+  const int lane0 = rank * MPC;  // the CTA's first lane
   const int n = nact[row];
   const int m = MODE == WINDOW ? 0 : mrow[row];
   int t_end = (n + m + 7) & ~7;
@@ -217,13 +266,22 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
   float* bot = MODE == WINDOW ? nullptr : bottom + (size_t)row * ND;
   const float fill_s = p.neg_h ? -p.dmin : NEGF;
   const bool cold = MODE != WINDOW || r.cold[row] != 0;
+  // CL: thread 0 takes lane lane0 - 1's S and C from the ring (recv); the
+  // thread of the CTA's last lane (k = LPT - 1) sends its own (send)
+  const bool recv = CL && rank > 0 && threadIdx.x == 0;
+  const bool send = CL && rank + 1 < K && threadIdx.x == blockDim.x - 1;
+  const uint32_t ring_a = smem_addr(smem_all);
+  const uint32_t full_a = ring_a + 4 * RING * SLOT_FLOATS;
+  const uint32_t empty_a = full_a + 8 * RING;
+  const int groups = t_end >> 3;
 
   Lane L[LPT];
   float tm[LPT];    // POW: the lane's template value
   int tbase[LPT];   // TABLE: the lane's level row in the score table
 #pragma unroll
   for (int k = 0; k < LPT; ++k) {
-    const int i = threadIdx.x + k * blockDim.x;
+    const int li = threadIdx.x + k * blockDim.x;
+    const int i = lane0 + li;
     if (MODE == WINDOW && i < MP) {
       // resume: the state after step t0-1; hS is S of lane i-1 at t0-2
       const size_t o = (size_t)row * MP + i;
@@ -244,8 +302,8 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       tbase[k] = (i < MP) ? tb.lidx[(size_t)row * tb.per_row * MP + i] * SCORE_COLS : 0;
     L[k].acc = 0;
     if (i < MP) {
-      smem[W + i + 1] = L[k].S1;      // S buffer 1 (step -1)
-      smem[3 * W + i + 1] = L[k].C;   // C buffer 1
+      smem[W + li + 1] = L[k].S1;      // S buffer 1 (step -1)
+      smem[3 * W + li + 1] = L[k].C;   // C buffer 1
     }
   }
   if (threadIdx.x == 0) {
@@ -254,11 +312,28 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
     smem[2 * W] = NEGF;
     smem[3 * W] = NEGF;
   }
+  // recv: S and C of lane lane0 - 1 at the step before the current one
+  float in_s = NEGF, in_c = NEGF;
+  if (MODE == WINDOW && recv) {
+    in_s = r.st[0][(size_t)row * MP + lane0 - 1];
+    in_c = r.st[3][(size_t)row * MP + lane0 - 1];
+  }
+  if constexpr (CL) {
+    if (threadIdx.x == 0) {
+      for (int q = 0; q < RING; ++q) {
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full_a + 8 * q));
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty_a + 8 * q));
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      if (rank > 0)
+        for (int q = 0; q < RING && q < groups; ++q) expect_tx(full_a + 8 * q, SLOT_BYTES);
+    }
+  }
   if (SCORE == TABLE) {
     // entry [u][b]: template level u against bin b's value (b < 256), NEG
     // (b = 256) or 0.0 (b = 257)
     const float* lut = tb.lut + (size_t)row * 256;
-    const float* lv = tb.levels + (size_t)row * tb.per_row * tb.up;
+    const float* lv = tb.levels + ((size_t)row * tb.per_row * K + rank) * tb.up;
     for (int e = threadIdx.x; e < tb.up * SCORE_COLS; e += blockDim.x) {
       const int u = e / SCORE_COLS;
       const int b = e - u * SCORE_COLS;
@@ -266,16 +341,24 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       T[e] = cell_score(x, lv[u], p);
     }
   }
-  __syncthreads();
+  if constexpr (CL)
+    cg::this_cluster().sync();  // every CTA's mbarriers initialised before any byte moves
+  else
+    __syncthreads();
 
   // t_end is a multiple of 8 (ND and W are): groups of 8 steps, one
   // pointer word each.  CKPT: after step (g+1)*ckpt_steps - 1 the state
   // goes to slot g; ckpt_steps is a multiple of 8, so that step closes a
-  // group
+  // group.  CL: group g travels in ring slot g % RING, its use g / RING
   int ck_next = MODE == CKPT ? r.ckpt_steps : 0;
   size_t ck_row = (size_t)row * MP;
   for (int t0 = 0; t0 < t_end; t0 += 8) {
     const bool dump_group = MODE == CKPT && t0 + 8 == ck_next;
+    const int g = t0 >> 3;
+    const int slot = g % RING;
+    const float* rs = smem_all + slot * SLOT_FLOATS;
+    if (CL && recv) wait_parity(full_a + 8 * slot, (g / RING) & 1);
+    if (CL && send && g >= RING) wait_parity(empty_a + 8 * slot, (g / RING - 1) & 1);
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int t = t0 + s;
@@ -286,7 +369,8 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       const bool dump = dump_group && s == 7;
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
-        const int i = threadIdx.x + k * blockDim.x;
+        const int li = threadIdx.x + k * blockDim.x;
+        const int i = lane0 + li;
         if (i >= MP) continue;
         float sc;
         if (SCORE == TABLE) {
@@ -302,10 +386,17 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
             av = ai < 0 ? NEGF : (ai < NS ? a[ai] : 0.0f);
           sc = cell_score(av, tm[k], p);
         }
-        dp_cell<MODE>(L[k], sc, s_prv[i], c_prv[i], i, t, s, p, m, n, cold, bot, dump, ck_row,
-                      r);
-        s_cur[i + 1] = L[k].S1;
-        c_cur[i + 1] = L[k].C;
+        float sp = s_prv[li], cp = c_prv[li];
+        if (CL && k == 0 && recv) {  // lane lane0 - 1 at step t - 1
+          sp = s == 0 ? in_s : rs[2 * s - 2];
+          cp = s == 0 ? in_c : rs[2 * s - 1];
+        }
+        dp_cell<MODE>(L[k], sc, sp, cp, i, t, s, p, m, n, cold, bot, dump, ck_row, r);
+        s_cur[li + 1] = L[k].S1;
+        c_cur[li + 1] = L[k].C;
+        if (CL && k == LPT - 1 && send)
+          st_async_v2(ring_a + 4 * (slot * SLOT_FLOATS + 2 * s), L[k].S1, L[k].C,
+                      full_a + 8 * slot, rank + 1);
         if (MODE != CKPT && s == 7) {
           ptr[((size_t)(t0 >> 3) * B + row) * MP + i] = (int32_t)L[k].acc;
           L[k].acc = 0;
@@ -313,13 +404,20 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       }
       __syncthreads();
     }
+    if (CL && recv) {
+      in_s = rs[2 * 7];
+      in_c = rs[2 * 7 + 1];
+      if (g + RING < groups) expect_tx(full_a + 8 * slot, SLOT_BYTES);
+      arrive_remote(empty_a + 8 * slot, rank - 1);  // the slot is free again
+    }
     if (dump_group) {
       ck_next += r.ckpt_steps;
       ck_row += (size_t)B * MP;
     }
   }
-  if (MODE != WINDOW)
+  if (MODE != WINDOW && m >= lane0 && m < lane0 + MPC)  // the CTA of the bottom lane
     for (int t = t_end + threadIdx.x; t < ND; t += blockDim.x) bot[t] = NEGF;
+  if constexpr (CL) cg::this_cluster().sync();  // no CTA leaves while a peer may write into it
 }
 
 template <int LPT, int MODE, int SCORE>
@@ -332,13 +430,48 @@ cudaError_t launch(const float* sig, const float* tmpl, const Table& tb, const i
   const size_t shmem = (4 * (size_t)(MP + 1) + table) * sizeof(float);
   if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(wave_align_kernel<LPT, MODE, SCORE>,
+    cudaError_t e = cudaFuncSetAttribute(wave_align_kernel<LPT, MODE, SCORE, false>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)shmem);
     if (e != cudaSuccess) return e;
   }
-  wave_align_kernel<LPT, MODE, SCORE><<<B, threads, shmem, stream>>>(
-      sig, tmpl, tb, nact, mrow, ptr, bottom, B, ND, NS, MP, tmpl_stride, p, r);
+  wave_align_kernel<LPT, MODE, SCORE, false><<<B, threads, shmem, stream>>>(
+      sig, tmpl, tb, nact, mrow, ptr, bottom, B, ND, NS, MP, MP, tmpl_stride, p, r);
+  return cudaGetLastError();
+}
+
+// TABLE on a cluster of K CTAs a row, MPC lanes each (MPC / LPT threads)
+template <int LPT, int MODE>
+cudaError_t launch_cluster(const Table& tb, const int* nact, const int* mrow, int32_t* ptr,
+                           float* bottom, int B, int ND, int NS, int MP, int MPC, int K,
+                           Params p, const Resume& r, cudaStream_t stream) {
+  auto kern = wave_align_kernel<LPT, MODE, TABLE, true>;
+  const size_t shmem =
+      (RING_FLOATS + 4 * (size_t)(MPC + 1) + (size_t)tb.up * SCORE_COLS) * sizeof(float);
+  if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * K);
+  cfg.blockDim = dim3(MPC / LPT);
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // the cluster must fit the card: K CTAs of this shared memory on K SMs
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kern, (const float*)nullptr, (const float*)nullptr, tb, nact,
+                         mrow, ptr, bottom, B, ND, NS, MP, MPC, 0, p, r);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -365,18 +498,38 @@ int dispatch_pow(const void* sig, const void* tmpl, const void* nact, const void
   return (int)cudaErrorInvalidValue;
 }
 
-// TABLE: one lane a thread (MP <= 1024)
+// a cluster split the host's rule can give: K in 2..8 CTAs of MPC lanes
+// (a multiple of 128, at most CL_MAX_LANES), none empty
+bool split_ok(int MP, int K, int MPC) {
+  return K >= 2 && K <= MAX_CTAS && MPC > 0 && MPC % 128 == 0 && MPC <= CL_MAX_LANES &&
+         (K - 1) * MPC < MP && K * MPC >= MP;
+}
+
+// TABLE: one CTA a row, one lane a thread (K = 1, MP <= 1024), or a
+// cluster of K CTAs a row, MPC lanes each, 1 or 2 lanes a thread
 template <int MODE>
 int dispatch_table(const void* bins, const void* lut, const void* levels, const void* lidx,
                    const void* nact, const void* mrow, void* ptr, void* bottom, int B, int ND,
-                   int NS, int MP, int UP, int per_row, Params p, const Resume& r,
-                   void* stream) {
-  if (MP > 1024) return (int)cudaErrorInvalidValue;
+                   int NS, int MP, int UP, int per_row, int K, int MPC, Params p,
+                   const Resume& r, void* stream) {
   const Table tb{(const uint8_t*)bins, (const float*)lut, (const float*)levels,
                  (const int*)lidx, UP, per_row ? 1 : 0};
-  return (int)launch<1, MODE, TABLE>(nullptr, nullptr, tb, (const int*)nact, (const int*)mrow,
-                                     (int32_t*)ptr, (float*)bottom, B, ND, NS, MP, 0, p, r,
-                                     (cudaStream_t)stream);
+  auto na = (const int*)nact;
+  auto mr = (const int*)mrow;
+  auto pt = (int32_t*)ptr;
+  auto bt = (float*)bottom;
+  auto st = (cudaStream_t)stream;
+  if (K == 1) {
+    if (MP > 1024 || MPC != MP) return (int)cudaErrorInvalidValue;
+    return (int)launch<1, MODE, TABLE>(nullptr, nullptr, tb, na, mr, pt, bt, B, ND, NS, MP, 0, p,
+                                       r, st);
+  }
+  if (!split_ok(MP, K, MPC)) return (int)cudaErrorInvalidValue;
+#define WAVE_CLUSTER(LPT) \
+  (int)launch_cluster<LPT, MODE>(tb, na, mr, pt, bt, B, ND, NS, MP, MPC, K, p, r, st)
+  if (MPC <= 1024) return WAVE_CLUSTER(1);
+  return WAVE_CLUSTER(2);
+#undef WAVE_CLUSTER
 }
 
 Resume ckpt_resume(void* ck_s1, void* ck_s2, void* ck_ih, void* ck_c, int ckpt_steps) {
@@ -423,11 +576,12 @@ extern "C" int wave_align_launch(const void* sig, const void* tmpl, const void* 
 extern "C" int wave_table_launch(const void* bins, const void* lut, const void* levels,
                                  const void* lidx, const void* nact, const void* mrow,
                                  void* ptr, void* bottom, int B, int N, int MP, int UP,
-                                 int per_row, int neg_h, float go_h, float go_v, float ge_h,
-                                 float ge_v, float off, float dmin, float g, void* stream) {
+                                 int per_row, int ctas, int mpc, int neg_h, float go_h,
+                                 float go_v, float ge_h, float ge_v, float off, float dmin,
+                                 float g, void* stream) {
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
   return dispatch_table<PTR>(bins, lut, levels, lidx, nact, mrow, ptr, bottom, B, N + MP, N,
-                             MP, UP, per_row, p, Resume{}, stream);
+                             MP, UP, per_row, ctas, mpc, p, Resume{}, stream);
 }
 
 extern "C" int wave_ckpt_launch(const void* sig, const void* tmpl, const void* nact,
@@ -447,13 +601,14 @@ extern "C" int wave_ckpt_table_launch(const void* bins, const void* lut, const v
                                       const void* lidx, const void* nact, const void* mrow,
                                       void* bottom, void* ck_s1, void* ck_s2, void* ck_ih,
                                       void* ck_c, int B, int NB, int ND, int MP, int UP,
-                                      int per_row, int ckpt_steps, int neg_h, float go_h,
+                                      int per_row, int ctas, int mpc, int ckpt_steps,
+                                      int neg_h, float go_h,
                                       float go_v, float ge_h, float ge_v, float off, float dmin,
                                       float g, void* stream) {
   if (!ckpt_ok(ND, ckpt_steps) || ND < NB + MP) return (int)cudaErrorInvalidValue;
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
   return dispatch_table<CKPT>(bins, lut, levels, lidx, nact, mrow, nullptr, bottom, B, ND, NB,
-                              MP, UP, per_row, p,
+                              MP, UP, per_row, ctas, mpc, p,
                               ckpt_resume(ck_s1, ck_s2, ck_ih, ck_c, ckpt_steps), stream);
 }
 
@@ -475,12 +630,13 @@ extern "C" int wave_window_table_launch(const void* bins, const void* lut, const
                                         const void* lidx, const void* t0, const void* steps,
                                         const void* s1, const void* s2, const void* ih,
                                         const void* c, const void* cold, void* ptr, int B,
-                                        int NB, int W, int MP, int UP, int per_row, int neg_h,
-                                        float go_h, float go_v, float ge_h, float ge_v,
+                                        int NB, int W, int MP, int UP, int per_row, int ctas,
+                                        int mpc, int neg_h, float go_h, float go_v, float ge_h,
+                                        float ge_v,
                                         float off, float dmin, float g, void* stream) {
   if (W % 8) return (int)cudaErrorInvalidValue;
   Params p{go_h, go_v, ge_h, ge_v, off, dmin, g, neg_h};
   return dispatch_table<WINDOW>(bins, lut, levels, lidx, steps, nullptr, ptr, nullptr, B, W, NB,
-                                MP, UP, per_row, p,
+                                MP, UP, per_row, ctas, mpc, p,
                                 window_resume(nullptr, t0, s1, s2, ih, c, cold), stream);
 }

@@ -13,9 +13,15 @@ them.  The wave route then runs the morph-form kernel calls
 the template's score table fits shared memory), and so do the
 two-pass route (``align_forward_ckpt_morph``,
 ``align_window_from_state_morph``) and the column route
-(``align_forward_col_morph``, by its own rule ``col_score_mode``); the
-two-pass route past the table decodes ``lut[bins]`` to f32 first, and
-the morph entry points of the other two do so past theirs.
+(``align_forward_col_morph``).  The template's rule
+(``align_cuda.wave_table_ctas``, ``col_table_ctas``) gives the CTAs a
+row takes: one, or a thread-block cluster whose CTAs split the lanes
+and each hold a table of their own lanes' levels (the split form of
+``template_levels``), so a template past one CTA's table keeps the
+TABLE mode and its calls are as wide as their CTAs fit the card.  Only
+a template past every cluster's table runs POW: the two-pass route
+decodes ``lut[bins]`` to f32 first, and the morph entry points of the
+other two do so.
 
 Call widths and fusion follow the device (``align_cuda.kernel_batch``,
 :func:`fuse_flanks`): on the card a call is as wide as its rows, up to
@@ -72,9 +78,9 @@ from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
                          align_forward_ckpt_morph, align_forward_col, align_forward_col_morph,
                          align_forward_wave, align_forward_wave_morph, align_forward_wave_multi,
                          align_forward_wave_multi_morph, align_window_from_state,
-                         align_window_from_state_morph, kernel_batch, morph_decode,
-                         pad_template, pad_template_rows, ptr_budget_bytes, sm_count,
-                         template_levels, wave_score_mode, wave_span_bound_steps)
+                         align_window_from_state_morph, col_table_ctas, kernel_batch,
+                         morph_decode, pad_template, pad_template_rows, ptr_budget_bytes,
+                         sm_count, template_levels, wave_span_bound_steps, wave_table_ctas)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 CKPT_STEPS = 16384  # the two-pass route's checkpoint stride (the reference's)
@@ -349,31 +355,42 @@ def _window_steps(bound: int, ckpt_steps: int) -> int:
     return _round_up(bound + ckpt_steps, CHUNK)
 
 
-def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = None) -> int:
+def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = None,
+                   ctas: int = 1) -> int:
     """Rows per two-pass group (one pass-1 and one pass-2 launch).
 
     Card rule (a CUDA device, or any device when ``sms`` is given):
     :func:`kernel_batch`'s width -- the rows it has, up to the largest
-    multiple of 8 within the SM count -- narrowed (never below 8) so that
-    pass 2's (W/8, rows, MP) int32 plane fits :func:`ptr_budget_bytes`.
-    A pass-1 row holds no pointer plane, only its checkpoints.  CPU
-    rule: the reference's 8 rows, so the parity tests compare like with
-    like.
+    multiple of 8 whose ``ctas`` CTAs a row fit the SM count -- narrowed
+    (never below 8) so that pass 2's (W/8, rows, MP) int32 plane fits
+    :func:`ptr_budget_bytes`.  A pass-1 row holds no pointer plane, only
+    its checkpoints.  CPU rule: the reference's 8 rows, so the parity
+    tests compare like with like.
     """
     if sms is None:
         sms = sm_count(device)
     if sms is None:
         return 8
-    return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms)
+    return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms, ctas=ctas)
 
 
-def _pass1_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None) -> dict:
+def _table_form(tmpl_np: np.ndarray, ctas: int, dev):
+    """(levels, lidx) of template rows on ``dev`` for a TABLE call of
+    ``ctas`` CTAs a row: the one-CTA form of ``template_levels`` (also
+    for POW, ``ctas`` 0, whose morph calls decode through it), or the
+    split form of a cluster."""
+    levels, lidx = template_levels(tmpl_np, ctas if ctas > 1 else None)
+    return torch.from_numpy(levels).to(dev), torch.from_numpy(lidx).to(dev)
+
+
+def _pass1_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=None,
+                ctas: int = 1) -> dict:
     """Two-pass pass 1 of a group of rows (queued, no sync).
 
     ``tmpl_np`` (1, MP) with ``ms`` one length, or (B, MP) with a length
     per row.  ``signals`` (B, N) f32 or, with ``lut``, u8 bins read in
-    place by the TABLE score mode (the caller has checked that the
-    template fits :func:`wave_score_mode`'s table).
+    place by the TABLE score mode on ``ctas`` CTAs a row (the caller has
+    checked that the template fits :func:`wave_table_ctas`'s table).
     """
     B, N = signals.shape
     if B % 8:
@@ -393,7 +410,7 @@ def _pass1_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=Non
                                                  ckpt_chunks)
         score_in = {"tmpl": tmpl}
     else:
-        levels, lidx = (torch.from_numpy(x).to(dev) for x in template_levels(tmpl_np))
+        levels, lidx = _table_form(tmpl_np, ctas, dev)
         bottom_steps, ckpts = align_forward_ckpt_morph(signals, lut, n_actual, levels, lidx,
                                                        params, m_arg, ckpt_chunks, nd)
         score_in = {"levels": levels, "lidx": lidx}
@@ -409,7 +426,8 @@ def _longread_pass1(signals, n_actual, template_np, params, ckpt_steps: int, lut
     forward with checkpoints (queued, no sync).  ``lut``: morph-form
     input, as in :func:`align_core`."""
     tmpl_np, m = pad_template(np.asarray(template_np, np.float32))
-    return _pass1_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps, lut)
+    ctas = 1 if lut is None else wave_table_ctas(tmpl_np)
+    return _pass1_rows(signals, n_actual, tmpl_np, np.array([m]), params, ckpt_steps, lut, ctas)
 
 
 def window_inputs(st: dict) -> dict:
@@ -500,17 +518,19 @@ def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=
     m_out = int(np.max(ms))
     _, cks, _ = _ckpt_geometry(N, mp, ckpt_steps)
     w_steps = _window_steps(int(_span_bounds(params, np.unique(ms)).max()), cks)
+    # the rows' CTAs: every group's, so that its pad rows change nothing
+    ctas = 1 if lut is None else wave_table_ctas(tmpl_np)
     states = []
     g0 = 0
     while g0 < B:
         dev = devs[len(states) % len(devs)]
-        kb = two_pass_group(min(B - g0, share), mp, w_steps, dev)
+        kb = two_pass_group(min(B - g0, share), mp, w_steps, dev, ctas=max(ctas, 1))
         sl = slice(g0, g0 + kb)
         states.append(_pass1_rows(
             _pad_rows(signals[sl], kb, 0).to(dev), _pad_rows(n_act[sl], kb, 1).to(dev),
             _pad_rows_np(tmpl_np[sl], kb, 1e30) if per_row else tmpl_np,
             _pad_rows_np(ms[sl], kb, 1) if per_row else ms, params, ckpt_steps,
-            None if lut is None else _pad_rows(lut[sl], kb, 0.0).to(dev)))
+            None if lut is None else _pad_rows(lut[sl], kb, 0.0).to(dev), ctas))
         g0 += kb
     outs = [_longread_pass2(st, m_out) for st in states]
     return {k: torch.cat([o[k].to(signals.device) for o in outs])[:B] for k in outs[0]}
@@ -543,8 +563,9 @@ def takes_two_pass(N: int, mp: int, device) -> bool:
 
 
 def _fits_table(tmpl_np: np.ndarray) -> bool:
-    """Whether the (R, MP) template rows fit the TABLE score mode."""
-    return wave_score_mode(template_levels(tmpl_np)[0].shape[1], tmpl_np.shape[1]) == "table"
+    """Whether the (R, MP) template rows fit the wave kernel's TABLE
+    score mode, on one CTA a row or on a cluster."""
+    return wave_table_ctas(tmpl_np) > 0
 
 
 def _pad_signals(signals, lut):
@@ -565,11 +586,12 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     :func:`kernel_batch` rows; the tail pads with length-1 rows.  Past
     the pointer budget even at width 8, the bucket takes the two-pass
     route (:func:`align_longread_sharded`), on morph input in the TABLE
-    score mode where the template fits :func:`wave_score_mode`'s table.
+    score mode where the template fits ``wave_table_ctas``'s table (one
+    CTA a row, or a cluster: calls as wide as their CTAs fit the card).
     ``STRIQUE_ALIGN_KERNEL=col`` runs column-kernel calls instead
     (pointer plane N/8 x rows x MP, no two-pass route), as the reference
     does, on morph input in the TABLE score mode where the template fits
-    ``col_score_mode``'s table.  Past its table each route decodes morph
+    ``col_table_ctas``'s table.  Past its table each route decodes morph
     input to f32.  ``devices``: where the two-pass route's groups run
     (round-robin); the other routes run on the input's device, as the
     reference's in-jit route ignores its devices.
@@ -582,7 +604,9 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     col = os.environ.get("STRIQUE_ALIGN_KERNEL") == "col"
     n_cols = signals.shape[1] + (0 if col else mp)
     two_pass = takes_two_pass(signals.shape[1], mp, dev)
-    if lut is not None and two_pass and not _fits_table(tmpl_np):
+    # CTAs a row of the TABLE mode (0: POW on the decoded f32)
+    ctas = 1 if lut is None else (col_table_ctas if col else wave_table_ctas)(tmpl_np)
+    if lut is not None and two_pass and ctas == 0:
         signals, lut = morph_decode(signals, lut), None
     if two_pass:
         if wave_span_bound_steps(params, m) is None:
@@ -594,12 +618,12 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     if lut is None:
         tmpl = torch.from_numpy(tmpl_np).to(dev)
     else:
-        levels, lidx = (torch.from_numpy(x).to(dev) for x in template_levels(tmpl_np))
+        levels, lidx = _table_form(tmpl_np, ctas, dev)
     n_act = n_actual.to(torch.int32)
     outs = []
     b0 = 0
     while b0 < B:
-        kb = kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev)
+        kb = kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev, ctas=max(ctas, 1))
         end = b0 + kb
         sl = _pad_rows(signals[b0:end], kb, 0)
         na = _pad_rows(n_act[b0:end], kb, 1)
@@ -614,9 +638,11 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
-def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None) -> bool:
+def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None,
+                ctas: int = 1) -> bool:
     """Whether :func:`align_fused_pair` runs both flanks of a B-read batch
-    as one per-row-template row stream (N signal columns, MP lanes).
+    as one per-row-template row stream (N signal columns, MP lanes,
+    ``ctas`` CTAs a row).
 
     Card rule (a CUDA device, or any device when ``sms`` is given, and
     ``STRIQUE_ALIGN_KERNEL`` not ``col``): whenever the 2B rows fit one
@@ -632,7 +658,8 @@ def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None) -> bool
     if sms is None:
         sms = sm_count(device)
     if sms is not None and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col":
-        return kernel_batch(2 * B, n_cols=n_cols, mp=mp, device=device, sms=sms) >= 2 * B
+        return kernel_batch(2 * B, n_cols=n_cols, mp=mp, device=device, sms=sms,
+                            ctas=ctas) >= 2 * B
     return 0 < B % BATCH_WAVE <= BATCH_WAVE // 2
 
 
@@ -671,7 +698,9 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     B, N = signals.shape
     tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
     mp = tmpl_rows_np.shape[1]
-    fused = fuse_flanks(B, N, mp, dev)
+    # CTAs a row of the row stream's TABLE mode (0: POW)
+    ctas = 1 if lut is None else wave_table_ctas(tmpl_rows_np)
+    fused = fuse_flanks(B, N, mp, dev, ctas=max(ctas, 1))
     if not fused and not _two_pass_pair(B, N, mp, params, dev):
         return (align_core(signals, n_actual, t_pre, params, lut=lut, devices=devices),
                 align_core(signals, n_actual, t_suf, params, lut=lut, devices=devices))
@@ -684,7 +713,7 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     R = 2 * B
     if not fused:
         lut2 = None if lut is None else torch.cat([lut, lut])
-        if lut2 is not None and not _fits_table(tmpl_rows_np):
+        if lut2 is not None and ctas == 0:
             sig2, lut2 = morph_decode(sig2, lut2), None
         out = _two_pass_rows(sig2, na2, np.repeat(tmpl_rows_np, B, axis=0), np.repeat(ms, B),
                              params, CKPT_STEPS, lut=lut2, devices=devices)
@@ -696,14 +725,14 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     if lut is None:
         tmpl2 = rows2(tmpl_rows_np)
     else:
-        levels, lidx = template_levels(tmpl_rows_np)
+        levels, lidx = template_levels(tmpl_rows_np, ctas if ctas > 1 else None)
         lv2, li2, lut2 = rows2(levels), rows2(lidx), torch.cat([lut, lut])
     ms2 = torch.from_numpy(np.repeat(ms.astype(np.int32), B)).to(dev)
     n_cols = sig2.shape[1] + mp
     outs = []
     b0 = 0
     while b0 < R:
-        kb = kernel_batch(R - b0, n_cols=n_cols, mp=mp, device=dev)
+        kb = kernel_batch(R - b0, n_cols=n_cols, mp=mp, device=dev, ctas=max(ctas, 1))
         end = b0 + kb
         sl = _pad_rows(sig2[b0:end], kb, 0)
         na = _pad_rows(na2[b0:end], kb, 1)

@@ -58,12 +58,21 @@ Score modes of every kernel mode (one launch counter each):
     Same expression, same values.  A window reads 0.0 on both sides of
     the read, as the f32 window's gather fills.
 
-A morph-form call runs TABLE when :func:`wave_score_mode` says the
+A morph-form call with the template as :func:`template_levels` of its
+rows runs TABLE on one CTA a row when :func:`wave_score_mode` says the
 template's lanes fit one thread each and the table fits one block's
 shared memory, and otherwise POW on the decoded f32 (``lut[bins]``, the
 template rebuilt from its levels): a rule on the shapes, decided before
 the launch (for rows 1-2 here, for rows 5-6 by the two-pass route in
-``ops.align``, whose morph entry points raise past the table).
+``ops.align``, whose morph entry points raise past the table).  With the
+template in its split form, ``template_levels(rows, ctas)`` for the
+``ctas`` that :func:`wave_table_ctas` picks, a call runs TABLE on a
+thread-block cluster of that many CTAs a row (launch counters
+``*_cluster``): each CTA owns :func:`cta_lanes` contiguous lanes and a
+score table of only their levels, so templates past one CTA (more than
+1024 lanes, or too many levels) keep the table; the twins read the same
+levels flattened (:func:`flat_levels`).  The column kernel has the same
+two forms (:func:`col_table_ctas`).
 """
 from __future__ import annotations
 
@@ -86,7 +95,17 @@ POW_EXP = float(np.float32(1.2))  # the reference's f32 exponent, widened
 SCORE_COLS = 258
 BIN_NEG, BIN_ZERO = 256, 257
 SMEM_BYTES = 232448  # dynamic shared memory one block may use on sm_90 (227 KB)
-TABLE_MAX_MP = 1024  # TABLE mode runs one thread a template lane
+TABLE_MAX_MP = 1024  # TABLE mode on one CTA runs one thread a template lane
+# TABLE on a thread-block cluster: up to MAX_CTAS CTAs a row (a portable
+# cluster), each of at most MAX_CTA_LANES lanes (one or two a thread in
+# the wave kernel, four in the column kernel), up to 8192 lanes a row.
+# Each CTA's shared memory starts with its boundary ring (the .cu files'
+# RING_FLOATS, in bytes)
+MAX_CTAS = 8
+MAX_CTA_LANES = 2048
+MAX_MP = 8192
+WAVE_RING_BYTES = 640
+COL_RING_BYTES = 784
 
 _DEFAULT_PTR_BUDGET = int(3.5 * (1 << 30))
 _ptr_budget_cache: dict = {}
@@ -147,14 +166,16 @@ def sm_count(device) -> int | None:
 
 
 def kernel_batch(b: int | None = None, n_cols: int | None = None,
-                 mp: int | None = None, device=None, sms: int | None = None) -> int:
+                 mp: int | None = None, device=None, sms: int | None = None,
+                 ctas: int = 1) -> int:
     """Rows per wave call.
 
     Card rule (a CUDA device, or any device when ``sms`` is given): the
-    kernel runs one CTA per row, so a call of up to ``sms`` rows costs
-    its longest row; a call is as wide as the rows it has, rounded up to
-    8, up to the largest multiple of 8 that is at most the SM count (128
-    on an H100's 132 SMs).  CPU rule (the reference's widths, so the
+    kernel runs ``ctas`` CTAs per row (one, or a TABLE cluster's), so a
+    call whose CTAs fit the SMs costs its longest row; a call is as wide
+    as the rows it has, rounded up to 8, up to the largest multiple of 8
+    rows whose CTAs fit the SM count (128 rows of one CTA on an H100's
+    132 SMs, 64 of two).  CPU rule (the reference's widths, so the
     parity tests compare like with like): BATCH_WAVE rows, or only the
     remaining rows rounded up to 8 when fewer.  With ``n_cols``/``mp``
     the width shrinks (never below 8) to keep the pointer plane inside
@@ -163,7 +184,7 @@ def kernel_batch(b: int | None = None, n_cols: int | None = None,
     dev = torch.device(device) if device is not None else torch.device("cpu")
     if sms is None:
         sms = sm_count(dev)
-    cap = BATCH_WAVE if sms is None else max(8, int(sms) // 8 * 8)
+    cap = BATCH_WAVE if sms is None else max(8, int(sms) // int(ctas) // 8 * 8)
     kb = cap if b is None else min(cap, max(8, _round_up(int(b), 8)))
     if n_cols is not None and mp is not None:
         budget = ptr_budget_bytes(dev)
@@ -181,7 +202,30 @@ def score_pow(diff: torch.Tensor) -> torch.Tensor:
     return torch.pow(diff.double(), POW_EXP).float()
 
 
-def template_levels(tmpl) -> tuple[np.ndarray, np.ndarray]:
+def cta_lanes(mp: int, ctas: int) -> int:
+    """Lanes each CTA of a ``ctas``-CTA cluster owns (the last one may
+    own fewer): MP / ctas rounded up to a multiple of 128."""
+    return _round_up(-(-int(mp) // int(ctas)), LANE)
+
+
+def _split_ok(mp: int, ctas: int) -> bool:
+    """A cluster split the kernels take: 2..MAX_CTAS CTAs of at most
+    MAX_CTA_LANES lanes, none of them empty."""
+    mpc = cta_lanes(mp, ctas)
+    return (2 <= ctas <= MAX_CTAS and mp <= MAX_MP and mpc <= MAX_CTA_LANES
+            and (ctas - 1) * mpc < mp)
+
+
+def _distinct_rows(tmpl: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The distinct rows of a 2-D array in first-seen order, and each
+    row's index among them (``np.unique(axis=0)`` sorts the rows as
+    records, slowly enough to show in the host-bound counting passes)."""
+    index: dict = {}
+    inv = np.array([index.setdefault(r.tobytes(), len(index)) for r in tmpl], np.int64)
+    return tmpl[np.unique(inv, return_index=True)[1]], inv
+
+
+def template_levels(tmpl, ctas: int | None = None) -> tuple[np.ndarray, np.ndarray]:
     """A template's distinct values and each lane's index into them.
 
     ``tmpl`` (R, MP) f32 in the lane layout (:func:`pad_template`, one
@@ -189,16 +233,46 @@ def template_levels(tmpl) -> tuple[np.ndarray, np.ndarray]:
     each row's sorted distinct values padded with +1e30 to the longest
     row's count UP; idx (R, MP) int32 with levels[r, idx[r, i]] ==
     tmpl[r, i] for every lane, the +1e30 pad lanes included).
+
+    With ``ctas`` (the split form of a cluster of that many CTAs a row):
+    levels (R, ctas, UP), row r's CTA k's sorted distinct values over its
+    lanes [k MPC, (k+1) MPC) (MPC = :func:`cta_lanes`), padded with +1e30
+    to the largest count UP of any row and CTA; idx (R, MP) the lane's
+    index into its own CTA's values: levels[r, i // MPC, idx[r, i]] ==
+    tmpl[r, i].
     """
     tmpl = np.asarray(tmpl, np.float32)
-    uniq = [np.unique(row, return_inverse=True) for row in tmpl]
-    up = max(len(u) for u, _ in uniq)
-    levels = np.full((len(uniq), up), 1e30, np.float32)
-    idx = np.empty(tmpl.shape, np.int32)
-    for r, (u, inv) in enumerate(uniq):
-        levels[r, : len(u)] = u
-        idx[r] = inv.reshape(-1)
-    return levels, idx
+    if ctas is None:
+        uniq = [np.unique(row, return_inverse=True) for row in tmpl]
+        up = max(len(u) for u, _ in uniq)
+        levels = np.full((len(uniq), up), 1e30, np.float32)
+        idx = np.empty(tmpl.shape, np.int32)
+        for r, (u, inv) in enumerate(uniq):
+            levels[r, : len(u)] = u
+            idx[r] = inv.reshape(-1)
+        return levels, idx
+    mpc = cta_lanes(tmpl.shape[1], ctas)
+    rows, inv_rows = _distinct_rows(tmpl)
+    parts = [[np.unique(row[k * mpc : (k + 1) * mpc], return_inverse=True)
+              for k in range(ctas)] for row in rows]
+    up = max(len(u) for part in parts for u, _ in part)
+    levels = np.full((len(rows), ctas, up), 1e30, np.float32)
+    idx = np.zeros(rows.shape, np.int32)
+    for r, part in enumerate(parts):
+        for k, (u, inv) in enumerate(part):
+            levels[r, k, : len(u)] = u
+            idx[r, k * mpc : k * mpc + inv.size] = inv.reshape(-1)
+    return levels[inv_rows], idx[inv_rows]
+
+
+def flat_levels(levels, lidx):
+    """The split form of :func:`template_levels` as the one-CTA form's
+    layout: levels (R, ctas x UP) and each lane's index into them (its
+    CTA's block of UP).  The twins read the split form through it."""
+    R, ctas, up = levels.shape
+    mp = lidx.shape[1]
+    rank = torch.arange(mp, device=lidx.device) // cta_lanes(mp, ctas)
+    return levels.reshape(R, ctas * up), (lidx + (rank * up).to(lidx.dtype)).to(torch.int32)
 
 
 def score_table(lut, levels, params) -> torch.Tensor:
@@ -218,15 +292,54 @@ def score_table(lut, levels, params) -> torch.Tensor:
                            k["dmin"])
 
 
-def wave_score_mode(n_levels: int, mp: int) -> str:
-    """The score mode of a morph-form wave call: "table" when the
-    template has at most TABLE_MAX_MP lanes and a row's ``n_levels`` x
-    258 f32 table fits one block's shared memory (SMEM_BYTES) behind the
-    kernel's four (MP + 1)-float exchange buffers, else "pow".  The cap
-    is 211 levels at MP 896 (a ``samples=6`` template of the bench's
-    c9orf72 flanks has 119-142) and 209 at MP 1024."""
-    fits = 4 * (4 * (mp + 1) + n_levels * SCORE_COLS) <= SMEM_BYTES
-    return "table" if mp <= TABLE_MAX_MP and fits else "pow"
+def wave_score_mode(n_levels: int, mp: int, ctas: int = 1) -> str:
+    """The score mode of a morph-form wave call of ``ctas`` CTAs a row.
+
+    One CTA: "table" when the template has at most TABLE_MAX_MP lanes
+    and a row's ``n_levels`` x 258 f32 table fits one block's shared
+    memory (SMEM_BYTES) behind the kernel's four (MP + 1)-float exchange
+    buffers, else "pow".  The cap is 211 levels at MP 896 (a
+    ``samples=6`` template of the bench's c9orf72 flanks has 119-142)
+    and 209 at MP 1024.  A cluster (``ctas`` > 1, ``n_levels`` the most
+    any CTA's lanes use): "table" when the split is one the kernel takes
+    (:func:`cta_lanes` <= MAX_CTA_LANES, no CTA empty, MP <= 8192) and
+    the CTA's table fits behind its ring (WAVE_RING_BYTES) and its four
+    (MPC + 1)-float exchange buffers: 206 levels a CTA at MP 2176 on two
+    CTAs of 1152 lanes."""
+    if ctas == 1:
+        fits = 4 * (4 * (mp + 1) + n_levels * SCORE_COLS) <= SMEM_BYTES
+        return "table" if mp <= TABLE_MAX_MP and fits else "pow"
+    fits = (WAVE_RING_BYTES + 4 * (4 * (cta_lanes(mp, ctas) + 1) + n_levels * SCORE_COLS)
+            <= SMEM_BYTES)
+    return "table" if _split_ok(mp, ctas) and fits else "pow"
+
+
+def _cta_level_counts(tmpl, ctas: int) -> int:
+    """The most distinct values any CTA's lanes of any row hold when
+    ``ctas`` CTAs split the (R, MP) template rows."""
+    mpc = cta_lanes(tmpl.shape[1], ctas)
+    return max(len(np.unique(row[k * mpc : (k + 1) * mpc])) for row in tmpl
+               for k in range(ctas))
+
+
+def _table_ctas(tmpl, mode) -> int:
+    tmpl = _distinct_rows(np.asarray(tmpl, np.float32))[0]
+    for ctas in range(1, MAX_CTAS + 1):
+        if ctas > 1 and not _split_ok(tmpl.shape[1], ctas):
+            continue
+        if mode(_cta_level_counts(tmpl, ctas), tmpl.shape[1], ctas) == "table":
+            return ctas
+    return 0
+
+
+def wave_table_ctas(tmpl) -> int:
+    """CTAs a row of the wave kernel's TABLE mode takes for the (R, MP)
+    template rows: 1 where :func:`wave_score_mode` of one CTA says
+    "table" (today's kernel), else the fewest CTAs (2 to MAX_CTAS) whose
+    own levels' tables fit (:func:`wave_score_mode` of that many; a row
+    stream's rows take the most any row needs); 0 when none does (POW).
+    A rule on the template, decided before the launch."""
+    return _table_ctas(tmpl, wave_score_mode)
 
 
 def morph_decode(bins, lut) -> torch.Tensor:
@@ -504,6 +617,18 @@ def _dispatch(signals, tmpl, n_actual, m_rows, params, counter):
     return _wave_plain(signals, tmpl, n_actual, m_rows, params)
 
 
+def _split_args(levels, mp: int) -> list:
+    """UP, per_row, ctas and MPC of a TABLE call's levels: the one-CTA
+    form (R, UP) or the split form (R, ctas, UP)."""
+    ctas = levels.shape[1] if levels.dim() == 3 else 1
+    return [levels.shape[-1], int(levels.shape[0] != 1), ctas, cta_lanes(mp, ctas)]
+
+
+def _table_counter(name: str, levels) -> str:
+    """The launch counter of a TABLE call: one CTA a row, or a cluster."""
+    return name + ("_cluster" if levels.dim() == 3 and levels.shape[1] > 1 else "_table")
+
+
 def _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, counter: str):
     B, N = bins.shape
     mp = lidx.shape[1]
@@ -512,7 +637,7 @@ def _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, counter:
     _launch("wave_table_launch", bins.device,
             (bins, lut, levels, lidx, n_actual.to(torch.int32), m_rows.to(torch.int32), ptr,
              bottom),
-            B, N, mp, levels.shape[1], int(levels.shape[0] != 1), *_param_args(params))
+            B, N, mp, *_split_args(levels, mp), *_param_args(params))
     _build.LAUNCHES[counter] += 1
     return ptr, bottom
 
@@ -532,6 +657,8 @@ def _check_morph(bins, lut, n_actual, levels, lidx, m_rows):
             or lidx.shape[0] not in (1, B) or n_actual.shape != (B,) or m_rows.shape != (B,)):
         raise ValueError("a 256-level lut per row, one template (or one per row), one length "
                          "and one m per row")
+    if levels.dim() not in (2, 3) or (levels.dim() == 3 and not 1 <= levels.shape[1] <= MAX_CTAS):
+        raise ValueError("levels are (R, UP), or (R, ctas, UP) with 1 to 8 CTAs a row")
     for x in (lut, n_actual, levels, lidx, m_rows):
         if x.device != bins.device:
             raise ValueError("all wave inputs must share one device")
@@ -539,7 +666,14 @@ def _check_morph(bins, lut, n_actual, levels, lidx, m_rows):
 
 def _dispatch_morph(bins, lut, n_actual, levels, lidx, m_rows, params, counter):
     """TABLE or POW by :func:`wave_score_mode`, then the kernel (CUDA
-    tensors) or the mode's twin (CPU tensors)."""
+    tensors) or the mode's twin (CPU tensors).  The split form runs
+    TABLE on its cluster (it raises past the table)."""
+    if levels.dim() == 3:
+        _require_table(levels, lidx)
+        if _on_card(bins):
+            return _wave_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params,
+                                    _table_counter(counter, levels))
+        return _wave_table_plain(bins, lut, *flat_levels(levels, lidx), n_actual, m_rows, params)
     if wave_score_mode(levels.shape[1], lidx.shape[1]) == "pow":
         tmpl = levels.gather(1, lidx.to(torch.int64))
         return _dispatch(morph_decode(bins, lut), tmpl, n_actual, m_rows, params, counter)
@@ -586,7 +720,9 @@ def align_forward_wave_morph(bins, lut, n_actual, levels, lidx, params, m_actual
     lidx) = :func:`template_levels` of a (1, MP) template, (1, UP) f32
     and (1, MP) int32.  Runs TABLE mode (launch counter
     ``align_forward_wave_table``) where :func:`wave_score_mode` allows,
-    else POW mode (``align_forward_wave``).
+    else POW mode (``align_forward_wave``).  In the split form,
+    ``template_levels(tmpl, ctas)``, TABLE on a cluster of ``ctas`` CTAs
+    a row (``align_forward_wave_cluster``; raises past its table).
     """
     B = bins.shape[0]
     if lidx.shape[0] != 1 or not 0 < m_actual < lidx.shape[1]:
@@ -601,7 +737,8 @@ def align_forward_wave_multi_morph(bins, lut, n_actual, levels, lidx, m_rows, pa
     """:func:`align_forward_wave_multi` on morph-form reads, a template
     per row: levels (B, UP), lidx (B, MP) from :func:`template_levels`
     of the (B, MP) rows.  TABLE (``align_forward_wave_multi_table``) or
-    POW (``align_forward_wave_multi``) by :func:`wave_score_mode`."""
+    POW (``align_forward_wave_multi``) by :func:`wave_score_mode`; the
+    split form on its cluster (``align_forward_wave_multi_cluster``)."""
     _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
     if lidx.shape[0] != bins.shape[0]:
         raise ValueError("one template row per signal row")
@@ -672,9 +809,8 @@ def _ckpt_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_ste
         "wave_ckpt_table_launch", bins.device,
         (bins, lut, levels, lidx, n_actual.to(torch.int32), m_rows.to(torch.int32),
                bottom, *ckpts),
-        B, nb, nd, mp, levels.shape[1], int(levels.shape[0] != 1), ckpt_steps,
-        *_param_args(params))
-    _build.LAUNCHES["align_forward_ckpt_table"] += 1
+        B, nb, nd, mp, *_split_args(levels, mp), ckpt_steps, *_param_args(params))
+    _build.LAUNCHES[_table_counter("align_forward_ckpt", levels)] += 1
     return bottom, ckpts
 
 
@@ -700,8 +836,8 @@ def _window_table_cuda(bins, lut, t0, state4, cold, steps_needed, levels, lidx, 
         "wave_window_table_launch", bins.device,
         (bins, lut, levels, lidx, t0.to(torch.int32), steps_needed.to(torch.int32),
                *state4, cold.to(torch.int32), ptr),
-        B, nb, W, mp, levels.shape[1], int(levels.shape[0] != 1), *_param_args(params))
-    _build.LAUNCHES["align_window_from_state_table"] += 1
+        B, nb, W, mp, *_split_args(levels, mp), *_param_args(params))
+    _build.LAUNCHES[_table_counter("align_window_from_state", levels)] += 1
     return ptr
 
 
@@ -727,9 +863,13 @@ def _ckpt_stride(nd: int, ckpt_chunks: int) -> int:
 
 
 def _require_table(levels, lidx) -> None:
-    if wave_score_mode(levels.shape[1], lidx.shape[1]) != "table":
-        raise ValueError(f"a template of {levels.shape[1]} levels at MP {lidx.shape[1]} does not "
-                         "fit the score table: run the f32 entry point on lut[bins]")
+    """Raise unless the levels' form fits its TABLE mode: one CTA's
+    (R, UP), or the split form's cluster (R, ctas, UP)."""
+    ctas = levels.shape[1] if levels.dim() == 3 else 1
+    if wave_score_mode(levels.shape[-1], lidx.shape[1], ctas) != "table":
+        raise ValueError(f"a template of {levels.shape[-1]} levels a CTA at MP {lidx.shape[1]} "
+                         f"on {ctas} CTAs does not fit the score table: run the f32 entry point "
+                         "on lut[bins]")
 
 
 def align_forward_ckpt(signals, n_actual, template_padded, params, m_actual,
@@ -767,6 +907,8 @@ def align_forward_ckpt_morph(bins, lut, n_actual, levels, lidx, params, m_actual
     rows, ``m_actual`` as in :func:`align_forward_ckpt`; ``nd`` >= NB + MP
     a multiple of ckpt_chunks*128.  A template past
     :func:`wave_score_mode`'s table raises: the caller decodes to f32.
+    The split form of (levels, lidx) runs on its cluster (launch counter
+    ``align_forward_ckpt_cluster``).
     """
     B, nb = bins.shape
     mp = lidx.shape[1]
@@ -779,6 +921,8 @@ def align_forward_ckpt_morph(bins, lut, n_actual, levels, lidx, params, m_actual
     if _on_card(bins):
         return _ckpt_table_cuda(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps,
                                 nd)
+    if levels.dim() == 3:
+        levels, lidx = flat_levels(levels, lidx)
     return _ckpt_table_plain(bins, lut, levels, lidx, n_actual, m_rows, params, ckpt_steps, nd)
 
 
@@ -822,7 +966,8 @@ def align_window_from_state_morph(bins, lut, t0, state4, cold, steps_needed, lev
     gathered window), with 0.0 on both sides of the read, as the f32
     window's gather fills.  bins (B, NB) u8, lut (B, 256) f32, t0 (B,),
     (levels, lidx) of (1, MP) or (B, MP) template rows; W a multiple of
-    128.  A template past :func:`wave_score_mode`'s table raises.
+    128.  A template past :func:`wave_score_mode`'s table raises.  The
+    split form runs on its cluster (``align_window_from_state_cluster``).
     """
     B = bins.shape[0]
     mp = lidx.shape[1]
@@ -836,6 +981,8 @@ def align_window_from_state_morph(bins, lut, t0, state4, cold, steps_needed, lev
     if _on_card(bins):
         return _window_table_cuda(bins, lut, t0, state4, cold, steps_needed, levels, lidx,
                                   params, W)
+    if levels.dim() == 3:
+        levels, lidx = flat_levels(levels, lidx)
     return _window_table_plain(bins, lut, t0, state4, cold, steps_needed, levels, lidx, params,
                                W)
 
@@ -856,15 +1003,27 @@ def align_window_from_state_morph(bins, lut, t0, state4, cold, steps_needed, lev
 COL_EXCH_FLOATS = 5 * 2 * 32
 
 
-def col_score_mode(n_levels: int, mp: int) -> str:
-    """The score mode of a morph-form column call: "table" when the
-    template has at most TABLE_MAX_MP lanes and a row's ``n_levels`` x
-    258 f32 table fits one block's shared memory (SMEM_BYTES) beside the
-    kernel's COL_EXCH_FLOATS exchange floats, else "pow" (on the decoded
-    f32).  The cap is 224 levels at any MP up to 1024 (a ``samples=6``
-    template of the bench's c9orf72 flanks has 119-142)."""
-    fits = 4 * (COL_EXCH_FLOATS + n_levels * SCORE_COLS) <= SMEM_BYTES
-    return "table" if mp <= TABLE_MAX_MP and fits else "pow"
+def col_score_mode(n_levels: int, mp: int, ctas: int = 1) -> str:
+    """The score mode of a morph-form column call of ``ctas`` CTAs a
+    row: "table" when the template has at most TABLE_MAX_MP lanes (one
+    CTA) or the split is one the kernel takes (a cluster), and the CTA's
+    ``n_levels`` x 258 f32 table fits one block's shared memory
+    (SMEM_BYTES) beside the kernel's COL_EXCH_FLOATS exchange floats
+    (and, on a cluster, its ring: COL_RING_BYTES), else "pow" (on the
+    decoded f32).  The cap is 224 levels at any MP up to 1024 (a
+    ``samples=6`` template of the bench's c9orf72 flanks has 119-142),
+    223 a CTA on a cluster."""
+    ring = COL_RING_BYTES if ctas > 1 else 0
+    fits = ring + 4 * (COL_EXCH_FLOATS + n_levels * SCORE_COLS) <= SMEM_BYTES
+    lanes_ok = mp <= TABLE_MAX_MP if ctas == 1 else _split_ok(mp, ctas)
+    return "table" if lanes_ok and fits else "pow"
+
+
+def col_table_ctas(tmpl) -> int:
+    """CTAs a row of the column kernel's TABLE mode takes for the (1,
+    MP) template, by :func:`col_score_mode`, as :func:`wave_table_ctas`
+    does for the wave kernel; 0 = POW."""
+    return _table_ctas(tmpl, col_score_mode)
 
 
 def _cols_to_run(n_actual, N: int) -> int:
@@ -967,10 +1126,11 @@ def _col_table_cuda(bins, lut, levels, lidx, n_actual, params, m_actual: int):
     mp = lidx.shape[1]
     ptr = torch.empty((N // 8, B, mp), dtype=torch.int32, device=bins.device)
     bottom = torch.empty((B, N), dtype=torch.float32, device=bins.device)
+    up, _, ctas, mpc = _split_args(levels, mp)
     _launch("col_table_launch", bins.device,
             (bins, lut, levels, lidx, n_actual.to(torch.int32), ptr, bottom),
-            B, N, mp, levels.shape[1], int(m_actual), *_param_args(params))
-    _build.LAUNCHES["align_forward_col_table"] += 1
+            B, N, mp, up, ctas, mpc, int(m_actual), *_param_args(params))
+    _build.LAUNCHES[_table_counter("align_forward_col", levels)] += 1
     return ptr, bottom
 
 
@@ -1005,13 +1165,25 @@ def align_forward_col_morph(bins, lut, n_actual, levels, lidx, params, m_actual:
     (levels, lidx) = :func:`template_levels` of a (1, MP) template.  Runs
     the TABLE score mode (launch counter ``align_forward_col_table``)
     where :func:`col_score_mode` allows, else the POW mode on the decoded
-    f32 (``align_forward_col``).
+    f32 (``align_forward_col``).  The split form,
+    ``template_levels(tmpl, ctas)``, runs TABLE on a cluster of ``ctas``
+    CTAs a row (``align_forward_col_cluster``; raises past its table).
     """
     B = bins.shape[0]
     if lidx.shape[0] != 1 or not 0 < m_actual < lidx.shape[1]:
         raise ValueError("align_forward_col_morph takes one (1, MP) template of m < MP samples")
     m_rows = torch.full((B,), int(m_actual), dtype=torch.int32, device=bins.device)
     _check_morph(bins, lut, n_actual, levels, lidx, m_rows)
+    if levels.dim() == 3:
+        ctas = levels.shape[1]
+        if col_score_mode(levels.shape[2], lidx.shape[1], ctas) != "table":
+            raise ValueError(f"a template of {levels.shape[2]} levels a CTA at MP "
+                             f"{lidx.shape[1]} on {ctas} CTAs does not fit the column kernel's "
+                             "score table: run the f32 entry point on lut[bins]")
+        if _on_card(bins):
+            return _col_table_cuda(bins, lut, levels, lidx, n_actual, params, m_actual)
+        return _col_table_plain(bins, lut, *flat_levels(levels, lidx), n_actual, params,
+                                m_actual)
     if col_score_mode(levels.shape[1], lidx.shape[1]) == "pow":
         tmpl = levels.gather(1, lidx.to(torch.int64))
         return align_forward_col(morph_decode(bins, lut), n_actual, tmpl, params, m_actual)

@@ -627,11 +627,11 @@ def test_gpu_counter_routes_match_cpu_counter(cuda_device, model_file, route):
 def test_gpu_flat_read_matches_cpu_counter(cuda_device, model_file, route):
     """A flat read (every sample equal: the prep's level table and flt
     channel are all NaN, on the JAX package's prep too) is gated on every
-    route; its row must be the CPU path's, offset included.  Open fault
-    (ROADMAP Queue 3): the card's alignment kernels take the max of NaN
-    and a number as the number (fmaxf) where the plain twins and the
-    reference propagate the NaN, so the card's gated row ends its prefix
-    elsewhere (offset 449 against 0 on the CPU, NVIDIA H100)."""
+    route; its row must be the CPU path's, offset included.  The card's
+    alignment kernels took the max of NaN and a number as the number
+    (fmaxf) where the plain twins and the reference propagate the NaN, so
+    the card's gated row ended its prefix elsewhere (offset 449 against 0
+    on the CPU, NVIDIA H100); their max is now max.NaN.f32."""
     reads = [np.full(3000, 90.0)]
     out = []
     for dev in (cuda_device, "cpu"):
@@ -849,3 +849,283 @@ def test_gpu_count_cli_matches_cpu(cuda_device, tmp_path):
     for name in ("align_forward_wave_multi_table", "traceback_pointers",
                  "viterbi_forward_factored", "viterbi_backward_batch"):
         assert _build.LAUNCHES[name] > 0, name
+
+
+# ---------------------------------------------------------------------------
+# The TABLE score mode on a thread-block cluster of CTAs a row (past one
+# CTA's table), and NaN level tables (a flat read's) in every alignment
+# kernel
+# ---------------------------------------------------------------------------
+
+# over-the-cap template widths and the CTAs a row the rule gives their
+# samples=6 templates
+CLUSTER_MPS = {1152: 2, 2176: 2, 4096: 4}
+DEFAULT_P = AlignParams()
+
+
+def _overcap_templates(rng, mp):
+    """Two samples=6 templates, the longer one of the longest length that
+    pads to ``mp`` lanes, the other 120 samples shorter."""
+    m = (mp - 2) // 6 * 6
+    return [np.repeat(rng.uniform(60, 120, k // 6), 6).astype(np.float32) for k in (m, m - 120)]
+
+
+def _wave_rows(templates, B, multi):
+    """(tmpl (R, MP), m_rows (B,)) of a shared template or per-row ones."""
+    if multi:
+        rows, ms = TC.pad_template_rows(templates)
+        return np.repeat(rows, B // 2, axis=0), np.repeat(ms, B // 2).astype(np.int32)
+    tp, m = TC.pad_template(templates[0])
+    return tp, np.full(B, m, np.int32)
+
+
+def _equal_nan(a, b):
+    """Equal NaN masks and equal values elsewhere."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+
+
+def _wave_call(b, lt, n, lv, li, m_d, p, multi):
+    if multi:
+        return TC.align_forward_wave_multi_morph(b, lt, n, lv, li, m_d, p)
+    return TC.align_forward_wave_morph(b, lt, n, lv, li, p, int(m_d[0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", list(CLUSTER_MPS))
+@pytest.mark.parametrize("multi", [False, True])
+def test_gpu_cluster_wave_matches_table_twin_and_pow(cuda_device, mp, multi):
+    """Rows 1-2 past one CTA's table: the cluster TABLE mode (the split
+    form of template_levels, the rule's CTAs a row) against the table
+    twin on the same levels, and the POW kernel on lut[bins] against the
+    same twin run: written pointer words and every bottom tap."""
+    rng = np.random.default_rng(900 + mp + multi)
+    B, N = 8, 512
+    templates = _overcap_templates(rng, mp)
+    tmpl, mr = _wave_rows(templates, B, multi)
+    ctas = TC.wave_table_ctas(tmpl)
+    assert tmpl.shape[1] == mp and ctas == CLUSTER_MPS[mp]
+    bins, lut, na = _morph_batch(rng, B, N, [templates[0][:300]] * B)
+    levels, lidx = TC.template_levels(tmpl, ctas)
+    b, lt, n, lv, li, t, m_d = (torch.from_numpy(x).to(cuda_device)
+                                for x in (bins, lut, na, levels, lidx, tmpl, mr))
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    before = dict(_build.LAUNCHES)
+    ptr, bot = _wave_call(b, lt, n, lv, li, m_d, DEFAULT_P, multi)
+    assert _build.LAUNCHES[name + "_cluster"] == before[name + "_cluster"] + 1
+    assert all(_build.LAUNCHES[k] == before[k] for k in (name, name + "_table"))
+    s = TC.morph_decode(b, lt)
+    if multi:
+        ptr_k, bot_k = TC.align_forward_wave_multi(s, n, t, m_d, DEFAULT_P)
+    else:
+        ptr_k, bot_k = TC.align_forward_wave(s, n, t, DEFAULT_P, int(mr[0]))
+    ptr_p, bot_p = TC._wave_table_plain(b, lt, *TC.flat_levels(lv, li), n, m_d, DEFAULT_P)
+    mask = _valid_words(n, m_d, ptr.shape[0])
+    for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
+        assert torch.equal(got_ptr[mask], ptr_p[mask])
+        assert torch.equal(got_bot, bot_p)
+
+
+def _two_pass_inputs(rng, mp, B=8, N=1024):
+    """Morph reads of both over-the-cap flanks as per-row templates (the
+    two-pass route's row stream): (bins, lut, na, tmpl rows, lengths)."""
+    templates = _overcap_templates(rng, mp)
+    tmpl, mr = _wave_rows(templates, B, True)
+    bins, lut, na = _morph_batch(rng, B, N, [templates[i % 2][:200] for i in range(B)])
+    return bins, lut, na, tmpl, mr
+
+
+def _check_two_pass_cluster(dev, bins, lut, na, tmpl, mr, p, ctas, expect_nan=False):
+    """Pass 1 and pass 2 in the TABLE mode of ``ctas`` CTAs a row (a
+    cluster past one) against their table twins and the POW kernels on
+    lut[bins]: bottom taps, written checkpoint slots (equal NaN masks
+    where ``expect_nan``), written pointer words of every window."""
+    b, lt, n = (torch.from_numpy(x).to(dev) for x in (bins, lut, na))
+    form = "_cluster" if ctas > 1 else "_table"
+    before = dict(_build.LAUNCHES)
+    st = TA._pass1_rows(b, n, tmpl, mr, p, 512, lt, ctas)
+    st_k = TA._pass1_rows(TC.morph_decode(b, lt), n, tmpl, mr, p, 512)
+    assert (_build.LAUNCHES["align_forward_ckpt" + form]
+            == before["align_forward_ckpt" + form] + 1)
+    nd = st["N"] + st["mp"]
+    m_rows = torch.from_numpy(mr).to(dev)
+    flat = (TC.flat_levels(st["levels"], st["lidx"]) if ctas > 1
+            else (st["levels"], st["lidx"]))
+    bot_p, ck_p = TC._ckpt_table_plain(b, lt, *flat, n, m_rows, p, st["ckpt_steps"], nd)
+    stop = torch.clamp_max((n.long() + m_rows.long() + 7) // 8 * 8, nd)
+    g = torch.arange(nd // st["ckpt_steps"], device=dev)[:, None]
+    mask = (g + 1) * st["ckpt_steps"] <= stop[None, :]
+    eq = _equal_nan if expect_nan else torch.equal
+    for other_bot, other_ck in ((bot_p, ck_p), (st_k["bottom_steps"], st_k["ckpts"])):
+        assert eq(st["bottom_steps"], other_bot)
+        for a, c in zip(st["ckpts"], other_ck):
+            assert eq(a[mask], c[mask])
+    w = TA.window_inputs(st)
+    w_k = TA.window_inputs(st_k)
+    args = (w["t0"], w["state4"], w["cold"], w["steps_needed"], st["levels"], st["lidx"], p)
+    ptr = TC.align_window_from_state_morph(b, lt, *args, st["m"], st["W"])
+    assert (_build.LAUNCHES["align_window_from_state" + form]
+            == before["align_window_from_state" + form] + 1)
+    ptr_p = TC._window_table_plain(b, lt, w["t0"], w["state4"], w["cold"], w["steps_needed"],
+                                   *flat, p, st["W"])
+    ptr_k = TC.align_window_from_state(w_k["sig_win"], w_k["r_init"], w["state4"], w["cold"],
+                                       w["steps_needed"], st_k["tmpl"], p, st["m"])
+    words = _valid_words(w["steps_needed"], torch.zeros_like(n), ptr.shape[0])
+    assert torch.equal(ptr[words], ptr_p[words])
+    assert torch.equal(ptr[words], ptr_k[words])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", list(CLUSTER_MPS))
+def test_gpu_cluster_ckpt_and_window_match_table_twin_and_pow(cuda_device, mp):
+    """Rows 5-6 past one CTA's table, both flanks as per-row templates:
+    the cluster TABLE modes against their table twins and the POW
+    kernels, bit for bit."""
+    bins, lut, na, tmpl, mr = _two_pass_inputs(np.random.default_rng(910 + mp), mp)
+    ctas = TC.wave_table_ctas(tmpl)
+    assert ctas == CLUSTER_MPS[mp]
+    _check_two_pass_cluster(cuda_device, bins, lut, na, tmpl, mr, STEEP, ctas)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", list(CLUSTER_MPS))
+def test_gpu_cluster_col_matches_table_twin_and_pow(cuda_device, mp):
+    """Row 8 past one CTA's table: the column kernel's cluster TABLE mode
+    against the table twin, and its POW mode on lut[bins] against the
+    same twin run."""
+    rng = np.random.default_rng(920 + mp)
+    B, N = 8, 512
+    template = _overcap_templates(rng, mp)[0]
+    tp, m = TC.pad_template(template)
+    ctas = TC.col_table_ctas(tp)
+    assert ctas >= 2
+    bins, lut, na = _morph_batch(rng, B, N, [template[:300]] * B)
+    levels, lidx = TC.template_levels(tp, ctas)
+    b, lt, n, lv, li, t = (torch.from_numpy(x).to(cuda_device)
+                           for x in (bins, lut, na, levels, lidx, tp))
+    before = dict(_build.LAUNCHES)
+    ptr, bot = TC.align_forward_col_morph(b, lt, n, lv, li, DEFAULT_P, m)
+    assert _build.LAUNCHES["align_forward_col_cluster"] == before["align_forward_col_cluster"] + 1
+    ptr_k, bot_k = TC.align_forward_col(TC.morph_decode(b, lt), n, t, DEFAULT_P, m)
+    ptr_p, bot_p = TC._col_table_plain(b, lt, *TC.flat_levels(lv, li), n, DEFAULT_P, m)
+    mask = _valid_words(n, torch.zeros_like(n), ptr.shape[0])
+    for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
+        assert torch.equal(got_ptr[mask], ptr_p[mask])
+        assert torch.equal(got_bot, bot_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 6, 20])
+def test_gpu_cluster_sweep_corner_matches_twin(cuda_device, k):
+    """Three AlignParams sweep corners (``synthetic.sweep_cases``: the
+    curve at dist_min 8, steep h gaps, a seeded draw) at MP 2176: rows 1
+    and 8 in the cluster TABLE mode against their table twins, and rows
+    5-6 where a span bound exists."""
+    from strique_tpu_torch.synthetic import sweep_cases
+
+    p = sweep_cases()[k][0]
+    rng = np.random.default_rng(930 + k)
+    B, N = 8, 512
+    template = _overcap_templates(rng, 2176)[0]
+    tp, m = TC.pad_template(template)
+    bins, lut, na = _morph_batch(rng, B, N, [template[:300]] * B)
+    b, lt, n = (torch.from_numpy(x).to(cuda_device) for x in (bins, lut, na))
+    m_d = torch.full((B,), m, dtype=torch.int32, device=cuda_device)
+    for ctas_of, run, twin in (
+            (TC.wave_table_ctas, lambda lv, li: TC.align_forward_wave_morph(b, lt, n, lv, li, p, m),
+             lambda lv, li: TC._wave_table_plain(b, lt, lv, li, n, m_d, p)),
+            (TC.col_table_ctas, lambda lv, li: TC.align_forward_col_morph(b, lt, n, lv, li, p, m),
+             lambda lv, li: TC._col_table_plain(b, lt, lv, li, n, p, m))):
+        ctas = ctas_of(tp)
+        assert ctas >= 2
+        lv, li = (torch.from_numpy(x).to(cuda_device) for x in TC.template_levels(tp, ctas))
+        got, ref = run(lv, li), twin(*TC.flat_levels(lv, li))
+        zero = torch.zeros_like(n) if ctas_of is TC.col_table_ctas else m_d
+        mask = _valid_words(n, zero, got[0].shape[0])
+        assert torch.equal(got[0][mask], ref[0][mask]) and torch.equal(got[1], ref[1])
+    if TC.wave_span_bound_steps(p, m) is not None:
+        bins2, lut2, na2, tmpl, mr = _two_pass_inputs(rng, 2176)
+        _check_two_pass_cluster(cuda_device, bins2, lut2, na2, tmpl, mr, p,
+                                TC.wave_table_ctas(tmpl))
+
+
+def _nan_row(lut):
+    """Row 0's level table all NaN, as the prep gives a flat read's."""
+    lut = lut.copy()
+    lut[0] = np.nan
+    return lut
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["table", "pow", "cluster"])
+@pytest.mark.parametrize("kernel", ["wave", "wave_multi", "two_pass", "col"])
+def test_gpu_nan_lut_row_matches_twin(cuda_device, kernel, mode):
+    """A read whose level table is all NaN (a flat read's) in rows 1, 2,
+    5-6 and 8, in the TABLE (one CTA, or a cluster) and POW modes: the
+    kernel against its twin, equal NaN masks and equal values elsewhere
+    in the bottom taps (and written checkpoint slots), equal written
+    pointer words.  The reference propagates the NaN through its maxes
+    (jnp.maximum); so do the kernels and the twins."""
+    rng = np.random.default_rng(940)
+    B, N = 8, 512
+    if mode == "cluster":
+        templates = _overcap_templates(rng, 1152)
+    else:
+        templates = [np.repeat(rng.uniform(60, 120, k), 6).astype(np.float32) for k in (7, 5)]
+    if kernel == "two_pass":
+        bins, lut, na, tmpl, mr = _two_pass_inputs(rng, 1152) if mode == "cluster" else (
+            *_morph_batch(rng, B, 1024, [templates[i % 2] for i in range(B)]),
+            *_wave_rows(templates, B, True))
+        lut = _nan_row(lut)
+        if mode == "pow":
+            s = TC.morph_decode(*(torch.from_numpy(x).to(cuda_device) for x in (bins, lut)))
+            n = torch.from_numpy(na).to(cuda_device)
+            st = TA._pass1_rows(s, n, tmpl, mr, STEEP, 512)
+            m_rows = torch.from_numpy(mr).to(cuda_device)
+            bot_p, ck_p = TC._ckpt_plain(st["sig"], st["tmpl"], n, m_rows, STEEP,
+                                         st["ckpt_steps"])
+            assert _equal_nan(st["bottom_steps"], bot_p)
+            assert torch.isnan(st["bottom_steps"][0]).any()
+            w = TA.window_inputs(st)
+            args = (w["sig_win"], w["r_init"], w["state4"], w["cold"], w["steps_needed"],
+                    st["tmpl"], STEEP)
+            ptr, ptr_p = TC.align_window_from_state(*args, st["m"]), TC._window_plain(*args)
+            words = _valid_words(w["steps_needed"], torch.zeros_like(n), ptr.shape[0])
+            assert torch.equal(ptr[words], ptr_p[words])
+            return
+        _check_two_pass_cluster(cuda_device, bins, lut, na, tmpl, mr, STEEP,
+                                TC.wave_table_ctas(tmpl), expect_nan=True)
+        return
+    multi = kernel == "wave_multi"
+    tmpl, mr = _wave_rows(templates, B, multi)
+    bins, lut, na = _morph_batch(rng, B, N, [templates[0][:200]] * B)
+    lut = _nan_row(lut)
+    ctas = (TC.col_table_ctas if kernel == "col" else TC.wave_table_ctas)(tmpl)
+    assert ctas == (1 if mode != "cluster" else 2)
+    levels, lidx = TC.template_levels(tmpl, ctas if mode == "cluster" else None)
+    b, lt, n, lv, li, t, m_d = (torch.from_numpy(x).to(cuda_device)
+                                for x in (bins, lut, na, levels, lidx, tmpl, mr))
+    flat = TC.flat_levels(lv, li) if mode == "cluster" else (lv, li)
+    m = int(mr[0])
+    if kernel == "col":
+        zero = torch.zeros_like(n)
+        if mode == "pow":
+            got = TC.align_forward_col(TC.morph_decode(b, lt), n, t, DEFAULT_P, m)
+            ref = TC._col_plain(TC.morph_decode(b, lt), t, n, DEFAULT_P, m)
+        else:
+            got = TC.align_forward_col_morph(b, lt, n, lv, li, DEFAULT_P, m)
+            ref = TC._col_table_plain(b, lt, *flat, n, DEFAULT_P, m)
+        mask = _valid_words(n, zero, got[0].shape[0])
+    else:
+        if mode == "pow":
+            s = TC.morph_decode(b, lt)
+            got = (TC.align_forward_wave_multi(s, n, t, m_d, DEFAULT_P) if multi
+                   else TC.align_forward_wave(s, n, t, DEFAULT_P, m))
+            ref = TC._wave_plain(s, t, n, m_d, DEFAULT_P)
+        else:
+            got = _wave_call(b, lt, n, lv, li, m_d, DEFAULT_P, multi)
+            ref = TC._wave_table_plain(b, lt, *flat, n, m_d, DEFAULT_P)
+        mask = _valid_words(n, m_d, got[0].shape[0])
+    assert torch.isnan(got[1][0]).any()
+    assert torch.equal(got[0][mask], ref[0][mask])
+    assert _equal_nan(got[1], ref[1])

@@ -32,6 +32,7 @@ from strique_tpu.ops import align_pallas as JP
 from strique_tpu_torch import _build
 from strique_tpu_torch.ops import align as TA
 from strique_tpu_torch.ops import align_cuda as TC
+from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.synthetic import quantise
 from tests.test_torch_align import FIELDS, PARAMS, _assert_align_equal, _valid_words
 
@@ -234,19 +235,25 @@ def test_score_table_matches_numpy_every_pair(pi):
 
 @pytest.mark.parametrize("mp", [256, 896, 2176])
 def test_score_mode_rule_at_the_cap(mp, monkeypatch):
-    """TABLE up to the shared-memory cap (the table behind the four
-    (MP + 1)-float exchange buffers) at MP <= 1024, POW one level past
-    it, and POW at any level count past 1024 lanes; the CPU wrapper runs
-    the chosen mode's twin, and both give the table twin's planes."""
+    """TABLE on one CTA up to the shared-memory cap (the table behind the
+    four (MP + 1)-float exchange buffers) at MP <= 1024, POW one level
+    past it in the one-CTA form; past 1024 lanes one CTA runs POW at any
+    level count, and the template's rule gives 2 CTAs a row: its split
+    form runs the TABLE mode on that cluster.  The CPU wrapper runs the
+    chosen mode's twin, and each gives the one-CTA table twin's planes."""
     if mp <= TC.TABLE_MAX_MP:
         cap = (TC.SMEM_BYTES // 4 - 4 * (mp + 1)) // TC.SCORE_COLS
         assert cap == {256: 221, 896: 211}[mp]
         assert 4 * (4 * (mp + 1) + cap * 258) <= 232448 < 4 * (4 * (mp + 1) + (cap + 1) * 258)
         cases = ((cap, "table"), (cap + 1, "pow"))
     else:
-        cases = ((9, "pow"),)
+        assert TC.wave_score_mode(9, mp) == "pow"
+        cases = ((9, "cluster"),)
     for n_lv, mode in cases:
-        assert TC.wave_score_mode(n_lv, mp) == mode
+        if mode == "cluster":
+            assert TC.wave_score_mode(n_lv, mp, 2) == "table"
+        else:
+            assert TC.wave_score_mode(n_lv, mp) == mode
     called = []
     real_table, real_pow = TC._wave_table_plain, TC._wave_plain
     monkeypatch.setattr(TC, "_wave_table_plain",
@@ -255,16 +262,182 @@ def test_score_mode_rule_at_the_cap(mp, monkeypatch):
     rng = np.random.default_rng(860)
     bins, lut, na, _, _ = _morph_reads(861)
     na = np.minimum(na, 200).astype(np.int32)
-    for n_lv, _ in cases:
+    for n_lv, mode in cases:
         # n_lv - 1 distinct values (the +1e30 pad is a level too), m = MP - 1
         vals = np.linspace(60, 120, n_lv - 1).astype(np.float32)
         tp, m = TC.pad_template(rng.permutation(np.resize(vals, mp - 1)))
         levels, lidx = TC.template_levels(tp)
         assert tp.shape[1] == mp and levels.shape[1] == n_lv
-        out = TC.align_forward_wave_morph(*_t(bins, lut, na, levels, lidx), PARAMS[0], m)
         ref = real_table(*_t(bins, lut, levels, lidx, na), torch.full((B,), m), PARAMS[0])
+        if mode == "cluster":
+            assert TC.wave_table_ctas(tp) == 2
+            levels, lidx = TC.template_levels(tp, 2)
+            assert levels.shape == (1, 2, n_lv)  # every CTA's lanes hold every value
+        out = TC.align_forward_wave_morph(*_t(bins, lut, na, levels, lidx), PARAMS[0], m)
         assert all(torch.equal(a, b) for a, b in zip(out, ref))
-    assert called == [mode for _, mode in cases]
+    assert called == ["table" if mode == "cluster" else mode for _, mode in cases]
+
+
+def _cycled_template(mp: int, n_vals: int, seed: int):
+    """A (1, MP) template filling every lane but lane 0 with ``n_vals``
+    values cycled in a shuffled order: every CTA of any split sees all of
+    them, so each CTA's level count is n_vals (+1 in CTA 0, the +1e30 of
+    lane 0)."""
+    vals = np.random.default_rng(seed).permutation(np.linspace(60, 120, n_vals))
+    tp, _ = TC.pad_template(np.resize(vals, mp - 1).astype(np.float32))
+    assert tp.shape[1] == mp
+    return tp
+
+
+@pytest.mark.parametrize("mp", [1152, 2176, 4096])
+def test_cluster_rule_at_each_cap(mp):
+    """The CTAs a row of the wave and column kernels' TABLE mode past one
+    CTA: the fewest CTAs (of the splits the kernels take: 2 to 8 CTAs of
+    at most 2048 lanes, none empty) whose per-CTA tables fit.  Wave: a
+    CTA's exchange buffers shrink with its lanes, so each split has a
+    larger cap; at each split's cap the rule gives that split, one level
+    more the next split, and past the last one (at most 8 CTAs) POW.
+    Column: one cap (223 levels a CTA) for every split; a template whose
+    every CTA holds more runs POW, and one whose levels spread over its
+    lanes takes the fewest CTAs that bring each CTA's share under it."""
+    for ctas_of, mode, ring, exch in (
+            (TC.wave_table_ctas, TC.wave_score_mode, TC.WAVE_RING_BYTES, None),
+            (TC.col_table_ctas, TC.col_score_mode, TC.COL_RING_BYTES, TC.COL_EXCH_FLOATS)):
+        splits = [c for c in range(2, 9) if TC._split_ok(mp, c)]
+        assert splits and splits[-1] <= TC.MAX_CTAS
+        caps = []
+        for c in splits:
+            mpc = TC.cta_lanes(mp, c)
+            assert mpc % 128 == 0 and mpc <= 2048 and (c - 1) * mpc < mp <= c * mpc
+            fixed = 4 * (mpc + 1) if exch is None else exch
+            cap = ((TC.SMEM_BYTES - ring) // 4 - fixed) // TC.SCORE_COLS
+            assert mode(cap, mp, c) == "table" and mode(cap + 1, mp, c) == "pow"
+            caps.append(cap)
+        assert mode(caps[0], mp) == "pow"  # one CTA never past 1024 lanes
+        if exch is None:
+            assert caps == sorted(set(caps))  # fewer lanes a CTA: a larger cap
+            for k, (c, cap) in enumerate(zip(splits, caps)):
+                # cap levels a CTA: cap - 1 values and lane 0's +1e30
+                assert ctas_of(_cycled_template(mp, cap - 1, mp + c)) == c
+                nxt = splits[k + 1] if k + 1 < len(splits) else 0
+                assert ctas_of(_cycled_template(mp, cap, mp + c)) == nxt
+        else:
+            assert set(caps) == {223}
+            assert ctas_of(_cycled_template(mp, 222, mp)) == 2
+            assert ctas_of(_cycled_template(mp, 223, mp)) == 0
+            # distinct values in runs of 4 lanes: MPC / 4 levels a CTA (+1)
+            for c, cap in zip(splits, caps):
+                mpc = TC.cta_lanes(mp, c)
+                runs = np.repeat(np.linspace(60, 120, mp // 4), 4)[: mp - 1]
+                tp, _ = TC.pad_template(runs.astype(np.float32))
+                want = next(k for k in splits if TC.cta_lanes(mp, k) // 4 + 1 <= cap)
+                if mpc // 4 + 1 <= cap:
+                    assert ctas_of(tp) == want
+    # pinned: two CTAs of 1152 lanes at MP 2176 (phase 4e's template)
+    assert TC.cta_lanes(2176, 2) == 1152
+    assert TC.wave_score_mode(206, 2176, 2) == "table" != TC.wave_score_mode(207, 2176, 2)
+    assert TC.col_score_mode(223, 2176, 2) == "table" != TC.col_score_mode(224, 2176, 2)
+    assert not TC._split_ok(2176, 7) and not TC._split_ok(8320, 8)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("ctas", [2, 3])
+def test_template_levels_split_form_rebuilds_every_lane(per_row, ctas):
+    """The split form: each CTA's sorted distinct values over its own
+    lanes (+1e30 padded to the largest count), each lane's index into its
+    CTA's values, and the twins' flattened form, every lane rebuilt."""
+    rng = np.random.default_rng(845 + per_row)
+    t_pre = np.repeat(rng.uniform(60, 120, 362), 6).astype(np.float32)
+    t_suf = np.repeat(rng.uniform(60, 120, 300), 6).astype(np.float32)
+    if per_row:
+        rows, _ = TC.pad_template_rows([t_pre, t_suf])
+        tmpl = np.repeat(rows, [3, 5], axis=0)
+    else:
+        tmpl, _ = TC.pad_template(t_pre)
+    mp = tmpl.shape[1]
+    mpc = TC.cta_lanes(mp, ctas)
+    levels, lidx = TC.template_levels(tmpl, ctas)
+    assert levels.dtype == np.float32 and lidx.dtype == np.int32
+    assert levels.shape[:2] == (tmpl.shape[0], ctas) and lidx.shape == tmpl.shape
+    rank = np.arange(mp) // mpc
+    rows_i = np.arange(tmpl.shape[0])[:, None]
+    np.testing.assert_array_equal(levels[rows_i, rank[None, :], lidx], tmpl)
+    for r in range(tmpl.shape[0]):
+        for k in range(ctas):
+            u = np.unique(tmpl[r, k * mpc : (k + 1) * mpc])
+            np.testing.assert_array_equal(levels[r, k, : len(u)], u)
+            assert (levels[r, k, len(u) :] == np.float32(1e30)).all()
+    assert levels.shape[2] < TC.template_levels(tmpl)[0].shape[1]  # a CTA holds fewer
+    flat_lv, flat_li = TC.flat_levels(*_t(levels, lidx))
+    assert flat_lv.shape == (tmpl.shape[0], ctas * levels.shape[2])
+    np.testing.assert_array_equal(flat_lv.gather(1, flat_li.long()).numpy(), tmpl)
+
+
+@pytest.mark.parametrize("ctas", [1, 2, 3, 8])
+def test_call_widths_count_ctas(ctas):
+    """On the card's rule a call's rows times its CTAs a row fit the SM
+    count (132 on an H100): 128 rows of one CTA, 64 of two, 40 of three,
+    16 of eight; the pointer budget still narrows a call; two-pass groups
+    and flank fusion follow the same widths."""
+    want = {1: 128, 2: 64, 3: 40, 8: 16}[ctas]
+    assert TC.kernel_batch(200, device="cpu", sms=132, ctas=ctas) == want
+    assert want * ctas <= 132
+    assert TC.kernel_batch(12, device="cpu", sms=132, ctas=ctas) == 16
+    assert TC.kernel_batch(200, device="cpu", ctas=ctas) == TC.BATCH_WAVE  # CPU rule
+    assert TC.kernel_batch(200, n_cols=2432 * 64, mp=2176, device="cpu", sms=132,
+                           ctas=ctas) == min(want, 16)
+    w, mp = 6016, 2176
+    assert TA.two_pass_group(200, mp, w, "cpu", sms=132, ctas=ctas) == want
+    assert TA.two_pass_group(200, mp, w, "cpu", ctas=ctas) == 8  # CPU rule
+    assert TA.fuse_flanks(want // 2, 4096, mp, "cpu", sms=132, ctas=ctas)
+    assert not TA.fuse_flanks(want // 2 + 8, 4096, mp, "cpu", sms=132, ctas=ctas)
+
+
+def _overcap_batch(seed, mp=1152):
+    """Morph reads and a samples=6 template padding to ``mp`` lanes (past
+    one CTA), a slice of it planted in every read."""
+    rng = np.random.default_rng(seed)
+    template = np.repeat(rng.uniform(60, 120, (mp - 2) // 6), 6).astype(np.float32)
+    lut = np.sort(rng.uniform(50, 130, (B, 256)), axis=1).astype(np.float32)
+    sig = rng.uniform(60, 120, (B, N))
+    for i in range(B):
+        sig[i, 40 + 20 * i : 160 + 20 * i] = template[300:420] + rng.normal(0, 0.5, 120)
+    bins = np.abs(sig[:, :, None] - lut[:, None, :]).argmin(axis=2).astype(np.uint8)
+    na = rng.integers(300, N + 1, B).astype(np.int32)
+    return bins, lut, na, template
+
+
+@pytest.mark.parametrize("route", ["wave", "two_pass", "col"])
+def test_overcap_morph_core_keeps_bins(route, monkeypatch):
+    """align_core on morph input past one CTA's table (MP 1152) keeps its
+    bins on every route: the wave and column routes' split-form twins
+    (the clusters' TABLE mode) and, past the pointer budget, rows 5-6's;
+    nothing decodes lut[bins], and the outputs equal the f32 route's
+    (POW) exactly."""
+    bins, lut, na, template = _overcap_batch(885)
+    tp, _ = TC.pad_template(template)
+    assert tp.shape[1] == 1152 and TC.wave_table_ctas(tp) == TC.col_table_ctas(tp) == 2
+    b_t, l_t, n_t = _t(bins, lut, na)
+    p = AlignParams(gap_open_h=-16.0, gap_extension_h=-16.0, gap_open_v=-0.5,
+                    gap_extension_v=-0.5)  # steep h gaps: a short two-pass window
+    if route == "col":
+        monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
+    elif route == "two_pass":
+        monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
+    ref = TA.align_core(TC.morph_decode(b_t, l_t), n_t, template, p)
+    ran = []
+    monkeypatch.setattr(TA, "morph_decode", lambda *a: ran.append("decode") or TC.morph_decode(*a))
+    for name in ("_wave_table_plain", "_ckpt_table_plain", "_window_table_plain",
+                 "_col_table_plain", "flat_levels"):
+        real = getattr(TC, name)
+        monkeypatch.setattr(TC, name, lambda *a, _n=name, _f=real: ran.append(_n) or _f(*a))
+    got = TA.align_core(b_t, n_t, template, p, lut=l_t)
+    assert ran == {"wave": ["flat_levels", "_wave_table_plain"],
+                   "col": ["flat_levels", "_col_table_plain"],
+                   "two_pass": ["flat_levels", "_ckpt_table_plain", "flat_levels",
+                                "_window_table_plain"]}[route]
+    for k in FIELDS:
+        assert torch.equal(ref[k], got[k]), k
 
 
 def test_kernel_batch_card_rule():
