@@ -20,9 +20,14 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    each mode's ms and us per diagonal step.  The score-mode rule is held
    in every direction (at one CTA's shared-memory cap at MP 256, past
    1024 lanes, the cluster's split form at both, and POW past every
-   cluster's table at MP 2176), each call against the table twin; row 1 also runs at the
-   ultra-long one-pass shape (8 rows, the bucket's N), TABLE against POW
-   on the decoded f32.  The two-pass kernels (rows 5-6) run on morph-form
+   cluster's table at MP 2176), each call against the table twin; every
+   CTA count the launch plan can pick at MP 896 and 2176
+   (``check_plan_ctas``: rows 1-2, 5 and 6 with a NaN level-table row,
+   against one twin run each); rows 1-2 also run at the ultra-long
+   calls' shapes (8 rows, the bucket's N: row 1 as the one-pass route
+   launches it, row 2 as phase 4i's fused call of 4 reads), each on the
+   CTAs a row the launch plan gives it, TABLE against POW on the decoded
+   f32.  The two-pass kernels (rows 5-6) run on morph-form
    reads at N=4096, M=42, ckpt_steps 512 (cold and warm windows) and
    at the bench templates, N=24576, ckpt_steps 16384, each with one
    template over 8 rows and with both flanks as per-row templates over
@@ -30,8 +35,9 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    modes against the table twins, their POW modes on the decoded f32
    against the same twin runs; bottom taps, written checkpoint slots
    and written pointer words equal; ms and us per step of each mode.
-   Row 5 also runs at the ultra-long shape (8 and 64 rows, the bucket's
-   N), TABLE against POW.  The Viterbi pair
+   Rows 5-6 also run at the ultra-long two-pass route's groups (8, 16
+   and 32 rows of both flanks, the bucket's N), each on the plan's CTAs
+   a row, TABLE against POW.  The Viterbi pair
    also runs at the ultra-long segment length (B=8, T 55296).  The
    column-sweep kernel runs on morph-form reads at the small and bench
    shapes (64 rows, N 24576, MP 896): its TABLE score mode against the
@@ -83,25 +89,30 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
 4b. The ultra-long route: 8 noisy '+' reads of ~1.1M samples with 1200
    units through the same counter, once with ``STRIQUE_PTR_BUDGET_GB=2``
    (the bucket's ~4.7 GB width-8 plane does not fit: the two-pass
-   kernels run in the TABLE mode alone, pass 1 of both flanks in one
-   16-row launch, and the one-pass wave kernel must not) and once with 8
-   (the one-pass route at 8 rows a call, one call per flank, TABLE mode).
-   Counts 8/8 exact on both routes, and the two routes' result tuples
-   equal.  Print each route's seconds.
+   kernels run in the TABLE mode alone, on one CTA or on the cluster
+   ``wave_launch_plan`` gives these 16-row calls, pass 1 of both flanks
+   in one 16-row launch, and the one-pass wave kernel must not) and once
+   with 8 (the one-pass route at 8 rows a call, one call per flank,
+   TABLE mode).  Counts 8/8 exact on both routes, and the two routes'
+   result tuples equal.  Print each route's seconds and each wave call's
+   plan (rows, CTAs a row) with its ms and us a step.
 4e. A target whose flanks are 200 bases longer each (MP 2176: more
    lanes than one CTA runs, and more levels than one CTA's table holds;
-   the TABLE mode on a thread-block cluster of 2 CTAs a row, each with a
-   table of its own lanes' levels): both wave calls held to the table
-   twin in the one-CTA form (POW) and the split form (the cluster), 16
-   rows, N 4096; rows 5-6 with both flanks as per-row templates, the
-   cluster and POW modes against their twins (16 rows, N 4096); then at
-   the shapes the runs launch, the cluster mode against the POW mode on
-   the decoded f32, timed in turns (POW, cluster, cluster, POW): row 8
-   and row 1 at 64 rows of the '+' reads' bucket and row 2 at 48 rows
-   (each also against its table twin), rows 5-6 at 8-row groups.  Then
-   72 '+' and 24 '-' reads count exactly through the cluster TABLE mode
-   alone (row 1: 64 + 8 rows a flank, as many rows as their CTAs fit
-   the SMs; row 2: one fused 48-row call), the 72 '+' reads again under
+   the TABLE mode on a thread-block cluster of CTAs a row, each with a
+   table of its own lanes' levels, as many CTAs as ``wave_launch_plan``
+   gives each call): both wave calls held to the table twin in the
+   one-CTA form (POW) and the split form (the cluster), 16 rows, N 4096;
+   rows 5-6 with both flanks as per-row templates, the cluster and POW
+   modes against their twins (16 rows, N 4096); then at the plan's
+   shapes of the runs, the cluster mode against the POW mode on the
+   decoded f32, timed in turns (POW, cluster, cluster, POW): row 8 at 64
+   rows of the '+' reads' bucket, row 1 at the plan's first '+' call,
+   row 2 at 48 rows (each also against its table twin), rows 5-6 at the
+   plan's two-pass groups, and every other '+' call (the 8-row tails,
+   the suffix flank's calls) at its own rows and CTAs, once each.  Then 72 '+' and 24 '-' reads count exactly
+   through the cluster TABLE mode alone (row 1: each flank's calls as
+   the plan gives them; row 2: one fused 48-row call), each call's plan
+   and us a step printed, the 72 '+' reads again under
    ``STRIQUE_PTR_BUDGET_GB=0.1`` (the two-pass route, rows 5-6 on the
    cluster) and the first 64 under ``STRIQUE_ALIGN_KERNEL=col`` (row 8
    on the cluster), each with the one-pass run's tuples and no POW
@@ -656,48 +667,88 @@ def check_mode_rule(params, rng) -> None:
     hold_morph((t,), False, 8, 2560, params, rng, "pow", "score mode rule (past every cluster)")
 
 
-def check_wave_ultra(template, B, N, params, rng, results) -> None:
-    """Row 1 at the ultra-long one-pass route's shape (8 rows of the
-    bucket's N, one flank): the TABLE-mode kernel against the POW-mode
-    kernel on the decoded f32, written pointer words equal and bottom
-    max_abs_err 0.  (The twin would take minutes here; POW is held to it
-    at the small and bench shapes.)"""
-    import torch
-
+def hold_plan_call(templates, multi, B, N, params, rng, ctas, label, n_lo=None):
+    """One morph-form wave call of row 1 (``templates`` of one) or row 2
+    (``multi``: both flanks as per-row templates) at a launch plan's
+    (CTAs a row, rows): the TABLE mode on ``ctas`` CTAs a row (the split
+    form of the levels past one) against the POW mode on the decoded
+    f32, written pointer words equal and bottom max_abs_err 0, one call
+    each, timed.  For shapes where the twin would take minutes: POW is
+    held to it at the small, bench and over-the-cap shapes.  The launches
+    count toward no path.  Returns (pointers, bottom, m_rows)."""
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align_cuda as AC
 
-    (levels, _, tmpl, _, _), dev_in = wave_inputs((template,), False, B, N, rng,
-                                                  n_lo=N - N // 8)
+    (levels, _, tmpl, _, _), dev_in = wave_inputs(templates, multi, B, N, rng, n_lo=n_lo,
+                                                  ctas=ctas if ctas > 1 else None)
     b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
-    if AC.wave_score_mode(levels.shape[1], tmpl.shape[1]) != "table":
-        fail("the ultra-long shape's template does not fit the score table")
+    mp = tmpl.shape[1]
+    if AC.wave_score_mode(levels.shape[-1], mp, ctas) != "table":
+        fail(f"{label}: the plan's CTAs ({ctas}) do not hold the template's score tables")
+    name = "align_forward_wave_multi" if multi else "align_forward_wave"
+    names = (name, name + "_table", name + "_cluster")
+    form = names[2] if ctas > 1 else names[1]
     before = dict(_build.LAUNCHES)
-    (ptr_t, bot_t), ms_t = once_ms(lambda: morph_call(False, b_d, l_d, n_d, m_d, lv_d, li_d,
+    (ptr_t, bot_t), ms_t = once_ms(lambda: morph_call(multi, b_d, l_d, n_d, m_d, lv_d, li_d,
                                                       params))
-    if (_build.LAUNCHES["align_forward_wave_table"] != before["align_forward_wave_table"] + 1
-            or _build.LAUNCHES["align_forward_wave"] != before["align_forward_wave"]):
-        fail("the ultra-long morph call did not launch the TABLE mode alone")
+    if {k: _build.LAUNCHES[k] - before[k] for k in names} != {k: int(k == form) for k in names}:
+        fail(f"{label}: the morph call did not launch {form} alone")
     s_d = AC.morph_decode(b_d, l_d)
-    (ptr_k, bot_k), ms_k = once_ms(lambda: pow_call(False, s_d, n_d, m_d, t_d, params))
+    (ptr_k, bot_k), ms_k = once_ms(lambda: pow_call(multi, s_d, n_d, m_d, t_d, params))
+    for k in names:
+        _build.LAUNCHES[k] = before[k]
     mask = valid_ptr_mask(n_d, m_d, ptr_t.shape[0])
     eq = not bool(((ptr_t != ptr_k) & mask[:, :, None]).any())
     err = float((bot_t.double() - bot_k.double()).abs().max())
-    del ptr_k
+    del ptr_k, s_d
+    nd = N + mp
+    lv_form = (f"{ctas} CTAs of up to {levels.shape[2]} levels" if ctas > 1
+               else f"one CTA, U={levels.shape[1]}")
+    print(f"  {name} [{label} B={B} N={N} MP={mp}, {lv_form}]: TABLE vs POW: pointers "
+          f"{'equal' if eq else 'DIFFER'}, bottom max_abs_err {err}; TABLE {ms_t:.3f} ms "
+          f"({ms_t * 1e3 / nd:.4f} us/step), POW {ms_k:.3f} ms ({ms_k * 1e3 / nd:.4f} us/step), "
+          f"one call each", flush=True)
+    if not (eq and err == 0.0):
+        fail(f"{name}: the TABLE mode on {ctas} CTA(s) a row and the POW mode disagree at the "
+             f"{label} shape")
+    return ptr_t, bot_t, m_d
+
+
+def check_wave_ultra(flanks, N, params, rng, results) -> None:
+    """Rows 1-2 at the ultra-long calls' shapes (the bucket's N), each at
+    the (CTAs a row, rows) ``wave_launch_plan`` gives it there: row 1 as
+    the one-pass route launches it (8 rows of one flank,
+    ``STRIQUE_PTR_BUDGET_GB=8``), row 2 as the fused call of 4 reads
+    (both flanks, 8 rows, the default budget: phase 4i's entries), each
+    held to the POW mode (:func:`hold_plan_call`); then the traceback on
+    row 1's plane."""
+    import torch
+
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    rows = AC.pad_template_rows(list(flanks))[0]
+    flank = AC.pad_template(flanks[0])[0]
+    os.environ["STRIQUE_PTR_BUDGET_GB"] = "8"
+    try:
+        one_pass = plan_calls(8, flank, N + flank.shape[1])
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB")
+    fused = plan_calls(8, rows, N + rows.shape[1])
+    if len(one_pass) != 1 or len(fused) != 1:
+        fail(f"the ultra-long 8-row calls take more than one call: {one_pass}, {fused}")
+    print(f"  the launch plans at the ultra-long shape (CTAs a row, rows): one-pass row 1 "
+          f"{one_pass[0]}, fused row 2 {fused[0]}", flush=True)
+    (c, kb), = one_pass
+    ptr_t, bot_t, m_d = hold_plan_call((flanks[0],), False, kb, N, params, rng, c,
+                                       "ultra one-pass", n_lo=N - N // 8)
     # the traceback's coldest walk: the one-pass route's plane
     j_end = (torch.argmax(bot_t, dim=1).to(torch.int32) + 1 - m_d).clamp_min(0).to(torch.int32)
     check_traceback(ptr_t, j_end, m_d, "ultra one-pass plane", results, key="ultra_one_pass")
-    del ptr_t
-    for k in ("align_forward_wave", "align_forward_wave_table"):
-        _build.LAUNCHES[k] = before[k]
-    nd = N + tmpl.shape[1]
-    print(f"  align_forward_wave [ultra B={B} N={N} MP={tmpl.shape[1]} U={levels.shape[1]}]: "
-          f"TABLE vs POW: pointers {'equal' if eq else 'DIFFER'}, bottom max_abs_err {err}; "
-          f"TABLE {ms_t:.3f} ms ({ms_t * 1e3 / nd:.4f} us/step), POW {ms_k:.3f} ms "
-          f"({ms_k * 1e3 / nd:.4f} us/step), one call each", flush=True)
-    if not (eq and err == 0.0):
-        fail("align_forward_wave: the TABLE and POW modes disagree at the ultra-long shape")
-    results["align_forward_wave_table"].update(ultra_ms=ms_t, ultra_pow_ms=ms_k)
+    del ptr_t, bot_t
+    torch.cuda.empty_cache()
+    (c2, kb2), = fused
+    hold_plan_call(flanks, True, kb2, N, params, rng, c2, "ultra fused", n_lo=N - N // 8)
+    torch.cuda.empty_cache()
 
 
 def walk_steps(out, j_end, m_start):
@@ -899,6 +950,76 @@ def check_col(template, shape_name, B, N, params, rng, results):
     check_traceback(ptr_t, j_end, m_d, shape_name, results, col=True)
 
 
+class WaveCalls:
+    """While active, every TABLE launch of the wave kernel (rows 1, 2, 5,
+    6; one CTA or a cluster) is logged with its rows, CTAs a row, steps
+    run (the longest row's) and device ms, by CUDA events around the
+    wrapper (its output allocation inside).  ``summary()`` groups the
+    calls by (kernel, rows, CTAs): the plan each call ran and its us a
+    step."""
+
+    WRAPPERS = {"_wave_table_cuda": "row 1/2", "_ckpt_table_cuda": "row 5",
+                "_window_table_cuda": "row 6"}
+
+    def __init__(self):
+        self.log = []
+        self.real = {}
+
+    def __enter__(self):
+        import torch
+
+        from strique_tpu_torch.ops import align_cuda as AC
+
+        def wrap(name, fn):
+            def run(*a):
+                e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                e0.record()
+                out = fn(*a)
+                e1.record()
+                if name == "_window_table_cuda":
+                    levels, steps = a[6], AC._steps_to_run(a[5], torch.zeros_like(a[5]), a[9])
+                else:
+                    nd = a[8] if name == "_ckpt_table_cuda" else a[0].shape[1] + a[3].shape[1]
+                    levels, steps = a[2], AC._steps_to_run(a[4], a[5], nd)
+                ctas = levels.shape[1] if levels.dim() == 3 else 1
+                self.log.append((self.WRAPPERS[name], a[0].shape[0], ctas, steps, e0, e1))
+                return out
+            return run
+
+        for name in self.WRAPPERS:
+            self.real[name] = getattr(AC, name)
+            setattr(AC, name, wrap(name, self.real[name]))
+        return self
+
+    def __exit__(self, *exc):
+        from strique_tpu_torch.ops import align_cuda as AC
+
+        for name, fn in self.real.items():
+            setattr(AC, name, fn)
+        return False
+
+    def summary(self) -> list:
+        """[(kernel, rows, CTAs, calls, ms list, us a step list)] in first-call order."""
+        import torch
+
+        torch.cuda.synchronize()
+        groups = {}
+        for kern, rows, ctas, steps, e0, e1 in self.log:
+            ms = e0.elapsed_time(e1)
+            g = groups.setdefault((kern, rows, ctas), [[], []])
+            g[0].append(ms)
+            g[1].append(ms * 1e3 / max(steps, 1))
+        return [(*k, len(v[0]), v[0], v[1]) for k, v in groups.items()]
+
+    def report(self, label: str, card: str) -> list:
+        out = self.summary()
+        for kern, rows, ctas, calls, ms, us in out:
+            print(f"  {label}: {kern}, {calls} call(s) of {rows} rows on {ctas} CTA(s) a row: "
+                  f"{min(ms):.3f}-{max(ms):.3f} ms, {min(us):.4f}-{max(us):.4f} us/step; "
+                  f"card: {card}", flush=True)
+        return out
+
+
 def turns_ms(run_a, run_b, reps: int = 3):
     """Mean ms of ``run_a`` and ``run_b`` by CUDA events, timed in turns
     (a, b, b, a): ((a1, a2), (b1, b2))."""
@@ -974,21 +1095,20 @@ def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
         "us_per_column": ms_c * 1e3 / cols, **wave_bound(n_d, m_d, lv_np, table_bytes, True)}
 
 
-def check_wave_over_cap(templates, multi, B, N, params, rng, results) -> None:
+def check_wave_over_cap(templates, multi, B, N, params, rng, results, ctas) -> None:
     """Row 1 (``multi`` False: one flank's template) or row 2 (both
     flanks as per-row templates) past one CTA's table, at the shape
-    phase 4e launches it: the cluster TABLE mode (the split form on the
-    CTAs ``wave_table_ctas`` gives) and the POW mode on the decoded f32,
-    each against one table-twin run (written pointer words and every
-    bottom tap), then timed in turns (POW, cluster, cluster, POW).  The
-    kernel line's cluster entry, the POW ms at this shape beside it."""
+    phase 4e launches it: B rows in the cluster TABLE mode (the split
+    form on the ``ctas`` CTAs a row the launch plan gives) and the POW
+    mode on the decoded f32, each against one table-twin run (written
+    pointer words and every bottom tap), then timed in turns (POW,
+    cluster, cluster, POW).  The kernel line's cluster entry, the POW ms
+    at this shape beside it."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import align_cuda as AC
 
-    rows = AC.pad_template_rows(list(templates))[0] if multi else AC.pad_template(templates[0])[0]
-    ctas = AC.wave_table_ctas(rows)
     if ctas < 2:
         fail("the over-the-cap templates should take a cluster of CTAs a row")
     (levels, _, tmpl, bins, lut), dev_in = wave_inputs(templates, multi, B, N, rng, ctas=ctas)
@@ -1029,7 +1149,7 @@ def check_wave_over_cap(templates, multi, B, N, params, rng, results) -> None:
     words = 4 * int(mask.sum()) * tmpl.shape[1] + 4 * bot_c.numel() + 8 * B
     table_bytes = bins.size + lut.size * 4 + levels.size * 4 + tmpl.size * 4 + words
     results[name + "_cluster"] = {"max_abs_err": errs["cluster"][1], "ms": ms_c,
-                                  "plain_ms": plain_ms, "pow_ms": ms_k,
+                                  "plain_ms": plain_ms, "pow_ms": ms_k, "ctas": ctas, "rows": B,
                                   "us_per_step": ms_c * 1e3 / nd,
                                   **wave_bound(n_d, m_d, levels, table_bytes, True)}
     results[name].update(over_cap_ms=ms_k, over_cap_shape=[B, N, tmpl.shape[1]])
@@ -1440,7 +1560,7 @@ def written_slots(n_act, m, nd: int, ckpt_steps: int):
 
 
 def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rng,
-                   results=None, twin=True):
+                   results=None, twin=True, ctas=None, reps=3):
     """Kernel rows 5 and 6 on morph-form reads, in the row layout the
     two-pass route launches them with: one shared template
     (``templates`` of one), or ``templates[0]`` on the first half of the
@@ -1462,6 +1582,10 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     given, the times and bounds enter the kernel line.  Without
     ``twin`` (a shape where the twins would take minutes) the TABLE
     modes are held to the POW kernels alone, and plain_ms is None.
+    ``ctas``: the CTAs a row of the TABLE calls (default the rule's,
+    ``wave_table_ctas``), as a launch plan gives them.  ``reps``: the
+    timed launches of each kernel after a warm-up one (0: none, only
+    the checks; not with ``results``).
     """
     import numpy as np
     import torch
@@ -1480,7 +1604,7 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     else:
         tmpl_np, m1 = AC.pad_template(templates[0])
         ms, row_t = np.array([m1]), [templates[0]] * B
-    ctas = AC.wave_table_ctas(tmpl_np)
+    ctas = AC.wave_table_ctas(tmpl_np) if ctas is None else ctas
     table = ctas > 0
     form = "_cluster" if ctas > 1 else "_table"  # the TABLE launches' counters
     sig = rng.uniform(60, 120, (B, N)).astype(np.float32)
@@ -1528,7 +1652,7 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
                                  for a, c in zip(st["ckpts"], st_k["ckpts"])),
                              float((st["bottom_steps"].double()
                                     - st_k["bottom_steps"].double()).abs().max()))
-    ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
+    ms_ = {mode: cuda_ms(run, reps) for mode, run in runs.items()} if reps else {}
     ref = ("the POW kernel" if not twin else "table twin" if table else "_ckpt_plain")
     plain = "" if plain_ms is None else f", plain {plain_ms:.1f} ms"
     lv_form = (f"{ctas} CTAs of up to {levels.shape[2]} levels" if ctas > 1
@@ -1544,20 +1668,22 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
     if not all(eq and err == 0.0 for eq, err in errs.values()):
         fail(f"align_forward_ckpt: the kernels and the plain twin disagree at the {shape_name} "
              f"shape")
-    cells = wave_cells(n_d, m_rows)
-    ck_bytes = 4 * (bot_p.numel() + 4 * int(slots.sum()) * mp) + 8 * B
-    entries = table_entries(levels, B)
-    ckpt_res = {"pow": {"max_abs_err": errs["pow"][1], "ms": ms_["pow"], "plain_ms": plain_ms,
-                        "us_per_step": ms_["pow"] * 1e3 / nd,
-                        **bound(4 * (st_k["sig"].numel() + st_k["tmpl"].numel()) + ck_bytes,
-                                CKPT_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}}
-    if table:
-        ckpt_res["table"] = {
-            "max_abs_err": errs["table"][1], "ms": ms_["table"], "plain_ms": plain_ms,
-            "us_per_step": ms_["table"] * 1e3 / nd,
-            **bound(bins.size + 1024 * B + 4 * (levels.size + lidx.size) + ck_bytes,
-                    CKPT_TABLE_F32_PER_CELL * cells + SCORE_F32 * entries,
-                    POW_F64_PER_CELL * entries)}
+    ckpt_res = {}  # the kernel line's entries, where results are kept
+    if results is not None:
+        cells = wave_cells(n_d, m_rows)
+        ck_bytes = 4 * (bot_p.numel() + 4 * int(slots.sum()) * mp) + 8 * B
+        entries = table_entries(levels, B)
+        ckpt_res = {"pow": {"max_abs_err": errs["pow"][1], "ms": ms_["pow"], "plain_ms": plain_ms,
+                            "us_per_step": ms_["pow"] * 1e3 / nd,
+                            **bound(4 * (st_k["sig"].numel() + st_k["tmpl"].numel()) + ck_bytes,
+                                    CKPT_F32_PER_CELL * cells, POW_F64_PER_CELL * cells)}}
+        if table:
+            ckpt_res["table"] = {
+                "max_abs_err": errs["table"][1], "ms": ms_["table"], "plain_ms": plain_ms,
+                "us_per_step": ms_["table"] * 1e3 / nd,
+                **bound(bins.size + 1024 * B + 4 * (levels.size + lidx.size) + ck_bytes,
+                        CKPT_TABLE_F32_PER_CELL * cells + SCORE_F32 * entries,
+                        POW_F64_PER_CELL * entries)}
     del ck_p, bot_p
 
     w_k = AL.window_inputs(st_k)
@@ -1592,7 +1718,7 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
                         m_rows.to(torch.int32), f"{shape_name} two-pass window plane", results,
                         m_out=m_max, key="two_pass_window")
     del ptrs, ptr_p
-    ms_ = {mode: cuda_ms(run, 3) for mode, run in runs.items()}
+    ms_ = {mode: cuda_ms(run, reps) for mode, run in runs.items()} if reps else {}
     steps = _round_up8(int(w_k["steps_needed"].max()))
     for k in TABLE_TWO_PASS + POW_TWO_PASS + CLUSTER_TWO_PASS:
         _build.LAUNCHES[k] = entry[k]
@@ -1630,6 +1756,111 @@ def check_longread(templates, shape_name, B, N, params, ckpt_steps, cold_odd, rn
             "plain_ms": plain_ms, "us_per_step": ms_["table"] * 1e3 / steps,
             **bound(samples + 1024 * B + 4 * (levels.size + lidx.size) + win_bytes,
                     TABLE_F32_PER_CELL * cells + SCORE_F32 * entries, POW_F64_PER_CELL * entries)}
+
+
+def plan_ctas(tmpl) -> list:
+    """Every CTA count ``wave_launch_plan`` can give these template rows:
+    from ``wave_table_ctas`` up to MAX_CTAS, the splits the kernel takes
+    whose per-CTA tables fit (one CTA only where the rule gives one)."""
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    mp, c_min = tmpl.shape[1], AC.wave_table_ctas(tmpl)
+    return [c for c in range(max(c_min, 1), AC.MAX_CTAS + 1)
+            if c == c_min or (AC._split_ok(mp, c) and AC.wave_score_mode(
+                AC._cta_level_counts(tmpl, c), mp, c) == "table")]
+
+
+def plan_calls(rows: int, tmpl, n_cols: int, pass1_steps=None) -> list:
+    """The (CTAs a row, rows) of each wave call ``wave_launch_plan``
+    makes over ``rows`` rows on the card, as the routes' loops call it
+    (under the environment's pointer budget)."""
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    out, left = [], rows
+    while left > 0:
+        c, kb = AC.wave_launch_plan(left, tmpl, n_cols, "cuda", pass1_steps=pass1_steps)
+        out.append((c, kb))
+        left -= kb
+    return out
+
+
+def check_plan_ctas(seed: int, device="cuda") -> None:
+    """Every CTA count the launch plan can pick, at MP 896 (a bench-width
+    template: one CTA, or a cluster for the ultra routes' few-row calls)
+    and MP 2176 (phase 4e's width: a cluster always, 2 lanes a thread on
+    2 CTAs): both flanks as per-row templates over 8 rows, row 0's level
+    table all NaN (a flat read's), in PTR (N 512), CKPT and WINDOW (N
+    1024, steep gaps, ckpt_steps 512), each C's outputs against one
+    table-twin run (equal words and slots, equal NaN masks), one launch
+    each; none counts toward a path's launches.  ``device="cpu"`` runs
+    its logic here, twins against twins."""
+    import numpy as np
+    import torch
+
+    from strique_tpu_torch import _build
+    from strique_tpu_torch.ops import align as AL
+    from strique_tpu_torch.ops import align_cuda as AC
+    from strique_tpu_torch.ops.reference import AlignParams
+
+    def same(a, b):
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+
+    rng = np.random.default_rng(seed)
+    steep = AlignParams(gap_open_h=-16.0, gap_extension_h=-16.0, gap_open_v=-0.5,
+                        gap_extension_v=-0.5)
+    entry = dict(_build.LAUNCHES)
+    dev = torch.device(device)
+    for mp in (896, 2176):
+        m = (mp - 2) // 6 * 6
+        flanks = [np.repeat(rng.uniform(60, 120, k // 6), 6).astype(np.float32)
+                  for k in (m, m - 120)]
+        rows, ms = AC.pad_template_rows(flanks)
+        tmpl, mr = np.repeat(rows, 4, axis=0), np.repeat(ms, 4).astype(np.int32)
+        ctas_all = plan_ctas(rows)
+        bins, lut, na = morph_reads([flanks[i % 2][:300] for i in range(8)], 8, 512, rng)
+        lut[0] = np.nan
+        b, lt, n, m_d = (torch.from_numpy(x).to(dev) for x in (bins, lut, na, mr))
+        ref = None
+        bins2, lut2, na2 = morph_reads([flanks[i % 2][:200] for i in range(8)], 8, 1024, rng)
+        lut2[0] = np.nan
+        b2, lt2, n2 = (torch.from_numpy(x).to(dev) for x in (bins2, lut2, na2))
+        ref2 = None
+        ok = {}
+        for c in ctas_all:
+            lv, li = (torch.from_numpy(x).to(dev) for x in AC.template_levels(tmpl, c))
+            ptr, bot = AC.align_forward_wave_multi_morph(b, lt, n, lv, li, m_d, steep)
+            if ref is None:
+                ref = AC._wave_table_plain(b, lt, *AC.flat_levels(lv, li), n, m_d, steep)
+            mask = valid_ptr_mask(n, m_d, ptr.shape[0])
+            eq = bool(torch.equal(ptr[mask], ref[0][mask])) and same(bot, ref[1])
+            st = AL._pass1_rows(b2, n2, tmpl, mr, steep, 512, lt2, c)
+            w = AL.window_inputs(st)
+            win = AC.align_window_from_state_morph(
+                b2, lt2, w["t0"], w["state4"], w["cold"], w["steps_needed"], st["levels"],
+                st["lidx"], steep, st["m"], st["W"])
+            if ref2 is None:
+                flat = (AC.flat_levels(st["levels"], st["lidx"]) if st["levels"].dim() == 3
+                        else (st["levels"], st["lidx"]))
+                nd = st["N"] + st["mp"]
+                ck_p = AC._ckpt_table_plain(b2, lt2, *flat, n2, st["m_rows"], steep,
+                                            st["ckpt_steps"], nd)
+                win_p = AC._window_table_plain(b2, lt2, w["t0"], w["state4"], w["cold"],
+                                               w["steps_needed"], *flat, steep, st["W"])
+                slots = written_slots(n2, st["m_rows"], nd, st["ckpt_steps"])
+                words = valid_ptr_mask(w["steps_needed"], torch.zeros_like(n2), win_p.shape[0])
+                ref2 = (ck_p, win_p)
+            eq = eq and same(st["bottom_steps"], ref2[0][0]) and all(
+                same(a[slots], p_[slots]) for a, p_ in zip(st["ckpts"], ref2[0][1]))
+            ok[c] = eq and bool(torch.equal(win[words], ref2[1][words]))
+        print(f"  the plan's CTA counts at MP {mp} (rule {AC.wave_table_ctas(rows)}): "
+              + ", ".join(f"C {c} ({AC.cta_lanes(mp, c) if c > 1 else mp} lanes a CTA): rows "
+                          f"1-2, 5, 6 {'equal to' if e else 'DIFFER from'} the twins"
+                          for c, e in ok.items()), flush=True)
+        if not all(ok.values()):
+            fail(f"a CTA count the plan can pick disagrees with the twins at MP {mp}")
+    for k in entry:
+        _build.LAUNCHES[k] = entry[k]
 
 
 def check_sweep(seed: int, device="cuda") -> dict:
@@ -1764,70 +1995,56 @@ def _round_up8(x: int) -> int:
     return (x + 7) // 8 * 8
 
 
-def check_ckpt_ultra(template, N, params, rng, results) -> None:
-    """Row 5 at the ultra-long shape (N of the bucket, ckpt_steps 16384),
-    8 and 64 rows: the TABLE-mode kernel against the POW-mode kernel on
-    the decoded f32 (zero-padded to ND - MP), bottom taps and written
-    checkpoint slots bit-equal.  (The twin would take minutes here; both
-    modes are held to it at the small and bench shapes.)"""
-    import torch
-
-    from strique_tpu_torch import _build
+def check_ckpt_ultra(flanks, N, params, rng) -> None:
+    """Rows 5-6 at the ultra-long two-pass route's groups (the bucket's
+    N, ckpt_steps 16384, both flanks as per-row templates,
+    ``STRIQUE_PTR_BUDGET_GB=2``): 8 rows (phase 4i's entries, 4 reads
+    each), 16 (phase 4b's 8 reads) and 32 (its 16 reads), each at the
+    (CTAs a row, rows) ``wave_launch_plan`` gives that group, the TABLE
+    modes against the POW modes on the decoded f32 (:func:`check_longread`
+    without twins or timing: bottom taps, written checkpoint slots and
+    written pointer words equal)."""
     from strique_tpu_torch.ops import align as AL
     from strique_tpu_torch.ops import align_cuda as AC
 
-    out = {}
-    for B in (8, 64):
-        (levels, _, tmpl, _, _), dev_in = wave_inputs((template,), False, B, N, rng,
-                                                      n_lo=N - N // 8)
-        b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
-        m, mp = int(m_d[0]), tmpl.shape[1]
-        chunks, cks, nd = AL._ckpt_geometry(N, mp, AL.CKPT_STEPS)
-        before = dict(_build.LAUNCHES)
-        (bot_t, ck_t), ms_t = once_ms(lambda: AC.align_forward_ckpt_morph(
-            b_d, l_d, n_d, lv_d, li_d, params, m, chunks, nd))
-        s_d = torch.nn.functional.pad(AC.morph_decode(b_d, l_d), (0, nd - mp - N))
-        (bot_k, ck_k), ms_k = once_ms(lambda: AC.align_forward_ckpt(s_d, n_d, t_d, params, m,
-                                                                      chunks))
-        if any(_build.LAUNCHES[k] != before[k] + 1 for k in ("align_forward_ckpt",
-                                                             "align_forward_ckpt_table")):
-            fail("the ultra-long pass-1 calls did not launch one TABLE and one POW kernel")
-        for k in POW_TWO_PASS + TABLE_TWO_PASS:
-            _build.LAUNCHES[k] = before[k]
-        slots = written_slots(n_d, m, nd, cks)
-        eq = all(torch.equal(a[slots], c[slots]) for a, c in zip(ck_t, ck_k))
-        err = float((bot_t.double() - bot_k.double()).abs().max())
-        del bot_t, ck_t, bot_k, ck_k, s_d
-        torch.cuda.empty_cache()
-        print(f"  align_forward_ckpt [ultra B={B} N={N} (ND {nd}) MP={mp} U={levels.shape[1]}]: "
-              f"TABLE vs POW: {int(slots.sum())} written slots {'equal' if eq else 'DIFFER'}, "
-              f"bottom max_abs_err {err}; TABLE {ms_t:.3f} ms ({ms_t * 1e3 / nd:.4f} us/step), "
-              f"POW {ms_k:.3f} ms ({ms_k * 1e3 / nd:.4f} us/step), one call each", flush=True)
-        if not (eq and err == 0.0):
-            fail("align_forward_ckpt: the TABLE and POW modes disagree at the ultra-long shape")
-        out.update({f"ultra_ms_{B}": ms_t, f"ultra_pow_ms_{B}": ms_k})
-    results["align_forward_ckpt_table"].update(out)
+    rows, rows_ms = AC.pad_template_rows(list(flanks))
+    _, cks, nd = AL._ckpt_geometry(N, rows.shape[1], AL.CKPT_STEPS)
+    w_steps = AL._window_steps(int(AL._span_bounds(params, rows_ms).max()), cks)
+    os.environ["STRIQUE_PTR_BUDGET_GB"] = "2"
+    try:
+        plans = {b: plan_calls(b, rows, w_steps, pass1_steps=nd) for b in (8, 16, 32)}
+        print(f"  the launch plans of the ultra-long two-pass groups (CTAs a row, rows): "
+              f"{plans}", flush=True)
+        for b, plan in plans.items():
+            if plan != [(plan[0][0], b)]:
+                fail(f"the ultra-long two-pass route's {b} rows take more than one group: {plan}")
+            check_longread(flanks, f"ultra two-pass group, {plan[0][0]} CTA(s) a row", b, N,
+                           params, AL.CKPT_STEPS, False, rng, twin=False, ctas=plan[0][0], reps=0)
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB")
 
 
 def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     """Phase 4e: a target whose flanks carry 200 more backbone bases each
     (MP 2176, ~300 distinct template levels: past one CTA's table; the
     TABLE mode on the 2 CTAs a row ``wave_table_ctas`` gives) counts 72
-    '+' reads in one batch (144 rows, each flank its own calls of row 1:
-    64 + 8 rows, as many rows as their CTAs fit the SMs) and 24 '-' reads
-    (one fused 48-row call, row 2), all in the cluster TABLE mode; then
-    the 72 '+' reads again past a pointer budget that sends them down the
-    two-pass route (rows 5-6, both flanks a row stream in 8-row groups),
+    '+' reads in one batch (144 rows, each flank its own calls of row 1
+    as ``wave_launch_plan`` gives them) and 24 '-' reads (one fused
+    48-row call, row 2), all in the cluster TABLE mode; then the 72 '+'
+    reads again past a pointer budget that sends them down the two-pass
+    route (rows 5-6, both flanks a row stream in the plan's groups),
     and the first 64 under ``STRIQUE_ALIGN_KERNEL=col`` (row 8): each
     with the one-pass run's tuples, the cluster modes alone, no POW
     launch.  Before the runs every kernel holds its cluster and POW
     modes to the twins: the one-CTA form's POW dispatch and the split
     form's cluster against the table twin (16 rows, N 4096), rows 5-6
     both ways against their twins (16 rows, N 4096), and at the shapes
-    the runs launch (row 1 at 64 rows, row 2 at 48, rows 5-6 at 8-row
-    groups, row 8 at 64 rows, the reads' bucket) the cluster mode
+    the runs launch (rows 1, 2 and 5-6 at the plan's rows and CTAs, row
+    8 at 64 rows, the reads' bucket) the cluster mode
     against the POW mode on the decoded f32 (and the twin for rows 1, 2
-    and 8), the two timed in turns.  Last the f32 route
+    and 8), the two timed in turns; every other call of the '+' run (the
+    8-row tails, the suffix flank's calls) at its own rows and CTAs
+    against POW (:func:`hold_plan_call`).  Last the f32 route
     (:func:`run_f32_route`).  Returns the cluster launches of rows 1-2,
     5-6 and 8 of the count runs and the POW launches of the f32
     route."""
@@ -1836,6 +2053,7 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.detect.counter import RepeatCounter, signal_bucket
+    from strique_tpu_torch.ops import align as AL
     from strique_tpu_torch.ops import align_cuda as AC
     from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, make_reads
 
@@ -1846,7 +2064,7 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     c.add_target("long", REPEAT, prefix, suffix)
     tc = c.targets["long"][0]
     flanks = (tc.prefix_ext, tc.suffix_ext)
-    rows = AC.pad_template_rows(list(flanks))[0]
+    rows, rows_ms = AC.pad_template_rows(list(flanks))
     levels, _ = AC.template_levels(rows)
     mp, ctas = rows.shape[1], AC.wave_table_ctas(rows)
     # the one-CTA form's POW dispatch and the split form's cluster at this
@@ -1864,12 +2082,38 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
     # each kernel at the shape the runs below launch it: the cluster mode
     # against POW in turns (the kernel line's cluster entries)
     n_plus, n_minus = signal_bucket(len(plus[0])), signal_bucket(len(minus[0]))
+    # the launch plan of each run below: the '+' reads' row-1 calls of
+    # each flank, the '-' reads' fused row-2 call (fused where the plan
+    # takes their 2B rows in one call), the two-pass run's groups
+    flank_t = [AC.pad_template(f)[0] for f in flanks]
+    plus_plan = [plan_calls(len(plus), t, n_plus + t.shape[1]) for t in flank_t]
+    minus_c, minus_kb = AC.wave_launch_plan(2 * len(minus), rows, n_minus + mp, "cuda")
+    if minus_kb < 2 * len(minus):
+        fail("the plan no longer takes the '-' reads' two flanks in one fused call")
+    _, cks, nd = AL._ckpt_geometry(n_plus, mp, AL.CKPT_STEPS)
+    w_steps = AL._window_steps(int(AL._span_bounds(c.align_params, rows_ms).max()), cks)
+    os.environ["STRIQUE_PTR_BUDGET_GB"] = "0.1"
+    try:
+        group_plan = plan_calls(2 * len(plus), rows, w_steps, pass1_steps=nd)
+    finally:
+        os.environ.pop("STRIQUE_PTR_BUDGET_GB")
+    print(f"  the launch plans (CTAs a row, rows a call): '+' one-pass, each flank "
+          f"{plus_plan[0]} / {plus_plan[1]}; '-' fused ({minus_c}, {minus_kb}); two-pass "
+          f"groups {group_plan[0]} x {len(group_plan)}", flush=True)
     check_col_pow(tc.prefix_ext, "over the cap", BATCH, n_plus, c.align_params, rng, results)
-    check_wave_over_cap(flanks[:1], False, BATCH, n_plus, c.align_params, rng, results)
-    check_wave_over_cap(flanks, True, 2 * len(minus), n_minus, c.align_params, rng, results)
+    check_wave_over_cap(flanks[:1], False, plus_plan[0][0][1], n_plus, c.align_params, rng,
+                        results, plus_plan[0][0][0])
+    # every other call shape of the '+' run (the 8-row tails, the suffix
+    # flank's calls) against POW at its own rows and CTAs
+    for i, plan in enumerate(plus_plan):
+        for ctas_i, kb_i in dict.fromkeys(plan[1:] if i == 0 else plan):
+            hold_plan_call(flanks[i : i + 1], False, kb_i, n_plus, c.align_params, rng, ctas_i,
+                           f"over the cap, the '+' run's {('prefix', 'suffix')[i]} call")
+    check_wave_over_cap(flanks, True, 2 * len(minus), n_minus, c.align_params, rng, results,
+                        minus_c)
     groups = {}
-    check_longread(flanks, "over the cap, the two-pass run's groups", 8, n_plus, c.align_params,
-                   16384, False, rng, groups, twin=False)
+    check_longread(flanks, "over the cap, the two-pass run's groups", group_plan[0][1], n_plus,
+                   c.align_params, 16384, False, rng, groups, twin=False, ctas=group_plan[0][0])
     for name in CLUSTER_TWO_PASS:
         pow_name = name.replace("_cluster", "")
         results[name] = {**groups[name], "plain_ms": small[name]["plain_ms"],
@@ -1887,10 +2131,14 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            res = (c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
-                   if reads is None else c.detect_many("long", reads, "+"))
-            torch.cuda.synchronize()
+            with WaveCalls() as calls:
+                res = (c.detect_many("long", plus, "+") + c.detect_many("long", minus, "-")
+                       if reads is None else c.detect_many("long", reads, "+"))
+                torch.cuda.synchronize()
             runs[run] = (res, time.perf_counter() - t0, dict(_build.LAUNCHES))
+            if run != "col":
+                results.setdefault("over_cap_plans", {})[run] = calls.report(
+                    f"over the cap, {run}, the plan's calls", card)
             for k in env:
                 os.environ.pop(k)
     except Exception as e:  # noqa: BLE001
@@ -1900,9 +2148,9 @@ def run_over_cap(pm, model: str, seed: int, card: str, results: dict) -> dict:
         os.environ.pop("STRIQUE_ALIGN_KERNEL", None)
     pow_all = POW_WAVE + POW_TWO_PASS + ("align_forward_col",)
     table_all = TABLE_WAVE + TABLE_TWO_PASS + ("align_forward_col_table",)
-    want = {"one-pass": {"align_forward_wave_cluster": 2 * -(-len(plus) // BATCH),
+    want = {"one-pass": {"align_forward_wave_cluster": sum(map(len, plus_plan)),
                          "align_forward_wave_multi_cluster": 1},
-            "two-pass": {k: None for k in CLUSTER_TWO_PASS},
+            "two-pass": {k: len(group_plan) for k in CLUSTER_TWO_PASS},
             "col": {"align_forward_col_cluster": None}}
     res_one = runs["one-pass"][0]
     for run, (res, dt, lc) in runs.items():
@@ -2354,9 +2602,9 @@ def run_devices(model: str, pm, seed: int, card: str, tmp: str, ultra, two_pass)
         if [tuple(r) for r in res] != [tuple(r) for r in two_pass]:
             fail(f"the ultra-long reads over two device entries ({label}) gave other tuples "
                  "than one device's")
-        if budget is not None and lc["align_forward_ckpt_table"] != DEVICE_ENTRIES:
-            fail(f"the ultra-long two-pass route ran {lc['align_forward_ckpt_table']} pass-1 "
-                 "groups, not one an entry")
+        groups = lc["align_forward_ckpt_table"] + lc["align_forward_ckpt_cluster"]
+        if budget is not None and groups != DEVICE_ENTRIES:
+            fail(f"the ultra-long two-pass route ran {groups} pass-1 groups, not one an entry")
 
 
 def count_process() -> int:
@@ -3097,8 +3345,9 @@ def run_routes(model: str, seed: int, card: str, tmp: str, warm, plus, minus, sp
                          f"against {mod_rows[rid]}")
                 n_mod += 1
     lc = dict(_build.LAUNCHES)
-    if (lc["align_forward_wave_multi_table"] <= 0 or lc["viterbi_forward_factored_diag"] <= 0
-            or lc["align_forward_wave_table"]):
+    if (lc["align_forward_wave_multi_table"] + lc["align_forward_wave_multi_cluster"] <= 0
+            or lc["viterbi_forward_factored_diag"] <= 0
+            or lc["align_forward_wave_table"] + lc["align_forward_wave_cluster"]):
         fail("the fused mod run did not go through row 2 and the diagonal-only forward")
     print(f"fused route with the mod model: {n_mod} rows equal phase 4h's detect_many rows, "
           f"mod strings included", flush=True)
@@ -3122,8 +3371,8 @@ def run_routes(model: str, seed: int, card: str, tmp: str, warm, plus, minus, sp
     lc = dict(_build.LAUNCHES)
     if [tuple(r) for r in got] != [tuple(r) for r in ref]:
         fail("the wide target's fused tuples differ from its default route's")
-    if (lc["align_forward_wave_multi_table"] <= 0 or lc["viterbi_forward_factored_wide"] <= 0
-            or lc["viterbi_backward_wide"] <= 0):
+    if (lc["align_forward_wave_multi_table"] + lc["align_forward_wave_multi_cluster"] <= 0
+            or lc["viterbi_forward_factored_wide"] <= 0 or lc["viterbi_backward_wide"] <= 0):
         fail("the wide target's fused run did not decode with the wide variants")
     b, o, g, sp = wide_peaks[0]
     out["wide_fused_viterbi"] = {"peak_bytes": b, "obs": o, "rows": g, "sp": sp}
@@ -3150,6 +3399,7 @@ def run_pipeline(counter, sigs, strand):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None, help="also write the measurements as JSON here")
@@ -3224,6 +3474,7 @@ def main() -> int:
     print("kernels vs plain twins:", flush=True)
     try:
         check_mode_rule(params, rng)
+        check_plan_ctas(args.seed + 80)  # its own generator: the draws after it stay
         for shape_name, B, N, tmpls in (("small", 8, 512, small), ("bench", 64, 24576, bench_t)):
             for multi in (False, True):
                 # row 2 at the split path's fused width: both flanks of 64 reads
@@ -3275,12 +3526,11 @@ def main() -> int:
         check_longread(bench_t[:1], "bench", 8, 24576, params, 16384, False, rng)
         check_longread(bench_t, "bench", 16, 24576, params, 16384, False, rng, results)
         torch.cuda.empty_cache()
-        # row 1 at the shape phase 4b's one-pass route launches it, row 5 at
-        # its two-pass route's
+        # rows 1-2 at the shapes and CTAs a row the ultra-long calls launch
+        # them with, rows 5-6 at the two-pass route's groups'
         ultra_n = signal_bucket(max(len(r) for r in ultra))
-        check_wave_ultra(tc.prefix_ext, 8, ultra_n, params, rng, results)
-        torch.cuda.empty_cache()
-        check_ckpt_ultra(tc.prefix_ext, ultra_n, params, rng, results)
+        check_wave_ultra((tc.prefix_ext, tc.suffix_ext), ultra_n, params, rng, results)
+        check_ckpt_ultra((tc.prefix_ext, tc.suffix_ext), ultra_n, params, rng)
         # rows 1, 2, 5, 6 and 8 and both tracebacks over the AlignParams sweep
         torch.cuda.empty_cache()
         sweep = check_sweep(args.seed)
@@ -3344,23 +3594,30 @@ def main() -> int:
     try:
         # 2 GiB: the bucket's ~4.7 GB width-8 plane does not fit (two-pass);
         # 8 GiB: it does at 8 rows a call (the one-pass route)
-        for route, budget in (("two-pass", "2"), ("one-pass", "8")):
+        # and the two-pass route over the 8 reads twice (32 rows: one CTA
+        # a row, the launch plan's cluster being for calls of 16 rows or
+        # fewer at this MP)
+        for route, budget, reads in (("two-pass", "2", ultra), ("one-pass", "8", ultra),
+                                     ("two-pass, 16 reads", "2", ultra + ultra)):
             os.environ["STRIQUE_PTR_BUDGET_GB"] = budget
             torch.cuda.synchronize()
             _build.reset_launches()
             t0 = time.perf_counter()
-            res = counter.detect_many("c9orf72", ultra, "+")
-            torch.cuda.synchronize()
-            runs[route] = (res, time.perf_counter() - t0, dict(_build.LAUNCHES))
+            with WaveCalls() as calls:
+                res = counter.detect_many("c9orf72", reads, "+")
+                torch.cuda.synchronize()
+            runs[route] = (res, time.perf_counter() - t0, dict(_build.LAUNCHES), calls)
     except Exception as e:  # noqa: BLE001
         fail(f"ultra-long path raised {type(e).__name__}: {e}")
     finally:
         os.environ.pop("STRIQUE_PTR_BUDGET_GB", None)
-    for route, (res, dt, lc) in runs.items():
+    for route, (res, dt, lc, calls) in runs.items():
         ok = sum(int(r[0] == ULTRA_REPEATS) for r in res)
         print(f"ultra-long {route}: {ok}/{len(res)} exact in {dt:.3f} s "
-              f"(STRIQUE_PTR_BUDGET_GB={'2' if route == 'two-pass' else '8'}); card: {card}; "
+              f"(STRIQUE_PTR_BUDGET_GB={'8' if route == 'one-pass' else '2'}); card: {card}; "
               f"launches {json.dumps({k: v for k, v in lc.items() if v})}", flush=True)
+        results.setdefault("ultra_plans", {})[route] = calls.report(
+            f"ultra-long {route}, the plan's calls", card)
         if ok != len(res):
             fail(f"inexact ultra-long counts on the {route} route: {[r[0] for r in res]}")
         if not all(np.isfinite(r[1]) and np.isfinite(r[2]) and np.isfinite(r[3]) for r in res):
@@ -3368,22 +3625,33 @@ def main() -> int:
     two_launches = runs["two-pass"][2]
     one_launches = runs["one-pass"][2]
     # two-pass: both flanks of the 8 reads in one 16-row group, TABLE mode
-    if (two_launches["align_forward_ckpt_table"] != 1
-            or two_launches["align_window_from_state_table"] <= 0
-            or any(two_launches[k] for k in POW_TWO_PASS + POW_WAVE + TABLE_WAVE)):
+    # on one CTA or on the plan's cluster
+    if (sum(two_launches[k] for k in ("align_forward_ckpt_table", "align_forward_ckpt_cluster"))
+            != 1
+            or two_launches["align_window_from_state_table"]
+            + two_launches["align_window_from_state_cluster"] <= 0
+            or any(two_launches[k] for k in POW_TWO_PASS + POW_WAVE + TABLE_WAVE + CLUSTER_WAVE)):
         fail("the two-pass run did not go through one TABLE pass-1 launch for both flanks and "
              "the TABLE window kernel alone")
-    if any(one_launches[k] for k in POW_TWO_PASS + TABLE_TWO_PASS):
+    if any(one_launches[k] for k in POW_TWO_PASS + TABLE_TWO_PASS + CLUSTER_TWO_PASS):
         fail("the one-pass run took the two-pass route")
     # one-pass: 2 x 8 rows exceed the budget as one call, so each flank
     # runs its own 8-row call against one template (row 1, TABLE mode)
-    if one_launches["align_forward_wave_table"] <= 0 or any(one_launches[k] for k in POW_WAVE):
+    if (one_launches["align_forward_wave_table"] + one_launches["align_forward_wave_cluster"] <= 0
+            or any(one_launches[k] for k in POW_WAVE)):
         fail("the one-pass run did not align in the TABLE score mode")
     if [tuple(r) for r in runs["two-pass"][0]] != [tuple(r) for r in runs["one-pass"][0]]:
         fail("two-pass result tuples differ from the one-pass route's")
-    print("ultra-long two-pass result tuples equal the one-pass route's", flush=True)
+    wide = runs["two-pass, 16 reads"]
+    if ([tuple(r) for r in wide[0]] != [tuple(r) for r in runs["two-pass"][0]] * 2
+            or any(wide[2][k] <= 0 for k in TABLE_TWO_PASS)
+            or any(wide[2][k] for k in CLUSTER_TWO_PASS + POW_TWO_PASS)):
+        fail("the 16-read two-pass run did not give the 8 reads' tuples twice through one CTA "
+             "a row")
+    print("ultra-long two-pass result tuples equal the one-pass route's (and twice over the "
+          "16-read run's)", flush=True)
     for name in TABLE_TWO_PASS:
-        launches[name] = two_launches[name]
+        launches[name] = wide[2][name]
     launches["align_forward_wave_table"] = one_launches["align_forward_wave_table"]
 
     # -- phase 4e: flanks past one CTA's score table (the cluster TABLE mode) -
@@ -3506,10 +3774,19 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001
         fail(f"the fused or two-phase route raised {type(e).__name__}: {e}")
 
+    # row 1's one-CTA TABLE instance: the ultra one-pass route's calls,
+    # or where the plan put those on a cluster, the two-phase route's
+    if launches["align_forward_wave_table"] == 0:
+        launches["align_forward_wave_table"] = routes["two-phase"]["launches"].get(
+            "align_forward_wave_table", 0)
+
     # -- phase 5: report ----------------------------------------------------
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[name], **results[name]}
                for name, (src, rep) in SOURCES.items()]
+    idle = [k["name"] for k in kernels if k["launches"] <= 0]
+    if idle:
+        fail(f"kernels of the line that no path launched: {idle}")
     if args.out:
         with open(args.out, "w") as fp:
             json.dump({"card": card, "kind": kind, "build_s": build_s, "reads_per_sec": rps,
@@ -3517,8 +3794,12 @@ def main() -> int:
                        "ultra_s": {k: v[1] for k, v in runs.items()},
                        "knob_reads_per_sec": knob_rps, "count_stream": count, "mod": mod,
                        "hosts_s": hosts_s, "routes": routes, "sweep": sweep,
+                       "plans": {k: results.get(k) for k in ("ultra_plans", "over_cap_plans")},
+                       "over_cap_s": results.get("over_cap_s"),
                        "kernels": kernels},
                       fp, indent=1)
+    print(f"chip_smoke.py: {time.perf_counter() - t_start:.1f} s, build included; card: {card}",
+          flush=True)
     print(json.dumps({"kernels": [{k: kern[k] for k in KERNEL_KEYS} for kern in kernels]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

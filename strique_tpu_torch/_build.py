@@ -74,6 +74,9 @@ _SIGNATURES = {
     # sig, tmpl, nact, mrow, ptr, bottom; B, N, MP, tmpl_stride, neg_h;
     # go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "wave_align_launch": [_P] * 6 + [_I] * 5 + [_F] * 7 + [_P],
+    # K, MPC -> the clusters of K CTAs of MPC lanes the card runs at once
+    # (a query, not a launch: no stream)
+    "wave_cluster_capacity": [_I] * 2,
     # bins, lut, levels, lidx, nact, mrow, ptr, bottom; B, N, MP, UP,
     # per_row, ctas, mpc, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g;
     # stream

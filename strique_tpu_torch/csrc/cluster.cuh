@@ -41,6 +41,26 @@ __device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
   }
 }
 
+// wait_parity with CTA-scope acquire: for a phase completed by this
+// CTA's own threads or by bytes st.async delivered into this CTA's shared
+// memory, and for the slot-free arrivals of a peer that only reads its
+// own copy.  A cluster-scope acquire also invalidates the SM's L1 (CCTL.IVALL),
+// which costs the other warps their cached global reads.
+__device__ __forceinline__ void wait_parity_cta(uint32_t bar, uint32_t parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred P;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, P;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins > (1u << 26)) __trap();
+  }
+}
+
 // 16 bytes into CTA `rank`'s copy of shared address `addr`, completing
 // 16 bytes on that CTA's copy of mbarrier `bar`
 __device__ __forceinline__ void st_async_v4(uint32_t addr, float4 v, uint32_t bar,
@@ -78,6 +98,39 @@ __device__ __forceinline__ void st_async_b32(uint32_t addr, uint32_t x, uint32_t
       " st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [ra], %1, [rb];\n"
       "}\n" ::"r"(addr),
       "r"(x), "r"(rank), "r"(bar)
+      : "memory");
+}
+
+// one arrival on this CTA's mbarrier `bar`, after this thread's earlier
+// shared-memory writes
+__device__ __forceinline__ void arrive_local(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cta.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival on CTA `rank`'s copy of mbarrier `bar` after this thread's
+// earlier shared-memory reads: a CTA-scope fence, then a relaxed
+// cluster-scope arrive.  For a consumer freeing a ring slot it has read;
+// the slot lies in this CTA's shared memory, and the producer `rank`
+// writes it again by st.async only once its wait on `bar` has seen this
+// arrival.  That the slot's last reads (wave_align.cu: rs[14], rs[15],
+// loaded just before) are done by then rests on the SM, not on the PTX
+// memory model: the CTA-scope fence is relied on to hold the arrival
+// behind this thread's earlier loads, which read the one physical copy
+// of the slot that the st.async writes, and the producer's write starts
+// only after the arrival has crossed to it and its store has crossed
+// back.  The model orders these reads before
+// another CTA's write only through a release at cluster scope
+// (arrive_remote), which compiles to MEMBAR.ALL.GPU and waits for every
+// global store the thread has in flight (its pointer words): a group's
+// end 850 against 230 cycles at 128 lanes.  The tests hold every cluster
+// size the launch plan can pick bit-equal to the twins.
+__device__ __forceinline__ void arrive_remote_after_reads(uint32_t bar, uint32_t rank) {
+  asm volatile(
+      "{\n .reg .b32 rb;\n"
+      " fence.acq_rel.cta;\n"
+      " mapa.shared::cluster.u32 rb, %0, %1;\n"
+      " mbarrier.arrive.relaxed.cluster.shared::cluster.b64 _, [rb];\n}\n" ::"r"(bar),
+      "r"(rank)
       : "memory");
 }
 

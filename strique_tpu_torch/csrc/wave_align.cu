@@ -75,26 +75,40 @@
 // from S2 of lane i-1.
 //
 // TABLE past one CTA (a template of more than 1024 lanes, or a table too
-// large beside the row's exchange buffers): a thread-block cluster of K
-// CTAs a row (K <= 8, picked on the host by ops/align_cuda.py
-// `wave_table_ctas`).  CTA k owns the contiguous lanes [k MPC, (k+1)
-// MPC), MPC a multiple of 128 up to 2048, one lane a thread (two past
-// 1024), and builds the score table of only the levels its own lanes use
-// (the host's per-CTA `template_levels`), so each CTA's table fits its
-// SM.  Lane k MPC needs S and C of lane k MPC - 1 at step t - 1, and
-// nothing flows the other way, so CTA k runs behind CTA k - 1 with no
-// cluster barrier a step: the thread of CTA k - 1 that owns its last
-// lane sends each step's (S, C) by st.async into a ring slot of CTA k's
-// shared memory (one slot an 8-step group, RING slots, one "full"
-// mbarrier each, on which the bytes complete); thread 0 of CTA k waits
-// on a slot once a group and then frees it by a remote arrive on CTA k -
-// 1's "empty" mbarrier of that slot, which the sender waits on before it
-// reuses the slot.  Each CTA keeps its single __syncthreads a step; a
-// cluster barrier at the start (the mbarriers initialised) and at the
-// end (no CTA leaves while a peer may still write into it) are the only
-// others.  Every lane computes what the one-CTA kernel computes for it,
-// from the same operands, so the cluster form is bit-equal to it (and to
-// its twin).
+// large beside the row's exchange buffers), or where a call's rows leave
+// SMs idle: a thread-block cluster of K CTAs a row (K <= 8, picked on the
+// host by ops/align_cuda.py `wave_launch_plan`, by the step each K takes
+// within the SM count).  CTA k owns the contiguous lanes [k MPC, (k+1)
+// MPC), MPC a multiple of 128 up to 2048, and builds the score table of
+// only the levels its own lanes use (the host's per-CTA
+// `template_levels`), so each CTA's table fits its SM.  A thread owns one
+// lane (two contiguous ones past 1024 lanes a CTA, four past 1536), a
+// warp 32 LPT contiguous lanes.  Lane i needs S and C of lane i-1 at step
+// t - 1 and nothing flows the other way, so no barrier runs a step: inside a warp
+// the values move by shuffle, and each warp runs a group behind the one
+// before it, whose last lane fills a ring for the warp's first: in shared
+// memory between the warps of a CTA (LRING slots, local full/empty
+// mbarriers), by st.async into CTA k's shared memory from CTA k - 1 (RING
+// slots, one "full" mbarrier each, on which the bytes complete, freed by
+// a remote arrive on CTA k - 1's "empty" mbarrier).  A slot holds an
+// 8-step group; its receiver waits once a group.  A lane reads its
+// group's scores before the group from bins it read a group earlier, off
+// the step's chain.  A
+// cluster barrier at the start (the mbarriers and tables ready) and at
+// the end (no CTA leaves while a peer may still write into it) are the
+// only others.  A form with one __syncthreads a step through
+// shared-memory buffers (the one-CTA kernel's) stepped at a latency floor
+// on a cluster (~490 cycles at 128 lanes a CTA, ~600 at 896;
+// tools/probe_wave_cluster.py), its ring waits 3-13% of it.  A ring wait
+// acquires at CTA scope and a slot is freed by a relaxed remote arrive
+// after a CTA fence: a cluster-scope acquire invalidates the SM's L1 and
+// a cluster-scope release waits for the thread's global stores.  Every
+// CTA asks for a whole SM's shared memory, so no two share an SM, and
+// the host keeps a call's clusters within what the card runs at once
+// (wave_cluster_capacity).
+// Every lane computes what the one-CTA kernel computes for it, from the
+// same operands, so the cluster form is bit-equal to it (and to its
+// twin).
 //
 // Value contract (bit-identical to the reference's f32 stream, up to the
 // measured 1-ulp pow difference): every expression tree of the Pallas
@@ -130,8 +144,14 @@ constexpr int RING = 8;
 constexpr int SLOT_FLOATS = 16;
 constexpr int RING_FLOATS = RING * SLOT_FLOATS + RING * 2 * 2;
 constexpr uint32_t SLOT_BYTES = 4 * SLOT_FLOATS;
+constexpr int LRING = 4;  // the cluster form's warp rings: slots, one 8-step group each
 constexpr int MAX_CTAS = 8;                     // a portable cluster
-constexpr int CL_MAX_LANES = 2048;              // a cluster CTA's lanes: 1024 threads of 2
+constexpr int CL_MAX_LANES = 2048;              // a cluster CTA's lanes: 512 threads of 4
+// the cluster form's lanes a thread, by the CTA's lanes: one up to 1024
+// lanes, two up to 1536, four past it; each instance's launch bounds
+// are its most threads (1024, 768, 512), so a thread of 2 or 4 lanes
+// keeps its lanes' state, scores and bins in registers
+constexpr int cluster_threads(int lpt) { return lpt == 1 ? 1024 : lpt == 2 ? 768 : 512; }
 
 enum Mode { PTR = 0, CKPT = 1, WINDOW = 2 };
 enum Score { POW = 0, TABLE = 1 };
@@ -160,6 +180,23 @@ struct Table {
   int up;                // UP
   int per_row;           // R == B (1) or R == 1 (0)
 };
+
+// What a probe reads of a cluster row's step loop (tools/probe_wave_cluster.cu
+// compiles this file with WAVE_HOOK set to a counting hook): the loop's
+// start and end, each ring wait (0: the CTA ring's slot full, 1: its
+// slot empty again; 2, 3: the same of a warp ring), and a group's phases
+// (mark 0: its start, 1: its scores read, 2: its waits done, 3: its 8
+// steps done).  The kernels built here take NoHook, whose calls vanish.
+struct NoHook {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void wait_begin() {}
+  __device__ __forceinline__ void wait_end(int) {}
+  __device__ __forceinline__ void finish(int) {}
+};
+#ifndef WAVE_HOOK
+#define WAVE_HOOK NoHook
+#endif
 
 // a lane's running state
 struct Lane {
@@ -231,27 +268,24 @@ __device__ __forceinline__ void dp_cell(Lane& L, float sc, float s_prev, float c
 // multiple of ckpt_steps.  nact = n, mrow = m per row.  WINDOW: ND = W;
 // POW reads sig = sig_win (B, W), TABLE the read's bins from t0; nact =
 // the steps a row needs, mrow unused.  TABLE reads tb in place of sig
-// and tmpl.  CL: the cluster form (TABLE only), a row's K CTAs MPC lanes
-// each; one CTA a row has MPC = MP.
-template <int LPT, int MODE, int SCORE, bool CL>
+// and tmpl.  One CTA a row: its lanes MPC = MP (the launch passes MP
+// twice), the exchange buffers' width.  Kept a parameter of its own:
+// ptxas schedules the step by it, and the same kernel with W taken from
+// MP ran its PTR and WINDOW steps 3-5% slower on an H100.
+template <int LPT, int MODE, int SCORE>
 __global__ void __launch_bounds__(1024)
 wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, Table tb,
                   const int* __restrict__ nact, const int* __restrict__ mrow,
                   int32_t* __restrict__ ptr, float* __restrict__ bottom,
                   int B, int ND, int NS, int MP, int MPC, int tmpl_stride, Params p, Resume r) {
-  // CL: the ring first (RING_FLOATS).  Then two buffers each of S and C,
-  // MPC + 1 floats: index 0 holds lane -1's fill, the CTA's lane li lives
-  // at index li + 1; in TABLE mode the CTA's U x 258 scores follow
-  extern __shared__ __align__(16) float smem_all[];
-  float* smem = smem_all + (CL ? RING_FLOATS : 0);
+  // two buffers each of S and C, MPC + 1 floats: index 0 holds lane -1's
+  // fill, lane li lives at index li + 1; in TABLE mode the U x 258 scores
+  // follow
+  extern __shared__ __align__(16) float smem[];
   const int W = MPC + 1;
   float* T = smem + 4 * W;
 
-  int K = 1, rank = 0;  // CTAs of the row, this CTA's place among them
-  if constexpr (CL) {
-    K = (int)cg::this_cluster().num_blocks();
-    rank = (int)cg::this_cluster().block_rank();
-  }
+  const int K = 1, rank = 0;  // one CTA a row
   const int row = blockIdx.x / K;
   const int lane0 = rank * MPC;  // the CTA's first lane
   const int n = nact[row];
@@ -266,14 +300,6 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
   float* bot = MODE == WINDOW ? nullptr : bottom + (size_t)row * ND;
   const float fill_s = p.neg_h ? -p.dmin : NEGF;
   const bool cold = MODE != WINDOW || r.cold[row] != 0;
-  // CL: thread 0 takes lane lane0 - 1's S and C from the ring (recv); the
-  // thread of the CTA's last lane (k = LPT - 1) sends its own (send)
-  const bool recv = CL && rank > 0 && threadIdx.x == 0;
-  const bool send = CL && rank + 1 < K && threadIdx.x == blockDim.x - 1;
-  const uint32_t ring_a = smem_addr(smem_all);
-  const uint32_t full_a = ring_a + 4 * RING * SLOT_FLOATS;
-  const uint32_t empty_a = full_a + 8 * RING;
-  const int groups = t_end >> 3;
 
   Lane L[LPT];
   float tm[LPT];    // POW: the lane's template value
@@ -312,23 +338,6 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
     smem[2 * W] = NEGF;
     smem[3 * W] = NEGF;
   }
-  // recv: S and C of lane lane0 - 1 at the step before the current one
-  float in_s = NEGF, in_c = NEGF;
-  if (MODE == WINDOW && recv) {
-    in_s = r.st[0][(size_t)row * MP + lane0 - 1];
-    in_c = r.st[3][(size_t)row * MP + lane0 - 1];
-  }
-  if constexpr (CL) {
-    if (threadIdx.x == 0) {
-      for (int q = 0; q < RING; ++q) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full_a + 8 * q));
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty_a + 8 * q));
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      if (rank > 0)
-        for (int q = 0; q < RING && q < groups; ++q) expect_tx(full_a + 8 * q, SLOT_BYTES);
-    }
-  }
   if (SCORE == TABLE) {
     // entry [u][b]: template level u against bin b's value (b < 256), NEG
     // (b = 256) or 0.0 (b = 257)
@@ -341,24 +350,16 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
       T[e] = cell_score(x, lv[u], p);
     }
   }
-  if constexpr (CL)
-    cg::this_cluster().sync();  // every CTA's mbarriers initialised before any byte moves
-  else
-    __syncthreads();
+  __syncthreads();
 
   // t_end is a multiple of 8 (ND and W are): groups of 8 steps, one
   // pointer word each.  CKPT: after step (g+1)*ckpt_steps - 1 the state
   // goes to slot g; ckpt_steps is a multiple of 8, so that step closes a
-  // group.  CL: group g travels in ring slot g % RING, its use g / RING
+  // group.
   int ck_next = MODE == CKPT ? r.ckpt_steps : 0;
   size_t ck_row = (size_t)row * MP;
   for (int t0 = 0; t0 < t_end; t0 += 8) {
     const bool dump_group = MODE == CKPT && t0 + 8 == ck_next;
-    const int g = t0 >> 3;
-    const int slot = g % RING;
-    const float* rs = smem_all + slot * SLOT_FLOATS;
-    if (CL && recv) wait_parity(full_a + 8 * slot, (g / RING) & 1);
-    if (CL && send && g >= RING) wait_parity(empty_a + 8 * slot, (g / RING - 1) & 1);
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int t = t0 + s;
@@ -387,28 +388,15 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
           sc = cell_score(av, tm[k], p);
         }
         float sp = s_prv[li], cp = c_prv[li];
-        if (CL && k == 0 && recv) {  // lane lane0 - 1 at step t - 1
-          sp = s == 0 ? in_s : rs[2 * s - 2];
-          cp = s == 0 ? in_c : rs[2 * s - 1];
-        }
         dp_cell<MODE>(L[k], sc, sp, cp, i, t, s, p, m, n, cold, bot, dump, ck_row, r);
         s_cur[li + 1] = L[k].S1;
         c_cur[li + 1] = L[k].C;
-        if (CL && k == LPT - 1 && send)
-          st_async_v2(ring_a + 4 * (slot * SLOT_FLOATS + 2 * s), L[k].S1, L[k].C,
-                      full_a + 8 * slot, rank + 1);
         if (MODE != CKPT && s == 7) {
           ptr[((size_t)(t0 >> 3) * B + row) * MP + i] = (int32_t)L[k].acc;
           L[k].acc = 0;
         }
       }
       __syncthreads();
-    }
-    if (CL && recv) {
-      in_s = rs[2 * 7];
-      in_c = rs[2 * 7 + 1];
-      if (g + RING < groups) expect_tx(full_a + 8 * slot, SLOT_BYTES);
-      arrive_remote(empty_a + 8 * slot, rank - 1);  // the slot is free again
     }
     if (dump_group) {
       ck_next += r.ckpt_steps;
@@ -417,7 +405,217 @@ wave_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl,
   }
   if (MODE != WINDOW && m >= lane0 && m < lane0 + MPC)  // the CTA of the bottom lane
     for (int t = t_end + threadIdx.x; t < ND; t += blockDim.x) bot[t] = NEGF;
-  if constexpr (CL) cg::this_cluster().sync();  // no CTA leaves while a peer may write into it
+}
+
+// TABLE on a cluster of K CTAs a row, MPC lanes a CTA, LPT contiguous
+// lanes a thread (thread j owns lanes LPT j .. LPT j + LPT - 1 of its
+// CTA): warps chained by rings, no barrier a step (see the top of the
+// file).
+template <int LPT, int MODE, class Hook>
+__global__ void __launch_bounds__(cluster_threads(LPT))
+wave_cluster_kernel(Table tb, const int* __restrict__ nact, const int* __restrict__ mrow,
+                    int32_t* __restrict__ ptr, float* __restrict__ bottom, int B, int ND,
+                    int NS, int MP, int MPC, Params p, Resume r) {
+  // [the CTA ring: RING_FLOATS][the warp rings, within 4 (MPC + 1)
+  // floats: warps x LRING full then empty mbarriers, then the slots]
+  // [the CTA's U x 258 scores]
+  extern __shared__ __align__(16) float smem_all[];
+  const int warps = blockDim.x >> 5;
+  float* wring = smem_all + RING_FLOATS;
+  float* wdata = wring + 4 * warps * LRING;
+  float* T = wring + 4 * (MPC + 1);
+  const int K = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int row = blockIdx.x / K;
+  const int lane0 = rank * MPC + LPT * (int)threadIdx.x;  // the thread's first lane
+  const int w = threadIdx.x >> 5, wl = threadIdx.x & 31;
+  const int n = nact[row];
+  const int m = MODE == WINDOW ? 0 : mrow[row];
+  int t_end = (n + m + 7) & ~7;
+  if (t_end > ND) t_end = ND;
+  const int toff = MODE == WINDOW ? r.t0[row] : 0;
+  const uint8_t* brow = tb.bins + (size_t)row * NS;
+  float* bot = MODE == WINDOW ? nullptr : bottom + (size_t)row * ND;
+  const float fill_s = p.neg_h ? -p.dmin : NEGF;
+  const bool cold = MODE != WINDOW || r.cold[row] != 0;
+  // the ring ends: a warp's first thread receives its predecessor lane's
+  // (S, C) (from CTA k - 1 for warp 0), its last thread sends its own
+  // (to CTA k + 1 from the last warp); warp 0 of CTA 0 reads lane -1's fill
+  const bool recv = wl == 0 && (w > 0 || rank > 0);
+  const bool send = wl == 31 && (w + 1 < warps || rank + 1 < K);
+  const bool remote_in = recv && w == 0, remote_out = send && w + 1 == warps;
+  const uint32_t ring_a = smem_addr(smem_all);
+  const uint32_t full_a = ring_a + 4 * RING * SLOT_FLOATS;
+  const uint32_t empty_a = full_a + 8 * RING;
+  const uint32_t wfull_a = smem_addr(wring);
+  const uint32_t wempty_a = wfull_a + 8 * warps * LRING;
+  const int groups = t_end >> 3;
+
+  Lane L[LPT];
+  int tbase[LPT];  // the lane's level row in the score table
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const int i = lane0 + k;
+    if (MODE == WINDOW && i < MP) {
+      const size_t o = (size_t)row * MP + i;
+      L[k].S1 = r.st[0][o];
+      L[k].Ih = r.st[2][o];
+      L[k].C = r.st[3][o];
+      L[k].hS = (i == 0) ? fill_s : r.st[1][o - 1];
+    } else {
+      L[k].S1 = (i == 0) ? 0.0f : NEGF;
+      L[k].Ih = NEGF;
+      L[k].C = NEGF;
+      L[k].hS = (i == 0) ? fill_s : NEGF;
+    }
+    tbase[k] = (i < MP) ? tb.lidx[(size_t)row * tb.per_row * MP + i] * SCORE_COLS : 0;
+    L[k].acc = 0;
+  }
+  // the receiver: S and C of its predecessor lane at the step before the
+  // current one (step -1 first; lane -1's fill for warp 0 of CTA 0)
+  float in_s = fill_s, in_c = NEGF;
+  if (recv) {
+    const int pl = lane0 - 1;
+    in_s = MODE == WINDOW && pl < MP ? r.st[0][(size_t)row * MP + pl] : NEGF;
+    in_c = MODE == WINDOW && pl < MP ? r.st[3][(size_t)row * MP + pl] : NEGF;
+  }
+  if (threadIdx.x == 0) {
+    for (int q = 0; q < RING; ++q) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full_a + 8 * q));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty_a + 8 * q));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (rank > 0)
+      for (int q = 0; q < RING && q < groups; ++q) expect_tx(full_a + 8 * q, SLOT_BYTES);
+  }
+  for (int q = threadIdx.x; q < warps * LRING; q += blockDim.x) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wfull_a + 8 * q));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wempty_a + 8 * q));
+  }
+  {
+    // entry [u][b]: the CTA's level u against bin b's value (b < 256),
+    // NEG (b = 256) or 0.0 (b = 257)
+    const float* lut = tb.lut + (size_t)row * 256;
+    const float* lv = tb.levels + ((size_t)row * tb.per_row * K + rank) * tb.up;
+    for (int e = threadIdx.x; e < tb.up * SCORE_COLS; e += blockDim.x) {
+      const int u = e / SCORE_COLS;
+      const int b = e - u * SCORE_COLS;
+      const float x = b < 256 ? lut[b] : (b == BIN_NEG ? NEGF : 0.0f);
+      T[e] = cell_score(x, lv[u], p);
+    }
+  }
+  cg::this_cluster().sync();  // every CTA's mbarriers and table ready before any byte moves
+
+  // each lane's bins of a group's 8 steps (its score-table columns)
+  int bn[LPT][8];
+  auto load_bins = [&](int tg) {
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int ai = tg + s - (lane0 + k);
+        bn[k][s] = MODE == WINDOW ? bin_at<BIN_ZERO>(brow, toff + ai, NS)
+                                  : bin_at<BIN_NEG>(brow, ai, NS);
+      }
+    }
+  };
+  load_bins(0);
+
+  // group g: CTA ring slot g % RING, warp ring slot g % LRING
+  int ck_next = MODE == CKPT ? r.ckpt_steps : 0;
+  size_t ck_row = (size_t)row * MP;
+  Hook hook;
+  hook.start();
+  for (int t0 = 0; t0 < t_end; t0 += 8) {
+    const bool dump_group = MODE == CKPT && t0 + 8 == ck_next;
+    const int g = t0 >> 3;
+    const int slot = g % RING, wslot = g % LRING;
+    hook.mark(0);
+    // the group's scores from the bins read a group ahead; then the next
+    // group's bins, in flight while this group's steps run
+    float sc[LPT][8];
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+#pragma unroll
+      for (int s = 0; s < 8; ++s) sc[k][s] = T[tbase[k] + bn[k][s]];
+    }
+    load_bins(t0 + 8);
+    hook.mark(1);
+    const float* rs = remote_in ? smem_all + slot * SLOT_FLOATS
+                                : wdata + (w * LRING + wslot) * SLOT_FLOATS;
+    float* ws = wdata + ((w + 1) * LRING + wslot) * SLOT_FLOATS;  // a local send's slot
+    if (recv) {
+      hook.wait_begin();
+      wait_parity_cta(remote_in ? full_a + 8 * slot : wfull_a + 8 * (w * LRING + wslot),
+                      (g / (remote_in ? RING : LRING)) & 1);
+      hook.wait_end(remote_in ? 0 : 2);
+    }
+    if (send && g >= (remote_out ? RING : LRING)) {
+      hook.wait_begin();
+      wait_parity_cta(remote_out ? empty_a + 8 * slot : wempty_a + 8 * ((w + 1) * LRING + wslot),
+                      (g / (remote_out ? RING : LRING) - 1) & 1);
+      hook.wait_end(remote_out ? 1 : 3);
+    }
+    __syncwarp();
+    hook.mark(2);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int t = t0 + s;
+      const bool dump = dump_group && s == 7;
+      // lane lane0 - 1 at step t - 1
+      float sp = __shfl_up_sync(0xffffffffu, L[LPT - 1].S1, 1);
+      float cp = __shfl_up_sync(0xffffffffu, L[LPT - 1].C, 1);
+      if (wl == 0) {
+        sp = recv && s > 0 ? rs[2 * s - 2] : in_s;
+        cp = recv && s > 0 ? rs[2 * s - 1] : in_c;
+      }
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const int i = lane0 + k;
+        const float s_next = L[k].S1, c_next = L[k].C;  // lane i at t - 1, for lane i + 1
+        dp_cell<MODE>(L[k], sc[k][s], sp, cp, i, t, s, p, m, n, cold, bot, dump && i < MP,
+                      ck_row, r);
+        sp = s_next;
+        cp = c_next;
+      }
+      if (send) {
+        if (remote_out)
+          st_async_v2(ring_a + 4 * (slot * SLOT_FLOATS + 2 * s), L[LPT - 1].S1, L[LPT - 1].C,
+                      full_a + 8 * slot, rank + 1);
+        else
+          *reinterpret_cast<float2*>(ws + 2 * s) = make_float2(L[LPT - 1].S1, L[LPT - 1].C);
+      }
+      if (MODE != CKPT && s == 7) {
+#pragma unroll
+        for (int k = 0; k < LPT; ++k) {
+          if (lane0 + k < MP)
+            ptr[((size_t)(t0 >> 3) * B + row) * MP + lane0 + k] = (int32_t)L[k].acc;
+          L[k].acc = 0;
+        }
+      }
+    }
+    hook.mark(3);
+    if (send && !remote_out) arrive_local(wfull_a + 8 * ((w + 1) * LRING + wslot));
+    if (recv) {
+      in_s = rs[2 * 7];
+      in_c = rs[2 * 7 + 1];
+      if (remote_in) {
+        if (g + RING < groups) expect_tx(full_a + 8 * slot, SLOT_BYTES);
+        arrive_remote_after_reads(empty_a + 8 * slot, rank - 1);  // the slot is free again
+      } else {
+        arrive_local(wempty_a + 8 * (w * LRING + wslot));
+      }
+    }
+    if (dump_group) {
+      ck_next += r.ckpt_steps;
+      ck_row += (size_t)B * MP;
+    }
+  }
+  hook.finish(groups);
+  const int first = rank * MPC;
+  if (MODE != WINDOW && m >= first && m < first + MPC)  // the CTA of the bottom lane
+    for (int t = t_end + threadIdx.x; t < ND; t += blockDim.x) bot[t] = NEGF;
+  cg::this_cluster().sync();  // no CTA leaves while a peer may write into it
 }
 
 template <int LPT, int MODE, int SCORE>
@@ -430,27 +628,30 @@ cudaError_t launch(const float* sig, const float* tmpl, const Table& tb, const i
   const size_t shmem = (4 * (size_t)(MP + 1) + table) * sizeof(float);
   if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(wave_align_kernel<LPT, MODE, SCORE, false>,
+    cudaError_t e = cudaFuncSetAttribute(wave_align_kernel<LPT, MODE, SCORE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)shmem);
     if (e != cudaSuccess) return e;
   }
-  wave_align_kernel<LPT, MODE, SCORE, false><<<B, threads, shmem, stream>>>(
+  wave_align_kernel<LPT, MODE, SCORE><<<B, threads, shmem, stream>>>(
       sig, tmpl, tb, nact, mrow, ptr, bottom, B, ND, NS, MP, MP, tmpl_stride, p, r);
   return cudaGetLastError();
 }
 
 // TABLE on a cluster of K CTAs a row, MPC lanes each (MPC / LPT threads)
-template <int LPT, int MODE>
+template <int LPT, int MODE, class Hook>
 cudaError_t launch_cluster(const Table& tb, const int* nact, const int* mrow, int32_t* ptr,
                            float* bottom, int B, int ND, int NS, int MP, int MPC, int K,
                            Params p, const Resume& r, cudaStream_t stream) {
-  auto kern = wave_align_kernel<LPT, MODE, TABLE, true>;
+  auto kern = wave_cluster_kernel<LPT, MODE, Hook>;
   const size_t shmem =
       (RING_FLOATS + 4 * (size_t)(MPC + 1) + (size_t)tb.up * SCORE_COLS) * sizeof(float);
   if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
+  // every CTA asks for a whole SM's shared memory: one CTA an SM, so no
+  // two CTAs of a wide call share an SM's issue (the block scheduler
+  // packs a cluster's CTAs onto SMs where their memory fits)
   cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -460,7 +661,7 @@ cudaError_t launch_cluster(const Table& tb, const int* nact, const int* mrow, in
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * K);
   cfg.blockDim = dim3(MPC / LPT);
-  cfg.dynamicSmemBytes = shmem;
+  cfg.dynamicSmemBytes = SMEM_MAX;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
@@ -469,8 +670,7 @@ cudaError_t launch_cluster(const Table& tb, const int* nact, const int* mrow, in
   e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (e != cudaSuccess) return e;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kern, (const float*)nullptr, (const float*)nullptr, tb, nact,
-                         mrow, ptr, bottom, B, ND, NS, MP, MPC, 0, p, r);
+  e = cudaLaunchKernelEx(&cfg, kern, tb, nact, mrow, ptr, bottom, B, ND, NS, MP, MPC, p, r);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -506,8 +706,8 @@ bool split_ok(int MP, int K, int MPC) {
 }
 
 // TABLE: one CTA a row, one lane a thread (K = 1, MP <= 1024), or a
-// cluster of K CTAs a row, MPC lanes each, 1 or 2 lanes a thread
-template <int MODE>
+// cluster of K CTAs a row, MPC lanes each, 1, 2 or 4 lanes a thread
+template <int MODE, class Hook = WAVE_HOOK>
 int dispatch_table(const void* bins, const void* lut, const void* levels, const void* lidx,
                    const void* nact, const void* mrow, void* ptr, void* bottom, int B, int ND,
                    int NS, int MP, int UP, int per_row, int K, int MPC, Params p,
@@ -526,10 +726,33 @@ int dispatch_table(const void* bins, const void* lut, const void* levels, const 
   }
   if (!split_ok(MP, K, MPC)) return (int)cudaErrorInvalidValue;
 #define WAVE_CLUSTER(LPT) \
-  (int)launch_cluster<LPT, MODE>(tb, na, mr, pt, bt, B, ND, NS, MP, MPC, K, p, r, st)
+  (int)launch_cluster<LPT, MODE, Hook>(tb, na, mr, pt, bt, B, ND, NS, MP, MPC, K, p, r, st)
   if (MPC <= 1024) return WAVE_CLUSTER(1);
-  return WAVE_CLUSTER(2);
+  if (MPC <= 1536) return WAVE_CLUSTER(2);
+  return WAVE_CLUSTER(4);
 #undef WAVE_CLUSTER
+}
+
+// the most clusters of K CTAs of MPC lanes the card runs at once, as
+// launch_cluster launches them (one CTA an SM); 0 when none fits
+template <int LPT>
+int cluster_capacity(int K, int MPC) {
+  auto kern = wave_cluster_kernel<LPT, PTR, NoHook>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX))
+    return 0;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K);
+  cfg.blockDim = dim3(MPC / LPT);
+  cfg.dynamicSmemBytes = SMEM_MAX;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  return cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) == cudaSuccess ? clusters : 0;
 }
 
 Resume ckpt_resume(void* ck_s1, void* ck_s2, void* ck_ih, void* ck_c, int ckpt_steps) {
@@ -562,6 +785,15 @@ bool ckpt_ok(int ND, int ckpt_steps) {
 }
 
 }  // namespace
+
+// clusters of K CTAs of MPC lanes (a split dispatch_table takes) the
+// card runs at once; the host's launch plan keeps a call's rows within it
+extern "C" int wave_cluster_capacity(int K, int MPC) {
+  if (!(K >= 2 && K <= MAX_CTAS && MPC > 0 && MPC % 128 == 0 && MPC <= CL_MAX_LANES)) return 0;
+  if (MPC <= 1024) return cluster_capacity<1>(K, MPC);
+  if (MPC <= 1536) return cluster_capacity<2>(K, MPC);
+  return cluster_capacity<4>(K, MPC);
+}
 
 extern "C" int wave_align_launch(const void* sig, const void* tmpl, const void* nact,
                                  const void* mrow, void* ptr, void* bottom,

@@ -14,20 +14,21 @@ the template's score table fits shared memory), and so do the
 two-pass route (``align_forward_ckpt_morph``,
 ``align_window_from_state_morph``) and the column route
 (``align_forward_col_morph``).  The template's rule
-(``align_cuda.wave_table_ctas``, ``col_table_ctas``) gives the CTAs a
-row takes: one, or a thread-block cluster whose CTAs split the lanes
-and each hold a table of their own lanes' levels (the split form of
-``template_levels``), so a template past one CTA's table keeps the
-TABLE mode and its calls are as wide as their CTAs fit the card.  Only
-a template past every cluster's table runs POW: the two-pass route
-decodes ``lut[bins]`` to f32 first, and the morph entry points of the
-other two do so.
+(``align_cuda.wave_table_ctas``, ``col_table_ctas``) gives the fewest
+CTAs a row can take: one, or a thread-block cluster whose CTAs split
+the lanes and each hold a table of their own lanes' levels (the split
+form of ``template_levels``), so a template past one CTA's table keeps
+the TABLE mode.  Only a template past every cluster's table runs POW:
+the two-pass route decodes ``lut[bins]`` to f32 first, and the morph
+entry points of the other two do so.
 
-Call widths and fusion follow the device (``align_cuda.kernel_batch``,
-:func:`fuse_flanks`): on the card a call is as wide as its rows, up to
-the largest multiple of 8 within the SM count, and both flanks fuse
-whenever their 2B rows fit one call; on the CPU the reference's 64-row
-widths and partial-batch fusion rule stay.
+Call widths, CTAs and fusion follow the device: on the card every wave
+call's CTAs a row and rows come from ``align_cuda.wave_launch_plan``
+(the shortest predicted call set, from the rule's CTAs up, within the
+SM count and the pointer budget), and both flanks fuse whenever the
+plan takes their 2B rows in one call (:func:`fuse_flanks`); the column
+route keeps its rule's CTAs and ``kernel_batch``'s widths.  On the CPU
+the reference's 64-row widths and partial-batch fusion rule stay.
 
 ``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` and
 ``align_fused_pair`` call, as the reference reads it) swaps the wave
@@ -49,8 +50,9 @@ the card -- the reference runs it as an XLA ``while_loop``
 Ultra-long reads: where even a width-8 pointer plane exceeds
 ``ptr_budget_bytes``, ``align_core`` routes the bucket to the exact
 checkpointed two-pass route (``align_longread_sharded``, groups of
-:func:`two_pass_group` rows on one device: 8 on the CPU, as wide as the
-card on a card): pass 1 (``align_forward_ckpt``) gives each row's score
+:func:`two_pass_group` rows on one device: 8 on the CPU; on a card the
+launch plan's, pass 1 and pass 2 each at its step): pass 1
+(``align_forward_ckpt``) gives each row's score
 and end column and checkpoints the diagonal state; pass 2
 (``align_window_from_state``) recomputes pointers over a window that
 holds the whole optimal path, resumed from the checkpoint at its start,
@@ -74,13 +76,14 @@ import numpy as np
 import torch
 
 from .. import _build
-from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _round_up, align_forward_ckpt,
+from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _distinct_rows, _round_up, align_forward_ckpt,
                          align_forward_ckpt_morph, align_forward_col, align_forward_col_morph,
                          align_forward_wave, align_forward_wave_morph, align_forward_wave_multi,
                          align_forward_wave_multi_morph, align_window_from_state,
                          align_window_from_state_morph, col_table_ctas, kernel_batch,
                          morph_decode, pad_template, pad_template_rows, ptr_budget_bytes,
-                         sm_count, template_levels, wave_span_bound_steps, wave_table_ctas)
+                         sm_count, template_levels, two_pass_group, wave_launch_plan,
+                         wave_span_bound_steps, wave_table_ctas)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 CKPT_STEPS = 16384  # the two-pass route's checkpoint stride (the reference's)
@@ -355,25 +358,6 @@ def _window_steps(bound: int, ckpt_steps: int) -> int:
     return _round_up(bound + ckpt_steps, CHUNK)
 
 
-def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = None,
-                   ctas: int = 1) -> int:
-    """Rows per two-pass group (one pass-1 and one pass-2 launch).
-
-    Card rule (a CUDA device, or any device when ``sms`` is given):
-    :func:`kernel_batch`'s width -- the rows it has, up to the largest
-    multiple of 8 whose ``ctas`` CTAs a row fit the SM count -- narrowed
-    (never below 8) so that pass 2's (W/8, rows, MP) int32 plane fits
-    :func:`ptr_budget_bytes`.  A pass-1 row holds no pointer plane, only
-    its checkpoints.  CPU rule: the reference's 8 rows, so the parity
-    tests compare like with like.
-    """
-    if sms is None:
-        sms = sm_count(device)
-    if sms is None:
-        return 8
-    return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms, ctas=ctas)
-
-
 def _table_form(tmpl_np: np.ndarray, ctas: int, dev):
     """(levels, lidx) of template rows on ``dev`` for a TABLE call of
     ``ctas`` CTAs a row: the one-CTA form of ``template_levels`` (also
@@ -516,21 +500,24 @@ def _two_pass_rows(signals, n_actual, tmpl_np, ms, params, ckpt_steps: int, lut=
     per_row = tmpl_np.shape[0] > 1
     n_act = n_actual.to(torch.int32)
     m_out = int(np.max(ms))
-    _, cks, _ = _ckpt_geometry(N, mp, ckpt_steps)
+    _, cks, nd = _ckpt_geometry(N, mp, ckpt_steps)
     w_steps = _window_steps(int(_span_bounds(params, np.unique(ms)).max()), cks)
-    # the rows' CTAs: every group's, so that its pad rows change nothing
-    ctas = 1 if lut is None else wave_table_ctas(tmpl_np)
+    # the rows' CTAs (0: POW on f32 rows): every group's at least, so
+    # that its pad rows change nothing; the plan reads the distinct rows
+    ctas = 0 if lut is None else wave_table_ctas(tmpl_np)
+    plan_rows = _distinct_rows(tmpl_np)[0]
     states = []
     g0 = 0
     while g0 < B:
         dev = devs[len(states) % len(devs)]
-        kb = two_pass_group(min(B - g0, share), mp, w_steps, dev, ctas=max(ctas, 1))
+        c, kb = wave_launch_plan(min(B - g0, share), plan_rows, w_steps, dev, sm_count(dev),
+                                 ctas, pass1_steps=nd)
         sl = slice(g0, g0 + kb)
         states.append(_pass1_rows(
             _pad_rows(signals[sl], kb, 0).to(dev), _pad_rows(n_act[sl], kb, 1).to(dev),
             _pad_rows_np(tmpl_np[sl], kb, 1e30) if per_row else tmpl_np,
             _pad_rows_np(ms[sl], kb, 1) if per_row else ms, params, ckpt_steps,
-            None if lut is None else _pad_rows(lut[sl], kb, 0.0).to(dev), ctas))
+            None if lut is None else _pad_rows(lut[sl], kb, 0.0).to(dev), c))
         g0 += kb
     outs = [_longread_pass2(st, m_out) for st in states]
     return {k: torch.cat([o[k].to(signals.device) for o in outs])[:B] for k in outs[0]}
@@ -617,13 +604,18 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
         return align_longread_sharded(signals, n_actual, template_np, params, devices, lut=lut)
     if lut is None:
         tmpl = torch.from_numpy(tmpl_np).to(dev)
-    else:
-        levels, lidx = _table_form(tmpl_np, ctas, dev)
+    forms = {}  # (levels, lidx) by the CTAs a row of a call
     n_act = n_actual.to(torch.int32)
     outs = []
     b0 = 0
     while b0 < B:
-        kb = kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev, ctas=max(ctas, 1))
+        if lut is None or col:
+            c, kb = ctas, kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev,
+                                       ctas=max(ctas, 1))
+        else:
+            c, kb = wave_launch_plan(B - b0, tmpl_np, n_cols, dev, sm_count(dev), ctas=ctas)
+        if lut is not None and c not in forms:
+            forms[c] = _table_form(tmpl_np, c, dev)
         end = b0 + kb
         sl = _pad_rows(signals[b0:end], kb, 0)
         na = _pad_rows(n_act[b0:end], kb, 1)
@@ -633,33 +625,36 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
             outs.append(run(sl, na, tmpl, params, m))
         else:
             run = _align_batch_col_morph if col else _align_batch_wave_morph
-            outs.append(run(sl, _pad_rows(lut[b0:end], kb, 0.0), na, levels, lidx, params, m))
+            outs.append(run(sl, _pad_rows(lut[b0:end], kb, 0.0), na, *forms[c], params, m))
         b0 = end
     return {k: torch.cat([o[k] for o in outs])[:B] for k in outs[0]}
 
 
-def fuse_flanks(B: int, N: int, mp: int, device, sms: int | None = None,
-                ctas: int = 1) -> bool:
+def fuse_flanks(B: int, N: int, tmpl_rows, device, sms: int | None = None,
+                ctas: int | None = None) -> bool:
     """Whether :func:`align_fused_pair` runs both flanks of a B-read batch
-    as one per-row-template row stream (N signal columns, MP lanes,
-    ``ctas`` CTAs a row).
+    as one per-row-template row stream (N signal columns; ``tmpl_rows``
+    the (2, MP) flank rows of :func:`pad_template_rows`; ``ctas`` their
+    TABLE rule's CTAs a row as :func:`wave_launch_plan` takes it, 0 for
+    POW).
 
     Card rule (a CUDA device, or any device when ``sms`` is given, and
-    ``STRIQUE_ALIGN_KERNEL`` not ``col``): whenever the 2B rows fit one
-    call of :func:`kernel_batch` -- one launch in place of two.  The
-    reference's rule otherwise (ops/align.py:324-334: a wave call costs
-    its longest row whatever its width, so fuse when the per-flank tail
-    is at most half a 64-row call, 0 < B % 64 <= 32), and only while a
-    width-8 pointer plane fits :func:`ptr_budget_bytes`.
+    ``STRIQUE_ALIGN_KERNEL`` not ``col``): whenever the launch plan's
+    first call over the 2B rows takes them all -- one launch in place of
+    two.  The reference's rule otherwise (ops/align.py:324-334: a wave
+    call costs its longest row whatever its width, so fuse when the
+    per-flank tail is at most half a 64-row call, 0 < B % 64 <= 32).
+    Either only while a width-8 pointer plane fits
+    :func:`ptr_budget_bytes`.
     """
+    mp = np.shape(tmpl_rows)[1]
     n_cols = _round_up(N, CHUNK) + mp
     if n_cols * 8 * mp // 2 > ptr_budget_bytes(device):
         return False
     if sms is None:
         sms = sm_count(device)
     if sms is not None and os.environ.get("STRIQUE_ALIGN_KERNEL") != "col":
-        return kernel_batch(2 * B, n_cols=n_cols, mp=mp, device=device, sms=sms,
-                            ctas=ctas) >= 2 * B
+        return wave_launch_plan(2 * B, tmpl_rows, n_cols, device, sms, ctas=ctas)[1] >= 2 * B
     return 0 < B % BATCH_WAVE <= BATCH_WAVE // 2
 
 
@@ -699,8 +694,8 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     tmpl_rows_np, ms = pad_template_rows([t_pre, t_suf])
     mp = tmpl_rows_np.shape[1]
     # CTAs a row of the row stream's TABLE mode (0: POW)
-    ctas = 1 if lut is None else wave_table_ctas(tmpl_rows_np)
-    fused = fuse_flanks(B, N, mp, dev, ctas=max(ctas, 1))
+    ctas = 0 if lut is None else wave_table_ctas(tmpl_rows_np)
+    fused = fuse_flanks(B, N, tmpl_rows_np, dev, ctas=ctas)
     if not fused and not _two_pass_pair(B, N, mp, params, dev):
         return (align_core(signals, n_actual, t_pre, params, lut=lut, devices=devices),
                 align_core(signals, n_actual, t_suf, params, lut=lut, devices=devices))
@@ -725,14 +720,18 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     if lut is None:
         tmpl2 = rows2(tmpl_rows_np)
     else:
-        levels, lidx = template_levels(tmpl_rows_np, ctas if ctas > 1 else None)
-        lv2, li2, lut2 = rows2(levels), rows2(lidx), torch.cat([lut, lut])
+        lut2 = torch.cat([lut, lut])
+    forms = {}  # the row stream's (levels, lidx) by the CTAs a row of a call
     ms2 = torch.from_numpy(np.repeat(ms.astype(np.int32), B)).to(dev)
     n_cols = sig2.shape[1] + mp
     outs = []
     b0 = 0
     while b0 < R:
-        kb = kernel_batch(R - b0, n_cols=n_cols, mp=mp, device=dev, ctas=max(ctas, 1))
+        c, kb = wave_launch_plan(R - b0, tmpl_rows_np, n_cols, dev, sm_count(dev), ctas=ctas)
+        if lut is not None and c not in forms:
+            forms[c] = tuple(rows2(x) for x in template_levels(tmpl_rows_np, c if c > 1 else None))
+        if lut is not None:
+            lv2, li2 = forms[c]
         end = b0 + kb
         sl = _pad_rows(sig2[b0:end], kb, 0)
         na = _pad_rows(na2[b0:end], kb, 1)

@@ -65,17 +65,20 @@ shared memory, and otherwise POW on the decoded f32 (``lut[bins]``, the
 template rebuilt from its levels): a rule on the shapes, decided before
 the launch (for rows 1-2 here, for rows 5-6 by the two-pass route in
 ``ops.align``, whose morph entry points raise past the table).  With the
-template in its split form, ``template_levels(rows, ctas)`` for the
-``ctas`` that :func:`wave_table_ctas` picks, a call runs TABLE on a
-thread-block cluster of that many CTAs a row (launch counters
+template in its split form, ``template_levels(rows, ctas)``, a call runs
+TABLE on a thread-block cluster of that many CTAs a row (launch counters
 ``*_cluster``): each CTA owns :func:`cta_lanes` contiguous lanes and a
 score table of only their levels, so templates past one CTA (more than
 1024 lanes, or too many levels) keep the table; the twins read the same
-levels flattened (:func:`flat_levels`).  The column kernel has the same
+levels flattened (:func:`flat_levels`).  :func:`wave_table_ctas` gives
+the fewest CTAs whose tables fit; :func:`wave_launch_plan` the CTAs and
+rows each call of a route takes on the card, by the step measured at
+each CTA count (:data:`WAVE_STEP_US`).  The column kernel has the same
 two forms (:func:`col_table_ctas`).
 """
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -106,9 +109,26 @@ MAX_CTA_LANES = 2048
 MAX_MP = 8192
 WAVE_RING_BYTES = 640
 COL_RING_BYTES = 784
+# The wave kernel's TABLE step, us, by mode and form ("one": one CTA a
+# row, at its MP lanes; "cluster": a CTA of a cluster, at its lanes), as
+# (lanes, us) points: tools/probe_wave_cluster.py, N 8192, 8 rows of both
+# flanks (the slowest MP where lanes repeat), NVIDIA H100 80GB HBM3,
+# 700.00 W.  wave_launch_plan predicts a call set's wall from it.
+WAVE_STEP_US = {
+    "ptr": {"one": ((384, 0.1838), (640, 0.2417), (896, 0.2966)),
+            "cluster": ((128, 0.2000), (256, 0.2204), (384, 0.2533), (512, 0.2805),
+                        (640, 0.3062), (768, 0.3342), (1152, 0.4774))},
+    "ckpt": {"one": ((384, 0.1479), (640, 0.1810), (896, 0.2224)),
+             "cluster": ((128, 0.1885), (256, 0.2056), (384, 0.2290), (512, 0.2551),
+                         (640, 0.2714), (768, 0.2884), (1152, 0.3497))},
+    "window": {"one": ((384, 0.1598), (640, 0.2044), (896, 0.2610)),
+               "cluster": ((128, 0.1447), (256, 0.1591), (384, 0.1974), (512, 0.2310),
+                           (640, 0.2573), (768, 0.2913), (1152, 0.3834))},
+}
 
 _DEFAULT_PTR_BUDGET = int(3.5 * (1 << 30))
 _ptr_budget_cache: dict = {}
+_cluster_capacity_cache: dict = {}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -163,6 +183,22 @@ def sm_count(device) -> int | None:
     if dev.type != "cuda":
         return None
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def cluster_capacity(device, ctas: int, mpc: int) -> int | None:
+    """Clusters of ``ctas`` CTAs of ``mpc`` lanes the card of ``device``
+    runs at once, as the wave kernel launches them (one CTA an SM): the
+    SMs of a graphics processing cluster hold whole clusters only, so
+    fewer than SMs / ``ctas`` may fit.  The kernel library's occupancy
+    query, once a card and shape; None for a CPU device."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    if dev.type != "cuda":
+        return None
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), ctas, mpc)
+    if key not in _cluster_capacity_cache:
+        with torch.cuda.device(dev):
+            _cluster_capacity_cache[key] = int(_build.lib().wave_cluster_capacity(ctas, mpc))
+    return _cluster_capacity_cache[key]
 
 
 def kernel_batch(b: int | None = None, n_cols: int | None = None,
@@ -340,6 +376,116 @@ def wave_table_ctas(tmpl) -> int:
     stream's rows take the most any row needs); 0 when none does (POW).
     A rule on the template, decided before the launch."""
     return _table_ctas(tmpl, wave_score_mode)
+
+
+def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = None,
+                   ctas: int = 1) -> int:
+    """Rows per two-pass group (one pass-1 and one pass-2 launch) of
+    ``ctas`` CTAs a row.
+
+    Card rule (a CUDA device, or any device when ``sms`` is given):
+    :func:`kernel_batch`'s width -- the rows it has, up to the largest
+    multiple of 8 whose ``ctas`` CTAs a row fit the SM count -- narrowed
+    (never below 8) so that pass 2's (W/8, rows, MP) int32 plane fits
+    :func:`ptr_budget_bytes`.  A pass-1 row holds no pointer plane, only
+    its checkpoints.  CPU rule: the reference's 8 rows, so the parity
+    tests compare like with like.
+    """
+    if sms is None:
+        sms = sm_count(device)
+    if sms is None:
+        return 8
+    return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms, ctas=ctas)
+
+
+def wave_step_us(mode: str, mp: int, ctas: int) -> float:
+    """The TABLE step of the wave kernel, in us, of a row of ``mp``
+    lanes on ``ctas`` CTAs (1: the one-CTA instance), mode "ptr",
+    "ckpt" or "window": read from WAVE_STEP_US at the CTA's lanes (MP on
+    one CTA), linear between the measured lanes, flat below the first
+    (or with one point) and on the last two's slope past the last."""
+    pts = WAVE_STEP_US[mode]["one" if ctas == 1 else "cluster"]
+    x = mp if ctas == 1 else cta_lanes(mp, ctas)
+    if len(pts) == 1 or x <= pts[0][0]:
+        return pts[0][1]
+    k = min(max(int(np.searchsorted([p[0] for p in pts], x)), 1), len(pts) - 1)
+    (x0, y0), (x1, y1) = pts[k - 1], pts[k]
+    return y0 + (y1 - y0) * (x - x0) / (x1 - x0)
+
+
+def wave_launch_plan(rows: int, tmpl, n_cols: int, device=None, sms: int | None = None,
+                     ctas: int | None = None, pass1_steps: int | None = None
+                     ) -> tuple[int, int]:
+    """(CTAs a row, rows) of the wave kernel's next call over ``rows``
+    rows of the (R, MP) template rows ``tmpl`` (one template or the rows'
+    own; repeats cost nothing), decided before the launch.
+
+    A PTR call (``pass1_steps`` None) of ``n_cols`` steps a row, or a
+    two-pass group: pass 1 of ``pass1_steps`` steps and pass 2's window
+    of ``n_cols``.  ``ctas`` is :func:`wave_table_ctas` of ``tmpl`` if
+    the caller has it (0: POW, one CTA).  Card rule (a CUDA device, or
+    any device when ``sms`` is given): each call takes a CTA count C >=
+    ``ctas`` whose split the kernel takes and whose per-CTA tables fit
+    (:func:`wave_score_mode`), and as many rows as fit: the width
+    :func:`kernel_batch`'s at C (:func:`two_pass_group`'s for a two-pass
+    group), a multiple of 8 whose rows x C fit the SMs, inside
+    :func:`ptr_budget_bytes`, and on a card whose clusters all run at
+    once (:func:`cluster_capacity`).  Of the call sequences that cover
+    the rows, the plan takes the one whose predicted wall is least (each
+    call costs its longest row's steps at :func:`wave_step_us`: PTR;
+    CKPT then WINDOW) and returns its first call; ties take fewer CTAs.
+    A template that fits one CTA takes a cluster only while the rows
+    left are few, rows x MAX_CTAS within the SMs (16 on an H100: the
+    ultra-long routes' calls); more keep the one-CTA instance.  CPU rule:
+    ``ctas`` and the reference's widths, so the CPU parity tests compare
+    like with like."""
+    tmpl = np.asarray(tmpl, np.float32)
+    mp = tmpl.shape[1]
+    c_min = wave_table_ctas(tmpl) if ctas is None else int(ctas)
+    if sms is None:
+        sms = sm_count(device)
+
+    def width(c: int, r: int) -> int:
+        if pass1_steps is not None:
+            kb = two_pass_group(r, mp, n_cols, device, sms, max(c, 1))
+        else:
+            kb = kernel_batch(r, n_cols=n_cols, mp=mp, device=device, sms=sms, ctas=max(c, 1))
+        cap = cluster_capacity(device, c, cta_lanes(mp, c)) if c > 1 else None
+        return kb if cap is None else min(kb, max(8, cap // 8 * 8))
+
+    if sms is None or c_min == 0:
+        return c_min, width(c_min, rows)
+
+    def step(c: int) -> float:
+        if pass1_steps is None:
+            return n_cols * wave_step_us("ptr", mp, c)
+        return pass1_steps * wave_step_us("ckpt", mp, c) + n_cols * wave_step_us("window", mp, c)
+
+    if c_min == 1 and rows * MAX_CTAS > sms:
+        return 1, width(1, rows)
+    ok = [c for c in _cluster_ctas(_distinct_rows(tmpl)[0].tobytes(), mp, c_min)
+          if c == c_min or 8 * c <= sms]
+    best: dict = {0: (0.0, 0, 0)}  # rows left -> (wall, first call's C, its rows)
+
+    def plan(r: int) -> tuple:
+        if r not in best:
+            few = c_min > 1 or r * MAX_CTAS <= sms
+            best[r] = min((step(c) + plan(max(r - kb, 0))[0], c, kb)
+                          for c in (ok if few else [c_min]) for kb in [width(c, r)])
+        return best[r]
+
+    return plan(rows)[1:]
+
+
+@functools.lru_cache(maxsize=64)
+def _cluster_ctas(tmpl_bytes: bytes, mp: int, c_min: int) -> tuple:
+    """The CTA counts from ``c_min`` up to MAX_CTAS whose split the kernel
+    takes and whose per-CTA tables fit the distinct (R, MP) template rows
+    ``tmpl_bytes`` (f32): the launch plan's choices, once a template."""
+    rows = np.frombuffer(tmpl_bytes, np.float32).reshape(-1, mp)
+    return tuple(c for c in range(c_min, MAX_CTAS + 1)
+                 if c == c_min or (_split_ok(mp, c) and wave_score_mode(
+                     _cta_level_counts(rows, c), mp, c) == "table"))
 
 
 def morph_decode(bins, lut) -> torch.Tensor:

@@ -1014,6 +1014,84 @@ def test_gpu_cluster_col_matches_table_twin_and_pow(cuda_device, mp):
         assert torch.equal(got_bot, bot_p)
 
 
+# every CTA count the launch plan can pick at the MPs the port meets
+# (align_cuda.wave_launch_plan: from wave_table_ctas to 8, splits the
+# kernel takes): one lane a thread up to 1024 lanes a CTA, two up to 1536
+# (MP 2176 on 2 CTAs of 1152 lanes), four past it (MP 4096 on 2 CTAs of
+# 2048 lanes)
+PLAN_CTAS = [(896, 2), (896, 3), (896, 4), (896, 7), (2176, 2), (2176, 3), (2176, 4),
+             (2176, 5), (2176, 6), (4096, 2), (4096, 4), (4096, 8)]
+
+
+def _plan_templates(rng, mp):
+    """Two samples=6 templates padding to ``mp`` lanes; at MP 4096 of 150
+    values cycled, so that 2 CTAs of 2048 lanes hold their tables."""
+    if mp != 4096:
+        return _overcap_templates(rng, mp)
+    vals = rng.uniform(60, 120, 150)
+    m = (mp - 2) // 6 * 6
+    return [np.repeat(np.resize(vals, k // 6), 6).astype(np.float32) for k in (m, m - 120)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp,ctas", PLAN_CTAS)
+def test_gpu_cluster_every_plan_ctas_matches_twin(cuda_device, mp, ctas):
+    """The cluster form at every CTA count the plan can pick, with read
+    0's level table all NaN (a flat read's): PTR (both flanks as per-row
+    templates) against the table twin, at MP 896 also against the
+    one-CTA kernel, then CKPT and WINDOW against their twins and the POW
+    kernels; written pointer words equal, bottom taps and checkpoint
+    slots equal with equal NaN masks."""
+    rng = np.random.default_rng(950 + mp + ctas)
+    B, N = 8, 512
+    templates = _plan_templates(rng, mp)
+    tmpl, mr = _wave_rows(templates, B, True)
+    assert tmpl.shape[1] == mp and TC._split_ok(mp, ctas) and ctas >= TC.wave_table_ctas(tmpl)
+    bins, lut, na = _morph_batch(rng, B, N, [templates[i % 2][:300] for i in range(B)])
+    lut = _nan_row(lut)
+    levels, lidx = TC.template_levels(tmpl, ctas)
+    assert TC.wave_score_mode(levels.shape[2], mp, ctas) == "table"
+    b, lt, n, lv, li, m_d = (torch.from_numpy(x).to(cuda_device)
+                             for x in (bins, lut, na, levels, lidx, mr))
+    before = dict(_build.LAUNCHES)
+    ptr, bot = TC.align_forward_wave_multi_morph(b, lt, n, lv, li, m_d, DEFAULT_P)
+    assert (_build.LAUNCHES["align_forward_wave_multi_cluster"]
+            == before["align_forward_wave_multi_cluster"] + 1)
+    ptr_p, bot_p = TC._wave_table_plain(b, lt, *TC.flat_levels(lv, li), n, m_d, DEFAULT_P)
+    mask = _valid_words(n, m_d, ptr.shape[0])
+    assert torch.isnan(bot[0]).any()
+    assert torch.equal(ptr[mask], ptr_p[mask]) and _equal_nan(bot, bot_p)
+    if mp <= 1024:
+        lv1, li1 = (torch.from_numpy(x).to(cuda_device) for x in TC.template_levels(tmpl))
+        ptr1, bot1 = TC.align_forward_wave_multi_morph(b, lt, n, lv1, li1, m_d, DEFAULT_P)
+        assert (_build.LAUNCHES["align_forward_wave_multi_table"]
+                == before["align_forward_wave_multi_table"] + 1)
+        assert torch.equal(ptr[mask], ptr1[mask]) and _equal_nan(bot, bot1)
+    tmpl2, mr2 = _wave_rows(templates, B, True)
+    bins2, lut2, na2 = _morph_batch(rng, B, 1024, [templates[i % 2][:200] for i in range(B)])
+    _check_two_pass_cluster(cuda_device, bins2, _nan_row(lut2), na2, tmpl2, mr2, STEEP, ctas,
+                            expect_nan=True)
+
+
+@pytest.mark.gpu
+def test_gpu_cluster_refused_split_raises(cuda_device):
+    """A split the kernel does not take (9 CTAs a row) is refused at the
+    launch: the wrapper raises and counts no launch; nothing falls back
+    to POW or to one CTA."""
+    rng = np.random.default_rng(958)
+    B, N = 8, 512
+    templates = _overcap_templates(rng, 2176)
+    tmpl, mr = _wave_rows(templates, B, True)
+    bins, lut, na = _morph_batch(rng, B, N, [templates[0][:300]] * B)
+    levels, lidx = TC.template_levels(tmpl, 9)
+    b, lt, n, lv, li, m_d = (torch.from_numpy(x).to(cuda_device)
+                             for x in (bins, lut, na, levels, lidx, mr))
+    before = dict(_build.LAUNCHES)
+    with pytest.raises(RuntimeError, match="wave_table_launch"):
+        TC._wave_table_cuda(b, lt, lv, li, n, m_d, DEFAULT_P, "align_forward_wave_multi_cluster")
+    assert _build.LAUNCHES == before
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 6, 20])
 def test_gpu_cluster_sweep_corner_matches_twin(cuda_device, k):

@@ -341,7 +341,7 @@ def test_cluster_rule_at_each_cap(mp):
 
 
 @pytest.mark.parametrize("per_row", [False, True])
-@pytest.mark.parametrize("ctas", [2, 3])
+@pytest.mark.parametrize("ctas", [2, 3, 4, 5, 8])
 def test_template_levels_split_form_rebuilds_every_lane(per_row, ctas):
     """The split form: each CTA's sorted distinct values over its own
     lanes (+1e30 padded to the largest count), each lane's index into its
@@ -389,8 +389,9 @@ def test_call_widths_count_ctas(ctas):
     w, mp = 6016, 2176
     assert TA.two_pass_group(200, mp, w, "cpu", sms=132, ctas=ctas) == want
     assert TA.two_pass_group(200, mp, w, "cpu", ctas=ctas) == 8  # CPU rule
-    assert TA.fuse_flanks(want // 2, 4096, mp, "cpu", sms=132, ctas=ctas)
-    assert not TA.fuse_flanks(want // 2 + 8, 4096, mp, "cpu", sms=132, ctas=ctas)
+    rows = np.zeros((2, mp), np.float32)  # flank rows whose tables fit any CTA count
+    assert TA.fuse_flanks(want // 2, 4096, rows, "cpu", sms=132, ctas=ctas)
+    assert not TA.fuse_flanks(want // 2 + 8, 4096, rows, "cpu", sms=132, ctas=ctas)
 
 
 def _overcap_batch(seed, mp=1152):
@@ -459,23 +460,25 @@ def test_kernel_batch_card_rule():
 
 
 def test_fuse_flanks_rules(monkeypatch):
-    """Card rule: fuse whenever the 2B rows fit one call; reference rule
-    (CPU, or STRIQUE_ALIGN_KERNEL=col): a partial batch's tail of at most
-    half a 64-row call; never past the width-8 pointer budget."""
+    """Card rule: fuse whenever the launch plan takes the 2B rows in one
+    call; reference rule (CPU, or STRIQUE_ALIGN_KERNEL=col): a partial
+    batch's tail of at most half a 64-row call; never past the width-8
+    pointer budget."""
     monkeypatch.delenv("STRIQUE_ALIGN_KERNEL", raising=False)
-    assert TA.fuse_flanks(64, 24576, 896, "cpu", sms=132)
-    assert TA.fuse_flanks(24, 24576, 896, "cpu", sms=132)
-    assert not TA.fuse_flanks(72, 24576, 896, "cpu", sms=132)
-    assert not TA.fuse_flanks(64, 24576, 896, "cpu")
-    assert TA.fuse_flanks(24, 24576, 896, "cpu")
-    assert not TA.fuse_flanks(48, 24576, 896, "cpu")
+    rows = np.zeros((2, 896), np.float32)
+    assert TA.fuse_flanks(64, 24576, rows, "cpu", sms=132)
+    assert TA.fuse_flanks(24, 24576, rows, "cpu", sms=132)
+    assert not TA.fuse_flanks(72, 24576, rows, "cpu", sms=132)
+    assert not TA.fuse_flanks(64, 24576, rows, "cpu")
+    assert TA.fuse_flanks(24, 24576, rows, "cpu")
+    assert not TA.fuse_flanks(48, 24576, rows, "cpu")
     monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
-    assert not TA.fuse_flanks(64, 24576, 896, "cpu", sms=132)
-    assert TA.fuse_flanks(24, 24576, 896, "cpu", sms=132)
+    assert not TA.fuse_flanks(64, 24576, rows, "cpu", sms=132)
+    assert TA.fuse_flanks(24, 24576, rows, "cpu", sms=132)
     monkeypatch.delenv("STRIQUE_ALIGN_KERNEL")
     monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "0.0001")
-    assert not TA.fuse_flanks(24, 24576, 896, "cpu", sms=132)
-    assert not TA.fuse_flanks(24, 24576, 896, "cpu")
+    assert not TA.fuse_flanks(24, 24576, rows, "cpu", sms=132)
+    assert not TA.fuse_flanks(24, 24576, rows, "cpu")
 
 
 def _batch_reads(Bn, seed):
