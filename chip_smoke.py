@@ -44,7 +44,8 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    table twin, its POW mode on the decoded f32 against the POW twin, the
    two against each other; the column-layout traceback walks the TABLE
    plane.  The dense Viterbi forward runs in the mode ``dense_mode``
-   picks (resident: a cluster of K CTAs a read; streamed past SP 512) at
+   picks (a cluster of K CTAs a read: resident; slice or stream past SP
+   512) at
    the small, bench (B 64, T 6144, SP 256, K 2) and ultra shapes, and at
    the bench's B and T with SP 128 (K 1), SP 384 (K 6) and SP 512 (K 8).  The
    diagonal traceback walks row 2's planes (the bench's at 128 rows), the
@@ -62,13 +63,16 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    GGCCCC (26 states, SP 128) and of a 60-base unit (242 states, SP
    256), against their twins, the dense resident forward's ms on the
    same inputs beside them and its paths equal.  Rows 3-4 past SP 1024
-   (``check_viterbi_wide``): the wide forward in both slot layouts and
-   the wide backward against their twins at SP 1152, 2048 and 8192
+   (``check_viterbi_wide``): the forward's cluster form in both slot
+   layouts (on ``fwd_cluster_ctas``' CTAs) and the wide backward
+   against their twins at SP 1152, 2048 and 8192
    (``synthetic.VITERBI_WIDE``: flanked-repeat and mod HMMs, 8 reads of
    T 1024, constant obs at SP 1152), then at phase 4f's shapes (the
-   150-base unit's repeat HMM, 8 segments of 5 units, T 7168; the
-   260-base unit's mod HMM, 8 segments of 3 units, T 6656), each with
-   its ms, us a step, bound and twin ms.  Last, the AlignParams sweep
+   150-base unit's repeat HMM, 8 segments of 5 units, T 7168, through
+   the factored and the dense forward's stream mode; the 260-base
+   unit's mod HMM, 8 segments of 3 units, T 6656), each with its ms, us
+   a step, bound and twin ms.  The dense forward's slice and stream
+   modes also run at the Viterbi edge inputs (SP 640 and 1152).  Last, the AlignParams sweep
    (``check_sweep``: the reference's tests/test_fuzz_params.py corners, 14
    explicit and 12 seeded draws, at B 8, N 256, M 20): rows 1, 2 and 8
    in the TABLE mode against their table twins and in the POW mode on
@@ -120,16 +124,16 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    on f32 reads at the same shapes runs rows 1, 2, 5-6 and 8 in the POW
    mode, each call's outputs equal to its morph form's (the cluster's).
 4f. A VNTR target of a 60-base unit, whose repeat HMM (SP 640) is past
-   the dense forward's resident rule: the streamed dense kernel against
-   its twin (8 reads, T 8192), then 8 '+' reads counted on the default
-   route and under ``STRIQUE_DENSE_VITERBI=1`` (the streamed kernel
+   the dense forward's resident rule: the dense kernel's slice mode
+   against its twin (8 reads, T 8192), then 8 '+' reads counted on the
+   default route and under ``STRIQUE_DENSE_VITERBI=1`` (the slice mode
    alone), equal tuples, each read at the reference's count: 11 of 12
    units, as the JAX package counts these reads on the CPU
    (tests/test_torch_dense.py ``test_vntr_counts_match_jax_counter``).
    Past SP 1024: a 150-base unit's target (SP 1152), 8 '+' reads of 5
-   units on the default route (the wide forward and backward) and under
-   ``STRIQUE_DENSE_VITERBI=1`` (the streamed dense forward and the wide
-   backward), tuples equal to the port's CPU counter's
+   units on the default route (the factored forward's cluster form and
+   the wide backward) and under ``STRIQUE_DENSE_VITERBI=1`` (the dense
+   forward's stream mode and the wide backward), tuples equal to the port's CPU counter's
    (tests/test_torch_wide_counter.py holds it to the JAX counter); a
    260-base unit's target with the mod model (repeat HMM SP 1792, mod
    HMM SP 1152), 4 base and twin reads, tuples equal to the CPU
@@ -231,10 +235,11 @@ Phases, each fatal on failure (non-zero exit, no ``ok`` line):
    two-pass route, the cluster launches of rows 1-2, 5-6 and 8 from
    phase 4e's count runs and their POW launches from its f32 route, row
    8's TABLE and row 7's resident launches from phase 4d, row
-   7's streamed launches from phase 4f, row 3's diagonal-only layout's
-   from phase 4h's timed stream run, the wide variants' from phase 4f's
-   wide targets (the default route's, and the mod target's for the
-   diagonal-only layout).
+   7's slice and stream launches from phase 4f's dense routes (the VNTR
+   target's and the 150-base unit's), row 3's diagonal-only layout's
+   from phase 4h's timed stream run, row 3's cluster forms and row 4's
+   wide variant from phase 4f's wide targets (the default route's, and
+   the mod target's for the diagonal-only layout).
 """
 from __future__ import annotations
 
@@ -288,23 +293,27 @@ TABLE_TWO_PASS = ("align_forward_ckpt_table", "align_window_from_state_table")
 CLUSTER_WAVE = ("align_forward_wave_cluster", "align_forward_wave_multi_cluster")
 CLUSTER_TWO_PASS = ("align_forward_ckpt_cluster", "align_window_from_state_cluster")
 KNOBS = {"col": ("STRIQUE_ALIGN_KERNEL", "col"), "dense": ("STRIQUE_DENSE_VITERBI", "1")}
-# the dense forward's two modes (resident: SP <= 512) and the column
-# kernel's two score modes, one launch counter each
-DENSE = ("viterbi_forward_dense_resident", "viterbi_forward_dense")
+# the dense forward's three modes (resident: SP <= 512; slice; stream:
+# viterbi_cuda.dense_mode) and the column kernel's score modes, one
+# launch counter each
+DENSE = ("viterbi_forward_dense_resident", "viterbi_forward_dense_slice",
+         "viterbi_forward_dense_stream")
 COL = ("align_forward_col_table", "align_forward_col", "align_forward_col_cluster")
 # phase 4g: the count path over a stream of both loci, at each --batch
 # twice (it must launch SPLIT_KERNELS)
 COUNT_BATCHES = (32, 64, 128)
 COUNT_REPS = 2
 # phase 4f's VNTR target: a 60-base unit (as MUC1's VNTR) whose repeat
-# HMM (540 states, SP 640) is past the dense forward's resident rule
+# HMM (540 states, SP 640) is past the dense forward's resident rule (its
+# SLICE mode)
 VNTR_UNIT_BASES = 60
 VNTR_UNITS = 12
 # phase 3's wide Viterbi cases (synthetic.VITERBI_WIDE: SP 1152, 2048 and
-# 8192 in both slot layouts; SP 4480 is the gpu tests' alone)
+# 8192 in both slot layouts, each on the 8 CTAs the cluster forward's rule
+# gives 8 reads; SP 1792, 4096 and 4480 are the gpu tests' alone)
 WIDE_CASES = ("flanked 150", "flanked 150, constant obs", "flanked 300", "flanked 1330",
               "mod 260", "mod 500", "mod 2030")
-WIDE_KERNELS = ("viterbi_forward_factored_wide", "viterbi_forward_factored_diag_wide",
+WIDE_KERNELS = ("viterbi_forward_factored_cluster", "viterbi_forward_factored_diag_cluster",
                 "viterbi_backward_wide")
 # phase 4f's wide target: '+' reads of 5 units of a 150-base unit (SP 1152)
 WIDE_UNITS = 5
@@ -352,10 +361,10 @@ SOURCES = {
                                       "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_batch": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                                "strique_tpu/ops/viterbi_pallas.py:308"),
-    "viterbi_forward_factored_wide": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
-                                      "strique_tpu/ops/viterbi_pallas.py:470"),
-    "viterbi_forward_factored_diag_wide": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
-                                           "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_forward_factored_cluster": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                         "strique_tpu/ops/viterbi_pallas.py:470"),
+    "viterbi_forward_factored_diag_cluster": ("strique_tpu_torch/csrc/viterbi_fwd.cu",
+                                              "strique_tpu/ops/viterbi_pallas.py:470"),
     "viterbi_backward_wide": ("strique_tpu_torch/csrc/viterbi_bwd.cu",
                               "strique_tpu/ops/viterbi_pallas.py:308"),
     "align_forward_col_table": ("strique_tpu_torch/csrc/col_align.cu",
@@ -368,8 +377,10 @@ SOURCES = {
                                "strique_tpu/ops/align.py:235"),
     "viterbi_forward_dense_resident": ("strique_tpu_torch/csrc/viterbi_dense.cu",
                                        "strique_tpu/ops/viterbi_pallas.py:183"),
-    "viterbi_forward_dense": ("strique_tpu_torch/csrc/viterbi_dense.cu",
-                              "strique_tpu/ops/viterbi_pallas.py:183"),
+    "viterbi_forward_dense_slice": ("strique_tpu_torch/csrc/viterbi_dense.cu",
+                                    "strique_tpu/ops/viterbi_pallas.py:183"),
+    "viterbi_forward_dense_stream": ("strique_tpu_torch/csrc/viterbi_dense.cu",
+                                     "strique_tpu/ops/viterbi_pallas.py:183"),
 }
 
 
@@ -1180,17 +1191,17 @@ def check_dense(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS, flank=
                 unit=None):
     """The dense Viterbi forward (row 7) against its twin: rows below each
     read's length, fin and acc bit-equal.  The wrapper must launch the
-    mode ``dense_mode`` gives this SP (resident: a cluster of K CTAs a
-    read; streamed past SP 512) and no other.  ``results``: where given,
-    the kernel line's entry of that mode."""
+    mode ``dense_mode`` gives this SP (a cluster of K CTAs a read in
+    each: resident; past SP 512 slice or stream) and no other.
+    ``results``: where given, the kernel line's entry of that mode."""
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.ops import viterbi_cuda as VC
 
     ph = VC.PaddedHMM(chm, torch.device("cuda"))
-    k = VC.dense_mode(ph.sp)
-    name = "viterbi_forward_dense_resident" if k else "viterbi_forward_dense"
+    mode = VC.dense_mode(ph.sp)
+    name = mode.name
     o_d, l_d = viterbi_inputs(pm, B, T, rng, repeats, flank, unit)
     run_k = lambda: VC.viterbi_forward_dense(o_d, l_d, ph)
     before = dict(_build.LAUNCHES)
@@ -1206,8 +1217,7 @@ def check_dense(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS, flank=
     for n in DENSE:
         _build.LAUNCHES[n] = before[n]
     steps = int(l_d.max())
-    mode = f"resident, K={k}" if k else "streamed"
-    print(f"  viterbi_forward_dense [{shape_name} B={B} T={T} SP={ph.sp}, {mode}]: max_abs_err "
+    print(f"  {name} [{shape_name} B={B} T={T} SP={ph.sp}, K={mode.ctas}]: max_abs_err "
           f"{err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), plain {plain_ms:.1f} ms",
           flush=True)
     if err != 0.0:
@@ -1281,14 +1291,19 @@ def check_viterbi_edges(pm, rng) -> None:
     (``synthetic.VITERBI_EDGES``, shared with the ``gpu`` tests):
     lengths below the backward's 16-row score ring and around the
     forward's 32-step obs chunks, constant obs (ties in every row), and
-    an HMM of SP 512 (the dense forward's 8-CTA clusters).  Forward rows
-    below each length, fin and acc bit-equal, paths equal.  These
-    launches count toward no path."""
+    an HMM of SP 512 (the dense forward's 8-CTA clusters); then the dense
+    forward's modes past SP 512 (slice at SP 640, stream at SP 1152) at
+    the same lengths and observations.  Forward rows below each length,
+    fin and acc bit-equal, paths equal.  These launches count toward no
+    path."""
+    import numpy as np
     import torch
 
     from strique_tpu_torch import _build
+    from strique_tpu_torch.hmm.models import build_flanked_repeat
     from strique_tpu_torch.ops import viterbi_cuda as VC
-    from strique_tpu_torch.synthetic import VITERBI_EDGE_T, VITERBI_EDGES, viterbi_edge_case
+    from strique_tpu_torch.synthetic import (PREFIX, SUFFIX, VITERBI_EDGE_T, VITERBI_EDGES,
+                                             WIDE_UNIT_BASES, random_unit, viterbi_edge_case)
 
     dev = torch.device("cuda")
     before = dict(_build.LAUNCHES)
@@ -1311,13 +1326,37 @@ def check_viterbi_edges(pm, rng) -> None:
                         and torch.equal(acc, acc_p))
         print(f"  viterbi edges [{label}: SP {ph.sp}, {hmm.n_states} states, lengths "
               f"{lens.tolist()}]: forward {'equal' if fwd_ok else 'DIFFERS'}, paths "
-              f"{'equal' if bwd_ok else 'DIFFER'}, dense forward (K={VC.dense_mode(ph.sp)}) "
+              f"{'equal' if bwd_ok else 'DIFFER'}, dense forward (K={VC.dense_mode(ph.sp).ctas}) "
               f"{'equal' if dense_ok else 'DIFFERS'}", flush=True)
         if not (fwd_ok and bwd_ok and dense_ok):
             fail(f"a Viterbi kernel disagrees with its plain twin at the edge case {label!r}")
     if _build.LAUNCHES["viterbi_forward_dense_resident"] != before[
             "viterbi_forward_dense_resident"] + len(VITERBI_EDGES):
         fail("the edge cases' dense forwards did not run the resident mode")
+    # the modes past SP 512 at the edge cases' lengths and observations
+    # (their own generator: the draws after them stay as they were): the
+    # repeat HMMs of a 60-base (SP 640, slice) and a 150-base unit (SP
+    # 1152, stream) between 50-base flanks
+    for bases in (VNTR_UNIT_BASES, WIDE_UNIT_BASES):
+        unit = random_unit(bases, bases)
+        ph = VC.PaddedHMM(build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm), dev)
+        mode = VC.dense_mode(ph.sp)
+        erng = np.random.default_rng(bases)
+        for label in VITERBI_EDGES:
+            _, obs, lens = viterbi_edge_case(pm, label, erng)
+            o_d = torch.from_numpy(obs).to(dev)
+            l_d = torch.from_numpy(lens).to(dev)
+            n0 = _build.LAUNCHES[mode.name]
+            sc, fin, acc = VC.viterbi_forward_dense(o_d, l_d, ph)
+            sc_p, fin_p, acc_p = VC._fwd_dense_plain(o_d, l_d, ph)
+            live = torch.arange(VITERBI_EDGE_T, device=dev)[:, None] < l_d[None, :]
+            ok = bool(torch.equal(sc[live], sc_p[live]) and torch.equal(fin, fin_p)
+                      and torch.equal(acc, acc_p))
+            print(f"  viterbi edges [{label}, SP {ph.sp}]: dense forward ({mode.kind}, "
+                  f"K={mode.ctas}) {'equal' if ok else 'DIFFERS'}", flush=True)
+            if not ok or _build.LAUNCHES[mode.name] != n0 + 1:
+                fail(f"the dense forward's {mode.kind} mode disagrees with its plain twin at "
+                     f"the edge case {label!r} (SP {ph.sp})")
     for k in ("viterbi_forward_factored", "viterbi_backward_batch", *DENSE):
         _build.LAUNCHES[k] = before[k]
 
@@ -1390,7 +1429,8 @@ def check_viterbi_mod(pm, pm_mod, unit, shape_name, B, T, rng, results):
     print(f"  {name} [{shape_name} B={B} T={T} SP={ph.sp}, {chm.n_states} states, "
           f"{len(ph.fspec[0])} diagonals]: max_abs_err {err}; kernel {ms:.3f} ms "
           f"({ms * 1e3 / steps:.4f} us/step), dense resident forward on the same inputs "
-          f"{dense_ms:.3f} ms (K={VC.dense_mode(ph.sp)}), plain {plain_ms:.1f} ms", flush=True)
+          f"{dense_ms:.3f} ms (K={VC.dense_mode(ph.sp).ctas}), plain {plain_ms:.1f} ms",
+          flush=True)
     print(f"  viterbi_backward_batch [{shape_name} mod HMM B={B} T={T} SP={ph.sp}]: max_abs_err "
           f"{perr}; kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.1f} ms; the dense forward's "
           f"paths {'equal' if same else 'DIFFER'}", flush=True)
@@ -1437,12 +1477,13 @@ def backward_bound(sp: int, l_d, B: int, T: int) -> dict:
 
 
 def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
-    """Rows 3-4's wide variants (SP past 1024) against their twins: the
-    forward in the HMM's slot layout (rows below each length, fin and acc
-    bit-equal) and the backward (paths equal), each wrapper launching its
-    wide counter alone; ms and us a step of each, the bound and the twin's
-    ms.  ``results``: where given, the kernel line's entries of the
-    layout's wide forward and of the wide backward."""
+    """Rows 3-4 past SP 1024 against their twins: the forward's cluster
+    form in the HMM's slot layout on ``fwd_cluster_ctas``' CTAs (rows
+    below each length, fin and acc bit-equal) and the wide backward
+    (paths equal), each wrapper launching its counter alone; ms and us a
+    step of each, the bound and the twin's ms.  ``results``: where given,
+    the kernel line's entries of the layout's cluster forward and of the
+    wide backward.  Returns the forward's numbers at this shape."""
     import torch
 
     from strique_tpu_torch import _build
@@ -1451,7 +1492,7 @@ def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
     ph = VC.PaddedHMM(chm, o_d.device)
     layout = ph.fwd_layout
     B, T = o_d.shape
-    keys = (layout.name, layout.wide_name, "viterbi_backward_batch", "viterbi_backward_wide",
+    keys = (layout.name, layout.cluster_name, "viterbi_backward_batch", "viterbi_backward_wide",
             *DENSE)
     before = dict(_build.LAUNCHES)
     run_f = lambda: VC.viterbi_forward_factored(o_d, l_d, ph)
@@ -1459,9 +1500,10 @@ def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
     last = torch.argmax(fin_k + ph.end, dim=1)
     run_b = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
     path_k, _ = once_ms(run_b)
-    want = {k: int(k in (layout.wide_name, "viterbi_backward_wide")) for k in keys}
+    want = {k: int(k in (layout.cluster_name, "viterbi_backward_wide")) for k in keys}
     if {k: _build.LAUNCHES[k] - before[k] for k in keys} != want:
-        fail(f"the Viterbi pair at SP {ph.sp} ({label}) did not launch the wide variants alone")
+        fail(f"the Viterbi pair at SP {ph.sp} ({label}) did not launch the cluster forward and "
+             f"the wide backward alone")
     (sc_p, fin_p, acc_p), plain_ms = once_ms(lambda: VC._fwd_plain(o_d, l_d, ph))
     live = torch.arange(T, device=o_d.device)[:, None] < l_d[None, :]
     err = max(float((sc_k[live] - sc_p[live]).abs().max()),
@@ -1475,26 +1517,30 @@ def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
         _build.LAUNCHES[k] = before[k]
     steps = int(l_d.max())
     fb, bb = factored_bound(ph, l_d, B, T), backward_bound(ph.sp, l_d, B, T)
-    print(f"  {layout.wide_name} [{label}: B={B} T={T} SP={ph.sp}, {chm.n_states} states]: "
+    ctas = VC.fwd_cluster_ctas(ph.sp, B, o_d.device, layout.code)
+    print(f"  {layout.cluster_name} [{label}: B={B} T={T} SP={ph.sp}, {chm.n_states} states, "
+          f"C={ctas}]: "
           f"max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), bound "
           f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), plain {plain_ms:.1f} ms", flush=True)
     print(f"  viterbi_backward_wide [{label}: B={B} T={T} SP={ph.sp}]: max_abs_err {perr}; "
           f"kernel {bwd_ms:.3f} ms ({bwd_ms * 1e3 / steps:.4f} us/step), bound "
           f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}), plain {bwd_plain_ms:.1f} ms", flush=True)
     if err != 0.0:
-        fail(f"the wide forward disagrees with its plain twin ({label})")
+        fail(f"the cluster forward disagrees with its plain twin ({label})")
     if perr != 0:
         fail(f"the wide backward disagrees with its plain twin ({label})")
-    if results is None:
-        return
     shape = f"B={B} T={T} SP={ph.sp}"
-    results[layout.wide_name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                 "us_per_step": ms * 1e3 / steps, "shape": shape, **fb}
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "us_per_step": ms * 1e3 / steps,
+             "shape": shape, "ctas": ctas, **fb}
+    if results is None:
+        return entry
+    results[layout.cluster_name] = entry
     if layout.chain:
         results["viterbi_backward_wide"] = {"max_abs_err": float(perr), "ms": bwd_ms,
                                             "plain_ms": bwd_plain_ms,
                                             "us_per_step": bwd_ms * 1e3 / steps,
                                             "shape": shape, **bb}
+    return entry
 
 
 def wide_path_inputs(pm, pm_mod, unit: str, units: int, B: int, T: int, rng, mod: bool):
@@ -1524,12 +1570,20 @@ def wide_path_inputs(pm, pm_mod, unit: str, units: int, B: int, T: int, rng, mod
 def check_viterbi_wide(pm, pm_mod, seed: int, results) -> None:
     """Phase 3's wide Viterbi checks: the cases of ``WIDE_CASES`` (B 8, T
     1024), then the kernel line's shapes: the 150-base unit's repeat HMM
-    (SP 1152) on 8 segments of phase 4f's reads' length, and the 260-base
-    unit's mod HMM (SP 1152) on 8 repeat-state segments of 3 units."""
+    (SP 1152) on 8 segments of phase 4f's reads' length, through the
+    factored forward and the dense one (its stream mode), and the
+    260-base unit's mod HMM (SP 1152) on 8 repeat-state segments of 3
+    units; then the cluster forward at the other call sizes of its
+    paths, each on the CTAs the rule gives it there: the 260-base unit's
+    repeat HMM (SP 1792) on the wide mod target's reads, padded to 8 rows
+    as ``viterbi_batch`` pads them, and a count batch of ``GROUP`` reads
+    of the 150-base unit (2 CTAs a read).  Their numbers join the chained
+    entry's ``calls``."""
     import numpy as np
     import torch
 
     from strique_tpu_torch.hmm.models import build_flanked_repeat, build_repeat_mod
+    from strique_tpu_torch.ops import viterbi_cuda as VC
     from strique_tpu_torch.synthetic import (PREFIX, SUFFIX, WIDE_MOD_UNIT_BASES,
                                              WIDE_MOD_UNITS, WIDE_UNIT_BASES, random_unit,
                                              viterbi_wide_case)
@@ -1544,9 +1598,33 @@ def check_viterbi_wide(pm, pm_mod, seed: int, results) -> None:
     chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
     o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_UNITS, WIDE_READS, 7168, rng, False)
     check_wide("phase 4f's shape", chm, o_d, l_d, results)
+    # the dense forward past SP 1024 (its stream mode) on the same HMM at
+    # the same shape: the wide target's dense route
+    del o_d, l_d
+    check_dense(pm, chm, "phase 4f's wide shape", WIDE_READS, 7168, rng, results,
+                repeats=WIDE_UNITS, unit=unit)
+    torch.cuda.empty_cache()
     unit = random_unit(WIDE_MOD_UNIT_BASES, WIDE_MOD_UNIT_BASES)
     o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_MOD_UNITS, 8, 6656, rng, True)
     check_wide("phase 4f's mod shape", build_repeat_mod(unit, pm, pm_mod), o_d, l_d, results)
+    del o_d, l_d
+    torch.cuda.empty_cache()
+    calls = results["viterbi_forward_factored_cluster"].setdefault("calls", [])
+    chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
+    o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_MOD_UNITS, WIDE_MOD_READS, 7168, rng,
+                                False)
+    rows = -(-WIDE_MOD_READS // 8) * 8
+    o_d = torch.cat([o_d, o_d.new_zeros((rows - WIDE_MOD_READS, o_d.shape[1]))])
+    l_d = torch.cat([l_d, l_d.new_ones(rows - WIDE_MOD_READS)])
+    calls.append(check_wide("the wide mod target's repeat HMM", chm, o_d, l_d))
+    del o_d, l_d
+    torch.cuda.empty_cache()
+    unit = random_unit(WIDE_UNIT_BASES, 5)
+    chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
+    o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_UNITS, VC.GROUP, 7168, rng, False)
+    calls.append(check_wide(f"a count batch of {VC.GROUP} reads", chm, o_d, l_d))
+    del o_d, l_d
+    torch.cuda.empty_cache()
 
 
 def written_slots(n_act, m, nd: int, ckpt_steps: int):
@@ -2349,20 +2427,22 @@ def check_nan(model: str, params, rng, card: str) -> None:
 def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
     """Phase 4f: a VNTR target of a 60-base unit (as MUC1's), whose repeat
     HMM has 540 states (SP 640, past the dense forward's resident rule):
-    the streamed dense kernel against its twin at the route's shape (8
-    reads, T 8192), then 8 '+' reads of 12 units counted on the default
-    route (the factored forward) and under ``STRIQUE_DENSE_VITERBI=1``
-    (the streamed dense forward), with equal result tuples.  Both count
+    the dense kernel in its mode there (slice) against its twin at the
+    route's shape (8 reads, T 8192), then 8 '+' reads of 12 units counted
+    on the default route (the factored forward) and under
+    ``STRIQUE_DENSE_VITERBI=1`` (the dense forward), with equal result
+    tuples.  Both count
     11, as the JAX package does on the CPU with these reads (its prefix
     profile takes one unit this long): tests/test_torch_dense.py
     ``test_vntr_counts_match_jax_counter`` holds the port's two routes
-    to the JAX counter there.  Returns the streamed
+    to the JAX counter there.  Returns the dense
     kernel's launches on the knob route."""
     import numpy as np
     import torch
 
     from strique_tpu_torch import _build
     from strique_tpu_torch.detect.counter import RepeatCounter
+    from strique_tpu_torch.ops import viterbi_cuda as VC
     from strique_tpu_torch.synthetic import PREFIX, SUFFIX, make_reads
 
     rng = np.random.default_rng(5)
@@ -2399,23 +2479,25 @@ def run_vntr(pm, model: str, seed: int, card: str, results: dict) -> dict:
         if any(r[0] != VNTR_UNITS - 1 for r in out) or not all(np.isfinite(r[3]) for r in out):
             fail(f"the VNTR target's {route} route did not count {VNTR_UNITS - 1} units")
     dense_lc = res["dense"][2]
-    if (dense_lc["viterbi_forward_dense"] <= 0 or dense_lc["viterbi_forward_dense_resident"]
-            or dense_lc["viterbi_forward_factored"] or res["default"][2]["viterbi_forward_dense"]):
-        fail("the VNTR target's dense route did not decode with the streamed dense forward alone")
+    name = VC.dense_mode(VC.padded_sp(540)).name
+    if (dense_lc[name] <= 0 or any(dense_lc[k] for k in DENSE if k != name)
+            or dense_lc["viterbi_forward_factored"] or any(res["default"][2][k] for k in DENSE)):
+        fail(f"the VNTR target's dense route did not decode with the dense forward's {name} "
+             f"mode alone")
     if [tuple(r) for r in res["dense"][0]] != [tuple(r) for r in res["default"][0]]:
         fail("the VNTR target's dense route's tuples differ from the default route's")
-    return {"viterbi_forward_dense": dense_lc["viterbi_forward_dense"]}
+    return {name: dense_lc[name]}
 
 
 def run_wide(model: str, seed: int, card: str, tmp: str) -> dict:
     """Phase 4f's targets past SP 1024: the 150-base unit's (repeat HMM
     of 1080 states, SP 1152) 8 '+' reads of 5 units on the default route
-    (the wide factored forward and the wide backward) and under
-    ``STRIQUE_DENSE_VITERBI=1`` (the streamed dense forward, then the wide
+    (the factored forward's cluster form and the wide backward) and under
+    ``STRIQUE_DENSE_VITERBI=1`` (the dense forward's stream mode, then the wide
     backward), tuples equal to each other and to the port's CPU counter
     (tests/test_torch_wide_counter.py holds that counter to the JAX one);
     the 260-base unit with the mod model (repeat HMM SP 1792, mod HMM SP
-    1152: both wide layouts), 4 '+' base and twin reads, tuples equal to
+    1152: both slot layouts' cluster forms), 4 '+' base and twin reads, tuples equal to
     the CPU counter's (tests/test_torch_wide_mod.py); then a 1345-base
     unit (8250 states, SP 8320), refused by ``add_target`` on the card
     before any launch.  Returns the wide kernels' launches on these
@@ -2470,14 +2552,17 @@ def run_wide(model: str, seed: int, card: str, tmp: str) -> dict:
         if not all(np.isfinite(r[3]) for r in out):
             fail(f"non-finite log_p on the wide target's {route} route")
     lc, dense_lc = res["default"][2], res["dense"][2]
-    if (lc["viterbi_forward_factored_wide"] <= 0 or lc["viterbi_backward_wide"] <= 0
+    if (lc["viterbi_forward_factored_cluster"] <= 0 or lc["viterbi_backward_wide"] <= 0
             or lc["viterbi_forward_factored"] or lc["viterbi_backward_batch"]
             or any(lc[k] for k in DENSE)):
-        fail("the wide target's default route did not decode with the wide variants alone")
-    if (dense_lc["viterbi_forward_dense"] <= 0 or dense_lc["viterbi_backward_wide"] <= 0
-            or dense_lc["viterbi_forward_factored_wide"]):
-        fail("the wide target's dense route did not decode with the streamed dense forward "
-             "and the wide backward")
+        fail("the wide target's default route did not decode with the cluster forward and the "
+             "wide backward alone")
+    dense_name = VC.dense_mode(1152).name
+    if (dense_lc[dense_name] <= 0 or dense_lc["viterbi_backward_wide"] <= 0
+            or dense_lc["viterbi_forward_factored_cluster"]
+            or any(dense_lc[k] for k in DENSE if k != dense_name)):
+        fail(f"the wide target's dense route did not decode with the dense forward's "
+             f"{dense_name} mode and the wide backward")
     print(f"wide target: both routes' tuples equal the CPU counter's (its run {cpu_s:.1f} s)",
           flush=True)
 
@@ -2506,10 +2591,10 @@ def run_wide(model: str, seed: int, card: str, tmp: str) -> dict:
           f"{json.dumps({k: mod_lc[k] for k in vit})}", flush=True)
     if [tuple(r) for r in mod["cuda"]] != [tuple(r) for r in mod["cpu"]]:
         fail("the wide mod target's tuples differ from the CPU counter's")
-    if (mod_lc["viterbi_forward_factored_diag_wide"] <= 0
-            or mod_lc["viterbi_forward_factored_wide"] <= 0
+    if (mod_lc["viterbi_forward_factored_diag_cluster"] <= 0
+            or mod_lc["viterbi_forward_factored_cluster"] <= 0
             or mod_lc["viterbi_forward_factored_diag"] or mod_lc["viterbi_backward_batch"]):
-        fail("the wide mod target did not decode with both wide layouts alone")
+        fail("the wide mod target did not decode with both layouts' cluster forms alone")
 
     too_wide = random_unit(TOO_WIDE_UNIT_BASES, TOO_WIDE_UNIT_BASES)
     c = RepeatCounter(model, device="cuda")
@@ -2527,9 +2612,11 @@ def run_wide(model: str, seed: int, card: str, tmp: str) -> dict:
         fail("a kernel launched before add_target refused the too-wide HMM")
     print(f"a {TOO_WIDE_UNIT_BASES}-base unit's HMM refused by add_target on the card in "
           f"{time.perf_counter() - t0:.1f} s, before any launch: {msg}", flush=True)
-    return {"viterbi_forward_factored_wide": lc["viterbi_forward_factored_wide"],
+    return {"viterbi_forward_factored_cluster": lc["viterbi_forward_factored_cluster"],
             "viterbi_backward_wide": lc["viterbi_backward_wide"],
-            "viterbi_forward_factored_diag_wide": mod_lc["viterbi_forward_factored_diag_wide"]}
+            "viterbi_forward_factored_diag_cluster":
+                mod_lc["viterbi_forward_factored_diag_cluster"],
+            dense_name: dense_lc[dense_name]}
 
 
 def run_devices(model: str, pm, seed: int, card: str, tmp: str, ultra, two_pass) -> None:
@@ -3372,8 +3459,9 @@ def run_routes(model: str, seed: int, card: str, tmp: str, warm, plus, minus, sp
     if [tuple(r) for r in got] != [tuple(r) for r in ref]:
         fail("the wide target's fused tuples differ from its default route's")
     if (lc["align_forward_wave_multi_table"] + lc["align_forward_wave_multi_cluster"] <= 0
-            or lc["viterbi_forward_factored_wide"] <= 0 or lc["viterbi_backward_wide"] <= 0):
-        fail("the wide target's fused run did not decode with the wide variants")
+            or lc["viterbi_forward_factored_cluster"] <= 0 or lc["viterbi_backward_wide"] <= 0):
+        fail("the wide target's fused run did not decode with the cluster forward and the "
+             "wide backward")
     b, o, g, sp = wide_peaks[0]
     out["wide_fused_viterbi"] = {"peak_bytes": b, "obs": o, "rows": g, "sp": sp}
     print(f"wide target through the fused route: counts {[r[0] for r in got]}, tuples equal "
@@ -3732,8 +3820,8 @@ def main() -> int:
             for name in ("align_forward_col_table", "traceback_pointers_col"):
                 launches[name] = lc[name]
         else:
-            if (lc["viterbi_forward_dense_resident"] <= 0 or lc["viterbi_forward_dense"] != 0
-                    or lc["viterbi_forward_factored"] != 0):
+            if (lc["viterbi_forward_dense_resident"] <= 0 or lc["viterbi_forward_factored"] != 0
+                    or any(lc[k] for k in DENSE if k != "viterbi_forward_dense_resident")):
                 fail("the dense route did not decode with the resident dense forward alone")
             launches["viterbi_forward_dense_resident"] = lc["viterbi_forward_dense_resident"]
     print("both knob routes' result tuples equal the default route's", flush=True)

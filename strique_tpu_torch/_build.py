@@ -53,10 +53,11 @@ LAUNCHES = {
     "traceback_pointers_col": 0,  # the same wrapper, column layout
     "viterbi_forward_factored": 0,
     "viterbi_forward_factored_diag": 0,  # the same wrapper, diagonal-only slot layout
-    "viterbi_forward_factored_wide": 0,  # the wide variants (SP past 1024), each layout
-    "viterbi_forward_factored_diag_wide": 0,
-    "viterbi_forward_dense": 0,  # the streamed mode (SP past dense_mode's rule)
-    "viterbi_forward_dense_resident": 0,  # the same wrapper, resident (cluster) mode
+    "viterbi_forward_factored_cluster": 0,  # the cluster form (SP past 1024), each layout
+    "viterbi_forward_factored_diag_cluster": 0,
+    "viterbi_forward_dense_resident": 0,  # the dense forward's modes (dense_mode)
+    "viterbi_forward_dense_slice": 0,
+    "viterbi_forward_dense_stream": 0,
     "viterbi_backward_batch": 0,
     "viterbi_backward_wide": 0,  # the same wrapper, the wide variant (SP past 1024)
 }
@@ -107,12 +108,16 @@ _SIGNATURES = {
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts
     # (host), sc, fin, acc; B, T, SP, layout; stream
     "viterbi_fwd_launch": [_P] * 15 + [_I] * 4 + [_P],
-    "viterbi_fwd_wide_launch": [_P] * 15 + [_I] * 4 + [_P],
+    # the same, then C (CTAs a read)
+    "viterbi_fwd_cluster_launch": [_P] * 15 + [_I] * 5 + [_P],
+    # SP, layout, C -> the clusters of C CTAs a read the card runs at once
+    # (a query, not a launch: no stream)
+    "viterbi_fwd_cluster_capacity": [_I] * 3,
     # obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc;
-    # B, T, SP; stream
-    "viterbi_dense_launch": [_P] * 12 + [_I] * 3 + [_P],
-    # the same, then K (CTAs a read)
+    # B, T, SP, K (CTAs a read); stream
     "viterbi_dense_resident_launch": [_P] * 12 + [_I] * 4 + [_P],
+    # the same, then slice (0 or 1)
+    "viterbi_dense_stream_launch": [_P] * 12 + [_I] * 5 + [_P],
     # sc, transT, last, tact, path; B, T, SP; stream
     "viterbi_bwd_launch": [_P] * 5 + [_I] * 3 + [_P],
     "viterbi_bwd_wide_launch": [_P] * 5 + [_I] * 3 + [_P],

@@ -33,10 +33,14 @@
 // registers: tools/probe_dense_sync.py.)
 //
 // STREAMED (SP > 512, up to 8192): the transitions no longer fit the
-// registers of 8 CTAs, so one CTA per read, one thread per destination
-// state v (VPT states a thread when SP > 1024); the previous row sits in
-// shared memory (a broadcast read per u) and thread v walks u down its
-// column of trans in L2, whose reads coalesce across the warp.
+// registers of 8 CTAs.  A read is still a cluster of K CTAs (up to 8)
+// exchanging each step's row by st.async; each CTA computes its SP / K
+// columns from L2 (or, where they fit, from its slice in shared memory),
+// many float4 loads in flight over its 512 or 1024 threads.  A step's
+// 4 SP^2 bytes thus stream through K SMs at once, not one.  (The one-CTA
+// form it replaces, a thread a column walking trans in L2 with 4 loads
+// in flight, is kept in tools/probe_viterbi_wide.cu, which times the
+// two side by side, and 16 CTAs a read beside 8.)
 //
 // Max is exact, so any order over u and any grouping of the row max
 // gives the reference's value (its row/column orientation switch is a
@@ -57,117 +61,239 @@ namespace {
 
 constexpr float NEGF = -1e30f;
 constexpr int MAX_THREADS = 1024;
+constexpr int MAX_SP = 8192;               // viterbi_cuda.MAX_SP
+constexpr int MAX_CLUSTER = 8;             // the portable cluster size
+constexpr size_t MAX_SHMEM = 232448 - 64;  // an H100 CTA's, less the static mbarriers
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int RES_WARPS = 16;        // resident mode: warps a CTA
 constexpr int RES_THREADS = 32 * RES_WARPS;
 
-template <int VPT>
-__global__ void __launch_bounds__(MAX_THREADS)
-viterbi_dense_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
-                     const float* __restrict__ trans, const float* __restrict__ start,
-                     const float* __restrict__ mu, const float* __restrict__ sigma,
-                     const int* __restrict__ uni, const float* __restrict__ luni,
-                     const float* __restrict__ lsig, float* __restrict__ sc,
-                     float* __restrict__ fin, float* __restrict__ acc_out, int B, int T,
-                     int SP) {
-  extern __shared__ float st_sh[];  // SP
-  __shared__ float warp_red[32];
-  const int b = blockIdx.x;
+// STREAMED mode: a cluster of K CTAs a read (K up to 8), CTA r computing
+// the VC = SP / K destination columns [r VC, (r + 1) VC) with NT
+// threads.  Thread i takes column quad q = i % Q (Q = VC / 4) and source
+// rows u = g, g + G, ... (g = i / Q, G = NT / Q groups): a float4 of
+// transitions a row, coalesced across the quads, several rows' loads in
+// flight, from L2 (SLICE = false, read
+// through the non-coherent path: the slice stays in L1 when it fits) or
+// from the CTA's copy of its slice in shared memory (SLICE = true,
+// loaded once).  The groups' column maxes meet in shared memory behind
+// one CTA barrier; the thread owning column c folds them, adds the
+// emission and sends val by st.async, 4 columns a 16-byte message, into
+// the step parity's row of every CTA, with each warp's max, as the
+// resident mode does.  m is the max of the K PW warp maxima.
+template <bool SLICE>
+__global__ void __launch_bounds__(MAX_THREADS, 1)
+viterbi_dense_cluster_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
+                             const float* __restrict__ trans, const float* __restrict__ start,
+                             const float* __restrict__ mu, const float* __restrict__ sigma,
+                             const int* __restrict__ uni, const float* __restrict__ luni,
+                             const float* __restrict__ lsig, float* __restrict__ sc,
+                             float* __restrict__ fin, float* __restrict__ acc_out, int B,
+                             int T, int SP) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bar[2];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int VC = SP / K;
+  const int Q = VC >> 2;
+  const int NT = blockDim.x;
+  const int G = NT / Q;
+  const int PW = (VC + 31) >> 5;  // warps owning columns
+  const int NP = K * PW;
+  const int NPP = (NP + 3) & ~3;
+  const int b = blockIdx.x / K;
+  const int col0 = rank * VC;
   const int x = threadIdx.x;
   const int lane = x & 31;
   const int warp = x >> 5;
-  const int n_warps = blockDim.x >> 5;
+  const int q = x % Q;
+  const int g = x / Q;
+  const bool active = g < G;
+  const bool owner = x < VC;
+  const int v = col0 + (owner ? x : 0);
   const int ta = min(tact[b], T);  // lengths past T would read past the row
   const float* x_row = obs + (size_t)b * T;
-
-  float mu_v[VPT], sig_v[VPT], luni_v[VPT], lsig_v[VPT], start_v[VPT], st[VPT], fin_v[VPT];
-  bool uni_v[VPT];
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int v = x + k * blockDim.x;
-    const bool live = v < SP;
-    mu_v[k] = live ? mu[v] : 0.0f;
-    sig_v[k] = live ? sigma[v] : 1.0f;
-    luni_v[k] = live ? luni[v] : 0.0f;
-    lsig_v[k] = live ? lsig[v] : 0.0f;
-    start_v[k] = live ? start[v] : NEGF;
-    uni_v[k] = live && uni[v] != 0;
-    st[k] = 0.0f;
-    fin_v[k] = 0.0f;
+  float* vbuf = smem;                          // [2][SP]: the val rows
+  float* pbuf = vbuf + 2 * SP;                 // [2][NPP]: their warp maxima
+  float* comb = pbuf + 2 * NPP;                // [G][VC]: the groups' column maxes
+  float* slice = comb + (size_t)G * VC;        // SLICE: [SP][VC]
+  const uint32_t BYTES = 4u * (SP + NP);
+  const uint32_t bar0 = smem_addr(&bar[0]);
+  if (SLICE) {
+    const int quads = Q * SP;
+    for (int e = x; e < quads; e += NT) {
+      const int u = e / Q;
+      const int qq = e - u * Q;
+      reinterpret_cast<float4*>(slice)[e] =
+          __ldg(reinterpret_cast<const float4*>(trans + (size_t)u * SP + col0) + qq);
+    }
   }
-  float acc = 0.0f;
+  if (x == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (ta > 0) expect_tx(bar0, BYTES);
+    if (ta > 1) expect_tx(bar0 + 8, BYTES);
+  }
+  const float mu_v = mu[v], sig_v = sigma[v], luni_v = luni[v], lsig_v = lsig[v];
+  const float start_v = start[v];
+  const bool uni_v = uni[v] != 0;
+  auto emission = [&](float xt) {
+    const float z = (xt - mu_v) / sig_v;
+    return uni_v ? luni_v : (lsig_v - (0.5f * z) * z);
+  };
+  float emit = ta > 0 ? emission(x_row[0]) : 0.0f;
+  float x_next = ta > 1 ? x_row[1] : 0.0f;
+  float val = 0.0f, m = 0.0f, acc = 0.0f, fin_v = 0.0f;
+  const float4* tq = SLICE ? reinterpret_cast<const float4*>(slice) + q
+                           : reinterpret_cast<const float4*>(trans + col0) + q;
+  const size_t tstride = SLICE ? Q : SP / 4;  // float4s a source row
+  auto row_max = [&](int p) {
+    float lm = -INFINITY;
+    for (int i = lane; i < NP; i += 32) lm = fmaxf(lm, pbuf[p * NPP + i]);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) lm = fmaxf(lm, __shfl_xor_sync(FULL, lm, d));
+    return lm;
+  };
+  __syncthreads();
+  // every CTA of the cluster runs, its barriers armed, before any row moves
+  cluster.sync();
 
   for (int t = 0; t < ta; ++t) {
-    const float xt = x_row[t];
-    float val[VPT];
-    float mx = -INFINITY;
+    const int p = t & 1;
+    float best = start_v;
+    if (t > 0) {
+      wait_parity_cta(bar0 + 8 * (p ^ 1), ((t - 1) >> 1) & 1);
+      if (x == 0 && t + 1 < ta) expect_tx(bar0 + 8 * (p ^ 1), BYTES);  // row t + 1
+      m = row_max(p ^ 1);
+      acc = acc + m;
+      if (owner) sc[((size_t)(t - 1) * B + b) * SP + v] = val - m;
+      if (active) {
+        const float* vp = vbuf + (p ^ 1) * SP;
+        float4 bm = make_float4(-INFINITY, -INFINITY, -INFINITY, -INFINITY);
+        int u = g;
+        // four rows' loads in flight, then their maxes
+        for (; u + 3 * G < SP; u += 4 * G) {
+          float4 tr[4];
+          float s[4];
 #pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int v = x + k * blockDim.x;
-      const float z = (xt - mu_v[k]) / sig_v[k];
-      const float emit = uni_v[k] ? luni_v[k] : (lsig_v[k] - (0.5f * z) * z);
-      float best;
-      if (t == 0) {
-        best = start_v[k];
-      } else if (v < SP) {
-        float b0 = -INFINITY, b1 = -INFINITY, b2 = -INFINITY, b3 = -INFINITY;
-        const float* col = trans + v;
-        int u = 0;
-        for (; u + 3 < SP; u += 4) {
-          b0 = fmaxf(b0, st_sh[u] + col[(size_t)u * SP]);
-          b1 = fmaxf(b1, st_sh[u + 1] + col[(size_t)(u + 1) * SP]);
-          b2 = fmaxf(b2, st_sh[u + 2] + col[(size_t)(u + 2) * SP]);
-          b3 = fmaxf(b3, st_sh[u + 3] + col[(size_t)(u + 3) * SP]);
+          for (int r = 0; r < 4; ++r) {
+            tr[r] = SLICE ? tq[(size_t)(u + r * G) * tstride]
+                          : __ldg(tq + (size_t)(u + r * G) * tstride);
+            s[r] = vp[u + r * G] - m;
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            bm.x = fmaxf(bm.x, s[r] + tr[r].x);
+            bm.y = fmaxf(bm.y, s[r] + tr[r].y);
+            bm.z = fmaxf(bm.z, s[r] + tr[r].z);
+            bm.w = fmaxf(bm.w, s[r] + tr[r].w);
+          }
         }
-        for (; u < SP; ++u) b0 = fmaxf(b0, st_sh[u] + col[(size_t)u * SP]);
-        best = fmaxf(fmaxf(b0, b1), fmaxf(b2, b3));
-      } else {
-        best = -INFINITY;
+        for (; u < SP; u += G) {
+          const float4 tr = SLICE ? tq[(size_t)u * tstride] : __ldg(tq + (size_t)u * tstride);
+          const float s = vp[u] - m;
+          bm.x = fmaxf(bm.x, s + tr.x);
+          bm.y = fmaxf(bm.y, s + tr.y);
+          bm.z = fmaxf(bm.z, s + tr.z);
+          bm.w = fmaxf(bm.w, s + tr.w);
+        }
+        reinterpret_cast<float4*>(comb)[g * Q + q] = bm;
       }
-      val[k] = best + emit;
-      if (v < SP) mx = fmaxf(mx, val[k]);
+      __syncthreads();
+      if (owner) {
+        float b0 = comb[x], b1 = -INFINITY, b2 = -INFINITY, b3 = -INFINITY;
+        int i = 1;
+        for (; i + 2 < G; i += 3) {
+          b1 = fmaxf(b1, comb[i * VC + x]);
+          b2 = fmaxf(b2, comb[(i + 1) * VC + x]);
+          b3 = fmaxf(b3, comb[(i + 2) * VC + x]);
+        }
+        for (; i < G; ++i) b0 = fmaxf(b0, comb[i * VC + x]);
+        best = fmaxf(fmaxf(b0, b1), fmaxf(b2, b3));
+      }
     }
-    // row max over the block
+    val = best + emit;
+    // lanes 4k..4k+3's val as one 16-byte message to every CTA
+    const float v1 = __shfl_down_sync(FULL, val, 1);
+    const float v2 = __shfl_down_sync(FULL, val, 2);
+    const float v3 = __shfl_down_sync(FULL, val, 3);
+    if (owner && (lane & 3) == 0) {
+      const float4 q4 = make_float4(val, v1, v2, v3);
+      const uint32_t a = smem_addr(vbuf + p * SP + v);
+      for (int r = 0; r < K; ++r) st_async_v4(a, q4, bar0 + 8 * p, r);
+    }
+    if (warp < PW) {
+      float wm = owner ? val : -INFINITY;
 #pragma unroll
-    for (int d = 16; d > 0; d >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, d));
-    if (lane == 0) warp_red[warp] = mx;
-    __syncthreads();  // also: every thread is done reading st_sh for this step
-    float m = warp_red[0];
-    for (int w = 1; w < n_warps; ++w) m = fmaxf(m, warp_red[w]);
+      for (int d = 16; d > 0; d >>= 1) wm = fmaxf(wm, __shfl_xor_sync(FULL, wm, d));
+      if (lane == 0) {
+        const uint32_t a = smem_addr(pbuf + p * NPP + rank * PW + warp);
+        for (int r = 0; r < K; ++r) st_async_b32(a, __float_as_uint(wm), bar0 + 8 * p, r);
+      }
+    }
+    if (t + 1 < ta) {
+      emit = emission(x_next);
+      if (t + 2 < ta) x_next = x_row[t + 2];
+    }
+  }
+  if (ta > 0) {
+    const int p = (ta - 1) & 1;
+    wait_parity_cta(bar0 + 8 * p, ((ta - 1) >> 1) & 1);
+    m = row_max(p);
     acc = acc + m;
-#pragma unroll
-    for (int k = 0; k < VPT; ++k) {
-      const int v = x + k * blockDim.x;
-      if (v >= SP) continue;
-      st[k] = val[k] - m;
-      if (t == ta - 1) fin_v[k] = st[k];
-      st_sh[v] = st[k];
-      sc[((size_t)t * B + b) * SP + v] = st[k];
-    }
-    __syncthreads();  // the new row is in st_sh; warp_red may be reused
+    fin_v = val - m;
+    if (owner) sc[((size_t)(ta - 1) * B + b) * SP + v] = fin_v;
   }
-#pragma unroll
-  for (int k = 0; k < VPT; ++k) {
-    const int v = x + k * blockDim.x;
-    if (v < SP) fin[(size_t)b * SP + v] = fin_v[k];
-  }
-  if (x == 0) acc_out[b] = acc;
+  if (owner) fin[(size_t)b * SP + v] = fin_v;
+  if (rank == 0 && x == 0) acc_out[b] = acc;
+  // no CTA leaves while a partner may still send into it
+  cluster.sync();
 }
 
-template <int VPT>
-cudaError_t launch(const float* obs, const int* tact, const float* trans, const float* start,
-                   const float* mu, const float* sigma, const int* uni, const float* luni,
-                   const float* lsig, float* sc, float* fin, float* acc, int B, int T, int SP,
-                   cudaStream_t stream) {
-  const int threads = ((SP + VPT - 1) / VPT + 31) / 32 * 32;
-  const size_t shmem = (size_t)SP * sizeof(float);
-  if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(viterbi_dense_kernel<VPT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-    if (e != cudaSuccess) return e;
-  }
-  viterbi_dense_kernel<VPT><<<B, threads, shmem, stream>>>(
-      obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc, fin, acc, B, T, SP);
+// the streamed mode's threads a CTA: at least 512, and one a column
+__host__ __device__ constexpr int stream_threads(int VC) { return VC > 512 ? 1024 : 512; }
+
+// shared bytes of the streamed mode at SP, K CTAs, a slice or not
+inline size_t stream_shmem(int SP, int K, bool slice) {
+  const int VC = SP / K;
+  const int NP = K * ((VC + 31) / 32);
+  const int G = stream_threads(VC) / (VC / 4);
+  return (2 * (size_t)SP + 2 * ((NP + 3) & ~3) + (size_t)G * VC + (slice ? (size_t)SP * VC : 0)) *
+         sizeof(float);
+}
+
+template <bool SLICE>
+cudaError_t launch_stream(const float* obs, const int* tact, const float* trans,
+                          const float* start, const float* mu, const float* sigma,
+                          const int* uni, const float* luni, const float* lsig, float* sc,
+                          float* fin, float* acc, int B, int T, int SP, int K,
+                          cudaStream_t stream) {
+  auto kern = viterbi_dense_cluster_kernel<SLICE>;
+  const size_t shmem = stream_shmem(SP, K, SLICE);
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = K;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * K);
+  cfg.blockDim = dim3(stream_threads(SP / K));
+  cfg.dynamicSmemBytes = shmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kern, obs, tact, trans, start, mu, sigma, uni, luni, lsig, sc,
+                         fin, acc, B, T, SP);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -358,12 +484,18 @@ cudaError_t launch_resident(const float* obs, const int* tact, const float* tran
 
 }  // namespace
 
-extern "C" int viterbi_dense_launch(const void* obs, const void* tact, const void* trans,
-                                    const void* start, const void* mu, const void* sigma,
-                                    const void* uni, const void* luni, const void* lsig,
-                                    void* sc, void* fin, void* acc, int B, int T, int SP,
-                                    void* stream) {
-  if (SP <= 0 || SP % 128) return (int)cudaErrorInvalidValue;
+// STREAMED mode: K CTAs a read (viterbi_cuda.dense_mode: up to 8, VC =
+// SP / K columns a CTA, a multiple of 4, at most 1024); slice: the CTA's
+// transitions held in shared memory (they must fit beside the rows)
+extern "C" int viterbi_dense_stream_launch(const void* obs, const void* tact, const void* trans,
+                                           const void* start, const void* mu,
+                                           const void* sigma, const void* uni,
+                                           const void* luni, const void* lsig, void* sc,
+                                           void* fin, void* acc, int B, int T, int SP, int K,
+                                           int slice, void* stream) {
+  if (SP <= 0 || SP % 128 || SP > MAX_SP || K < 1 || K > MAX_CLUSTER || SP % (4 * K) ||
+      SP / K > MAX_THREADS || (slice && stream_shmem(SP, K, true) > MAX_SHMEM))
+    return (int)cudaErrorInvalidValue;
   auto o = (const float*)obs;
   auto ta = (const int*)tact;
   auto tr = (const float*)trans;
@@ -377,11 +509,9 @@ extern "C" int viterbi_dense_launch(const void* obs, const void* tact, const voi
   auto fn = (float*)fin;
   auto ac = (float*)acc;
   auto st = (cudaStream_t)stream;
-  if (SP <= 1024) return (int)launch<1>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, st);
-  if (SP <= 2048) return (int)launch<2>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, st);
-  if (SP <= 4096) return (int)launch<4>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, st);
-  if (SP <= 8192) return (int)launch<8>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, st);
-  return (int)cudaErrorInvalidValue;
+  if (slice)
+    return (int)launch_stream<true>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, K, st);
+  return (int)launch_stream<false>(o, ta, tr, s0, m, sg, un, lu, ls, out, fn, ac, B, T, SP, K, st);
 }
 
 // RESIDENT mode: K CTAs a read (viterbi_cuda.dense_mode); R = SP / 32
@@ -392,7 +522,8 @@ extern "C" int viterbi_dense_resident_launch(const void* obs, const void* tact,
                                              const void* uni, const void* luni,
                                              const void* lsig, void* sc, void* fin, void* acc,
                                              int B, int T, int SP, int K, void* stream) {
-  if (SP <= 0 || SP % 128 || K < 1 || K > 8 || SP % (16 * K)) return (int)cudaErrorInvalidValue;
+  if (SP <= 0 || SP % 128 || K < 1 || K > MAX_CLUSTER || SP % (16 * K))
+    return (int)cudaErrorInvalidValue;
   const int R = SP / 32;
   const int C = SP / (16 * K);
   auto o = (const float*)obs;

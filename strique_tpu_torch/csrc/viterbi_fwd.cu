@@ -52,23 +52,26 @@
 // its own length: later rows are frozen in the reference and never read.
 //
 // Past SP 1024 (up to 8192, the dense forward's cap) one thread a state
-// no longer fits a CTA, and neither does the emission table (OBS_CHUNK x
-// SP floats).  The wide variant (viterbi_fwd_wide_kernel) keeps one CTA
-// a read and gives each thread K contiguous states (K = 2, 4, 8 up to SP
-// 2048, 4096, 8192): the slot tables, ramps and emission parameters are
-// read through __ldg every step instead of held in registers, the
-// emission is computed inline from one broadcast obs load a step, the
-// chain scan runs each thread's K states serially before the warp and
-// block scans, and the row max goes through one shared slot a warp.  It
-// evaluates the same f32 expressions as the kernel above, so both give
-// the plain twin's bits.
+// no longer fits a CTA, and neither does the emission table.  The cluster
+// form (viterbi_fwd_cluster_kernel, below) spreads a read over a
+// thread-block cluster of C CTAs, one state a thread again: each CTA
+// holds a copy of the whole previous row, received by st.async, and the
+// chains' CTA-local cummaxes cross the cluster the same way.  (The
+// one-CTA wide form it replaces, K states a thread with the slot tables
+// read through __ldg each step, is kept in tools/probe_viterbi_wide.cu,
+// which times the two side by side.)
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
+
+#include "cluster.cuh"
 
 constexpr float NEGF = -1e30f;
 // the host's slot layouts (viterbi_cuda.FWD_LAYOUTS, staged by
@@ -87,6 +90,13 @@ using Chained = Layout<8, 2>;  // layout 0: flanked-repeat HMMs
 using DiagOnly = Layout<12, 0>;  // layout 1: mod HMMs
 constexpr int OBS_CHUNK = 32;
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_SP = 8192;     // viterbi_cuda.MAX_SP
+constexpr int MAX_CLUSTER = 8;   // the portable cluster size
+
+// lanes a CTA of the cluster form: SP over C CTAs, in whole warps
+__host__ __device__ constexpr int cluster_lanes(int SP, int C) {
+  return (SP + 32 * C - 1) / (32 * C) * 32;
+}
 
 __device__ __forceinline__ int order_key(float x) {
   const int i = __float_as_int(x);
@@ -290,174 +300,308 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
   if (v == 0) acc_out[b] = acc;
 }
 
-// SP up to 8192 with K contiguous states a thread (NT = blockDim.x
-// threads, a multiple of 32 with NT * K >= SP; a thread whose states
-// start at or past SP only takes part in the barriers and shuffles).
-// Shared memory: two rows and the chains' h rows, (2 + CHAIN) x SP.
-template <int K, class L>
-__global__ void __launch_bounds__(1024)
-viterbi_fwd_wide_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
-                        const float* __restrict__ start, const float* __restrict__ mu,
-                        const float* __restrict__ sigma, const int* __restrict__ uni,
-                        const float* __restrict__ luni, const float* __restrict__ lsig,
-                        const int* __restrict__ src, const float* __restrict__ wts,
-                        const float* __restrict__ ramp, int n_chain, float* __restrict__ sc,
-                        float* __restrict__ fin, float* __restrict__ acc_out, int B, int T,
-                        int SP) {
+// Past SP 1024 (up to MAX_SP = 8192) one thread a state no longer fits a
+// CTA: a read is a thread-block cluster of C CTAs (viterbi_cuda
+// fwd_cluster_ctas), CTA r holding lanes [r VC, (r + 1) VC), one a
+// thread (VC = blockDim.x, 32 ceil(SP / 32 C); lanes at or past SP are
+// dead and take part in the shuffles and barriers only).  Each thread
+// keeps the narrow kernel's habits: every slot in registers, the
+// emission of step t + 1 computed while step t's exchange is in flight.
+// Each CTA holds a copy of the whole previous row, so every diagonal and
+// entry gathers locally whatever its offset:
+//   * the val row: each live lane's val by st.async (4 lanes a 16-byte
+//     message) into the step parity's row of every CTA, and each warp's
+//     max (one word), completing 4 (SP + NP) bytes on that parity's
+//     mbarrier; m is the max of the NP = C NW warp maxima (max is exact:
+//     the whole row's max);
+//   * the chains: xs = inj - ramp, a warp shfl_up scan, one CTA barrier
+//     for the warps' totals, lp = the CTA's own cummax, sent as the val
+//     row is into the chain rows of every CTA (4 NC SP bytes on the
+//     parity's chain mbarrier).  An exit gathers h[u] = max(lp[u], the
+//     totals of the CTAs below u's) + ramp[u], the cummax over lanes
+//     0..u wherever u lies (a CTA's total is lp at its top live lane);
+//     so any exit offset works.
+// Rows alternate between two buffers by step parity and every CTA waits
+// on its own mbarriers (CTA scope: st.async's bytes land in its shared
+// memory): a CTA sends row t + 2 into a buffer only after every CTA sent
+// row t + 1, which each does after its reads of row t, so nothing else
+// guards a reuse.  The expression trees are the narrow kernel's, so the
+// bits are the plain twin's.
+template <class L, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
+viterbi_fwd_cluster_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
+                           const float* __restrict__ start, const float* __restrict__ mu,
+                           const float* __restrict__ sigma, const int* __restrict__ uni,
+                           const float* __restrict__ luni, const float* __restrict__ lsig,
+                           const int* __restrict__ src, const float* __restrict__ wts,
+                           const float* __restrict__ ramp, int n_chain, float* __restrict__ sc,
+                           float* __restrict__ fin, float* __restrict__ acc_out, int B, int T,
+                           int SP) {
   constexpr int DIAG_SLOTS = L::DIAG;
   constexpr int NC = L::CHAIN;
   constexpr int NCA = L::CHAIN_ARR;
   extern __shared__ __align__(16) float smem[];
-  float* val_sh = smem;           // 2 x SP: the rows, by step parity
-  float* h_sh = val_sh + 2 * SP;  // NC x SP
-  __shared__ float wmax[2][32];   // each warp's row max, by step parity
-  __shared__ float wtot[NCA][32];
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warp = blockDim.x >> 5;
-  const int v0 = tid * K;
-  const bool live = v0 < SP;  // SP is a multiple of K: all K states or none
-  const int ta = min(tact[b], T);
+  __shared__ __align__(16) float wtot[NCA][32];
+  __shared__ __align__(8) uint64_t bar[4];  // val rows 0-1, chain rows 2-3, by parity
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int VC = blockDim.x;
+  const int NW = VC >> 5;
+  const int NP = C * NW;          // warp maxima a row
+  const int NPP = (NP + 3) & ~3;  // keeps the chain rows 16-byte aligned
+  const int b = blockIdx.x / C;
+  const int x = threadIdx.x;
+  const int lane = x & 31;
+  const int warp = x >> 5;
+  const int v = rank * VC + x;
+  const bool live = v < SP;
+  const int vl = live ? v : SP - 1;  // a dead lane reads a live lane's tables, unused
+  const int ta = min(tact[b], T);    // lengths past T would read past the row
   const float* x_row = obs + (size_t)b * T;
   const bool chains = NC > 0 && n_chain > 0;
+  const uint32_t ROWB = 4u * SP;
+  const uint32_t vb0 = smem_addr(smem);    // [2][SP]: the val rows
+  const uint32_t pb0 = vb0 + 2 * ROWB;     // [2][NPP]: their warp maxima
+  const uint32_t lb0 = pb0 + 8u * NPP;     // [2][NC][SP]: the chain rows
+  const uint32_t VBYTES = 4u * (SP + NP);
+  const uint32_t LBYTES = NC * ROWB;
+  const uint32_t bar0 = smem_addr(&bar[0]);
 
-  float val[K], fin_v[K];
+  uint32_t ad[DIAG_SLOTS], ae[NCA][ENTRY_SLOTS], ax[NCA][EXIT_SLOTS];
+  float wd[DIAG_SLOTS], we[NCA][ENTRY_SLOTS], wx[NCA][EXIT_SLOTS], rx[NCA][EXIT_SLOTS], rp[NCA];
+  int kx[NCA][EXIT_SLOTS];  // the CTA of each exit's source lane
 #pragma unroll
-  for (int j = 0; j < K; ++j) fin_v[j] = 0.0f;
-  float acc = 0.0f, m = 0.0f;
-  for (int t = 0; t < ta; ++t) {
-    const int P = t & 1;
-    const float x = __ldg(x_row + t);
-    float out[K];
-    if (live) {
+  for (int d = 0; d < DIAG_SLOTS; ++d) {
+    ad[d] = vb0 + 4u * src[d * SP + vl];
+    wd[d] = wts[d * SP + vl];
+  }
 #pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const int v = v0 + j;
-        const float z = (x - __ldg(mu + v)) / __ldg(sigma + v);
-        const float emit = __ldg(uni + v) ? __ldg(luni + v) : (__ldg(lsig + v) - (0.5f * z) * z);
-        val[j] = emit;  // the emission, until the transitions are in
-        out[j] = NEGF;
-      }
+  for (int c = 0; c < NC; ++c) {
+    rp[c] = ramp[c * SP + vl];
+    const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
+#pragma unroll
+    for (int e = 0; e < ENTRY_SLOTS; ++e) {
+      ae[c][e] = vb0 + 4u * src[(base + e) * SP + vl];
+      we[c][e] = wts[(base + e) * SP + vl];
     }
-    if (t == 0) {
-      if (live) {
 #pragma unroll
-        for (int j = 0; j < K; ++j) val[j] = __ldg(start + v0 + j) + val[j];
-      }
-    } else {
-      const float* prev = val_sh + (P ^ 1) * SP;  // the previous row: st = val - m
-      if (live) {
-        for (int d = 0; d < DIAG_SLOTS; ++d)
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            out[j] = fmaxf(out[j], (prev[__ldg(src + d * SP + v0 + j)] - m) +
-                                       __ldg(wts + d * SP + v0 + j));
-      }
-      if (chains) {
-        float xs[NCA][K], pre[NCA];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
-#pragma unroll
-          for (int j = 0; j < K; ++j) {
-            float inj = NEGF;
-            if (live) {
-              for (int e = 0; e < ENTRY_SLOTS; ++e)
-                inj = fmaxf(inj, (prev[__ldg(src + (base + e) * SP + v0 + j)] - m) +
-                                     __ldg(wts + (base + e) * SP + v0 + j));
-              xs[c][j] = inj - __ldg(ramp + c * SP + v0 + j);
-            } else {
-              xs[c][j] = -INFINITY;
-            }
-          }
-          // the thread's own states in order, then its total over the warp
-#pragma unroll
-          for (int j = 1; j < K; ++j) xs[c][j] = fmaxf(xs[c][j], xs[c][j - 1]);
-          float incl = xs[c][K - 1];
-#pragma unroll
-          for (int d = 1; d < 32; d <<= 1) incl = fmaxf(incl, __shfl_up_sync(FULL, incl, d));
-          const float below_lane = __shfl_up_sync(FULL, incl, 1);
-          pre[c] = lane ? below_lane : -INFINITY;
-          if (lane == 31) wtot[c][warp] = incl;
-        }
-        __syncthreads();
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          for (int w = 0; w < warp; ++w) pre[c] = fmaxf(pre[c], wtot[c][w]);
-          if (live) {
-#pragma unroll
-            for (int j = 0; j < K; ++j)
-              h_sh[c * SP + v0 + j] = fmaxf(xs[c][j], pre[c]) + __ldg(ramp + c * SP + v0 + j);
-          }
-        }
-        __syncthreads();
-        if (live) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) {
-            const int base = DIAG_SLOTS + c * CHAIN_SLOTS + ENTRY_SLOTS;
-            for (int e = 0; e < EXIT_SLOTS; ++e)
-#pragma unroll
-              for (int j = 0; j < K; ++j)
-                out[j] = fmaxf(out[j], h_sh[c * SP + __ldg(src + (base + e) * SP + v0 + j)] +
-                                           __ldg(wts + (base + e) * SP + v0 + j));
-          }
-        }
-      }
-      if (live) {
-#pragma unroll
-        for (int j = 0; j < K; ++j) val[j] = out[j] + val[j];
-      }
+    for (int e = 0; e < EXIT_SLOTS; ++e) {
+      const int u = src[(base + ENTRY_SLOTS + e) * SP + vl];
+      ax[c][e] = lb0 + c * ROWB + 4u * u;
+      wx[c][e] = wts[(base + ENTRY_SLOTS + e) * SP + vl];
+      rx[c][e] = ramp[c * SP + u];
+      kx[c][e] = u / VC;
     }
+  }
+  const float mu_v = mu[vl], sig_v = sigma[vl], luni_v = luni[vl], lsig_v = lsig[vl];
+  const float start_v = start[vl];
+  const bool uni_v = uni[vl] != 0;
+  auto emission = [&](float xt) {
+    const float z = (xt - mu_v) / sig_v;
+    return uni_v ? luni_v : (lsig_v - (0.5f * z) * z);
+  };
+  if (x == 0) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar0 + 8 * i));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (ta > 0) expect_tx(bar0, VBYTES);
+    if (ta > 1) expect_tx(bar0 + 8, VBYTES);
+    if (chains && ta > 1) expect_tx(bar0 + 24, LBYTES);  // step 1's chain rows
+    if (chains && ta > 2) expect_tx(bar0 + 16, LBYTES);  // step 2's
+  }
+  float emit = ta > 0 ? emission(x_row[0]) : 0.0f;
+  float x_next = ta > 1 ? x_row[1] : 0.0f;
+  float val = 0.0f, m = 0.0f, acc = 0.0f, fin_v = 0.0f;
+  float* sc_v = sc + (size_t)b * SP + v;  // row t at sc_v + t * B * SP
+  const size_t sc_step = (size_t)B * SP;
+  // every CTA of the cluster runs, its barriers armed, before any row moves
+  cluster.sync();
+
+  // the max of a row's NP warp maxima, in every warp
+  auto row_max = [&](int q) {
     float lm = -INFINITY;
-    if (live) {
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        val_sh[P * SP + v0 + j] = val[j];
-        lm = fmaxf(lm, val[j]);
-      }
+    for (int i = lane; i < NP; i += 32) lm = fmaxf(lm, lds<0>(pb0 + 4u * (q * NPP + i)));
+    return warp_max(lm);
+  };
+  // lanes 4k..4k+3's y into 16 bytes at `addr` (lane 4k's) of every CTA
+  auto send = [&](float y, uint32_t addr, uint32_t mbar) {
+    const float y1 = __shfl_down_sync(FULL, y, 1);
+    const float y2 = __shfl_down_sync(FULL, y, 2);
+    const float y3 = __shfl_down_sync(FULL, y, 3);
+    if (live && (lane & 3) == 0) {
+      const float4 q4 = make_float4(y, y1, y2, y3);
+      for (int r = 0; r < C; ++r) st_async_v4(addr, q4, mbar, r);
     }
-    lm = warp_max(lm);
-    if (lane == 0) wmax[P][warp] = lm;
-    __syncthreads();
-    m = -INFINITY;
-    for (int w = 0; w < n_warp; ++w) m = fmaxf(m, wmax[P][w]);
+  };
+
+  for (int t = 0; t < ta; ++t) {
+    const int p = t & 1;
+    if (t == 0) {
+      val = start_v + emit;
+    } else {
+      const int q = p ^ 1;  // row t - 1
+      wait_parity_cta(bar0 + 8 * q, ((t - 1) >> 1) & 1);
+      if (x == 0 && t + 1 < ta) expect_tx(bar0 + 8 * q, VBYTES);  // row t + 1
+      m = row_max(q);
+      acc = acc + m;
+      if (live) __stcs(sc_v + (size_t)(t - 1) * sc_step, val - m);
+      const uint32_t prev = q * ROWB;
+      float out = NEGF;
+#pragma unroll
+      for (int d = 0; d < DIAG_SLOTS; ++d) out = fmaxf(out, (lds<0>(ad[d] + prev) - m) + wd[d]);
+      if (chains) {
+        float xs[NCA];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float inj = NEGF;
+#pragma unroll
+          for (int e = 0; e < ENTRY_SLOTS; ++e)
+            inj = fmaxf(inj, (lds<0>(ae[c][e] + prev) - m) + we[c][e]);
+          xs[c] = live ? inj - rp[c] : -INFINITY;
+        }
+        // inclusive scans; a lane below d gets its own value back
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) xs[c] = fmaxf(xs[c], __shfl_up_sync(FULL, xs[c], d));
+        if (lane == 31) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) wtot[c][warp] = xs[c];
+        }
+        __syncthreads();
+        const uint32_t lrow = lb0 + p * LBYTES;  // step t's chain rows
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const float4* tot4 = reinterpret_cast<const float4*>(wtot[c]);
+          float below = -INFINITY;
+          for (int k = 0; 4 * k < warp; ++k) {
+            const float4 w4 = tot4[k];
+            below = fmaxf(below, fmaxf(fmaxf(4 * k < warp ? w4.x : -INFINITY,
+                                             4 * k + 1 < warp ? w4.y : -INFINITY),
+                                       fmaxf(4 * k + 2 < warp ? w4.z : -INFINITY,
+                                             4 * k + 3 < warp ? w4.w : -INFINITY)));
+          }
+          send(fmaxf(xs[c], below), lrow + c * ROWB + 4u * v, bar0 + 16 + 8 * p);
+        }
+        wait_parity_cta(bar0 + 16 + 8 * p, ((t - 1) >> 1) & 1);
+        if (x == 0 && t + 2 < ta) expect_tx(bar0 + 16 + 8 * p, LBYTES);  // step t + 2's
+        const uint32_t lpar = p * LBYTES;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          float tot[8];  // each CTA's total: lp at its top live lane
+#pragma unroll
+          for (int k = 0; k < 8; ++k)
+            tot[k] = k < C ? lds<0>(lrow + c * ROWB + 4u * min(k * VC + VC - 1, SP - 1))
+                           : -INFINITY;
+#pragma unroll
+          for (int e = 0; e < EXIT_SLOTS; ++e) {
+            float tb = -INFINITY;  // the cummax of the CTAs below the source lane's
+#pragma unroll
+            for (int k = 0; k < 8; ++k) tb = k < kx[c][e] ? fmaxf(tb, tot[k]) : tb;
+            const float cm = fmaxf(lds<0>(ax[c][e] + lpar), tb);
+            out = fmaxf(out, (cm + rx[c][e]) + wx[c][e]);
+          }
+        }
+      }
+      val = out + emit;
+    }
+    send(val, vb0 + p * ROWB + 4u * v, bar0 + 8 * p);
+    const float wm = warp_max(live ? val : -INFINITY);
+    if (lane == 0) {
+      const uint32_t a = pb0 + 4u * (p * NPP + rank * NW + warp);
+      for (int r = 0; r < C; ++r) st_async_b32(a, __float_as_uint(wm), bar0 + 8 * p, r);
+    }
+    if (t + 1 < ta) {
+      emit = emission(x_next);
+      if (t + 2 < ta) x_next = x_row[t + 2];
+    }
+  }
+  if (ta > 0) {
+    const int q = (ta - 1) & 1;
+    wait_parity_cta(bar0 + 8 * q, ((ta - 1) >> 1) & 1);
+    m = row_max(q);
     acc = acc + m;
-    if (live) {
-      float* sc_t = sc + ((size_t)t * B + b) * SP + v0;
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        const float stn = val[j] - m;
-        if (t == ta - 1) fin_v[j] = stn;
-        __stcs(sc_t + j, stn);
-      }
-    }
+    fin_v = val - m;
+    if (live) __stcs(sc_v + (size_t)(ta - 1) * sc_step, fin_v);
   }
-  if (live) {
-#pragma unroll
-    for (int j = 0; j < K; ++j) fin[(size_t)b * SP + v0 + j] = fin_v[j];
-  }
-  if (tid == 0) acc_out[b] = acc;
+  if (live) fin[(size_t)b * SP + v] = fin_v;
+  if (rank == 0 && x == 0) acc_out[b] = acc;
+  // no CTA leaves while a partner may still send into it
+  cluster.sync();
 }
 
-template <int K, class L>
-int launch_wide(const void* obs, const void* tact, const void* start, const void* mu,
-                const void* sigma, const void* uni, const void* luni, const void* lsig,
-                const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
-                void* fin, void* acc, int B, int T, int SP, cudaStream_t stream) {
-  auto kernel = viterbi_fwd_wide_kernel<K, L>;
-  const int threads = (SP / K + 31) / 32 * 32;
-  const size_t shmem = (size_t)(2 + L::CHAIN) * SP * sizeof(float);  // 128 KB at SP 8192
-  cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+// The launch of B reads on C CTAs a read: VC = 32 ceil(SP / 32 C) lanes
+// a CTA, the launch bound by VC.  attr outlives cfg's use.
+template <class L, int MAXT>
+cudaError_t cluster_config(int B, int SP, int C, cudaStream_t stream, cudaLaunchAttribute* attr,
+                           cudaLaunchConfig_t* cfg) {
+  const int VC = cluster_lanes(SP, C);
+  const int NP = C * (VC / 32);
+  // the rows, their warp maxima and the chain rows: 194 KB at SP 8192
+  const size_t shmem = (size_t)(2 * SP + 2 * ((NP + 3) & ~3) + 2 * L::CHAIN * SP) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(viterbi_fwd_cluster_kernel<L, MAXT>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  if (e != cudaSuccess) return e;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(B * C);
+  cfg->blockDim = dim3(VC);
+  cfg->dynamicSmemBytes = shmem;
+  cfg->stream = stream;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// the clusters of C CTAs at SP the card runs at once with one CTA an SM
+// (0 when none fits): the query asks as if each CTA took all of an SM's
+// shared memory
+template <class L, int MAXT>
+int cluster_capacity(int SP, int C) {
+  auto kern = viterbi_fwd_cluster_kernel<L, MAXT>;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaFuncAttributes fa;
+  int dev = 0, optin = 0, clusters = 0;
+  if (cluster_config<L, MAXT>(C, SP, C, 0, &attr, &cfg) != cudaSuccess ||
+      cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&fa, kern) != cudaSuccess)
+    return 0;
+  cfg.dynamicSmemBytes = (size_t)optin - fa.sharedSizeBytes;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)cfg.dynamicSmemBytes) != cudaSuccess ||
+      cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) != cudaSuccess)
+    return 0;
+  return clusters;
+}
+
+template <class L, int MAXT>
+int launch_cluster(const void* obs, const void* tact, const void* start, const void* mu,
+                   const void* sigma, const void* uni, const void* luni, const void* lsig,
+                   const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
+                   void* fin, void* acc, int B, int T, int SP, int C, cudaStream_t stream) {
+  auto kern = viterbi_fwd_cluster_kernel<L, MAXT>;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  cudaError_t e = cluster_config<L, MAXT>(B, SP, C, stream, &attr, &cfg);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, threads, shmem, stream>>>(
-      (const float*)obs, (const int*)tact, (const float*)start, (const float*)mu,
-      (const float*)sigma, (const int*)uni, (const float*)luni, (const float*)lsig,
-      (const int*)src, (const float*)wts, (const float*)ramp, n_chain, (float*)sc, (float*)fin,
-      (float*)acc, B, T, SP);
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, kern, (const float*)obs, (const int*)tact, (const float*)start,
+                         (const float*)mu, (const float*)sigma, (const int*)uni,
+                         (const float*)luni, (const float*)lsig, (const int*)src,
+                         (const float*)wts, (const float*)ramp, n_chain, (float*)sc,
+                         (float*)fin, (float*)acc, B, T, SP);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -516,19 +660,20 @@ int check_and_launch(const void* obs, const void* tact, const void* start, const
 }
 
 template <class L>
-int check_and_launch_wide(const void* obs, const void* tact, const void* start, const void* mu,
-                          const void* sigma, const void* uni, const void* luni,
-                          const void* lsig, const void* src, const void* wts, const void* ramp,
-                          const int* h, void* sc, void* fin, void* acc, int B, int T, int SP,
-                          cudaStream_t stream) {
-  if (SP % 128 != 0 || SP <= 1024 || SP > 8192 || !counts_fit<L>(h))
+int check_and_launch_cluster(const void* obs, const void* tact, const void* start,
+                             const void* mu, const void* sigma, const void* uni,
+                             const void* luni, const void* lsig, const void* src,
+                             const void* wts, const void* ramp, const int* h, void* sc,
+                             void* fin, void* acc, int B, int T, int SP, int C,
+                             cudaStream_t stream) {
+  if (SP % 128 != 0 || SP <= 0 || SP > MAX_SP || C < 1 || C > MAX_CLUSTER ||
+      cluster_lanes(SP, C) > 1024 || !counts_fit<L>(h))
     return (int)cudaErrorInvalidValue;
   const int n_chain = h[1];
 #define FWD_ARGS obs, tact, start, mu, sigma, uni, luni, lsig, src, wts, ramp, n_chain, sc, fin, \
-                 acc, B, T, SP, stream
-  if (SP <= 2048) return launch_wide<2, L>(FWD_ARGS);
-  if (SP <= 4096) return launch_wide<4, L>(FWD_ARGS);
-  return launch_wide<8, L>(FWD_ARGS);
+                 acc, B, T, SP, C, stream
+  if (cluster_lanes(SP, C) <= 512) return launch_cluster<L, 512>(FWD_ARGS);
+  return launch_cluster<L, 1024>(FWD_ARGS);
 #undef FWD_ARGS
 }
 
@@ -560,24 +705,43 @@ extern "C" int viterbi_fwd_launch(const void* obs, const void* tact, const void*
   }
 }
 
-// The wide variant: the same arguments, SP a multiple of 128 in (1024,
-// 8192] (the narrow kernel above takes SP up to 1024).
-extern "C" int viterbi_fwd_wide_launch(const void* obs, const void* tact, const void* start,
-                                       const void* mu, const void* sigma, const void* uni,
-                                       const void* luni, const void* lsig, const void* src,
-                                       const void* wts, const void* ramp, const void* counts,
-                                       void* sc, void* fin, void* acc, int B, int T, int SP,
-                                       int layout, void* stream) {
+// The cluster form: the same arguments, then C, the CTAs a read
+// (viterbi_cuda.fwd_cluster_ctas; at most 8, VC = 32 ceil(SP / 32 C) at
+// most 1024 lanes a CTA), SP a multiple of 128 up to 8192.
+extern "C" int viterbi_fwd_cluster_launch(const void* obs, const void* tact, const void* start,
+                                          const void* mu, const void* sigma, const void* uni,
+                                          const void* luni, const void* lsig, const void* src,
+                                          const void* wts, const void* ramp,
+                                          const void* counts, void* sc, void* fin, void* acc,
+                                          int B, int T, int SP, int layout, int C,
+                                          void* stream) {
   const int* h = (const int*)counts;
   cudaStream_t stream_ = (cudaStream_t)stream;
   switch (layout) {
     case 0:
-      return check_and_launch_wide<Chained>(obs, tact, start, mu, sigma, uni, luni, lsig, src,
-                                            wts, ramp, h, sc, fin, acc, B, T, SP, stream_);
+      return check_and_launch_cluster<Chained>(obs, tact, start, mu, sigma, uni, luni, lsig,
+                                               src, wts, ramp, h, sc, fin, acc, B, T, SP, C,
+                                               stream_);
     case 1:
-      return check_and_launch_wide<DiagOnly>(obs, tact, start, mu, sigma, uni, luni, lsig, src,
-                                             wts, ramp, h, sc, fin, acc, B, T, SP, stream_);
+      return check_and_launch_cluster<DiagOnly>(obs, tact, start, mu, sigma, uni, luni, lsig,
+                                                src, wts, ramp, h, sc, fin, acc, B, T, SP, C,
+                                                stream_);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The clusters of C CTAs a read at SP (the cluster form's launch shape,
+// layout 0 or 1) the card runs at once with no two CTAs on one SM, an
+// occupancy query and no launch; 0 for a shape the launch refuses.  The
+// SMs of a graphics processing cluster hold whole clusters only, so this
+// may be fewer than SMs / C.
+extern "C" int viterbi_fwd_cluster_capacity(int SP, int layout, int C) {
+  if (SP % 128 != 0 || SP <= 0 || SP > MAX_SP || C < 1 || C > MAX_CLUSTER ||
+      cluster_lanes(SP, C) > 1024 || (layout != 0 && layout != 1))
+    return 0;
+  const bool small = cluster_lanes(SP, C) <= 512;
+  if (layout == 0)
+    return small ? cluster_capacity<Chained, 512>(SP, C) : cluster_capacity<Chained, 1024>(SP, C);
+  return small ? cluster_capacity<DiagOnly, 512>(SP, C) : cluster_capacity<DiagOnly, 1024>(SP, C);
 }

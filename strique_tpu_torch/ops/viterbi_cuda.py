@@ -14,20 +14,23 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     (launch counter ``viterbi_forward_factored``); DIAG_ONLY, at most
     ``FWD_DIAG_ONLY`` diagonals and no chain, the shape of every mod HMM
     (``viterbi_forward_factored_diag``).  Up to ``NARROW_MAX_SP`` padded
-    states one thread holds one state; past it, up to ``MAX_SP``, the
-    wide variant gives each thread 2, 4 or 8 (launch counters
-    ``viterbi_forward_factored_wide`` and
-    ``viterbi_forward_factored_diag_wide``).
+    states one CTA a read holds them, one a thread; past it, up to
+    ``MAX_SP``, the cluster form spreads a read over a thread-block
+    cluster of :func:`fwd_cluster_ctas` CTAs (a rule on SP, the call's
+    reads and the clusters the card runs at once), one state a thread
+    (launch counters ``viterbi_forward_factored_cluster`` and
+    ``viterbi_forward_factored_diag_cluster``).
   * ``viterbi_forward_dense`` -- ``_fwd_kernel_multi``: the same forward
     with ``max_u(st[u] + trans[u, v])`` over the full SP x SP matrix,
     for HMMs without a factored form (``hmm/factor.py`` declines) or
     under ``STRIQUE_DENSE_VITERBI=1``.  Kernel ``csrc/viterbi_dense.cu``
-    in one of two modes, picked by :func:`dense_mode` from SP alone:
-    RESIDENT (SP <= 512; launch counter
-    ``viterbi_forward_dense_resident``), a thread-block cluster of K CTAs
-    a read holding the transitions in registers and passing each step's
-    row by st.async, or STREAMED (past it; ``viterbi_forward_dense``), one
-    CTA a read reading them from L2.
+    in one of three modes, picked by :func:`dense_mode` from SP alone,
+    each a thread-block cluster of K CTAs a read passing each step's row
+    by st.async: RESIDENT (SP <= 512; launch counter
+    ``viterbi_forward_dense_resident``), the transitions in registers;
+    SLICE (``viterbi_forward_dense_slice``), each CTA's column slice of
+    them in shared memory; STREAMED (``viterbi_forward_dense_stream``),
+    each CTA reading its slice from L2.
   * ``viterbi_backward_batch`` -- ``_bwd_batch_kernel``: the backward
     walk that recomputes each visited backpointer,
     ``bp[t] = min{u : sc[t-1, u] + trans[u, path[t]] == max}``, frozen
@@ -80,7 +83,7 @@ LANE = 128
 CHUNK_T = 512
 GROUP = 64  # reads per forward/backward call
 NARROW_MAX_SP = 1024  # the widest SP of the narrow forward and backward kernels
-MAX_SP = 8192  # the widest SP of every Viterbi kernel (the wide variants, the dense forward)
+MAX_SP = 8192  # the widest SP of every Viterbi kernel past the narrow ones, the dense forward's too
 _LOG2PI = float(np.log(2.0 * np.pi))
 
 
@@ -140,10 +143,10 @@ class FwdLayout(NamedTuple):
         return self.diag + self.chain * FWD_CHAIN_SLOTS
 
     @property
-    def wide_name(self) -> str:
-        """The launch counter of the layout's wide variant (SP past
+    def cluster_name(self) -> str:
+        """The launch counter of the layout's cluster form (SP past
         ``NARROW_MAX_SP``)."""
-        return self.name + "_wide"
+        return self.name + "_cluster"
 
 
 FWD_LAYOUTS = (FwdLayout(0, "viterbi_forward_factored", FWD_MAX_DIAG, FWD_MAX_CHAIN),
@@ -155,6 +158,19 @@ BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
 # registers a lane
 DENSE_MAX_CLUSTER = 8  # the portable cluster size
 DENSE_MAX_REGS = 64
+# past it, on DENSE_STREAM_CTAS CTAs (the kernel takes up to
+# DENSE_MAX_CLUSTER): SLICE where their column slices fit DENSE_MAX_SHMEM
+# bytes a CTA (an H100's 227 KB, less the static mbarriers), else STREAMED
+DENSE_STREAM_CTAS = DENSE_MAX_CLUSTER
+DENSE_MAX_SHMEM = 232448 - 64
+# the factored forward's cluster form past NARROW_MAX_SP: at most
+# FWD_MAX_CLUSTER CTAs a read (the portable cluster size)
+FWD_MAX_CLUSTER = 8
+# clusters of C CTAs (the key) an H100 runs at once with no two CTAs on
+# one SM (fwd_cluster_capacity on an H100 80GB HBM3, every SP and layout
+# alike): fwd_cluster_ctas's counts where no card is asked
+H100_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}
+_capacity_cache: dict = {}
 
 
 def fwd_spec_fits(spec) -> FwdLayout | None:
@@ -357,6 +373,53 @@ def _fwd_plain(obs, t_actual, ph):
     return sc, fin, acc
 
 
+def fwd_cluster_lanes(sp: int, ctas: int) -> int:
+    """Lanes (threads) a CTA of the factored forward's cluster form: SP
+    over ``ctas`` CTAs in whole warps (csrc/viterbi_fwd.cu
+    ``cluster_lanes``)."""
+    return _round_up(-(-sp // ctas), 32)
+
+
+def fwd_cluster_capacity(device, sp: int, layout: int, ctas: int) -> int | None:
+    """Clusters of ``ctas`` CTAs a read of the factored forward's cluster
+    form at SP (slot layout code ``layout``) the card of ``device`` runs
+    at once with no two CTAs on one SM: the SMs of a graphics processing
+    cluster hold whole clusters only, so fewer than SMs / ``ctas`` may
+    fit.  The kernel library's occupancy query, once a card and shape;
+    None for a CPU device."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), sp, layout, ctas)
+    if key not in _capacity_cache:
+        with torch.cuda.device(dev):
+            _capacity_cache[key] = int(_build.lib().viterbi_fwd_cluster_capacity(sp, layout, ctas))
+    return _capacity_cache[key]
+
+
+def fwd_cluster_ctas(sp: int, rows: int, device=None, layout: int = 0) -> int:
+    """CTAs a read of the factored forward's cluster form at SP padded
+    states (past ``NARROW_MAX_SP``, slot layout code ``layout``) for a
+    call of ``rows`` reads: the most, up to ``FWD_MAX_CLUSTER``, whose
+    ``rows`` clusters the card runs at once with no two CTAs on one SM,
+    each CTA of at most 1024 lanes with a live one (lanes a CTA by
+    ``fwd_cluster_lanes``); where no count fits, the fewest that hold the
+    lanes.  A CUDA ``device`` is asked (:func:`fwd_cluster_capacity`);
+    else the H100's counts, ``H100_CLUSTERS``.  A step is a latency chain
+    that does not slow with fewer lanes a CTA down to 160 at SP 1152; a
+    CTA that shares its SM slows its read's step, and a second wave of
+    clusters doubles it (tools/probe_viterbi_wide.py on an H100, 8-64
+    reads: 8 CTAs at 8 reads, 6 at 16, 4 at 24, 3 at 32, 2 at 48 and
+    64)."""
+    dev = torch.device(device) if device is not None else torch.device("cpu")
+    valid = [c for c in range(1, FWD_MAX_CLUSTER + 1)
+             if fwd_cluster_lanes(sp, c) <= 1024 and fwd_cluster_lanes(sp, c) * (c - 1) < sp]
+    fit = [c for c in valid
+           if rows <= (H100_CLUSTERS[c] if dev.type != "cuda"
+                       else fwd_cluster_capacity(dev, sp, layout, c))]
+    return max(fit) if fit else min(valid)
+
+
 def _fwd_cuda(obs, t_actual, ph):
     B, T = obs.shape
     sp = ph.sp
@@ -367,15 +430,17 @@ def _fwd_cuda(obs, t_actual, ph):
     sc = torch.empty((T, B, sp), dtype=torch.float32, device=dev)
     fin = torch.empty((B, sp), dtype=torch.float32, device=dev)
     acc = torch.empty((B,), dtype=torch.float32, device=dev)
-    wide = sp > NARROW_MAX_SP
-    _build.launch(
-        "viterbi_fwd_wide_launch" if wide else "viterbi_fwd_launch", dev,
-        o.data_ptr(), tact.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
-        ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
-        ph.lsig.data_ptr(), src.data_ptr(), w.data_ptr(), ramp.data_ptr(),
-        ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp,
-        ph.fwd_layout.code)
-    _build.LAUNCHES[ph.fwd_layout.wide_name if wide else ph.fwd_layout.name] += 1
+    args = (o.data_ptr(), tact.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
+            ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(), ph.lsig.data_ptr(),
+            src.data_ptr(), w.data_ptr(), ramp.data_ptr(), ctypes.addressof(counts),
+            sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp, ph.fwd_layout.code)
+    if sp > NARROW_MAX_SP:
+        _build.launch("viterbi_fwd_cluster_launch", dev, *args,
+                      fwd_cluster_ctas(sp, B, dev, ph.fwd_layout.code))
+        _build.LAUNCHES[ph.fwd_layout.cluster_name] += 1
+    else:
+        _build.launch("viterbi_fwd_launch", dev, *args)
+        _build.LAUNCHES[ph.fwd_layout.name] += 1
     return sc, fin, acc
 
 
@@ -402,20 +467,58 @@ def _check_obs(obs, t_actual, ph):
         raise ValueError(f"Viterbi runs on cuda or cpu tensors, got {obs.device}")
 
 
-def dense_mode(sp: int) -> int:
-    """The dense forward's mode for SP padded states: the CTAs a read
-    takes in the resident mode (its cluster size K), or 0 for the
-    streamed mode.  A resident CTA holds VC = SP / K destination columns,
-    16 warps of VC/16 columns whose lanes keep the transitions from all
-    SP source rows in SP/32 x VC/16 registers: K is the fewest CTAs, at
-    most DENSE_MAX_CLUSTER, with VC 128 (else 64) and at most
-    DENSE_MAX_REGS such registers.  1 at SP 128, 2 at 256, 6 at 384, 8
-    at 512; 0 past 512."""
+class DenseMode(NamedTuple):
+    """A mode of the dense forward: ``kind`` "resident", "slice" or
+    "stream", ``ctas`` the CTAs a read (its cluster size); ``name`` is
+    its launch counter."""
+
+    kind: str
+    ctas: int
+
+    @property
+    def name(self) -> str:
+        return "viterbi_forward_dense_" + self.kind
+
+
+def dense_stream_shmem(sp: int, ctas: int, slice_: bool) -> int:
+    """Shared bytes of a CTA of the dense forward's SLICE or STREAMED
+    mode (csrc/viterbi_dense.cu ``stream_shmem``): two rows, their warp
+    maxima, the thread groups' column maxes and, in SLICE, the CTA's
+    SP x VC transitions."""
+    vc = sp // ctas
+    npp = _round_up(ctas * -(-vc // 32), 4)
+    groups = (1024 if vc > 512 else 512) // (vc // 4)
+    return 4 * (2 * sp + 2 * npp + groups * vc + (sp * vc if slice_ else 0))
+
+
+def dense_mode(sp: int) -> DenseMode:
+    """The dense forward's mode for SP padded states, a thread-block
+    cluster of ``ctas`` CTAs a read in each:
+
+    * RESIDENT up to SP 512: a resident CTA holds VC = SP / K destination
+      columns, 16 warps of VC/16 columns whose lanes keep the transitions
+      from all SP source rows in SP/32 x VC/16 registers: K is the fewest
+      CTAs, at most DENSE_MAX_CLUSTER, with VC 128 (else 64) and at most
+      DENSE_MAX_REGS such registers.  1 at SP 128, 2 at 256, 6 at 384, 8
+      at 512.
+    * SLICE past it, where ``DENSE_STREAM_CTAS`` CTAs' column slices fit
+      their shared memory (``dense_stream_shmem``): SP 640 on 8.
+    * STREAMED past that, up to ``MAX_SP``: as many CTAs reading their
+      slices from L2.
+
+    8 CTAs, portable, were the fastest the probe measured at SP 640 and
+    768 and within 7% of a non-portable 16-CTA cluster (the probe's own
+    instance) at SP 896 to 1152 for 8 reads, and 1.3-1.8x faster than 16
+    for 64 reads at SP 640 and for 8 at SP 8192
+    (tools/probe_viterbi_wide.py on an H100)."""
     for vc in (128, 64):
         k = sp // vc
         if sp % vc == 0 and k <= DENSE_MAX_CLUSTER and (sp // 32) * (vc // 16) <= DENSE_MAX_REGS:
-            return k
-    return 0
+            return DenseMode("resident", k)
+    k = DENSE_STREAM_CTAS
+    if dense_stream_shmem(sp, k, True) <= DENSE_MAX_SHMEM:
+        return DenseMode("slice", k)
+    return DenseMode("stream", k)
 
 
 def _fwd_dense_plain(obs, t_actual, ph):
@@ -460,13 +563,13 @@ def _fwd_dense_cuda(obs, t_actual, ph):
     args = (o.data_ptr(), tact.data_ptr(), ph.trans.data_ptr(), ph.start.data_ptr(),
             ph.mu.data_ptr(), ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
             ph.lsig.data_ptr(), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp)
-    k = dense_mode(sp)
-    if k:
-        _build.launch("viterbi_dense_resident_launch", dev, *args, k)
-        _build.LAUNCHES["viterbi_forward_dense_resident"] += 1
+    mode = dense_mode(sp)
+    if mode.kind == "resident":
+        _build.launch("viterbi_dense_resident_launch", dev, *args, mode.ctas)
     else:
-        _build.launch("viterbi_dense_launch", dev, *args)
-        _build.LAUNCHES["viterbi_forward_dense"] += 1
+        _build.launch("viterbi_dense_stream_launch", dev, *args, mode.ctas,
+                      int(mode.kind == "slice"))
+    _build.LAUNCHES[mode.name] += 1
     return sc, fin, acc
 
 
@@ -478,8 +581,8 @@ def viterbi_forward_dense(obs, t_actual, ph: PaddedHMM):
     directly.  Returns (sc (T, B, SP) f32 rescaled score rows, fin (B, SP)
     the row at t_actual-1, acc (B,) the summed rescale shifts).  Rows at
     t >= t_actual are left unwritten on the card; nothing reads them.
-    On the card the kernel runs in :func:`dense_mode`'s mode; both modes
-    give ``_fwd_dense_plain``'s bits.
+    On the card the kernel runs in :func:`dense_mode`'s mode; every mode
+    gives ``_fwd_dense_plain``'s bits.
     """
     _check_obs(obs, t_actual, ph)
     if obs.device.type == "cuda":

@@ -304,29 +304,34 @@ def viterbi_edge_case(pm, label: str, rng):
 # VITERBI_WIDE_T: label -> (HMM, unit bases, read lengths, constant obs).
 # "flanked": the repeat HMM of a random unit between 50-base flanks (the
 # chained slot layout; 6 states a base and 180 more: SP 1152 at 150
-# bases, the unit of WIDE_UNIT_BASES, 2048 at 300, 4480 at 700, 8192 at
-# 1330); "mod": the mod HMM of a random unit (the diagonal-only layout;
-# SP 1152 at 260 bases, 2048 at 500, 8192 at 2030).  Lengths below the
-# backward's score ring and around a warp's 32 steps; constant obs ties
-# candidates across the backward's warps.  SP 4480 leaves the forward's
-# last 16 threads without states and the backward's last warp a part of
-# its lanes
+# bases, the unit of WIDE_UNIT_BASES, 1792 at 260, 2048 at 300, 4096 at
+# 650, 4480 at 700, 8192 at 1330); "mod": the mod HMM of a random unit
+# (the diagonal-only layout; SP 1152 at 260 bases, 1792 at 430, 2048 at
+# 500, 4096 at 1000, 8192 at 2030).  Lengths below the backward's score
+# ring and around a warp's 32 steps; constant obs ties candidates across
+# the backward's warps.  SP 1792 and 4480 leave the cluster forward's
+# last CTA part of its lanes, and SP 4480 the backward's last warp a part
+# of its lanes
 VITERBI_WIDE_T = 1024
 VITERBI_WIDE = {
     "flanked 150": ("flanked", 150, [1024, 700, 129, 65, 33, 17, 2, 1], False),
     "flanked 150, constant obs": ("flanked", 150, [1024, 1000, 300, 64, 32, 16, 3, 1], True),
+    "flanked 260": ("flanked", 260, [1024, 900, 257, 96, 33, 31, 2, 1], False),
     "flanked 300": ("flanked", 300, [1024, 513, 400, 100, 31, 5, 2, 1], False),
+    "flanked 650": ("flanked", 650, [1024, 777, 300, 64, 32, 12, 2, 1], False),
     "flanked 700": ("flanked", 700, [1024, 900, 256, 97, 40, 9, 4, 1], False),
     "flanked 1330": ("flanked", 1330, [1024, 600, 200, 77, 33, 8, 2, 1], False),
     "mod 260": ("mod", 260, [1024, 800, 129, 65, 33, 17, 2, 1], False),
+    "mod 430": ("mod", 430, [1024, 640, 200, 65, 34, 15, 3, 1], False),
     "mod 500": ("mod", 500, [1024, 1000, 300, 64, 32, 16, 3, 1], False),
+    "mod 1000": ("mod", 1000, [1024, 999, 333, 63, 33, 7, 2, 1], False),
     "mod 2030": ("mod", 2030, [1024, 513, 400, 100, 31, 5, 2, 1], False),
 }
 # the 150-base VNTR unit past SP 1024 (the repeat HMM of 1080 states, SP
 # 1152, on PREFIX and SUFFIX): default_rng(5)'s first draw
 WIDE_UNIT_BASES = 150
 # the mod target past SP 1024: a 260-base unit, whose repeat HMM (SP
-# 1792) and mod HMM (SP 1152) both take the wide variants
+# 1792) and mod HMM (SP 1152) both take the cluster forward
 WIDE_MOD_UNIT_BASES = 260
 WIDE_MOD_UNITS = 3
 

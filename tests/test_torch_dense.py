@@ -13,11 +13,12 @@ decoded by the plain backward, against the reference's
     ones;
   * end to end, the port's counter against the JAX counter under the
     knob;
-  * the dense forward's mode rule (``dense_mode``) and a plain emulation
-    of its resident kernel's cluster step, bit-equal to the twin;
+  * the dense forward's mode rule (``dense_mode``) and plain emulations
+    of its resident and its SLICE/STREAMED cluster steps, bit-equal to
+    the twin;
   * on reads cut off at SP 512, the one step where the dense and
     factored decodes split, in both packages alike;
-  * chip_smoke.py's VNTR target (SP 640, the streamed dense mode), the
+  * chip_smoke.py's VNTR target (SP 640, the SLICE dense mode), the
     port's counter on both routes against the JAX counter.
 
 Tolerances.  Paths exact everywhere.  On the declined graph every
@@ -49,7 +50,7 @@ from strique_tpu_torch.hmm.models import build_flanked_repeat
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import PREFIX as LONG_PREFIX
-from strique_tpu_torch.synthetic import REPEAT, make_reads, write_pore_model
+from strique_tpu_torch.synthetic import REPEAT, make_reads, random_unit, write_pore_model
 from strique_tpu_torch.synthetic import SUFFIX as LONG_SUFFIX
 from tests.test_torch_counter import COUNTS, T_PREFIX, T_SUFFIX
 from tests.test_torch_counter import _reads as _counter_reads
@@ -201,12 +202,25 @@ def test_counter_dense_matches_jax_counter(counter_model, monkeypatch):
 def test_dense_mode_rule():
     """Resident mode with its cluster size K at SP 128, 256, 384 and 512
     (K CTAs of SP/K columns, 128 else 64, whose lanes hold SP/32 x
-    SP/(16 K) transitions in registers), the streamed mode past 512."""
-    assert [TVC.dense_mode(sp) for sp in (128, 256, 384, 512)] == [1, 2, 6, 8]
-    assert [TVC.dense_mode(sp) for sp in (640, 768, 1024, 4096, 8192)] == [0] * 5
+    SP/(16 K) transitions in registers); past it SLICE where 8 CTAs'
+    column slices fit their shared memory (SP 640), else STREAMED on 8
+    CTAs, up to MAX_SP."""
+    assert [TVC.dense_mode(sp) for sp in (128, 256, 384, 512)] == [
+        ("resident", 1), ("resident", 2), ("resident", 6), ("resident", 8)]
+    assert TVC.dense_mode(640) == ("slice", 8)
+    assert [TVC.dense_mode(sp) for sp in (768, 896, 1024, 1152, 4096, 8192)] == [
+        ("stream", 8)] * 6
     for sp in (128, 256, 384, 512):
-        k = TVC.dense_mode(sp)
+        k = TVC.dense_mode(sp).ctas
         assert (sp // 32) * (sp // k // 16) <= TVC.DENSE_MAX_REGS and k <= TVC.DENSE_MAX_CLUSTER
+    for sp in range(640, TVC.MAX_SP + 1, TVC.LANE):
+        mode = TVC.dense_mode(sp)
+        assert mode.kind in ("slice", "stream") and sp % (4 * mode.ctas) == 0
+        assert sp // mode.ctas <= 1024
+        assert (TVC.dense_stream_shmem(sp, mode.ctas, True) <= TVC.DENSE_MAX_SHMEM) == (
+            mode.kind == "slice")
+    assert TVC.dense_mode(640).name == "viterbi_forward_dense_slice"
+    assert TVC.dense_stream_shmem(640, 8, True) == 218112
 
 
 def _fwd_dense_cluster_emulation(obs, t_actual, ph, k):
@@ -269,8 +283,79 @@ def test_dense_cluster_step_matches_plain(model_file, flank):
     o, n = torch.from_numpy(obs), torch.from_numpy(lens)
     sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
     live = torch.arange(T)[:, None] < n[None, :]
-    for k in sorted({TVC.dense_mode(ph.sp), *((4,) if ph.sp == 256 else ())}):
+    for k in sorted({TVC.dense_mode(ph.sp).ctas, *((4,) if ph.sp == 256 else ())}):
         sc, fin, acc = _fwd_dense_cluster_emulation(o, n, ph, k)
+        assert torch.equal(sc[live], sc_p[live]), k
+        assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p), k
+
+
+def _fwd_dense_stream_emulation(obs, t_actual, ph, k):
+    """The SLICE and STREAMED step (csrc/viterbi_dense.cu
+    ``viterbi_dense_cluster_kernel``) in plain ops: K CTAs of VC = SP/K
+    columns, each of NT threads (1024 past VC 512, else 512) in G =
+    NT / (VC/4) groups; group g takes the source rows g, g + G, ... in
+    order, its column maxes are folded over the groups; val = best +
+    emit; m is the max of the warp maxima of the columns' owners (32
+    columns a warp)."""
+    B, T = obs.shape
+    sp = ph.sp
+    vc = sp // k
+    groups = (1024 if vc > 512 else 512) // (vc // 4)
+    tact = t_actual.to(torch.int64).clamp_max(T)
+    sc = torch.zeros((T, B, sp))
+    fin = torch.zeros((B, sp))
+    acc = torch.zeros((B,))
+    val = m = None
+    for t in range(int(tact.max())):
+        z = (obs[:, t : t + 1] - ph.mu) / ph.sigma
+        emit = torch.where(ph.uni != 0, ph.luni, ph.lsig - 0.5 * z * z)
+        if t == 0:
+            val = ph.start + emit
+        else:
+            st = val - m[:, None]
+            slices = []
+            for r in range(k):
+                cols = slice(r * vc, (r + 1) * vc)
+                part = torch.stack([(st[:, g::groups, None] + ph.trans[None, g::groups, cols])
+                                    .amax(dim=1) for g in range(min(groups, sp))])
+                slices.append(part.amax(dim=0) + emit[:, cols])
+            val = torch.cat(slices, dim=1)
+        warps = torch.cat([val[:, r * vc : (r + 1) * vc][:, w : w + 32].amax(dim=1, keepdim=True)
+                           for r in range(k) for w in range(0, vc, 32)], dim=1)
+        m = warps.amax(dim=1)
+        sc[t] = val - m[:, None]
+        acc = acc + torch.where(t < tact, m, 0.0)
+        fin = torch.where((tact - 1 == t)[:, None], val - m[:, None], fin)
+    return sc, fin, acc
+
+
+@pytest.mark.parametrize("unit_bases,sp", [(60, 640), (150, 1152)])
+def test_dense_stream_step_matches_plain(model_file, unit_bases, sp):
+    """On the repeat HMM of a random unit of 60 (SP 640: the SLICE mode,
+    phase 4f's VNTR unit) and 150 bases (SP 1152: STREAMED) between
+    50-base flanks, the emulated SLICE/STREAMED step at the rule's K and
+    at 4 and 16 CTAs (16: the non-portable cluster that
+    tools/probe_viterbi_wide.py times) is bit-equal to
+    ``_fwd_dense_plain`` in every row below each read's length, fin and
+    acc."""
+    pm = PoreModel(model_file)
+    unit = random_unit(unit_bases, unit_bases)
+    chm = build_flanked_repeat(unit, LONG_PREFIX[-50:], LONG_SUFFIX[:50], pm)
+    ph = TVC.PaddedHMM(chm, "cpu")
+    assert ph.sp == sp and TVC.dense_mode(sp).kind == ("slice" if sp == 640 else "stream")
+    rng = np.random.default_rng(sp)
+    B, T = 8, 128
+    obs = np.zeros((B, T), np.float32)
+    lens = np.array([128, 100, 65, 33, 32, 17, 2, 1], np.int32)
+    for b in range(B):
+        x = pm.generate_signal(LONG_PREFIX[-50:] + unit + LONG_SUFFIX[:50], samples=8,
+                               noise=True, rng=rng).astype(np.float32)
+        obs[b, : lens[b]] = x[: lens[b]]
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(T)[:, None] < n[None, :]
+    for k in sorted({TVC.dense_mode(sp).ctas, 4, 16}):
+        sc, fin, acc = _fwd_dense_stream_emulation(o, n, ph, k)
         assert torch.equal(sc[live], sc_p[live]), k
         assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p), k
 

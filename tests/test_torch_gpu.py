@@ -327,10 +327,12 @@ def test_gpu_diag_forward_edges_match_plain(cuda_device, mod_models, case):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", list(VITERBI_WIDE))
 def test_gpu_wide_viterbi_matches_plain(cuda_device, mod_models, case):
-    """Rows 3-4 past SP 1024 (``synthetic.VITERBI_WIDE``: SP 1152 to 8192,
-    both slot layouts): the wide forward of the HMM's layout and the wide
-    backward, their launch counters alone, against the twins: rows below
-    each length, fin and acc bit-equal, paths equal."""
+    """Rows 3-4 past SP 1024 (``synthetic.VITERBI_WIDE``: SP 1152, 1792,
+    2048, 4096, 4480 and 8192, both slot layouts): the forward's cluster
+    form in the HMM's layout on ``fwd_cluster_ctas``' CTAs and the wide
+    backward, their launch counters alone (the one-CTA forward's not),
+    against the twins: rows below each length, fin and acc bit-equal,
+    paths equal."""
     pm, pm_mod = (PoreModel(m) for m in mod_models)
     chm, obs, lens = viterbi_wide_case(pm, pm_mod, case, np.random.default_rng(90 + len(case)))
     ph = TVC.PaddedHMM(chm, cuda_device)
@@ -338,19 +340,75 @@ def test_gpu_wide_viterbi_matches_plain(cuda_device, mod_models, case):
     o = torch.from_numpy(obs).to(cuda_device)
     n = torch.from_numpy(lens).to(cuda_device)
     layout = ph.fwd_layout
-    keys = (layout.name, layout.wide_name, "viterbi_backward_batch", "viterbi_backward_wide")
+    keys = (layout.name, layout.cluster_name, "viterbi_backward_batch", "viterbi_backward_wide")
     before = {k: _build.LAUNCHES[k] for k in keys}
     sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
     last = torch.argmax(fin + ph.end, dim=1)
     path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
     assert {k: _build.LAUNCHES[k] - before[k] for k in keys} == {
-        layout.name: 0, layout.wide_name: 1, "viterbi_backward_batch": 0,
+        layout.name: 0, layout.cluster_name: 1, "viterbi_backward_batch": 0,
         "viterbi_backward_wide": 1}
     sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
     live = torch.arange(obs.shape[1], device=cuda_device)[:, None] < n[None, :]
     assert torch.equal(sc[live], sc_p[live])
     assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
     assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["flanked 150", "flanked 260", "mod 260", "mod 430"])
+@pytest.mark.parametrize("ctas", [2, 4, 8])
+def test_gpu_wide_forward_every_ctas_matches_plain(cuda_device, mod_models, case, ctas):
+    """The cluster form at 2, 4 and 8 CTAs a read (beside the rule's: a
+    CTA of 576 to 144 lanes at SP 1152, of 896 to 224 at SP 1792, the
+    last CTA part dead), both layouts, launched directly, bit-equal to
+    the twin."""
+    pm, pm_mod = (PoreModel(m) for m in mod_models)
+    chm, obs, lens = viterbi_wide_case(pm, pm_mod, case, np.random.default_rng(95 + ctas))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    B, T = o.shape
+    sc = torch.empty((T, B, ph.sp), device=cuda_device)
+    fin = torch.empty((B, ph.sp), device=cuda_device)
+    acc = torch.empty((B,), device=cuda_device)
+    src, w, ramp, counts = ph.fwd_tables()
+    import ctypes
+
+    _build.launch("viterbi_fwd_cluster_launch", cuda_device, o.data_ptr(), n.data_ptr(),
+                  ph.start.data_ptr(), ph.mu.data_ptr(), ph.sigma.data_ptr(), ph.uni.data_ptr(),
+                  ph.luni.data_ptr(), ph.lsig.data_ptr(), src.data_ptr(), w.data_ptr(),
+                  ramp.data_ptr(), ctypes.addressof(counts), sc.data_ptr(), fin.data_ptr(),
+                  acc.data_ptr(), B, T, ph.sp, ph.fwd_layout.code, ctas)
+    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
+    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp,layout", [(1152, 0), (1152, 1), (1792, 0), (8192, 1)])
+def test_gpu_fwd_cluster_capacity_bounds_the_rule(cuda_device, sp, layout):
+    """The card's count of clusters that run at once with one CTA an SM:
+    at least one for every CTA count the kernel takes at SP, at most SMs
+    / C, none for a count it refuses; and the rule's pick at 8 to 64
+    reads is the most whose clusters all fit (or, where none fits, the
+    fewest that hold the lanes)."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    caps = {}
+    for c in range(1, TVC.FWD_MAX_CLUSTER + 1):
+        cap = TVC.fwd_cluster_capacity(cuda_device, sp, layout, c)
+        if TVC.fwd_cluster_lanes(sp, c) > 1024:
+            assert cap == 0
+        else:
+            assert 1 <= cap <= sms // c
+            caps[c] = cap
+    assert TVC.fwd_cluster_capacity(cuda_device, sp, layout, TVC.FWD_MAX_CLUSTER + 1) == 0
+    for rows in (8, 16, 24, 32, 48, 64):
+        c = TVC.fwd_cluster_ctas(sp, rows, cuda_device, layout)
+        fit = [k for k, cap in caps.items()
+               if rows <= cap and TVC.fwd_cluster_lanes(sp, k) * (k - 1) < sp]
+        assert c == (max(fit) if fit else min(caps)), rows
 
 
 @pytest.mark.gpu
@@ -398,16 +456,22 @@ def test_gpu_dense_viterbi_edges_match_plain(cuda_device, model_file, case):
     pm = PoreModel(model_file)
     chm, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(70 + len(case)))
     ph = TVC.PaddedHMM(chm, cuda_device)
-    assert TVC.dense_mode(ph.sp) > 0
-    o = torch.from_numpy(obs).to(cuda_device)
-    n = torch.from_numpy(lens).to(cuda_device)
-    before = _build.LAUNCHES["viterbi_forward_dense_resident"]
-    sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
-    assert _build.LAUNCHES["viterbi_forward_dense_resident"] == before + 1
-    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
-    live = torch.arange(obs.shape[1], device=cuda_device)[:, None] < n[None, :]
-    assert torch.equal(sc[live], sc_p[live])
-    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    assert TVC.dense_mode(ph.sp).kind == "resident"
+    _check_dense(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", [640, 1152])
+@pytest.mark.parametrize("case", list(VITERBI_EDGES))
+def test_gpu_dense_wide_edges_match_plain(cuda_device, model_file, case, sp):
+    """The SLICE (SP 640) and STREAMED (SP 1152) modes at the Viterbi
+    edge inputs' lengths and observations (constant obs among them),
+    decoded by the repeat HMM of a 60- or 150-base unit."""
+    pm = PoreModel(model_file)
+    _, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(75 + len(case)))
+    ph = TVC.PaddedHMM(_dense_wide_hmm(pm, sp)[1], cuda_device)
+    assert TVC.dense_mode(ph.sp).kind == ("slice" if sp == 640 else "stream")
+    _check_dense(cuda_device, ph, obs, lens)
 
 
 @pytest.mark.gpu
@@ -527,12 +591,34 @@ def test_gpu_align_core_col_matches_wave(cuda_device, monkeypatch):
         assert torch.equal(wave[k], col[k]), k
 
 
+DENSE_KEYS = ("viterbi_forward_dense_resident", "viterbi_forward_dense_slice",
+              "viterbi_forward_dense_stream")
+
+
+def _check_dense(cuda_device, ph, obs, lens):
+    """The dense forward of ``ph`` on (obs, lens): the launch counter of
+    ``dense_mode``'s mode alone, rows below each length, fin and acc
+    bit-equal to the twin; returns the forward's outputs."""
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    name = TVC.dense_mode(ph.sp).name
+    before = dict(_build.LAUNCHES)
+    sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
+    assert {k: _build.LAUNCHES[k] - before[k] for k in DENSE_KEYS} == {
+        k: int(k == name) for k in DENSE_KEYS}
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(obs.shape[1], device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    return o, n, sc, fin
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("flank,sp", [(25, 128), (50, 256), (75, 384), (100, 512), (130, 640)])
 def test_gpu_dense_viterbi_matches_plain(cuda_device, model_file, flank, sp):
     """The dense forward against its twin at SP 128, 256, 384 and 512
     (the resident mode, clusters of 1, 2, 6 and 8 CTAs) and 640 (the
-    streamed mode): rows below each read's length, fin and acc
+    SLICE mode, 8 CTAs): rows below each read's length, fin and acc
     bit-equal; then decoded, its paths equal the factored forward's on
     this factoring HMM.  Reads are cut off at T 1024 up to SP 384; at SP
     512 and 640 they are whole, because on cut-off SP 512 reads the two
@@ -552,25 +638,72 @@ def test_gpu_dense_viterbi_matches_plain(cuda_device, model_file, flank, sp):
         lens[i] = len(x)
     ph = TVC.PaddedHMM(chm, cuda_device)
     assert ph.sp == sp
-    o = torch.from_numpy(obs).to(cuda_device)
-    n = torch.from_numpy(lens).to(cuda_device)
-    name = "viterbi_forward_dense_resident" if TVC.dense_mode(sp) else "viterbi_forward_dense"
-    assert (TVC.dense_mode(sp) > 0) == (sp <= 512)
-    before = dict(_build.LAUNCHES)
-    sc, fin, acc = TVC.viterbi_forward_dense(o, n, ph)
-    assert {k: _build.LAUNCHES[k] - before[k] for k in
-            ("viterbi_forward_dense_resident", "viterbi_forward_dense")} == {
-                k: int(k == name) for k in ("viterbi_forward_dense_resident",
-                                            "viterbi_forward_dense")}
-    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
-    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
-    assert torch.equal(sc[live], sc_p[live])
-    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+    assert TVC.dense_mode(sp).kind == ("resident" if sp <= 512 else "slice")
+    o, n, sc, fin = _check_dense(cuda_device, ph, obs, lens)
     last = torch.argmax(fin + ph.end, dim=1)
     path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
     sc_f, fin_f, _ = TVC.viterbi_forward_factored(o, n, ph)
     path_f = TVC.viterbi_backward_batch(sc_f, torch.argmax(fin_f + ph.end, dim=1), n, ph.transT)
     assert torch.equal(path, path_f)
+
+
+# past SP 512: the repeat HMM of a random unit between 50-base flanks
+DENSE_WIDE = {640: 60, 768: 90, 896: 110, 1024: 130, 1152: 150, 8192: 1330}
+
+
+def _dense_wide_hmm(pm, sp):
+    unit = "".join(np.random.default_rng(DENSE_WIDE[sp]).choice(list("ACGT"), DENSE_WIDE[sp]))
+    return unit, build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
+
+
+def _dense_wide_case(model_file, sp, T, rng):
+    pm = PoreModel(model_file)
+    unit, chm = _dense_wide_hmm(pm, sp)
+    lens = np.minimum([T, T - 1, T // 2 + 1, 65, 33, 17, 2, 1], T).astype(np.int32)
+    obs = np.zeros((8, T), np.float32)
+    for i, k in enumerate(lens):
+        x = pm.generate_signal(PREFIX[-50:] + unit * 2 + SUFFIX[:50], samples=8, noise=True,
+                               rng=rng).astype(np.float32)
+        obs[i, :k] = x[:k]
+    return chm, obs, lens
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", list(DENSE_WIDE))
+def test_gpu_dense_wide_matches_plain(cuda_device, model_file, sp):
+    """The dense forward past SP 512 at each boundary of ``dense_mode``:
+    SLICE at SP 640 (8 CTAs), STREAMED at 768, 896, 1024, 1152 and 8192
+    (8 CTAs), its launch counter alone, bit-equal to the twin."""
+    T = 64 if sp == 8192 else 512
+    chm, obs, lens = _dense_wide_case(model_file, sp, T, np.random.default_rng(sp))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == sp and TVC.dense_mode(sp).kind == ("slice" if sp == 640 else "stream")
+    _check_dense(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp,ctas,slice_", [(640, 4, 0), (640, 5, 0), (768, 4, 0),
+                                            (768, 6, 0), (1152, 4, 0), (1152, 6, 0)])
+def test_gpu_dense_every_ctas_matches_plain(cuda_device, model_file, sp, ctas, slice_):
+    """The STREAMED kernel at cluster sizes beside the rule's 8, launched
+    directly, bit-equal to the twin."""
+    chm, obs, lens = _dense_wide_case(model_file, sp, 256, np.random.default_rng(sp + ctas))
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    o = torch.from_numpy(obs).to(cuda_device)
+    n = torch.from_numpy(lens).to(cuda_device)
+    B, T = o.shape
+    sc = torch.empty((T, B, sp), device=cuda_device)
+    fin = torch.empty((B, sp), device=cuda_device)
+    acc = torch.empty((B,), device=cuda_device)
+    _build.launch("viterbi_dense_stream_launch", cuda_device, o.data_ptr(), n.data_ptr(),
+                  ph.trans.data_ptr(), ph.start.data_ptr(), ph.mu.data_ptr(),
+                  ph.sigma.data_ptr(), ph.uni.data_ptr(), ph.luni.data_ptr(),
+                  ph.lsig.data_ptr(), sc.data_ptr(), fin.data_ptr(), acc.data_ptr(), B, T, sp,
+                  ctas, slice_)
+    sc_p, fin_p, acc_p = TVC._fwd_dense_plain(o, n, ph)
+    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
+    assert torch.equal(sc[live], sc_p[live])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
 
 
 @pytest.mark.gpu

@@ -5,7 +5,8 @@ chip_smoke.py phase 4f's wide target: the seed-0 synthetic model, a
 150-base unit (``synthetic.random_unit(150, 5)``, ``default_rng(5)``'s
 first draw, as phase 4f's 60-base VNTR unit) between ``synthetic.PREFIX``
 and ``SUFFIX``, whose repeat HMM has 1080 states (SP 1152: past the
-narrow Viterbi kernels' 1024, on the card the wide variants), and '+'
+narrow Viterbi kernels' 1024, on the card the cluster forward and the
+wide backward), and '+'
 reads of 5 units from the same generator.  The port's CPU counter on
 the default route (the factored forward) and under
 ``STRIQUE_DENSE_VITERBI=1`` (the dense forward) gives the JAX counter's

@@ -4,8 +4,8 @@ counter, on the CPU.
 chip_smoke.py phase 4f's wide mod target: the ``MOD_MODEL_SEED`` base
 and twin models, a 260-base unit (``synthetic.random_unit(260, 260)``)
 between ``synthetic.PREFIX`` and ``SUFFIX``: its repeat HMM has 1740
-states (SP 1792, the chained layout's wide variant on the card) and its
-mod HMM 1042 (SP 1152, the diagonal-only layout's wide variant).  '+'
+states (SP 1792, the chained layout's cluster forward on the card) and
+its mod HMM 1042 (SP 1152, the diagonal-only layout's).  '+'
 reads of 3 units, alternately from the base and the twin model
 (``make_mod_reads`` from ``default_rng(6)``).  The port's CPU counter
 gives the JAX counter's result tuples, mod strings included;
