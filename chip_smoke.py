@@ -1041,14 +1041,31 @@ def turns_ms(run_a, run_b, reps: int = 3):
     return (a1, a2), (b1, b2)
 
 
+def col_plan_calls(rows: int, tmpl, n_cols: int) -> list:
+    """The (CTAs a row, rows) of each column call ``col_launch_plan``
+    makes over ``rows`` rows on the card, as the column route's loop
+    calls it."""
+    from strique_tpu_torch.ops import align_cuda as AC
+
+    out, left = [], rows
+    while left > 0:
+        c, kb = AC.col_launch_plan(left, tmpl, n_cols, "cuda")
+        out.append((c, kb))
+        left -= kb
+    return out
+
+
 def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
     """Past one CTA's column table (more than 1024 lanes): the
     morph-form entry point in the one-CTA form of the levels runs the
     POW mode on the decoded f32 alone, and in the split form the TABLE
-    mode on the cluster ``col_table_ctas`` gives alone; both against one
-    POW twin run (written pointer words and every bottom tap equal), then
-    timed in turns (POW, cluster, cluster, POW).  The kernel line's POW
-    entry (timed on the f32 entry point) and cluster entry."""
+    mode on a cluster alone, at the CTAs ``col_launch_plan`` gives the
+    column route's first call of ``B`` rows; both against one POW twin
+    run (written pointer words and every bottom tap equal), then timed
+    in turns (POW, cluster, cluster, POW).  Every other (CTAs, rows) call
+    of the plan over the B rows is held bit-equal to the POW mode at its
+    own rows.  The kernel line's POW entry (timed on the f32 entry
+    point) and cluster entry."""
     import torch
 
     from strique_tpu_torch import _build
@@ -1057,10 +1074,12 @@ def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
     (levels, _, tmpl, bins, _), dev_in = wave_inputs((template,), False, B, N, rng)
     b_d, l_d, n_d, m_d, lv_d, li_d, t_d = dev_in
     m = int(m_d[0])
-    ctas = AC.col_table_ctas(tmpl)
-    if AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "pow" or ctas < 2:
+    plan = col_plan_calls(B, tmpl, N)
+    ctas = plan[0][0]
+    if (AC.col_score_mode(levels.shape[1], tmpl.shape[1]) != "pow"
+            or AC.col_table_ctas(tmpl) < 2 or plan[0][1] != B):
         fail(f"the {shape_name} template should be past one CTA's column table and fit a "
-             "cluster's")
+             f"cluster's, and the plan take its {B} rows in one call (plan {plan})")
     lv_c, li_c = (torch.from_numpy(x).to(b_d.device) for x in AC.template_levels(tmpl, ctas))
     before = dict(_build.LAUNCHES)
     ptr_k, bot_k = AC.align_forward_col_morph(b_d, l_d, n_d, lv_d, li_d, params, m)
@@ -1086,7 +1105,8 @@ def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
         _build.LAUNCHES[k] = before[k]
     cols = AC._cols_to_run(n_d, N)
     print(f"  align_forward_col [{shape_name} B={B} N={N} MP={tmpl.shape[1]} "
-          f"U={levels.shape[1]}; {ctas} CTAs of up to {lv_c.shape[2]} levels]: vs POW twin: "
+          f"U={levels.shape[1]}; {ctas} CTAs of up to {lv_c.shape[2]} levels, the plan's "
+          f"(col_table_ctas {AC.col_table_ctas(tmpl)})]: vs POW twin: "
           + "; ".join(f"{mode.upper()} pointers {'equal' if eq else 'DIFFER'}, bottom "
                       f"max_abs_err {err}" for mode, (eq, err) in errs.items())
           + f"; POW {k1:.3f} / {k2:.3f} ms ({ms * 1e3 / cols:.4f} us/column), cluster TABLE "
@@ -1103,7 +1123,22 @@ def check_col_pow(template, shape_name, B, N, params, rng, results) -> None:
     table_bytes = bins.size + 4 * (B * 256 + lv_np.size + tmpl.size) + words
     results["align_forward_col_cluster"] = {
         "max_abs_err": errs["cluster"][1], "ms": ms_c, "plain_ms": plain_ms, "pow_ms": ms,
-        "us_per_column": ms_c * 1e3 / cols, **wave_bound(n_d, m_d, lv_np, table_bytes, True)}
+        "us_per_column": ms_c * 1e3 / cols, "ctas": ctas, "plan": plan,
+        **wave_bound(n_d, m_d, lv_np, table_bytes, True)}
+    # the plan's other calls over these rows, each at its own rows and CTAs
+    for c, kb in dict.fromkeys(plan[1:]):
+        lv_k, li_k = (torch.from_numpy(x).to(b_d.device) for x in AC.template_levels(tmpl, c))
+        sl = slice(0, kb)
+        ptr_c, bot_c = AC.align_forward_col_morph(b_d[sl], l_d[sl], n_d[sl], lv_k, li_k, params, m)
+        ptr_k, bot_k = AC.align_forward_col(s_d[sl], n_d[sl], t_d, params, m)
+        mask = valid_ptr_mask(n_d[sl], torch.zeros_like(n_d[sl]), ptr_k.shape[0])
+        eq = bool(torch.equal(ptr_c[mask], ptr_k[mask]) and torch.equal(bot_c, bot_k))
+        print(f"  align_forward_col [{shape_name}: the plan's call of {kb} rows on {c} CTAs]: "
+              f"cluster TABLE {'equal to' if eq else 'DIFFERS from'} POW", flush=True)
+        if not eq:
+            fail(f"the column cluster on {c} CTAs disagrees with POW ({shape_name})")
+    for k in COL:
+        _build.LAUNCHES[k] = before[k]
 
 
 def check_wave_over_cap(templates, multi, B, N, params, rng, results, ctas) -> None:
@@ -1476,14 +1511,15 @@ def backward_bound(sp: int, l_d, B: int, T: int) -> dict:
     return bound(4 * (live_cells + sp * sp + B * T + 2 * B), 3 * live_cells)
 
 
-def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
+def check_wide(label: str, chm, o_d, l_d, results=None) -> tuple:
     """Rows 3-4 past SP 1024 against their twins: the forward's cluster
     form in the HMM's slot layout on ``fwd_cluster_ctas``' CTAs (rows
     below each length, fin and acc bit-equal) and the wide backward
     (paths equal), each wrapper launching its counter alone; ms and us a
     step of each, the bound and the twin's ms.  ``results``: where given,
-    the kernel line's entries of the layout's cluster forward and of the
-    wide backward.  Returns the forward's numbers at this shape."""
+    the kernel line's entries of the layout's cluster forward and, for
+    the chained layout, of the wide backward.  Returns (the forward's,
+    the backward's) numbers at this shape, keyed by it."""
     import torch
 
     from strique_tpu_torch import _build
@@ -1532,15 +1568,13 @@ def check_wide(label: str, chm, o_d, l_d, results=None) -> None:
     shape = f"B={B} T={T} SP={ph.sp}"
     entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "us_per_step": ms * 1e3 / steps,
              "shape": shape, "ctas": ctas, **fb}
-    if results is None:
-        return entry
-    results[layout.cluster_name] = entry
-    if layout.chain:
-        results["viterbi_backward_wide"] = {"max_abs_err": float(perr), "ms": bwd_ms,
-                                            "plain_ms": bwd_plain_ms,
-                                            "us_per_step": bwd_ms * 1e3 / steps,
-                                            "shape": shape, **bb}
-    return entry
+    bentry = {"max_abs_err": float(perr), "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+              "us_per_step": bwd_ms * 1e3 / steps, "shape": shape, "label": label, **bb}
+    if results is not None:
+        results[layout.cluster_name] = entry
+        if layout.chain:
+            results["viterbi_backward_wide"] = bentry
+    return entry, bentry
 
 
 def wide_path_inputs(pm, pm_mod, unit: str, units: int, B: int, T: int, rng, mod: bool):
@@ -1578,7 +1612,12 @@ def check_viterbi_wide(pm, pm_mod, seed: int, results) -> None:
     repeat HMM (SP 1792) on the wide mod target's reads, padded to 8 rows
     as ``viterbi_batch`` pads them, and a count batch of ``GROUP`` reads
     of the 150-base unit (2 CTAs a read).  Their numbers join the chained
-    entry's ``calls``."""
+    entry's ``calls``.  The backward's are kept at every call, by shape,
+    the kernel line's entry at phase 4f's chained shape and the others in
+    its ``calls``: so each of its launches on phase 4f's routes has a
+    time at its shape (the wide target's two routes at SP 1152 chained;
+    the wide mod target's at SP 1792 and, diagonal-only, at SP 1152), and
+    a count batch's."""
     import numpy as np
     import torch
 
@@ -1606,23 +1645,29 @@ def check_viterbi_wide(pm, pm_mod, seed: int, results) -> None:
     torch.cuda.empty_cache()
     unit = random_unit(WIDE_MOD_UNIT_BASES, WIDE_MOD_UNIT_BASES)
     o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_MOD_UNITS, 8, 6656, rng, True)
-    check_wide("phase 4f's mod shape", build_repeat_mod(unit, pm, pm_mod), o_d, l_d, results)
+    calls = results["viterbi_forward_factored_cluster"].setdefault("calls", [])
+    bwd_calls = results["viterbi_backward_wide"].setdefault("calls", [])
+    bwd_calls.append(check_wide("phase 4f's mod shape", build_repeat_mod(unit, pm, pm_mod), o_d,
+                                l_d, results)[1])
     del o_d, l_d
     torch.cuda.empty_cache()
-    calls = results["viterbi_forward_factored_cluster"].setdefault("calls", [])
     chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
     o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_MOD_UNITS, WIDE_MOD_READS, 7168, rng,
                                 False)
     rows = -(-WIDE_MOD_READS // 8) * 8
     o_d = torch.cat([o_d, o_d.new_zeros((rows - WIDE_MOD_READS, o_d.shape[1]))])
     l_d = torch.cat([l_d, l_d.new_ones(rows - WIDE_MOD_READS)])
-    calls.append(check_wide("the wide mod target's repeat HMM", chm, o_d, l_d))
+    for out, entry in zip((calls, bwd_calls),
+                          check_wide("the wide mod target's repeat HMM", chm, o_d, l_d)):
+        out.append(entry)
     del o_d, l_d
     torch.cuda.empty_cache()
     unit = random_unit(WIDE_UNIT_BASES, 5)
     chm = build_flanked_repeat(unit, PREFIX[-50:], SUFFIX[:50], pm)
     o_d, l_d = wide_path_inputs(pm, pm_mod, unit, WIDE_UNITS, VC.GROUP, 7168, rng, False)
-    calls.append(check_wide(f"a count batch of {VC.GROUP} reads", chm, o_d, l_d))
+    for out, entry in zip((calls, bwd_calls),
+                          check_wide(f"a count batch of {VC.GROUP} reads", chm, o_d, l_d)):
+        out.append(entry)
     del o_d, l_d
     torch.cuda.empty_cache()
 

@@ -103,6 +103,9 @@ _SIGNATURES = {
     # bins, lut, levels, lidx, nact, ptr, bottom; B, N, MP, UP, ctas,
     # mpc, m, neg_h; go_h, go_v, ge_h, ge_v, off, dmin, g; stream
     "col_table_launch": [_P] * 7 + [_I] * 8 + [_F] * 7 + [_P],
+    # K, MPC -> the clusters of K CTAs of MPC lanes the card runs at once
+    # (a query, not a launch: no stream)
+    "col_cluster_capacity": [_I] * 2,
     # ptr, j_end, m_start, is_gap, jpos, j_begin; B, MP, m_out, col; stream
     "traceback_launch": [_P] * 6 + [_I] * 4 + [_P],
     # obs, tact, start, mu, sigma, uni, luni, lsig, src, w, ramp, counts

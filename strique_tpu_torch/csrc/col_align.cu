@@ -72,24 +72,23 @@
 //
 //
 // TABLE past one CTA (more than 1024 lanes, or a table too large for one
-// block): a thread-block cluster of K CTAs a row (K <= 8, picked on the
-// host by ops/align_cuda.py `col_table_ctas`), CTA k owning the
-// contiguous lanes [k MPC, (k+1) MPC) at 4 lanes a thread and a score
-// table of only its own lanes' levels.  What CTA k needs of the lanes
-// below it at column c is what a warp needs of the warps below it: the
-// prefix total through lane k MPC - 1 at column c (P), S of that lane at
-// column c - 1 and its extend test at column c.  None of it depends on
-// CTA k, so CTA k runs behind CTA k - 1: the thread of CTA k - 1 that
-// owns its last lane sends (S, P) each column and the group's 8 extend
-// bits by st.async into a ring slot of CTA k's shared memory (one slot
-// an 8-column group, one "full" mbarrier a slot, on which the bytes
-// complete); thread 0 of CTA k waits on a slot once a group, passes P to
-// its warps beside the exchange slots (one more float a step, under the
-// same barrier), takes S into its M move and the extend bit into its
-// first lane's bit 3, and frees the slot by a remote arrive on the
-// sender's "empty" mbarrier.  Each CTA keeps its one barrier a step.  Max
-// is exact, so folding P into each warp's carry gives the one-CTA
-// kernel's values.
+// block): a thread-block cluster of K CTAs a row (K <= 8; the host's
+// launch plan, ops/align_cuda.py `col_launch_plan`, picks K and a call's
+// rows), CTA k owning the contiguous lanes [k MPC, (k+1) MPC) at 4 lanes
+// a thread and a score table of only its own lanes' levels, one CTA an
+// SM (`col_cluster_kernel`).  What a warp needs of the lanes below it at
+// column c -- the prefix total through the lane below its first (P), S
+// of that lane at column c - 1 and its extend test at column c -- does
+// not depend on the warp, so no barrier runs a step: the warps (and the
+// CTAs) run skewed, each a group of 8 columns behind the one below.  A
+// warp's last lane sends (S, P) each column and the group's 8 extend bits
+// into a ring slot of the warp above (one slot an 8-column group, a
+// "full" and an "empty" mbarrier a slot): in shared memory within the
+// CTA, by st.async into the next CTA's ring across CTAs.  The warp's
+// first lane waits on a slot once a group (CTA-scope), its lanes 0-7
+// take the group's values, and it frees the slot (across CTAs a relaxed
+// remote arrive behind a CTA-scope fence).  Max is exact, so folding P
+// into each warp's scan gives the one-CTA kernel's values.
 //
 // Value contract: the reference's expression trees, built with
 // -fmad=false (no a + b*c contracts); |d|^1.2 is
@@ -118,16 +117,20 @@ constexpr int SCORE_COLS = 258;      // 256 bins, NEG, 0.0 (the last two unread 
 constexpr int EXCH = 5 * 2 * 32;     // exchange floats: 5 slots x 2 parities x 32 warps
 constexpr size_t SMEM_MAX = 232448;  // 227 KB: a block's dynamic shared memory
 constexpr unsigned FULL = 0xffffffffu;
-// the cluster form's ring, at the start of shared memory: RING slots of an
-// 8-column group ((S, P) a column, then the extend bits, padded to 16
-// bytes), a "full" and an "empty" mbarrier a slot, and the CTA's P by
-// step parity (ops/align_cuda.py COL_RING_BYTES = 4 RING_FLOATS)
+// the cluster form's CTA ring, at the start of shared memory: RING slots
+// of an 8-column group ((S, P) a column, then the extend bits, padded to
+// 16 bytes), then a "full" and an "empty" mbarrier a slot
 constexpr int RING = 8;
 constexpr int SLOT_FLOATS = 20;
 constexpr uint32_t SLOT_BYTES = 4 * 17;  // 8 (S, P) pairs and the bits
-constexpr int RING_FLOATS = RING * SLOT_FLOATS + RING * 2 * 2 + 4;
+constexpr int RING_FLOATS = RING * SLOT_FLOATS + RING * 2 * 2;
 constexpr int MAX_CTAS = 8;  // a portable cluster
 constexpr int CL_MAX_LANES = 2048;  // a cluster CTA's lanes: 512 threads of 4
+// the cluster form's warp rings: LRING slots an 8-column group each, for
+// up to CL_WARPS warps (ops/align_cuda.py COL_RING_BYTES = 4 CL_FIXED)
+constexpr int LRING = 4;
+constexpr int CL_WARPS = CL_MAX_LANES / 4 / 32;
+constexpr int CL_FIXED = RING_FLOATS + CL_WARPS * LRING * (4 + SLOT_FLOATS);
 
 enum Score { POW = 0, TABLE = 1 };
 
@@ -198,72 +201,60 @@ __device__ __forceinline__ float mx(float a, float b) {
   return NANS ? max_nan(a, b) : fmaxf(a, b);
 }
 
-// TABLE mode on one CTA runs MP <= 1024 lanes, so at most 1024 / LPT
-// threads; the cluster form (CL) up to CL_MAX_LANES lanes a CTA.  One
-// CTA a row has MPC = MP.  NANS: which max the DP takes.  A TABLE row
-// whose level table and template levels are all finite meets no NaN
-// (every score is finite, every DP value finite or -inf, and nothing
-// subtracts infinities), so the fmaxf instance runs it; any other row,
-// and POW, the max_nan instance.  A TABLE call launches both instances
-// over all its rows, and each leaves at once the rows that are the
-// other's (every CTA of a cluster row reads the same values, so they
-// leave together, before any of them touches a peer).
-template <int LPT, int SCORE, bool CL, bool NANS>
-__global__ void __launch_bounds__(CL ? CL_MAX_LANES / LPT
-                                     : (SCORE == TABLE ? MAX_THREADS / LPT : MAX_THREADS))
+// Whether a TABLE row is the other instance's: a row whose level table
+// and template levels are all finite meets no NaN (every score is finite,
+// every DP value finite or -inf, and nothing subtracts infinities), so
+// the fmaxf instance (NANS false) runs it; any other row, and POW, the
+// max_nan instance.  A TABLE call launches both instances over all its
+// rows, and each leaves at once the rows that are the other's (every CTA
+// of a cluster row reads the same values, so they leave together, before
+// any of them touches a peer).  `levels` counts every CTA's of the row.
+template <bool NANS>
+__device__ __forceinline__ bool other_instance(const Table& tb, int row, int levels) {
+  const float* lut = tb.lut + (size_t)row * 256;
+  bool odd = false;
+  for (int e = threadIdx.x; e < 256 + levels; e += blockDim.x) {
+    const float v = e < 256 ? lut[e] : tb.levels[e - 256];
+    odd |= !(fabsf(v) <= 3.402823466e38f);  // NaN or inf
+  }
+  return (__syncthreads_or(odd) != 0) != NANS;
+}
+
+// One CTA a row (MPC = MP): TABLE mode runs MP <= 1024 lanes, so at most
+// 1024 / LPT threads.  NANS: which max the DP takes (`other_instance`).
+template <int LPT, int SCORE, bool NANS>
+__global__ void __launch_bounds__(SCORE == TABLE ? MAX_THREADS / LPT : MAX_THREADS)
 col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, Table tb,
                  const int* __restrict__ nact, int32_t* __restrict__ ptr,
                  float* __restrict__ bottom, int B, int N, int MP, int MPC, int m, Params p) {
   if constexpr (SCORE == TABLE) {
-    const int rows_k = CL ? (int)cg::this_cluster().num_blocks() : 1;
-    const float* lut = tb.lut + (size_t)(blockIdx.x / rows_k) * 256;
-    bool odd = false;
-    for (int e = threadIdx.x; e < 256 + rows_k * tb.up; e += blockDim.x) {
-      const float v = e < 256 ? lut[e] : tb.levels[e - 256];
-      odd |= !(fabsf(v) <= 3.402823466e38f);  // NaN or inf
-    }
-    if ((__syncthreads_or(odd) != 0) != NANS) return;  // the other instance's row
+    if (other_instance<NANS>(tb, blockIdx.x, tb.up)) return;
   }
-  // CL: the ring first (RING_FLOATS).  Then the exchange slots [parity *
-  // 32 + warp]; TABLE: the U x 258 scores follow
+  // the exchange slots [parity * 32 + warp]; TABLE: the U x 258 scores
+  // follow
   extern __shared__ __align__(16) float smem_all[];
-  float* smem = smem_all + (CL ? RING_FLOATS : 0);
+  float* smem = smem_all;
   float* x_tot = smem;               // the warp's prefix total, its first lane's M' left out
   float* x_ca = smem + 64;           // warp w's first lane: its M' prefix term (from w-1)
   float* x_s = smem + 128;           // warp w: S of warp w-1's last lane, previous column
   int* x_e = (int*)(smem + 192);     // warp w: warp w-1's last extend test, previous column
   float* x_sc = smem + 256;          // warp w's first lane: its score at the next column
   const float* T = smem + EXCH;
-  float* x_p = smem_all + RING_FLOATS - 4;  // CL: the CTA's P, by step parity
 
-  int K = 1, rank = 0;  // CTAs of the row, this CTA's place among them
-  if constexpr (CL) {
-    K = (int)cg::this_cluster().num_blocks();
-    rank = (int)cg::this_cluster().block_rank();
-  }
-  const int row = blockIdx.x / K;
+  const int row = blockIdx.x;
   const int x = threadIdx.x;
   const int lane = x & 31;
   const int warp = x >> 5;
   const int n_warps = blockDim.x >> 5;
-  const int lane0 = rank * MPC;  // the CTA's first lane
-  const int i0 = lane0 + x * LPT;  // first lane of this thread
+  const int i0 = x * LPT;  // first lane of this thread
   const bool active = i0 < MP;
   const bool edge = lane == 0 && warp > 0;            // S(i0-1) lives in the warp below
   const bool feeds = lane == 31 && warp + 1 < n_warps;  // feeds the next warp's first lane
   const float f_next = (float)(i0 + LPT);             // that lane's row
-  // CL: thread 0 takes lane lane0 - 1's S, P and extend test from the
-  // ring (recv); the thread of the CTA's last lane sends its own (send)
-  const bool recv = CL && rank > 0 && x == 0;
-  const bool send = CL && rank + 1 < K && x == blockDim.x - 1;
-  const uint32_t ring_a = smem_addr(smem_all);
-  const uint32_t full_a = ring_a + 4 * RING * SLOT_FLOATS;
-  const uint32_t empty_a = full_a + 8 * RING;
   int n = nact[row];
   if (n > N) n = N;
   int c_end = (n + 7) & ~7;
   if (c_end > N) c_end = N;
-  const int groups = c_end >> 3;
   const float* a = SCORE == POW ? sig + (size_t)row * N : nullptr;
   const uint8_t* brow = SCORE == TABLE ? tb.bins + (size_t)row * N : nullptr;
   float* bot = bottom + (size_t)row * N;
@@ -282,28 +273,12 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
     tbase[k] = SCORE == TABLE && i < MP ? tb.lidx[i] * SCORE_COLS : 0;
     acc[k] = 0;
   }
-  // recv: S of lane lane0 - 1 at the column before the current one (its
-  // value before column 0 as the lane's own S starts)
-  float in_s = p.go_v + p.ge_v * ((float)(lane0 - 1) - 1.0f);
-  uint32_t in_e = 0;   // recv: the group's extend bits of lane lane0 - 1
-  uint32_t out_e = 0;  // send: the group's extend bits of the CTA's last lane
   for (int i = x; i < 64; i += blockDim.x) x_ca[i] = -INFINITY;  // warp 0: no M' from below
-  if constexpr (CL) {
-    if (x == 0) {
-      for (int q = 0; q < RING; ++q) {
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full_a + 8 * q));
-        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty_a + 8 * q));
-      }
-      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-      if (rank > 0)
-        for (int q = 0; q < RING && q < groups; ++q) expect_tx(full_a + 8 * q, SLOT_BYTES);
-    }
-  }
   if (SCORE == TABLE) {
     // entry [u][b]: template level u against bin b's value (b < 256), NEG
     // (b = 256) or 0.0 (b = 257), as ops/align_cuda.py `score_table`
     const float* lut = tb.lut + (size_t)row * 256;
-    const float* lv = tb.levels + (size_t)rank * tb.up;
+    const float* lv = tb.levels;
     float* Tw = smem + EXCH;
     for (int e = x; e < tb.up * SCORE_COLS; e += blockDim.x) {
       const int u = e / SCORE_COLS;
@@ -316,10 +291,7 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
   cur.a0 = cur.a1 = nxt.a0 = nxt.a1 = make_float4(0.f, 0.f, 0.f, 0.f);
   cur.bn = nxt.bn = make_uint2(0, 0);
   if (c_end > 0) cur.load(a, brow, 0);
-  if constexpr (CL)
-    cg::this_cluster().sync();  // the table, and every CTA's mbarriers initialised
-  else
-    __syncthreads();  // the table
+  __syncthreads();  // the table
 #pragma unroll
   for (int k = 0; k < LPT; ++k) sc[k] = cur.score(0, tm[k], tbase[k], T, p);
   if (edge) x_sc[32 + warp] = sc[0];  // read at step 0 from parity 1
@@ -328,14 +300,6 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
   int e_last = 0;  // the extend test of this thread's last lane, previous column
   for (int c0 = 0; c0 < c_end; c0 += 8) {
     if (c0 + 8 < c_end) nxt.load(a, brow, c0 + 8);
-    const int g = c0 >> 3;
-    const int slot = g % RING;
-    const float* rs = smem_all + slot * SLOT_FLOATS;
-    if (CL && recv) {
-      wait_parity(full_a + 8 * slot, (g / RING) & 1);
-      in_e = __float_as_uint(rs[16]);
-    }
-    if (CL && send && g >= RING) wait_parity(empty_a + 8 * slot, (g / RING - 1) & 1);
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int c = c0 + s;
@@ -348,9 +312,7 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
                        : nxt.score(0, tm[k], tbase[k], T, p);
       if (edge) x_sc[par + warp] = scn[0];
       const float s_up = __shfl_up_sync(FULL, S[LPT - 1], 1);  // S(i0-1) within the warp
-      // S of the lane below the CTA at the previous column, and P
-      const float s_in = CL && recv ? (s == 0 ? in_s : rs[2 * s - 2]) : fill_s;
-      if (CL && recv) x_p[s & 1] = rs[2 * s + 1];
+      const float s_in = fill_s;  // S of lane -1
       float newM[LPT], Q[LPT], pre[LPT];
       int ihx[LPT];
 #pragma unroll
@@ -388,8 +350,7 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
       // -- after the barrier -------------------------------------------
       // through warp-1: the warps below, each its total and first M'
       const float wt = lane < warp ? mx<NANS>(x_tot[par + lane], x_ca[par + lane]) : -INFINITY;
-      float carry = key_value(__reduce_max_sync(FULL, order_key(wt)));
-      if (CL && rank > 0) carry = mx<NANS>(carry, x_p[s & 1]);  // ... and the CTAs below
+      const float carry = key_value(__reduce_max_sync(FULL, order_key(wt)));
       const float base = mx<NANS>(carry, x_ca[par + warp]);  // ... and this warp's first M'
       const float inc = lane > 0 ? mx<NANS>(base, up) : base;  // through lane i0-1 (k > 0: i0)
       if (edge) {
@@ -407,8 +368,6 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
           acc[k] = 0;
         }
       }
-      // bit 3 of the CTA's first lane: the extend test below the CTA
-      if (CL && recv) acc[0] |= ((in_e >> s) & 1u) << (4 * s + 3);
       int ext[LPT];
 #pragma unroll
       for (int k = 0; k < LPT; ++k) {
@@ -424,24 +383,10 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
         if (i0 + k == m) bot[c] = (c + 1 <= n) ? s_new : NEGF;
         sc[k] = scn[k];
       }
-      if (CL && send) {  // this column's S and P of the CTA's last lane
-        st_async_v2(ring_a + 4 * (slot * SLOT_FLOATS + 2 * s), S[LPT - 1],
-                    mx<NANS>(inc, pre[LPT - 1]), full_a + 8 * slot, rank + 1);
-        out_e |= (uint32_t)ext[LPT - 1] << s;
-      }
       // bit 3 of a thread's first lane: lane i0-1's test, same column
       const int e_up = __shfl_up_sync(FULL, ext[LPT - 1], 1);
       if (lane > 0) acc[0] |= (uint32_t)e_up << (4 * s + 3);
       e_last = ext[LPT - 1];
-    }
-    if (CL && send) {
-      st_async_b32(ring_a + 4 * (slot * SLOT_FLOATS + 16), out_e, full_a + 8 * slot, rank + 1);
-      out_e = 0;
-    }
-    if (CL && recv) {
-      in_s = rs[2 * 7];
-      if (g + RING < groups) expect_tx(full_a + 8 * slot, SLOT_BYTES);
-      arrive_remote(empty_a + 8 * slot, rank - 1);  // the slot is free again
     }
     cur = nxt;
   }
@@ -458,9 +403,222 @@ col_align_kernel(const float* __restrict__ sig, const float* __restrict__ tmpl, 
       if (i < MP) out[i == 0 ? MP - 1 : i - 1] = (int32_t)acc[k];
     }
   }
+  for (int c = c_end + x; c < N; c += blockDim.x) bot[c] = NEGF;
+}
+
+// TABLE on a cluster of K CTAs a row, MPC lanes a CTA (MPC / 4 threads of
+// 4 contiguous lanes each): warps chained by rings, no barrier a step
+// (see the top of the file).  Shared memory: [the CTA ring: RING_FLOATS]
+// [the warp rings: CL_WARPS x LRING full, then empty mbarriers; then
+// CL_WARPS x LRING slots, warp w's at w * LRING, warp 0's unused] [the
+// CTA's U x 258 scores]
+template <bool NANS>
+__global__ void __launch_bounds__(CL_MAX_LANES / 4)
+col_cluster_kernel(Table tb, const int* __restrict__ nact, int32_t* __restrict__ ptr,
+                   float* __restrict__ bottom, int B, int N, int MP, int MPC, int m, Params p) {
+  constexpr int LPT = 4;
+  const int K = (int)cg::this_cluster().num_blocks();
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int row = blockIdx.x / K;
+  if (other_instance<NANS>(tb, row, K * tb.up)) return;
+  extern __shared__ __align__(16) float smem_all[];
+  float* wring = smem_all + RING_FLOATS;
+  float* wdata = wring + 4 * CL_WARPS * LRING;
+  float* T = wdata + CL_WARPS * LRING * SLOT_FLOATS;
+  const int x = threadIdx.x;
+  const int lane = x & 31;
+  const int warp = x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int lane0 = rank * MPC;      // the CTA's first lane
+  const int i0 = lane0 + x * LPT;    // first lane of this thread
+  const bool active = i0 < MP;
+  // the ring ends: a warp's first thread waits for its slot (from CTA
+  // k - 1's last warp for warp 0), its last thread sends (to CTA k + 1
+  // from the last warp); warp 0 of CTA 0 has lane -1 below it
+  const bool below = warp > 0 || rank > 0;
+  const bool recv = lane == 0 && below;
+  const bool send = lane == 31 && (warp + 1 < warps || rank + 1 < K);
+  const bool remote_in = rank > 0 && warp == 0;
+  const bool remote_out = send && warp + 1 == warps;
+  const uint32_t ring_a = smem_addr(smem_all);
+  const uint32_t full_a = ring_a + 4 * RING * SLOT_FLOATS;
+  const uint32_t empty_a = full_a + 8 * RING;
+  const uint32_t wfull_a = smem_addr(wring);
+  const uint32_t wempty_a = wfull_a + 8 * CL_WARPS * LRING;
+  int n = nact[row];
+  if (n > N) n = N;
+  int c_end = (n + 7) & ~7;
+  if (c_end > N) c_end = N;
+  const int groups = c_end >> 3;
+  const uint8_t* brow = tb.bins + (size_t)row * N;
+  float* bot = bottom + (size_t)row * N;
+  const float fill_s = p.neg_h ? -p.dmin : NEGF;
+
+  float S[LPT], Ih[LPT];
+  int tbase[LPT];
+  uint32_t acc[LPT];
+#pragma unroll
+  for (int k = 0; k < LPT; ++k) {
+    const int i = i0 + k;
+    S[k] = (i == 0) ? 0.0f : p.go_v + p.ge_v * ((float)i - 1.0f);
+    Ih[k] = NEGF;
+    tbase[k] = i < MP ? tb.lidx[i] * SCORE_COLS : 0;
+    acc[k] = 0;
+  }
+  // S of lane i0 - 1 at the column before the group's first (before column
+  // 0: its value as a lane's S starts; lane -1's fill below CTA 0's warp 0)
+  float in_s = below ? p.go_v + p.ge_v * ((float)(i0 - 1) - 1.0f) : fill_s;
+  uint32_t out_e = 0;  // send: the group's extend bits of the warp's last lane
+  if (x == 0) {
+    for (int q = 0; q < RING; ++q) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(full_a + 8 * q));
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(empty_a + 8 * q));
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    if (rank > 0)
+      for (int q = 0; q < RING && q < groups; ++q) expect_tx(full_a + 8 * q, SLOT_BYTES);
+  }
+  for (int q = x; q < CL_WARPS * LRING; q += blockDim.x) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wfull_a + 8 * q));
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(wempty_a + 8 * q));
+  }
+  {
+    // entry [u][b]: the CTA's level u against bin b's value (b < 256), NEG
+    // (b = 256) or 0.0 (b = 257), as ops/align_cuda.py `score_table`
+    const float* lut = tb.lut + (size_t)row * 256;
+    const float* lv = tb.levels + (size_t)rank * tb.up;
+    for (int e = x; e < tb.up * SCORE_COLS; e += blockDim.x) {
+      const int u = e / SCORE_COLS;
+      const int b = e - u * SCORE_COLS;
+      const float xv = b < 256 ? lut[b] : (b == 256 ? NEGF : 0.0f);
+      T[e] = cell_score(xv, lv[u], p);
+    }
+  }
+  Cols<TABLE> cur, nxt;
+  cur.bn = nxt.bn = make_uint2(0, 0);
+  if (c_end > 0) cur.load(nullptr, brow, 0);
+  cg::this_cluster().sync();  // every CTA's table and mbarriers ready before any byte moves
+
+  // group g: CTA ring slot g % RING, warp ring slot g % LRING
+  for (int g = 0; g < groups; ++g) {
+    const int c0 = g << 3;
+    if (c0 + 8 < c_end) nxt.load(nullptr, brow, c0 + 8);
+    const int slot = g % RING, wslot = g % LRING;
+    const float* rs = remote_in ? smem_all + slot * SLOT_FLOATS
+                                : wdata + (warp * LRING + wslot) * SLOT_FLOATS;
+    float* ws = wdata + ((warp + 1) * LRING + wslot) * SLOT_FLOATS;  // a local send's slot
+    if (recv)
+      wait_parity_cta(remote_in ? full_a + 8 * slot : wfull_a + 8 * (warp * LRING + wslot),
+                      (g / (remote_in ? RING : LRING)) & 1);
+    if (send && g >= (remote_out ? RING : LRING))
+      wait_parity_cta(remote_out ? empty_a + 8 * slot
+                                 : wempty_a + 8 * ((warp + 1) * LRING + wslot),
+                      (g / (remote_out ? RING : LRING) - 1) & 1);
+    __syncwarp();
+    // lanes 0-7: column c0 + lane's P from below and S of lane i0 - 1 at
+    // the column before it; lane 0 the extend bits and the next in_s
+    float g_p = -INFINITY, g_s = in_s;
+    uint32_t in_e = 0;
+    if (below && lane < 8) {
+      g_p = rs[2 * lane + 1];
+      if (lane > 0) g_s = rs[2 * lane - 2];
+    }
+    if (below && lane == 0) {
+      in_e = __float_as_uint(rs[16]);
+      in_s = rs[2 * 7];
+    }
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int c = c0 + s;
+      // the prefix through the lane below the warp's first, and that
+      // lane's S at column c - 1
+      const float carry = __shfl_sync(FULL, g_p, s);
+      const float s_in = __shfl_sync(FULL, g_s, s);
+      const float s_up = __shfl_up_sync(FULL, S[LPT - 1], 1);  // S(i0-1) within the warp
+      float newM[LPT], Q[LPT], pre[LPT];
+      int ihx[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const float fi = (float)(i0 + k);
+        const float sc = cur.score(s, 0.0f, tbase[k], T, p);
+        const float ih_ext = Ih[k] + p.ge_h;
+        const float ih_open = S[k] + p.go_h;
+        ihx[k] = ih_ext >= ih_open ? 4 : 0;
+        Ih[k] = mx<NANS>(ih_ext, ih_open);
+        const float left = k > 0 ? S[k - 1] : (lane > 0 ? s_up : s_in);
+        newM[k] = left + sc;
+        float q = mx<NANS>(newM[k], Ih[k]);
+        if (!p.neg_h && i0 + k == 0) q = 0.0f;
+        Q[k] = q;
+        const float cv = (q + p.go_v) - ((fi + 1.0f) * p.g);
+        pre[k] = k == 0 ? cv : mx<NANS>(pre[k - 1], cv);
+      }
+      float tot = active ? pre[LPT - 1] : NEGF;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const float y = __shfl_up_sync(FULL, tot, d);
+        if (lane >= d) tot = mx<NANS>(tot, y);
+      }
+      const float up = __shfl_up_sync(FULL, tot, 1);  // through thread x-1 (this warp)
+      const float inc = lane > 0 ? mx<NANS>(carry, up) : carry;  // through lane i0-1
+      int ext[LPT];
+#pragma unroll
+      for (int k = 0; k < LPT; ++k) {
+        const float fi = (float)(i0 + k);
+        const float cm_k = k == 0 ? inc : mx<NANS>(inc, pre[k - 1]);
+        const float iv = (i0 + k == 0 ? NEGF : cm_k) + fi * p.g;
+        const float s_new = mx<NANS>(Q[k], iv);
+        const int which = newM[k] >= s_new ? 0 : (iv >= s_new ? 2 : 1);
+        ext[k] = (iv + p.ge_v) >= (s_new + p.go_v) ? 1 : 0;
+        const int bit3 = k > 0 ? ext[k - 1] << 3 : 0;
+        acc[k] |= (uint32_t)(which | ihx[k] | bit3) << (4 * s);
+        S[k] = s_new;
+        if (i0 + k == m) bot[c] = (c + 1 <= n) ? s_new : NEGF;
+      }
+      // bit 3 of a thread's first lane: lane i0-1's test, same column (the
+      // warp's first lane: the ring's bit)
+      const int e_up = __shfl_up_sync(FULL, ext[LPT - 1], 1);
+      acc[0] |= (lane > 0 ? (uint32_t)e_up : (in_e >> s) & 1u) << (4 * s + 3);
+      if (send) {  // this column's S and P of the warp's last lane
+        const float p_out = mx<NANS>(inc, pre[LPT - 1]);
+        if (remote_out)
+          st_async_v2(ring_a + 4 * (slot * SLOT_FLOATS + 2 * s), S[LPT - 1], p_out,
+                      full_a + 8 * slot, rank + 1);
+        else
+          *reinterpret_cast<float2*>(ws + 2 * s) = make_float2(S[LPT - 1], p_out);
+        out_e |= (uint32_t)ext[LPT - 1] << s;
+      }
+    }
+    int32_t* out = ptr + ((size_t)g * B + row) * MP;
+#pragma unroll
+    for (int k = 0; k < LPT; ++k) {
+      const int i = i0 + k;
+      if (i < MP) out[i == 0 ? MP - 1 : i - 1] = (int32_t)acc[k];
+      acc[k] = 0;
+    }
+    if (send) {
+      if (remote_out) {
+        st_async_b32(ring_a + 4 * (slot * SLOT_FLOATS + 16), out_e, full_a + 8 * slot, rank + 1);
+      } else {
+        ws[16] = __uint_as_float(out_e);
+        arrive_local(wfull_a + 8 * ((warp + 1) * LRING + wslot));
+      }
+      out_e = 0;
+    }
+    __syncwarp();  // lanes 0-7's reads of the slot are done
+    if (recv) {
+      if (remote_in) {
+        if (g + RING < groups) expect_tx(full_a + 8 * slot, SLOT_BYTES);
+        arrive_remote_after_reads(empty_a + 8 * slot, rank - 1);  // the slot is free again
+      } else {
+        arrive_local(wempty_a + 8 * (warp * LRING + wslot));
+      }
+    }
+    cur = nxt;
+  }
   if (m >= lane0 && m < lane0 + MPC)  // the CTA of the bottom lane
     for (int c = c_end + x; c < N; c += blockDim.x) bot[c] = NEGF;
-  if constexpr (CL) cg::this_cluster().sync();  // no CTA leaves while a peer may write into it
+  cg::this_cluster().sync();  // no CTA leaves while a peer may write into it
 }
 
 template <int LPT, int SCORE, bool NANS>
@@ -472,12 +630,12 @@ cudaError_t launch_one(const float* sig, const float* tmpl, const Table& tb, con
   const size_t shmem = (EXCH + table) * sizeof(float);
   if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
   if (shmem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(col_align_kernel<LPT, SCORE, false, NANS>,
+    cudaError_t e = cudaFuncSetAttribute(col_align_kernel<LPT, SCORE, NANS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)shmem);
     if (e != cudaSuccess) return e;
   }
-  col_align_kernel<LPT, SCORE, false, NANS><<<B, threads, shmem, stream>>>(
+  col_align_kernel<LPT, SCORE, NANS><<<B, threads, shmem, stream>>>(
       sig, tmpl, tb, nact, ptr, bottom, B, N, MP, MP, m, p);
   return cudaGetLastError();
 }
@@ -495,18 +653,12 @@ cudaError_t launch(const float* sig, const float* tmpl, const Table& tb, const i
   return launch_one<LPT, SCORE, true>(sig, tmpl, tb, nact, ptr, bottom, B, N, MP, m, p, stream);
 }
 
-// TABLE on a cluster of K CTAs a row, MPC lanes each, 4 lanes a thread
-template <bool NANS>
-cudaError_t launch_cluster_one(const Table& tb, const int* nact, int32_t* ptr, float* bottom,
-                               int B, int N, int MP, int MPC, int K, int m, Params p,
-                               cudaStream_t stream) {
-  auto kern = col_align_kernel<4, TABLE, true, NANS>;
-  const size_t shmem = (RING_FLOATS + EXCH + (size_t)tb.up * SCORE_COLS) * sizeof(float);
-  if (shmem > SMEM_MAX) return cudaErrorInvalidValue;
-  cudaError_t e =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
-  if (e != cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
+// the cluster launch's configuration: K CTAs a row, MPC / 4 threads, and
+// every CTA a whole SM's shared memory, so no two CTAs of a call share an
+// SM's issue (the block scheduler packs a cluster's CTAs onto SMs where
+// their memory fits)
+cudaLaunchConfig_t cluster_config(cudaLaunchAttribute* attr, int B, int MPC, int K,
+                                  cudaStream_t stream) {
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = K;
   attr[0].val.clusterDim.y = 1;
@@ -514,17 +666,32 @@ cudaError_t launch_cluster_one(const Table& tb, const int* nact, int32_t* ptr, f
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * K);
   cfg.blockDim = dim3(MPC / 4);
-  cfg.dynamicSmemBytes = shmem;
+  cfg.dynamicSmemBytes = SMEM_MAX;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
+  return cfg;
+}
+
+// TABLE on a cluster of K CTAs a row, MPC lanes each, 4 lanes a thread
+template <bool NANS>
+cudaError_t launch_cluster_one(const Table& tb, const int* nact, int32_t* ptr, float* bottom,
+                               int B, int N, int MP, int MPC, int K, int m, Params p,
+                               cudaStream_t stream) {
+  auto kern = col_cluster_kernel<NANS>;
+  if ((CL_FIXED + (size_t)tb.up * SCORE_COLS) * sizeof(float) > SMEM_MAX)
+    return cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (e != cudaSuccess) return e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, B, MPC, K, stream);
   // the cluster must fit the card: K CTAs of this shared memory on K SMs
   int clusters = 0;
   e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
   if (e != cudaSuccess) return e;
   if (clusters < 1) return cudaErrorInvalidConfiguration;
-  e = cudaLaunchKernelEx(&cfg, kern, (const float*)nullptr, (const float*)nullptr, tb, nact, ptr,
-                         bottom, B, N, MP, MPC, m, p);
+  e = cudaLaunchKernelEx(&cfg, kern, tb, nact, ptr, bottom, B, N, MP, MPC, m, p);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -545,7 +712,26 @@ bool split_ok(int MP, int K, int MPC) {
          (K - 1) * MPC < MP && K * MPC >= MP;
 }
 
+// the most clusters of K CTAs of MPC lanes the card runs at once, as
+// launch_cluster_one launches them (one CTA an SM); 0 when none fits
+int cluster_capacity(int K, int MPC) {
+  auto kern = col_cluster_kernel<false>;
+  if (cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX))
+    return 0;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config(attr, 1, MPC, K, nullptr);
+  int clusters = 0;
+  return cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg) == cudaSuccess ? clusters : 0;
+}
+
 }  // namespace
+
+// clusters of K CTAs of MPC lanes (a split col_table_launch takes) the
+// card runs at once; the host's launch plan keeps a call's rows within it
+extern "C" int col_cluster_capacity(int K, int MPC) {
+  if (!(K >= 2 && K <= MAX_CTAS && MPC > 0 && MPC % 128 == 0 && MPC <= CL_MAX_LANES)) return 0;
+  return cluster_capacity(K, MPC);
+}
 
 extern "C" int col_align_launch(const void* sig, const void* tmpl, const void* nact, void* ptr,
                                 void* bottom, int B, int N, int MP, int m, int neg_h,

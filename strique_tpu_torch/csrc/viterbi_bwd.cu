@@ -34,15 +34,25 @@
 // SMs to spare, and each read has an SM's L1 to itself.
 //
 // Past SP 1024 (up to 8192) a read takes the wide variant
-// (viterbi_bwd_wide_kernel): ceil(SP / 1024) warps a CTA, each warp
-// walking 1024 states exactly as the kernel above does at NV 8 (a lane
-// past SP holds -inf candidates, which never reach a maximum).  Each
-// step ends in a cross-warp first-max: every warp publishes its max and
-// its first hit, one barrier, and every thread takes the first warp
-// whose max is >= the largest, so the tie still resolves to the
-// smallest state.  The ring holds RING_W = 16, 8 or 4 rows (SP up to
-// 3072, 6144, 8192: at most 192 KB), each prefetched RING_W - 1 steps
-// ahead.
+// (viterbi_bwd_wide_kernel<SPT>): one CTA a read of SP / SPT threads,
+// SPT = WIDE_SPT states a thread (ops/viterbi_cuda.py BWD_WIDE_SPT).
+// Thread x owns the float4s x + k * blockDim.x of a row, so a step's
+// transT row is SPT / 4 coalesced float4 loads a thread, the ring's reads
+// are conflict-free and a thread's first max is one pass over its
+// candidates.  transT (5.3 MB at SP 1152, 268 MB at 8192) leaves L1, but
+// a walk stays in a state for most steps (a state emits ~8 samples), so
+// the row is reloaded only when the state moves.  The first max is keyed:
+// the order key of a candidate with -0.0 folded onto +0.0 (`fkey`: equal
+// keys are equal floats, so the largest key's holders are the twin's `>=
+// max` hits), a warp's largest key by one redux.sync and the least state
+// holding it by another; each warp publishes its pair, one barrier, and
+// every warp folds the pairs the same way.  The ring is the narrow
+// kernel's: each thread copies its own part of the score row RING_W - 1
+// steps ahead by cp.async (RING_W = 16, 8 or 4 rows: SP up to 3072, 6144,
+// 8192; at most 192 KB).  Fewer, wider threads make the step's barrier
+// and exchange cheaper (tools/probe_viterbi_bwd_wide.py on an H100).
+#include <climits>
+
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,35 +168,56 @@ viterbi_bwd_kernel(const float* __restrict__ sc, const float* __restrict__ trans
   if (lane < rem) prow[rem - 1 - lane] = held;
 }
 
-// SP up to 8192: blockDim.x / 32 = ceil(SP / 1024) warps of 1024 states
-template <int RING_W>
-__global__ void __launch_bounds__(256)
+// a candidate's order key with -0.0 folded onto +0.0: equal keys are
+// equal floats (NaN never reaches the walk of a read whose path is kept)
+__device__ __forceinline__ int fkey(float x) { return order_key(x + 0.0f); }
+
+// What a probe reads of a wide walk (tools/probe_viterbi_bwd_wide.cu
+// instantiates the kernel with a counting hook): the walk's start and
+// end and a step's phases (mark 1: its candidates formed, the ring and
+// the transT row waited on; 2: the warp's first max; 3: the cross-warp
+// exchange).  The kernels built here take NoHook, whose calls vanish.
+struct NoHook {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void finish(int) {}
+};
+
+constexpr int WIDE_SPT = 8;  // states a thread past SP 1024 (ops/viterbi_cuda.py BWD_WIDE_SPT)
+
+// SPT states a thread (a multiple of 4), RING_W score rows in the ring
+template <int SPT, int RING_W, class Hook>
+__global__ void __launch_bounds__(1024)
 viterbi_bwd_wide_kernel(const float* __restrict__ sc, const float* __restrict__ transT,
                         const int* __restrict__ last, const int* __restrict__ tact,
                         int32_t* __restrict__ path, int B, int T, int SP) {
-  constexpr int NV = 8;        // float4 a lane
-  constexpr int PER = 4 * NV;  // states a lane holds
-  extern __shared__ float4 ring[];  // RING_W rows of sc
-  __shared__ float wmx[2][8];       // each warp's max and first hit, by step parity
-  __shared__ int wix[2][8];
+  constexpr int NV = SPT / 4;       // float4 a thread
+  extern __shared__ float4 ring[];  // RING_W rows of sc, slot j at ring[j * SP4]
+  __shared__ int2 xch[2][32];       // each warp's (key, first state), by step parity
   const int SP4 = SP / 4;
   const int b = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int x = threadIdx.x;
+  const int lane = x & 31;
+  const int warp = x >> 5;
   const int n_warp = blockDim.x >> 5;
-  const int u0 = warp * 32 * PER + lane * PER;  // this lane's first state
-  const bool live = u0 < SP;  // SP is a multiple of PER: all PER states or none
-  const float4* tT4 = reinterpret_cast<const float4*>(transT) + u0 / 4;
+  int q[NV];  // this thread's float4s of a row
+  bool live[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    q[k] = x + k * (int)blockDim.x;
+    live[k] = q[k] < SP4;
+  }
+  const float4* tT4 = reinterpret_cast<const float4*>(transT);
   const int ta = min(tact[b], T);
   const int n = max(ta - 1, 0);  // steps: step i reads row n-1-i, writes path[n-1-i]
   const size_t rstride = (size_t)B * SP4;
-  const float4* row_src = reinterpret_cast<const float4*>(sc) +
-                          (size_t)max(n - 1, 0) * rstride + (size_t)b * SP4 + u0 / 4;
-  float4* my_ring = ring + u0 / 4;  // slot j at my_ring[j * SP4 + k]
+  const float4* row_src =
+      reinterpret_cast<const float4*>(sc) + (size_t)max(n - 1, 0) * rstride + (size_t)b * SP4;
   for (int j = 0; j < RING_W; ++j) {
 #pragma unroll
     for (int k = 0; k < NV; ++k)
-      cp_async16_if(my_ring + j * SP4 + k, row_src - (size_t)j * rstride + k, live && j < n);
+      cp_async16_if(ring + j * SP4 + q[k], row_src - (size_t)j * rstride + q[k],
+                    live[k] && j < n);
     cp_async_commit();
   }
 
@@ -195,83 +226,100 @@ viterbi_bwd_wide_kernel(const float* __restrict__ sc, const float* __restrict__ 
   if (warp == 0)
     for (int t = n + lane; t < T; t += 32) prow[t] = st;
   int held = st;
+  // the transT row of state tst: a walk stays in a state for most steps
+  // (52-79% of them on the VITERBI_WIDE cases), so only a move reloads it
+  int tst = -1;
+  float4 tv[NV];
+  Hook hook;
+  hook.start();
   for (int i = 0; i < n; ++i) {
     asm volatile("cp.async.wait_group %0;\n" ::"n"(RING_W - 2) : "memory");
-    const float4* srow = my_ring + (i & (RING_W - 1)) * SP4;
-    float c[PER];
-    if (live) {
-      float4 sv[NV], tv[NV];
+    const int slot = i % RING_W;
+    float4 sv[NV];
+    if (st != tst) {  // uniform: every thread holds the same st
 #pragma unroll
-      for (int k = 0; k < NV; ++k) sv[k] = srow[k];
-#pragma unroll
-      for (int k = 0; k < NV; ++k) tv[k] = __ldg(tT4 + (size_t)st * SP4 + k);
-#pragma unroll
-      for (int k = 0; k < NV; ++k) {
-        c[4 * k + 0] = sv[k].x + tv[k].x;
-        c[4 * k + 1] = sv[k].y + tv[k].y;
-        c[4 * k + 2] = sv[k].z + tv[k].z;
-        c[4 * k + 3] = sv[k].w + tv[k].w;
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < PER; ++j) c[j] = -INFINITY;
+      for (int k = 0; k < NV; ++k)
+        tv[k] = live[k] ? __ldg(tT4 + (size_t)st * SP4 + q[k]) : make_float4(0.f, 0.f, 0.f, 0.f);
+      tst = st;
     }
+#pragma unroll
+    for (int k = 0; k < NV; ++k)
+      sv[k] = live[k] ? ring[slot * SP4 + q[k]] : make_float4(0.f, 0.f, 0.f, 0.f);
+    // refill the slot step i-1 read with the row of step i-1+RING_W (this
+    // thread's own float4s, read last step)
     const int ahead = i - 1 + RING_W;
 #pragma unroll
     for (int k = 0; k < NV; ++k)
-      cp_async16_if(my_ring + ((i - 1) & (RING_W - 1)) * SP4 + k,
-                    row_src - (size_t)ahead * rstride + k, live && i > 0 && ahead < n);
+      cp_async16_if(ring + ((i + RING_W - 1) % RING_W) * SP4 + q[k],
+                    row_src - (size_t)ahead * rstride + q[k], live[k] && i > 0 && ahead < n);
     cp_async_commit();
-    float mt[PER];
+    // the thread's first max: a strict > over ascending states keeps the first
+    int bk = INT_MIN, bi = INT_MAX;
 #pragma unroll
-    for (int j = 0; j < PER; ++j) mt[j] = c[j];
+    for (int k = 0; k < NV; ++k) {
+      if (!live[k]) continue;
+      const float c[4] = {sv[k].x + tv[k].x, sv[k].y + tv[k].y, sv[k].z + tv[k].z,
+                          sv[k].w + tv[k].w};
 #pragma unroll
-    for (int w = 1; w < PER; w <<= 1)
-#pragma unroll
-      for (int j = 0; j + w < PER; j += 2 * w) mt[j] = fmaxf(mt[j], mt[j + w]);
-    const float mx = key_value(__reduce_max_sync(FULL, order_key(mt[0])));
-    int ft[PER];
-#pragma unroll
-    for (int j = 0; j < PER; ++j) ft[j] = c[j] >= mx ? j : PER;
-#pragma unroll
-    for (int w = 1; w < PER; w <<= 1)
-#pragma unroll
-      for (int j = 0; j + w < PER; j += 2 * w) ft[j] = min(ft[j], ft[j + w]);
-    // every warp holds a live lane, so its maximum is finite and hit
-    const int owner = __ffs(__ballot_sync(FULL, ft[0] < PER)) - 1;
-    const int first = warp * 32 * PER + owner * PER + __shfl_sync(FULL, ft[0], owner);
-    const int p = i & 1;
-    if (lane == 0) {
-      wmx[p][warp] = mx;
-      wix[p][warp] = first;
+      for (int j = 0; j < 4; ++j) {
+        const int key = fkey(c[j]);
+        if (key > bk) {
+          bk = key;
+          bi = 4 * q[k] + j;
+        }
+      }
     }
+    hook.mark(1);
+    const int wk = __reduce_max_sync(FULL, bk);
+    const int wi = __reduce_min_sync(FULL, bk == wk ? bi : INT_MAX);
+    hook.mark(2);
+    const int p = i & 1;
+    if (lane == 0) xch[p][warp] = make_int2(wk, wi);
     __syncthreads();
-    float gm = wmx[p][0];
-    for (int w = 1; w < n_warp; ++w) gm = fmaxf(gm, wmx[p][w]);
-    int w = 0;
-    while (!(wmx[p][w] >= gm)) ++w;
-    st = wix[p][w];
+    const int2 e = lane < n_warp ? xch[p][lane] : make_int2(INT_MIN, INT_MAX);
+    const int gk = __reduce_max_sync(FULL, e.x);
+    st = __reduce_min_sync(FULL, e.x == gk ? e.y : INT_MAX);
+    hook.mark(3);
     if ((i & 31) == lane) held = st;
     if (warp == 0 && (i & 31) == 31) prow[n - 1 - (i - 31) - lane] = held;
   }
+  hook.finish(n);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   const int rem = n & 31;
   if (warp == 0 && lane < rem) prow[rem - 1 - lane] = held;
 }
 
-template <int RING_W>
-int launch_wide(const void* sc, const void* transT, const void* last, const void* tact,
-                void* path, int B, int T, int SP, cudaStream_t stream) {
-  const size_t shmem = (size_t)RING_W * SP * sizeof(float);  // 128 KB at SP 8192
-  cudaError_t e = cudaFuncSetAttribute(viterbi_bwd_wide_kernel<RING_W>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+// the ring's rows at SP: 16, 8 or 4 (at most 192 KB)
+constexpr int ring_rows(int SP) { return SP <= 3072 ? 16 : SP <= 6144 ? 8 : 4; }
+
+template <int SPT, int RING_W, class Hook>
+int launch_wide_ring(const void* sc, const void* transT, const void* last, const void* tact,
+                     void* path, int B, int T, int SP, cudaStream_t stream) {
+  auto kern = viterbi_bwd_wide_kernel<SPT, RING_W, Hook>;
+  const size_t shmem = (size_t)RING_W * SP * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)shmem);
   if (e != cudaSuccess) return (int)e;
-  const int warps = (SP + 1023) / 1024;
-  viterbi_bwd_wide_kernel<RING_W><<<B, 32 * warps, shmem, stream>>>(
-      (const float*)sc, (const float*)transT, (const int*)last, (const int*)tact,
-      (int32_t*)path, B, T, SP);
+  const int threads = (SP / SPT + 31) / 32 * 32;
+  if (threads > 1024) return (int)cudaErrorInvalidValue;
+  kern<<<B, threads, shmem, stream>>>((const float*)sc, (const float*)transT, (const int*)last,
+                                      (const int*)tact, (int32_t*)path, B, T, SP);
   return (int)cudaGetLastError();
 }
+
+// SPT states a thread, the ring's rows by SP
+template <int SPT, class Hook = NoHook>
+int launch_wide(const void* sc, const void* transT, const void* last, const void* tact,
+                void* path, int B, int T, int SP, cudaStream_t stream) {
+  switch (ring_rows(SP)) {
+    case 16: return launch_wide_ring<SPT, 16, Hook>(sc, transT, last, tact, path, B, T, SP, stream);
+    case 8: return launch_wide_ring<SPT, 8, Hook>(sc, transT, last, tact, path, B, T, SP, stream);
+    default: return launch_wide_ring<SPT, 4, Hook>(sc, transT, last, tact, path, B, T, SP, stream);
+  }
+}
+
+// a shape the wide variant takes: SP a multiple of 128 in (1024, 8192]
+bool wide_ok(int SP) { return SP % 128 == 0 && SP > 1024 && SP <= 8192; }
 
 template <int NV>
 int launch_nv(const void* sc, const void* transT, const void* last, const void* tact,
@@ -306,13 +354,10 @@ extern "C" int viterbi_bwd_launch(const void* sc, const void* transT, const void
   }
 }
 
-// SP a multiple of 128 in (1024, 8192].
+// SP a multiple of 128 in (1024, 8192]: WIDE_SPT states a thread
 extern "C" int viterbi_bwd_wide_launch(const void* sc, const void* transT, const void* last,
                                        const void* tact, void* path, int B, int T, int SP,
                                        void* stream) {
-  if (SP % 128 != 0 || SP <= 1024 || SP > 8192) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (SP <= 3072) return launch_wide<16>(sc, transT, last, tact, path, B, T, SP, s);
-  if (SP <= 6144) return launch_wide<8>(sc, transT, last, tact, path, B, T, SP, s);
-  return launch_wide<4>(sc, transT, last, tact, path, B, T, SP, s);
+  if (!wide_ok(SP)) return (int)cudaErrorInvalidValue;
+  return launch_wide<WIDE_SPT>(sc, transT, last, tact, path, B, T, SP, (cudaStream_t)stream);
 }

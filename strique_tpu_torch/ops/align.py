@@ -26,8 +26,10 @@ Call widths, CTAs and fusion follow the device: on the card every wave
 call's CTAs a row and rows come from ``align_cuda.wave_launch_plan``
 (the shortest predicted call set, from the rule's CTAs up, within the
 SM count and the pointer budget), and both flanks fuse whenever the
-plan takes their 2B rows in one call (:func:`fuse_flanks`); the column
-route keeps its rule's CTAs and ``kernel_batch``'s widths.  On the CPU
+plan takes their 2B rows in one call (:func:`fuse_flanks`); each
+morph-form column call's from ``align_cuda.col_launch_plan`` (the same
+choice over the column kernel's cluster form, for a template past one
+CTA's table).  On the CPU
 the reference's 64-row widths and partial-batch fusion rule stay.
 
 ``STRIQUE_ALIGN_KERNEL=col`` (read on every ``align_core`` and
@@ -80,10 +82,10 @@ from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _distinct_rows, _round_up, alig
                          align_forward_ckpt_morph, align_forward_col, align_forward_col_morph,
                          align_forward_wave, align_forward_wave_morph, align_forward_wave_multi,
                          align_forward_wave_multi_morph, align_window_from_state,
-                         align_window_from_state_morph, col_table_ctas, kernel_batch,
-                         morph_decode, pad_template, pad_template_rows, ptr_budget_bytes,
-                         sm_count, template_levels, two_pass_group, wave_launch_plan,
-                         wave_span_bound_steps, wave_table_ctas)
+                         align_window_from_state_morph, col_launch_plan, col_table_ctas,
+                         kernel_batch, morph_decode, pad_template, pad_template_rows,
+                         ptr_budget_bytes, sm_count, template_levels, two_pass_group,
+                         wave_launch_plan, wave_span_bound_steps, wave_table_ctas)
 
 MAT_M, MAT_H, MAT_V = 0, 1, 2
 CKPT_STEPS = 16384  # the two-pass route's checkpoint stride (the reference's)
@@ -609,9 +611,11 @@ def align_core(signals, n_actual, template_np, params, lut=None, devices=None):
     outs = []
     b0 = 0
     while b0 < B:
-        if lut is None or col:
+        if lut is None:
             c, kb = ctas, kernel_batch(B - b0, n_cols=n_cols, mp=mp, device=dev,
                                        ctas=max(ctas, 1))
+        elif col:
+            c, kb = col_launch_plan(B - b0, tmpl_np, n_cols, dev, ctas=ctas)
         else:
             c, kb = wave_launch_plan(B - b0, tmpl_np, n_cols, dev, sm_count(dev), ctas=ctas)
         if lut is not None and c not in forms:

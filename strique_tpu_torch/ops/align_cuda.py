@@ -108,7 +108,7 @@ MAX_CTAS = 8
 MAX_CTA_LANES = 2048
 MAX_MP = 8192
 WAVE_RING_BYTES = 640
-COL_RING_BYTES = 784
+COL_RING_BYTES = 6912  # the CTA ring and the warp rings (col_align.cu CL_FIXED floats)
 # The wave kernel's TABLE step, us, by mode and form ("one": one CTA a
 # row, at its MP lanes; "cluster": a CTA of a cluster, at its lanes), as
 # (lanes, us) points: tools/probe_wave_cluster.py, N 8192, 8 rows of both
@@ -125,6 +125,12 @@ WAVE_STEP_US = {
                "cluster": ((128, 0.1447), (256, 0.1591), (384, 0.1974), (512, 0.2310),
                            (640, 0.2573), (768, 0.2913), (1152, 0.3834))},
 }
+
+# The column kernel's cluster TABLE step, us a column, by the CTA's lanes
+# (lanes, us): tools/probe_col_cluster.py, MP 2176, N 28672, 8 rows (2 to
+# 6 CTAs), NVIDIA H100 80GB HBM3, 700.00 W.  col_launch_plan predicts a
+# call set's wall from it.
+COL_STEP_US = ((384, 0.4515), (512, 0.4524), (640, 0.5016), (768, 0.4945), (1152, 0.5620))
 
 _DEFAULT_PTR_BUDGET = int(3.5 * (1 << 30))
 _ptr_budget_cache: dict = {}
@@ -185,19 +191,22 @@ def sm_count(device) -> int | None:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def cluster_capacity(device, ctas: int, mpc: int) -> int | None:
+def cluster_capacity(device, ctas: int, mpc: int, kernel: str = "wave") -> int | None:
     """Clusters of ``ctas`` CTAs of ``mpc`` lanes the card of ``device``
-    runs at once, as the wave kernel launches them (one CTA an SM): the
-    SMs of a graphics processing cluster hold whole clusters only, so
-    fewer than SMs / ``ctas`` may fit.  The kernel library's occupancy
-    query, once a card and shape; None for a CPU device."""
+    runs at once, as the wave kernel (``kernel`` "wave") or the column
+    kernel ("col") launches them (one CTA an SM): the SMs of a graphics
+    processing cluster hold whole clusters only, so fewer than SMs /
+    ``ctas`` may fit.  The kernel library's occupancy query, once a card,
+    kernel and shape; None for a CPU device."""
     dev = torch.device(device) if device is not None else torch.device("cpu")
     if dev.type != "cuda":
         return None
-    key = (dev.index if dev.index is not None else torch.cuda.current_device(), ctas, mpc)
+    key = (dev.index if dev.index is not None else torch.cuda.current_device(), kernel, ctas,
+           mpc)
     if key not in _cluster_capacity_cache:
         with torch.cuda.device(dev):
-            _cluster_capacity_cache[key] = int(_build.lib().wave_cluster_capacity(ctas, mpc))
+            _cluster_capacity_cache[key] = int(
+                getattr(_build.lib(), f"{kernel}_cluster_capacity")(ctas, mpc))
     return _cluster_capacity_cache[key]
 
 
@@ -398,19 +407,40 @@ def two_pass_group(rows: int, mp: int, w_steps: int, device, sms: int | None = N
     return kernel_batch(rows, n_cols=w_steps, mp=mp, device=device, sms=sms, ctas=ctas)
 
 
-def wave_step_us(mode: str, mp: int, ctas: int) -> float:
-    """The TABLE step of the wave kernel, in us, of a row of ``mp``
-    lanes on ``ctas`` CTAs (1: the one-CTA instance), mode "ptr",
-    "ckpt" or "window": read from WAVE_STEP_US at the CTA's lanes (MP on
-    one CTA), linear between the measured lanes, flat below the first
-    (or with one point) and on the last two's slope past the last."""
-    pts = WAVE_STEP_US[mode]["one" if ctas == 1 else "cluster"]
-    x = mp if ctas == 1 else cta_lanes(mp, ctas)
+def _step_at(pts, x: int) -> float:
+    """A step table's us at ``x`` lanes a CTA: linear between its
+    measured (lanes, us) points, flat below the first (or with one
+    point) and on the last two's slope past the last."""
     if len(pts) == 1 or x <= pts[0][0]:
         return pts[0][1]
     k = min(max(int(np.searchsorted([p[0] for p in pts], x)), 1), len(pts) - 1)
     (x0, y0), (x1, y1) = pts[k - 1], pts[k]
     return y0 + (y1 - y0) * (x - x0) / (x1 - x0)
+
+
+def wave_step_us(mode: str, mp: int, ctas: int) -> float:
+    """The TABLE step of the wave kernel, in us, of a row of ``mp``
+    lanes on ``ctas`` CTAs (1: the one-CTA instance), mode "ptr",
+    "ckpt" or "window": WAVE_STEP_US at the CTA's lanes (MP on one CTA),
+    read by :func:`_step_at`."""
+    pts = WAVE_STEP_US[mode]["one" if ctas == 1 else "cluster"]
+    return _step_at(pts, mp if ctas == 1 else cta_lanes(mp, ctas))
+
+
+def _least_calls(rows: int, choices, width, cost) -> tuple[int, int]:
+    """The first call (CTAs a row, rows) of the call sequence over
+    ``rows`` rows whose summed cost is least: ``choices(r)`` the CTA
+    counts a call may take with r rows left, ``width(c, r)`` its rows at
+    C, ``cost(c)`` its predicted wall; ties take fewer CTAs."""
+    best: dict = {0: (0.0, 0, 0)}  # rows left -> (wall, first call's C, its rows)
+
+    def plan(r: int) -> tuple:
+        if r not in best:
+            best[r] = min((cost(c) + plan(max(r - kb, 0))[0], c, kb)
+                          for c in choices(r) for kb in [width(c, r)])
+        return best[r]
+
+    return plan(rows)[1:]
 
 
 def wave_launch_plan(rows: int, tmpl, n_cols: int, device=None, sms: int | None = None,
@@ -463,28 +493,22 @@ def wave_launch_plan(rows: int, tmpl, n_cols: int, device=None, sms: int | None 
 
     if c_min == 1 and rows * MAX_CTAS > sms:
         return 1, width(1, rows)
-    ok = [c for c in _cluster_ctas(_distinct_rows(tmpl)[0].tobytes(), mp, c_min)
+    ok = [c for c in _cluster_ctas(_distinct_rows(tmpl)[0].tobytes(), mp, c_min, "wave")
           if c == c_min or 8 * c <= sms]
-    best: dict = {0: (0.0, 0, 0)}  # rows left -> (wall, first call's C, its rows)
-
-    def plan(r: int) -> tuple:
-        if r not in best:
-            few = c_min > 1 or r * MAX_CTAS <= sms
-            best[r] = min((step(c) + plan(max(r - kb, 0))[0], c, kb)
-                          for c in (ok if few else [c_min]) for kb in [width(c, r)])
-        return best[r]
-
-    return plan(rows)[1:]
+    return _least_calls(rows, lambda r: ok if c_min > 1 or r * MAX_CTAS <= sms else [c_min],
+                        width, step)
 
 
 @functools.lru_cache(maxsize=64)
-def _cluster_ctas(tmpl_bytes: bytes, mp: int, c_min: int) -> tuple:
+def _cluster_ctas(tmpl_bytes: bytes, mp: int, c_min: int, kernel: str) -> tuple:
     """The CTA counts from ``c_min`` up to MAX_CTAS whose split the kernel
-    takes and whose per-CTA tables fit the distinct (R, MP) template rows
-    ``tmpl_bytes`` (f32): the launch plan's choices, once a template."""
+    ("wave" or "col") takes and whose per-CTA tables fit the distinct (R,
+    MP) template rows ``tmpl_bytes`` (f32): a launch plan's choices, once
+    a template."""
     rows = np.frombuffer(tmpl_bytes, np.float32).reshape(-1, mp)
+    mode = wave_score_mode if kernel == "wave" else col_score_mode
     return tuple(c for c in range(c_min, MAX_CTAS + 1)
-                 if c == c_min or (_split_ok(mp, c) and wave_score_mode(
+                 if c == c_min or (_split_ok(mp, c) and mode(
                      _cta_level_counts(rows, c), mp, c) == "table"))
 
 
@@ -1154,13 +1178,13 @@ def col_score_mode(n_levels: int, mp: int, ctas: int = 1) -> str:
     row: "table" when the template has at most TABLE_MAX_MP lanes (one
     CTA) or the split is one the kernel takes (a cluster), and the CTA's
     ``n_levels`` x 258 f32 table fits one block's shared memory
-    (SMEM_BYTES) beside the kernel's COL_EXCH_FLOATS exchange floats
-    (and, on a cluster, its ring: COL_RING_BYTES), else "pow" (on the
-    decoded f32).  The cap is 224 levels at any MP up to 1024 (a
+    (SMEM_BYTES) beside the one-CTA kernel's COL_EXCH_FLOATS exchange
+    floats or the cluster kernel's rings (COL_RING_BYTES), else "pow"
+    (on the decoded f32).  The cap is 224 levels at any MP up to 1024 (a
     ``samples=6`` template of the bench's c9orf72 flanks has 119-142),
-    223 a CTA on a cluster."""
-    ring = COL_RING_BYTES if ctas > 1 else 0
-    fits = ring + 4 * (COL_EXCH_FLOATS + n_levels * SCORE_COLS) <= SMEM_BYTES
+    218 a CTA on a cluster."""
+    fixed = COL_RING_BYTES if ctas > 1 else 4 * COL_EXCH_FLOATS
+    fits = fixed + 4 * n_levels * SCORE_COLS <= SMEM_BYTES
     lanes_ok = mp <= TABLE_MAX_MP if ctas == 1 else _split_ok(mp, ctas)
     return "table" if lanes_ok and fits else "pow"
 
@@ -1168,8 +1192,53 @@ def col_score_mode(n_levels: int, mp: int, ctas: int = 1) -> str:
 def col_table_ctas(tmpl) -> int:
     """CTAs a row of the column kernel's TABLE mode takes for the (1,
     MP) template, by :func:`col_score_mode`, as :func:`wave_table_ctas`
-    does for the wave kernel; 0 = POW."""
+    does for the wave kernel; 0 = POW.  The fewest that fit: the launch
+    plan (:func:`col_launch_plan`) may take more."""
     return _table_ctas(tmpl, col_score_mode)
+
+
+def col_step_us(mp: int, ctas: int) -> float:
+    """The column kernel's cluster TABLE step, in us a column, of a row of
+    ``mp`` lanes on ``ctas`` CTAs: COL_STEP_US at the CTA's lanes, read
+    by :func:`_step_at`."""
+    return _step_at(COL_STEP_US, cta_lanes(mp, ctas))
+
+
+def col_launch_plan(rows: int, tmpl, n_cols: int, device=None, sms: int | None = None,
+                    ctas: int | None = None) -> tuple[int, int]:
+    """(CTAs a row, rows) of the column kernel's next call over ``rows``
+    rows of the (1, MP) template ``tmpl`` and ``n_cols`` signal columns,
+    decided before the launch.  ``ctas`` is :func:`col_table_ctas` of
+    ``tmpl`` if the caller has it.
+
+    Card rule (a CUDA device, or any device when ``sms`` is given), for a
+    template past one CTA's table (``ctas`` >= 2): each call takes a CTA
+    count C from ``ctas`` up to MAX_CTAS whose split the kernel takes and
+    whose per-CTA tables fit (:func:`col_score_mode`), and as many rows
+    as fit: :func:`kernel_batch`'s width at C, within the clusters the
+    card runs at once (:func:`cluster_capacity` of the column kernel).  Of
+    the call sequences that cover the rows, the plan takes the one whose
+    predicted wall is least (a call costs ``n_cols`` columns at
+    :func:`col_step_us`) and returns its first call; ties take fewer
+    CTAs.  A template within one CTA (``ctas`` 1) or past every split
+    (0: POW) keeps ``ctas`` at kernel_batch's width.  CPU rule: ``ctas``
+    and the reference's widths, so the CPU parity tests compare like
+    with like."""
+    tmpl = np.asarray(tmpl, np.float32)
+    mp = tmpl.shape[1]
+    c_min = col_table_ctas(tmpl) if ctas is None else int(ctas)
+    if sms is None:
+        sms = sm_count(device)
+
+    def width(c: int, r: int) -> int:
+        kb = kernel_batch(r, n_cols=n_cols, mp=mp, device=device, sms=sms, ctas=max(c, 1))
+        cap = cluster_capacity(device, c, cta_lanes(mp, c), "col") if c > 1 else None
+        return kb if cap is None else min(kb, max(8, cap // 8 * 8))
+
+    if sms is None or c_min < 2:
+        return c_min, width(c_min, rows)
+    ok = _cluster_ctas(tmpl.tobytes(), mp, c_min, "col")
+    return _least_calls(rows, lambda r: ok, width, lambda c: n_cols * col_step_us(mp, c))
 
 
 def _cols_to_run(n_actual, N: int) -> int:

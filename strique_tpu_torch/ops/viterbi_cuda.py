@@ -37,8 +37,9 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     past each read's length.  Kernel ``csrc/viterbi_bwd.cu``, one warp a
     read with its score rows prefetched into a shared ring up to
     ``NARROW_MAX_SP``; past it, up to ``MAX_SP``, the wide variant walks
-    with one warp per 1024 states and a cross-warp first-max a step
-    (launch counter ``viterbi_backward_wide``).
+    with one CTA a read of ``BWD_WIDE_SPT`` states a thread, the transT
+    row reloaded only when the state moves, and a keyed cross-warp
+    first-max a step (launch counter ``viterbi_backward_wide``).
 
 Each kernel's plain PyTorch twin (``_fwd_plain``, ``_fwd_dense_plain``,
 ``_bwd_plain``) runs for CPU tensors only.  Layouts are the reference's:
@@ -152,6 +153,9 @@ class FwdLayout(NamedTuple):
 FWD_LAYOUTS = (FwdLayout(0, "viterbi_forward_factored", FWD_MAX_DIAG, FWD_MAX_CHAIN),
                FwdLayout(1, "viterbi_forward_factored_diag", FWD_DIAG_ONLY, 0))
 BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
+# the wide backward (SP past NARROW_MAX_SP): states a thread, one CTA of
+# SP / BWD_WIDE_SPT threads a read (csrc/viterbi_bwd.cu WIDE_SPT)
+BWD_WIDE_SPT = 8
 # the dense forward's resident mode (csrc/viterbi_dense.cu): a cluster of
 # at most DENSE_MAX_CLUSTER CTAs a read, each warp holding the transitions
 # into its 128/16 or 64/16 destination columns in at most DENSE_MAX_REGS

@@ -322,6 +322,7 @@ VITERBI_WIDE = {
     "flanked 700": ("flanked", 700, [1024, 900, 256, 97, 40, 9, 4, 1], False),
     "flanked 1330": ("flanked", 1330, [1024, 600, 200, 77, 33, 8, 2, 1], False),
     "mod 260": ("mod", 260, [1024, 800, 129, 65, 33, 17, 2, 1], False),
+    "mod 260, constant obs": ("mod", 260, [1024, 1000, 300, 64, 32, 16, 3, 1], True),
     "mod 430": ("mod", 430, [1024, 640, 200, 65, 34, 15, 3, 1], False),
     "mod 500": ("mod", 500, [1024, 1000, 300, 64, 32, 16, 3, 1], False),
     "mod 1000": ("mod", 1000, [1024, 999, 333, 63, 33, 7, 2, 1], False),
@@ -378,6 +379,51 @@ def viterbi_wide_case(pm, pm_mod, label: str, rng):
             x = np.clip(x, chm.meta["model_min"], chm.meta["model_max"])
         obs[i, :k] = 100.0 if constant else x.astype(np.float32)[:k]
     return chm, obs, np.array(lens, np.int32)
+
+
+# the wide backward's edge inputs (label -> SP): score rows and a sparse
+# transT built directly, each state's predecessors s, s-1, s-2 and s-5
+# (mod SP) and every 7th state none (its candidates all fl(sc + NEG):
+# NEG itself for every moderate score, a tie across the CTA's warps that
+# the least state wins).  "signed zeros": every score and transition is
+# -0.0 or +0.0, so a step's best candidates tie at zero in both signs
+# (the first of them wins under >=); "ties at NEG": transitions of
+# -9.9e29 and 3 scores in 10 at -5e29; "random ties": scores from 4
+# values, transitions from 3
+BWD_EDGE_T = 256
+BWD_EDGES = {"signed zeros": 1152, "ties at NEG": 1152, "random ties": 4480,
+             "ties at NEG, SP 8192": 8192}
+
+
+def bwd_edge_case(label: str, rng):
+    """(sc (T, 8, SP) f32, transT (SP, SP) f32, last (8,) int64, lengths
+    (8,) int32) of the wide backward's edge case ``label``
+    (``BWD_EDGES``), T = BWD_EDGE_T."""
+    sp = BWD_EDGES[label]
+    neg = np.float32(-1e30)
+    transT = np.full((sp, sp), neg, np.float32)
+    s = np.arange(sp)
+    has = s % 7 != 3
+    for d in (0, 1, 2, 5):
+        u = (s - d) % sp
+        if label == "signed zeros":
+            w = rng.choice(np.array([-0.0, 0.0], np.float32), sp)
+        elif label.startswith("ties at NEG"):
+            w = np.full(sp, -9.9e29, np.float32)
+        else:
+            w = rng.choice(np.array([-1.5, -0.25, 0.0], np.float32), sp)
+        transT[s[has], u[has]] = w[has]
+    T, B = BWD_EDGE_T, 8
+    if label == "signed zeros":
+        sc = rng.choice(np.array([-0.0, 0.0], np.float32), (T, B, sp))
+    elif label.startswith("ties at NEG"):
+        sc = rng.uniform(-10.0, 0.0, (T, B, sp)).astype(np.float32)
+        sc[rng.random((T, B, sp)) < 0.3] = -5e29
+    else:
+        sc = rng.choice(np.array([-3.0, -1.0, -0.5, 0.0], np.float32), (T, B, sp))
+    lens = np.array([T, T - 1, 129, 65, 33, 17, 2, 1], np.int32)
+    last = rng.integers(0, sp, B).astype(np.int64)
+    return sc, transT, last, lens
 
 
 # the traceback's hard planes: each row's codes (a dominant nibble and the

@@ -289,3 +289,176 @@ def test_overcap_routes_at_each_plan_ctas_match_jax(overcap, route, ctas, monkey
                 np.testing.assert_allclose(out[k].numpy(), want, rtol=0, atol=SCORE_ATOL)
             else:
                 np.testing.assert_array_equal(out[k].numpy().astype(want.dtype), want, k)
+
+
+# -- the column kernel's launch plan (align_cuda.col_launch_plan) ---------
+
+COL_CASES = [(rows, mp) for mp in (896, 1152, 2176, 4096)
+             for rows in (8, 16, 24, 32, 40, 64, 72, 128)]
+
+
+def _col_ok(tmpl):
+    """The CTA counts the column plan may give a template past one CTA:
+    from ``col_table_ctas`` up, splits the kernel takes whose per-CTA
+    tables fit."""
+    mp = tmpl.shape[1]
+    c_min = TC.col_table_ctas(tmpl)
+    return [c for c in range(c_min, TC.MAX_CTAS + 1)
+            if c == c_min or (TC._split_ok(mp, c) and TC.col_score_mode(
+                TC._cta_level_counts(tmpl, c), mp, c) == "table")]
+
+
+def _col_calls(rows, tmpl, n_cols, device="cpu", sms=SMS):
+    out, left = [], rows
+    while left > 0:
+        c, kb = TC.col_launch_plan(left, tmpl, n_cols, device, sms)
+        out.append((c, kb))
+        left -= kb
+    return out
+
+
+def _col_capacity(monkeypatch):
+    """The H100's clusters at once, as the column kernel launches them
+    (one CTA an SM, as the wave kernel's)."""
+    monkeypatch.setattr(TC, "cluster_capacity",
+                        lambda device, c, mpc, kernel="wave": H100_CLUSTERS[c])
+
+
+@pytest.mark.parametrize("rows,mp", COL_CASES)
+def test_col_plan_is_the_shortest_call_set_within_the_card(rows, mp, monkeypatch):
+    """Every call of the column plan's sequence over one flank's template:
+    one CTA where the template fits one (MP 896), else C >=
+    col_table_ctas, a split the kernel takes with tables that fit; the
+    width kernel_batch's at C within the card's clusters at once, rows x
+    C within the SMs.  The sequence covers the rows, and no sequence of
+    such calls predicts a shorter wall (each call n_cols columns at its
+    C's col_step_us)."""
+    _col_capacity(monkeypatch)
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "60")
+    tmpl = _flank_rows(mp)[:1]
+    n_cols = 24576
+    c_min = TC.col_table_ctas(tmpl)
+    ok = _col_ok(tmpl)
+
+    def width(r, c):
+        kb = TC.kernel_batch(r, n_cols=n_cols, mp=mp, device="cpu", sms=SMS, ctas=max(c, 1))
+        return kb if c < 2 else min(kb, H100_CLUSTERS[c] // 8 * 8)
+
+    memo = {0: 0.0}
+
+    def least(r):
+        if r not in memo:
+            memo[r] = min(n_cols * TC.col_step_us(mp, c) + least(max(r - width(r, c), 0))
+                          for c in ok)
+        return memo[r]
+
+    seq, left, wall = _col_calls(rows, tmpl, n_cols), rows, 0.0
+    for c, kb in seq:
+        assert kb % 8 == 0 and 8 <= kb <= max(8, TC._round_up(left, 8))
+        assert kb * max(c, 1) <= SMS and kb == width(left, c)
+        if c_min < 2:
+            assert c == c_min
+        else:
+            assert c in ok and c >= c_min
+            wall += n_cols * TC.col_step_us(mp, c)
+        left -= kb
+    assert left <= 0
+    if c_min >= 2:
+        assert wall == pytest.approx(least(rows), rel=1e-12)
+
+
+@pytest.mark.parametrize("mp", [896, 2176])
+def test_col_plan_cpu_rule_is_the_references(mp):
+    """Without an SM count the column plan keeps col_table_ctas and the
+    reference's widths (64 rows a call, fewer rounded up to 8); a
+    template past every split's table keeps POW (0)."""
+    tmpl = _flank_rows(mp)[:1]
+    for rows in (8, 20, 64, 200):
+        assert TC.col_launch_plan(rows, tmpl, 24576, "cpu") == (
+            TC.col_table_ctas(tmpl), min(TC.BATCH_WAVE, TC._round_up(rows, 8)))
+    rng = np.random.default_rng(3)
+    tp, _ = TC.pad_template(rng.uniform(60, 120, 2100).astype(np.float32))
+    assert TC.col_table_ctas(tp) == 0
+    assert TC.col_launch_plan(72, tp, 30000, "cpu", SMS) == (0, 72)
+
+
+def test_col_plan_on_the_card_at_phase_4e(monkeypatch):
+    """The column plan with the H100's cluster capacities and the shipped
+    step table at phase 4e's template width (MP 2176, 2 CTAs by the rule)
+    and N 28672: the column route's 64 rows stay one call on 2 CTAs (3
+    or more would take two calls), 32 rows take 3 CTAs, 8-16 rows 6 (the
+    picks tools/probe_col_cluster.py measured fastest at each)."""
+    _col_capacity(monkeypatch)
+    monkeypatch.setenv("STRIQUE_PTR_BUDGET_GB", "60")
+    rng = np.random.default_rng(4)
+    flank = TC.pad_template(_samples6(rng, 362, 2172))[0]
+    assert flank.shape[1] == 2176 and TC.col_table_ctas(flank) == 2
+    assert _col_calls(64, flank, 28672) == [(2, 64)]
+    assert _col_calls(32, flank, 28672) == [(3, 32)]
+    assert _col_calls(16, flank, 28672) == [(6, 16)]
+    assert _col_calls(8, flank, 28672) == [(6, 8)]
+    assert _col_calls(72, flank, 28672) == [(2, 64), (6, 8)]
+
+
+def test_col_step_table_reads_between_and_past_its_points(monkeypatch):
+    """col_step_us: the CTA's lanes (cta_lanes) on COL_STEP_US, linear
+    between points, the first value below the first, the last two's
+    slope past the last."""
+    assert len(TC.COL_STEP_US) >= 2
+    monkeypatch.setattr(TC, "COL_STEP_US", ((256, 0.2), (512, 0.3), (1152, 0.5)))
+    assert TC.col_step_us(2176, 8) == pytest.approx(0.2 + 0.1 * 128 / 256)  # 384 lanes
+    assert TC.col_step_us(1152, 8) == pytest.approx(0.2)  # 256 lanes: the first point
+    assert TC.col_step_us(2176, 2) == pytest.approx(0.5)  # 1152
+    assert TC.col_step_us(4096, 2) == pytest.approx(0.5 + 0.2 * 896 / 640)  # 2048: past
+
+
+B_COL, N_COL = 8, 256
+
+
+@pytest.fixture(scope="module")
+def overcap_col():
+    """Morph reads of one samples=6 flank padding to MP 2176 and the
+    reference's column route (_align_batch_pallas, Pallas interpret mode)
+    on the decoded reads."""
+    rng = np.random.default_rng(976)
+    t_pre = np.repeat(rng.uniform(60, 120, 362), 6).astype(np.float32)
+    sig = rng.uniform(60, 120, (B_COL, N_COL))
+    for i in range(B_COL):
+        sig[i, 20 + 10 * i : 140 + 10 * i] = t_pre[600:720] + rng.normal(0, 0.5, 120)
+    bins, lut = quantise(sig, rng, rng.uniform(40, 60, B_COL), rng.uniform(130, 150, B_COL))
+    na = rng.integers(150, N_COL, B_COL).astype(np.int32)
+    na[0] = N_COL
+    tp, m = TC.pad_template(t_pre)
+    assert tp.shape[1] == MP and TC.col_table_ctas(tp) == 2
+    dec = np.take_along_axis(lut, bins.astype(np.int64), axis=1)
+    p = AlignParams()
+    ref = JA._align_batch_pallas(jnp.asarray(dec), jnp.asarray(na), jnp.asarray(tp), p, m)
+    return bins, lut, na, t_pre, p, {k: np.asarray(v) for k, v in ref.items()}
+
+
+@pytest.mark.parametrize("ctas", [2, 3, 4, 5, 6])
+def test_col_route_at_each_plan_ctas_matches_jax(overcap_col, ctas, monkeypatch):
+    """align_core under STRIQUE_ALIGN_KERNEL=col on morph reads past one
+    CTA's table, on the card's rule, with the step table set so the plan
+    picks ``ctas``: every column call takes that split, and the outputs
+    equal the reference's."""
+    bins, lut, na, t_pre, p, ref = overcap_col
+    tp, _ = TC.pad_template(t_pre)
+    assert ctas in _col_ok(tp)
+    _col_capacity(monkeypatch)
+    monkeypatch.setattr(TA, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(TC, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(TC, "col_step_us", lambda mp, c: 0.1 if c == ctas else 1.0)
+    monkeypatch.setenv("STRIQUE_ALIGN_KERNEL", "col")
+    monkeypatch.delenv("STRIQUE_PTR_BUDGET_GB", raising=False)
+    forms = []
+    real = TA.template_levels
+    monkeypatch.setattr(TA, "template_levels", lambda t, c=None: forms.append(c) or real(t, c))
+    got = TA.align_core(torch.from_numpy(bins), torch.from_numpy(na), t_pre, p,
+                        lut=torch.from_numpy(lut))
+    assert forms == [ctas]
+    for k in FIELDS:
+        if k == "score":
+            np.testing.assert_allclose(got[k].numpy(), ref[k], rtol=0, atol=SCORE_ATOL)
+        else:
+            np.testing.assert_array_equal(got[k].numpy().astype(ref[k].dtype), ref[k], k)

@@ -25,10 +25,11 @@ from strique_tpu_torch.ops import align_cuda as TC
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
-from strique_tpu_torch.synthetic import (MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX, VITERBI_EDGES,
-                                        VITERBI_WIDE, make_mod_reads, make_reads, quantise,
-                                        traceback_plane, viterbi_edge_case, viterbi_wide_case,
-                                        write_mod_model, write_pore_model)
+from strique_tpu_torch.synthetic import (BWD_EDGES, MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX,
+                                        VITERBI_EDGES, VITERBI_WIDE, bwd_edge_case,
+                                        make_mod_reads, make_reads, quantise, traceback_plane,
+                                        viterbi_edge_case, viterbi_wide_case, write_mod_model,
+                                        write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -328,11 +329,11 @@ def test_gpu_diag_forward_edges_match_plain(cuda_device, mod_models, case):
 @pytest.mark.parametrize("case", list(VITERBI_WIDE))
 def test_gpu_wide_viterbi_matches_plain(cuda_device, mod_models, case):
     """Rows 3-4 past SP 1024 (``synthetic.VITERBI_WIDE``: SP 1152, 1792,
-    2048, 4096, 4480 and 8192, both slot layouts): the forward's cluster
-    form in the HMM's layout on ``fwd_cluster_ctas``' CTAs and the wide
-    backward, their launch counters alone (the one-CTA forward's not),
-    against the twins: rows below each length, fin and acc bit-equal,
-    paths equal."""
+    2048, 4096, 4480 and 8192, both slot layouts, constant obs in each):
+    the forward's cluster form in the HMM's layout on
+    ``fwd_cluster_ctas``' CTAs and the wide backward, their launch
+    counters alone (the one-CTA forward's not), against the twins: rows
+    below each length, fin and acc bit-equal, paths equal."""
     pm, pm_mod = (PoreModel(m) for m in mod_models)
     chm, obs, lens = viterbi_wide_case(pm, pm_mod, case, np.random.default_rng(90 + len(case)))
     ph = TVC.PaddedHMM(chm, cuda_device)
@@ -356,16 +357,42 @@ def test_gpu_wide_viterbi_matches_plain(cuda_device, mod_models, case):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", ["flanked 150", "flanked 260", "mod 260", "mod 430"])
-@pytest.mark.parametrize("ctas", [2, 4, 8])
+@pytest.mark.parametrize("label", list(BWD_EDGES))
+def test_gpu_wide_backward_edges_match_plain(cuda_device, label):
+    """The wide backward on the edge inputs (``synthetic.BWD_EDGES``: -0.0
+    against +0.0 ties, ties at NEG across the CTA's warps, random ties;
+    SP 1152, 4480 and 8192), its counter alone, paths equal to the
+    twin's."""
+    sc, transT, last, lens = (torch.from_numpy(x).to(cuda_device)
+                              for x in bwd_edge_case(label, np.random.default_rng(70)))
+    before = _build.LAUNCHES["viterbi_backward_wide"]
+    path = TVC.viterbi_backward_batch(sc, last, lens, transT)
+    assert _build.LAUNCHES["viterbi_backward_wide"] == before + 1
+    assert torch.equal(path, TVC._bwd_plain(sc, last, lens, transT))
+
+
+# the cluster forward's cases by SP, and every CTA count its rule can
+# pick there: 2 to 8, each CTA of at most 1024 lanes and none of them
+# empty (fwd_cluster_ctas; 7 CTAs of 192 lanes at SP 1152 leave the last
+# empty, so neither the rule nor this list takes them)
+WIDE_CTAS_CASES = {"flanked 150": 1152, "flanked 260": 1792, "mod 260": 1152, "mod 430": 1792}
+WIDE_CTAS = [(case, c) for case, sp in WIDE_CTAS_CASES.items()
+             for c in range(2, TVC.FWD_MAX_CLUSTER + 1)
+             if TVC.fwd_cluster_lanes(sp, c) <= 1024
+             and TVC.fwd_cluster_lanes(sp, c) * (c - 1) < sp]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case,ctas", WIDE_CTAS)
 def test_gpu_wide_forward_every_ctas_matches_plain(cuda_device, mod_models, case, ctas):
-    """The cluster form at 2, 4 and 8 CTAs a read (beside the rule's: a
-    CTA of 576 to 144 lanes at SP 1152, of 896 to 224 at SP 1792, the
-    last CTA part dead), both layouts, launched directly, bit-equal to
-    the twin."""
+    """The cluster form at every CTA count from 2 to 8 a read that its
+    rule can pick (beside the rule's: a CTA of 576 to 160 lanes at SP
+    1152, of 896 to 224 at SP 1792, the last CTA part dead), both
+    layouts, launched directly, bit-equal to the twin."""
     pm, pm_mod = (PoreModel(m) for m in mod_models)
     chm, obs, lens = viterbi_wide_case(pm, pm_mod, case, np.random.default_rng(95 + ctas))
     ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == WIDE_CTAS_CASES[case]
     o = torch.from_numpy(obs).to(cuda_device)
     n = torch.from_numpy(lens).to(cuda_device)
     B, T = o.shape
@@ -1120,18 +1147,33 @@ def test_gpu_cluster_ckpt_and_window_match_table_twin_and_pow(cuda_device, mp):
     _check_two_pass_cluster(cuda_device, bins, lut, na, tmpl, mr, STEEP, ctas)
 
 
+def _col_plan_ctas():
+    """(MP, C) of every CTA count the column kernel's launch plan can give
+    the over-the-cap template of each MP (col_launch_plan: from
+    col_table_ctas up to 8, splits the kernel takes whose per-CTA tables
+    fit); the templates are numpy's, so every worker collects the same."""
+    out = []
+    for mp in CLUSTER_MPS:
+        tp, _ = TC.pad_template(_overcap_templates(np.random.default_rng(920 + mp), mp)[0])
+        c_min = TC.col_table_ctas(tp)
+        out += [(mp, c) for c in range(c_min, TC.MAX_CTAS + 1)
+                if c == c_min or (TC._split_ok(mp, c) and TC.col_score_mode(
+                    TC._cta_level_counts(tp, c), mp, c) == "table")]
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("mp", list(CLUSTER_MPS))
-def test_gpu_cluster_col_matches_table_twin_and_pow(cuda_device, mp):
+@pytest.mark.parametrize("mp,ctas", _col_plan_ctas())
+def test_gpu_cluster_col_matches_table_twin_and_pow(cuda_device, mp, ctas):
     """Row 8 past one CTA's table: the column kernel's cluster TABLE mode
-    against the table twin, and its POW mode on lut[bins] against the
-    same twin run."""
+    at every CTA count its launch plan can pick against the table twin,
+    and its POW mode on lut[bins] against the same twin run; then again
+    with read 0's level table all NaN (equal NaN masks)."""
     rng = np.random.default_rng(920 + mp)
     B, N = 8, 512
     template = _overcap_templates(rng, mp)[0]
     tp, m = TC.pad_template(template)
-    ctas = TC.col_table_ctas(tp)
-    assert ctas >= 2
+    assert 2 <= TC.col_table_ctas(tp) <= ctas
     bins, lut, na = _morph_batch(rng, B, N, [template[:300]] * B)
     levels, lidx = TC.template_levels(tp, ctas)
     b, lt, n, lv, li, t = (torch.from_numpy(x).to(cuda_device)
@@ -1145,6 +1187,14 @@ def test_gpu_cluster_col_matches_table_twin_and_pow(cuda_device, mp):
     for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
         assert torch.equal(got_ptr[mask], ptr_p[mask])
         assert torch.equal(got_bot, bot_p)
+    # read 0's level table all NaN (a flat read's): the max_nan instance
+    lt = torch.from_numpy(_nan_row(lut)).to(cuda_device)
+    ptr, bot = TC.align_forward_col_morph(b, lt, n, lv, li, DEFAULT_P, m)
+    ptr_k, bot_k = TC.align_forward_col(TC.morph_decode(b, lt), n, t, DEFAULT_P, m)
+    ptr_p, bot_p = TC._col_table_plain(b, lt, *TC.flat_levels(lv, li), n, DEFAULT_P, m)
+    assert torch.isnan(bot[0]).any()
+    for got_ptr, got_bot in ((ptr, bot), (ptr_k, bot_k)):
+        assert torch.equal(got_ptr[mask], ptr_p[mask]) and _equal_nan(got_bot, bot_p)
 
 
 # every CTA count the launch plan can pick at the MPs the port meets

@@ -297,12 +297,12 @@ def test_cluster_rule_at_each_cap(mp):
     CTA's exchange buffers shrink with its lanes, so each split has a
     larger cap; at each split's cap the rule gives that split, one level
     more the next split, and past the last one (at most 8 CTAs) POW.
-    Column: one cap (223 levels a CTA) for every split; a template whose
+    Column: one cap (218 levels a CTA) for every split; a template whose
     every CTA holds more runs POW, and one whose levels spread over its
     lanes takes the fewest CTAs that bring each CTA's share under it."""
     for ctas_of, mode, ring, exch in (
             (TC.wave_table_ctas, TC.wave_score_mode, TC.WAVE_RING_BYTES, None),
-            (TC.col_table_ctas, TC.col_score_mode, TC.COL_RING_BYTES, TC.COL_EXCH_FLOATS)):
+            (TC.col_table_ctas, TC.col_score_mode, TC.COL_RING_BYTES, 0)):
         splits = [c for c in range(2, 9) if TC._split_ok(mp, c)]
         assert splits and splits[-1] <= TC.MAX_CTAS
         caps = []
@@ -322,9 +322,9 @@ def test_cluster_rule_at_each_cap(mp):
                 nxt = splits[k + 1] if k + 1 < len(splits) else 0
                 assert ctas_of(_cycled_template(mp, cap, mp + c)) == nxt
         else:
-            assert set(caps) == {223}
-            assert ctas_of(_cycled_template(mp, 222, mp)) == 2
-            assert ctas_of(_cycled_template(mp, 223, mp)) == 0
+            assert set(caps) == {218}
+            assert ctas_of(_cycled_template(mp, 217, mp)) == 2
+            assert ctas_of(_cycled_template(mp, 218, mp)) == 0
             # distinct values in runs of 4 lanes: MPC / 4 levels a CTA (+1)
             for c, cap in zip(splits, caps):
                 mpc = TC.cta_lanes(mp, c)
@@ -336,7 +336,7 @@ def test_cluster_rule_at_each_cap(mp):
     # pinned: two CTAs of 1152 lanes at MP 2176 (phase 4e's template)
     assert TC.cta_lanes(2176, 2) == 1152
     assert TC.wave_score_mode(206, 2176, 2) == "table" != TC.wave_score_mode(207, 2176, 2)
-    assert TC.col_score_mode(223, 2176, 2) == "table" != TC.col_score_mode(224, 2176, 2)
+    assert TC.col_score_mode(218, 2176, 2) == "table" != TC.col_score_mode(219, 2176, 2)
     assert not TC._split_ok(2176, 7) and not TC._split_ok(8320, 8)
 
 
