@@ -201,11 +201,18 @@ def lib():
 
 def launch(name: str, device, *args) -> None:
     """Call C entry point ``name`` with ``args`` on ``device``'s current
-    stream (the device made current for the launch); raise on an error."""
+    stream (the device made current for the launch); raise on an error.
+    Each call is a ``kernel.launch`` span naming the entry point and its
+    rows (the first integer argument of every entry point)."""
     import torch
 
-    with torch.cuda.device(device):
-        err = getattr(lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
+    from .utils import trace
+
+    with trace.span("kernel.launch", annotate=False) as sp:
+        if sp:
+            sp.attrs.update(entry=name, rows=args[_SIGNATURES[name].index(_I)])
+        with torch.cuda.device(device):
+            err = getattr(lib(), name)(*args, torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 

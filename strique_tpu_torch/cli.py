@@ -32,6 +32,7 @@ single dispatch).
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import sys
 
@@ -162,15 +163,25 @@ def cmd_count(argv) -> int:
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
 
+        from . import _build
+        from .utils import trace
+
         activities = [ProfilerActivity.CPU]
         if args.device == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        trace.reset()
         with profile(activities=activities) as prof:
             n = run_pipeline(sam_lines(), rd, ow, io_threads=args.t, batch_size=batch_size)
         os.makedirs(args.profile, exist_ok=True)
-        trace = os.path.join(args.profile, f"count_{os.getpid()}.json")
-        prof.export_chrome_trace(trace)
-        log(f"Main: Wrote the profile to {trace}.", LogLevel.Info)
+        path = os.path.join(args.profile, f"count_{os.getpid()}.json")
+        prof.export_chrome_trace(path)
+        # the spans that opened no annotation (the submit thread's, the
+        # main thread's per-line and per-launch ones), each on its
+        # thread's row of the same trace
+        trace.add_to_chrome_trace(path)
+        log(f"Main: Wrote the profile to {path}.", LogLevel.Info)
+        log(f"Main: Counters {json.dumps(trace.counts(), sort_keys=True)}; kernel launches "
+            f"{json.dumps({k: v for k, v in _build.LAUNCHES.items() if v})}.", LogLevel.Info)
     else:
         n = run_pipeline(sam_lines(), rd, ow, io_threads=args.t, batch_size=batch_size)
     if world > 1 and args.out:

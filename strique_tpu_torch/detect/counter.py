@@ -107,6 +107,7 @@ from ..ops.viterbi_cuda import (CHUNK_T, GROUP, PaddedHMM, check_card_sp, padded
                                 viterbi_batch)
 from ..parallel.mesh import on_stream, shard_rows, shard_streams
 from ..pore_model import PoreModel, mean_abs_dev
+from ..utils import trace
 from ..utils.logging import LogLevel, log
 from .packed import pack_meta, pack_results, path_itemsize, unpack_meta, unpack_results
 
@@ -371,12 +372,16 @@ class RepeatCounter:
         else:
             raise ValueError("strand must be + or -")
         B = len(raw_signals)
-        raws = [np.asarray(r, dtype=np.float64) for r in raw_signals]
+        with trace.span("submit.prep"):  # the reads' float64 copies, every route's
+            raws = [np.asarray(r, dtype=np.float64) for r in raw_signals]
         n_sigs = np.array([len(r) for r in raws], dtype=np.int32)
         npad = signal_bucket(int(n_sigs.max()))
         Bp = self._pad_rows(B)
         n_sigs_p = np.ones(Bp, dtype=np.int32)
         n_sigs_p[:B] = n_sigs
+        if trace.enabled():
+            trace.count("submit.samples", int(n_sigs.sum()))
+            trace.count("submit.padded", Bp * npad)
         have_native = native_lib.available()
         n_states = tc.repeat_hmm.n_states
         fusible = self.fused and n_states <= MAX_FUSED_STATES
@@ -467,19 +472,25 @@ class RepeatCounter:
 
     def _split_submit(self, tc, raws, n_sigs_p, npad, Bp,
                       have_native: bool, preps=None) -> dict:
-        upload, flts, flt32s = self._prep_morph(raws, npad, Bp, have_native, preps)
+        with trace.span("submit.prep"):
+            upload, flts, flt32s = self._prep_morph(raws, npad, Bp, have_native, preps)
         parts = []
         for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
             dev = self.devices[k]
             with on_stream(self._streams[k]):
-                bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
-                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
-                pre, suf = align_fused_pair(bins, n_dev, tc.prefix_ext, tc.suffix_ext,
-                                            self.align_params, lut=lut)
-                b = segment_bounds(pre, suf, n_dev,
-                                   trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
-                                   trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
-                parts.append(self._to_host(pack_meta(b)))
+                with trace.span("submit.upload"):
+                    bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
+                    n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                with trace.span("submit.align") as sp:
+                    if sp:
+                        sp.attrs.update(route="split", rows=sl.stop - sl.start, bucket=npad)
+                    pre, suf = align_fused_pair(bins, n_dev, tc.prefix_ext, tc.suffix_ext,
+                                                self.align_params, lut=lut)
+                with trace.span("submit.bounds"):
+                    b = segment_bounds(pre, suf, n_dev,
+                                       trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
+                                       trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
+                    parts.append(self._to_host(pack_meta(b)))
         # the pinned upload buffer stays referenced until the batch finishes:
         # its non_blocking copies may still be in flight
         return {"bounds_parts": parts, "upload": upload,
@@ -498,51 +509,59 @@ class RepeatCounter:
         B = len(raws)
         n_states = tc.repeat_hmm.n_states
         flts: list = [None] * B
-        if have_native:
-            mc = model_const(self.pm)
-            upload = self._host_buffer((Bp, _buf_bytes(npad)), torch.uint8)
-            buf = upload.numpy()
+        with trace.span("submit.prep"):
+            if have_native:
+                mc = model_const(self.pm)
+                upload = self._host_buffer((Bp, _buf_bytes(npad)), torch.uint8)
+                buf = upload.numpy()
 
-            def _prep_row(i_raw):
-                i, raw = i_raw
-                n = len(raw)
-                row = buf[i]
-                flt32 = row[: 4 * npad].view(np.float32)[:n]
-                lut = row[4 * npad : 4 * npad + 4 * _LUT_LEVELS].view(np.float32)
-                q = row[4 * npad + 4 * _LUT_LEVELS :][:n]
-                flts[i] = native_lib.preprocess_read_lut(raw, mc, flt32, q, lut)
+                def _prep_row(i_raw):
+                    i, raw = i_raw
+                    n = len(raw)
+                    row = buf[i]
+                    flt32 = row[: 4 * npad].view(np.float32)[:n]
+                    lut = row[4 * npad : 4 * npad + 4 * _LUT_LEVELS].view(np.float32)
+                    q = row[4 * npad + 4 * _LUT_LEVELS :][:n]
+                    flts[i] = native_lib.preprocess_read_lut(raw, mc, flt32, q, lut)
 
-            list(self._prep_pool().map(_prep_row, enumerate(raws)))
-        else:
-            upload = self._host_buffer((2, Bp, npad), torch.float32)
-            both = upload.numpy()
-            for i, raw in enumerate(raws):
-                flt = signal_ops.medfilt3(raw)
-                morph = signal_ops.quantize_morph_np(flt, float(np.median(flt)),
-                                                     mean_abs_dev(flt))
-                morph = signal_ops.open_close_np(morph)
-                both[0, i, : len(raw)] = self.pm.normalize2model(morph, mode="minmax")
-                flts[i] = self.pm.normalize2model(flt, mode="minmax")
-                both[1, i, : len(raw)] = flts[i]
+                list(self._prep_pool().map(_prep_row, enumerate(raws)))
+            else:
+                upload = self._host_buffer((2, Bp, npad), torch.float32)
+                both = upload.numpy()
+                for i, raw in enumerate(raws):
+                    flt = signal_ops.medfilt3(raw)
+                    morph = signal_ops.quantize_morph_np(flt, float(np.median(flt)),
+                                                         mean_abs_dev(flt))
+                    morph = signal_ops.open_close_np(morph)
+                    both[0, i, : len(raw)] = self.pm.normalize2model(morph, mode="minmax")
+                    flts[i] = self.pm.normalize2model(flt, mode="minmax")
+                    both[1, i, : len(raw)] = flts[i]
         parts = []
         for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
             dev = self.devices[k]
             with on_stream(self._streams[k]):
-                if have_native:
-                    flt, sig, lut = _split_fused_upload(upload[sl].to(dev, non_blocking=True),
-                                                        npad)
-                else:
-                    both_d = upload[:, sl].to(dev, non_blocking=True)
-                    sig, flt, lut = both_d[0], both_d[1], None
-                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
-                pre, suf = align_fused_pair(sig, n_dev, tc.prefix_ext, tc.suffix_ext,
-                                            self.align_params, lut=lut)
-                b = segment_bounds(pre, suf, n_dev,
-                                   trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
-                                   trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
-                _, paths = viterbi_batch(_shift_rows(flt, b["prefix_begin"]), b["seg_len"],
-                                         self._padded_hmm(tc.repeat_hmm, dev), group=rows)
-                parts.append(self._to_host(pack_results(b, paths, n_states)))
+                with trace.span("submit.upload"):
+                    if have_native:
+                        flt, sig, lut = _split_fused_upload(
+                            upload[sl].to(dev, non_blocking=True), npad)
+                    else:
+                        both_d = upload[:, sl].to(dev, non_blocking=True)
+                        sig, flt, lut = both_d[0], both_d[1], None
+                    n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                with trace.span("submit.align") as sp:
+                    if sp:
+                        sp.attrs.update(route="fused", rows=sl.stop - sl.start, bucket=npad)
+                    pre, suf = align_fused_pair(sig, n_dev, tc.prefix_ext, tc.suffix_ext,
+                                                self.align_params, lut=lut)
+                with trace.span("submit.bounds"):
+                    b = segment_bounds(pre, suf, n_dev,
+                                       trim_prefix=len(tc.prefix_ext) - len(tc.prefix),
+                                       trim_suffix=len(tc.suffix_ext) - len(tc.suffix))
+                with trace.span("submit.viterbi"):
+                    _, paths = viterbi_batch(_shift_rows(flt, b["prefix_begin"]),
+                                             b["seg_len"],
+                                             self._padded_hmm(tc.repeat_hmm, dev), group=rows)
+                    parts.append(self._to_host(pack_results(b, paths, n_states)))
         return {"fused_parts": parts, "upload": upload, "tc": tc, "raws": raws, "flts": flts,
                 "B": B}
 
@@ -553,19 +572,25 @@ class RepeatCounter:
         the card, row 8 under ``STRIQUE_ALIGN_KERNEL=col``), the
         ``[score | jpos | is_gap]`` planes of both flanks as f32 copied
         back behind one event a shard."""
-        upload, flts, _ = self._prep_morph(raws, npad, Bp, have_native, preps)
+        with trace.span("submit.prep"):
+            upload, flts, _ = self._prep_morph(raws, npad, Bp, have_native, preps)
         parts = []
         for k, sl in enumerate(shard_rows(Bp, len(self.devices))):
             dev = self.devices[k]
             with on_stream(self._streams[k]):
-                bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
-                n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
+                with trace.span("submit.upload"):
+                    bins, lut = _split_morph_upload(upload[sl].to(dev, non_blocking=True))
+                    n_dev = torch.from_numpy(n_sigs_p[sl]).to(dev, non_blocking=True)
                 planes = []
-                for tmpl in (tc.prefix_ext, tc.suffix_ext):
-                    a = align_core(bins, n_dev, tmpl, self.align_params, lut=lut)
-                    planes += [a["score"][:, None], a["jpos"].to(torch.float32),
-                               a["is_gap"].to(torch.float32)]
-                parts.append(self._to_host(torch.cat(planes, dim=1)))
+                with trace.span("submit.align") as sp:
+                    if sp:
+                        sp.attrs.update(route="two_phase", rows=sl.stop - sl.start, bucket=npad)
+                    for tmpl in (tc.prefix_ext, tc.suffix_ext):
+                        a = align_core(bins, n_dev, tmpl, self.align_params, lut=lut)
+                        planes += [a["score"][:, None], a["jpos"].to(torch.float32),
+                                   a["is_gap"].to(torch.float32)]
+                with trace.span("submit.bounds"):
+                    parts.append(self._to_host(torch.cat(planes, dim=1)))
         return {"planes_parts": parts, "upload": upload, "tc": tc, "raws": raws, "flts": flts,
                 "B": len(raws)}
 
@@ -576,7 +601,8 @@ class RepeatCounter:
         mp_, ms_ = len(tc.prefix_ext), len(tc.suffix_ext)
         trim_prefix = len(tc.prefix_ext) - len(tc.prefix)
         trim_suffix = len(tc.suffix_ext) - len(tc.suffix)
-        packed = self._from_host(state["planes_parts"]).numpy()[: state["B"]]
+        with trace.span("finish.wait"):
+            packed = self._from_host(state["planes_parts"]).numpy()[: state["B"]]
         o = 0
         pre_score = packed[:, o]; o += 1
         pre_jpos = packed[:, o : o + mp_].astype(np.int64); o += mp_
@@ -611,15 +637,18 @@ class RepeatCounter:
             return state
         tc = state["tc"]
         B = state["B"]
-        rows = unpack_meta(self._from_host(state["bounds_parts"]).numpy()[:B])
-        bounds = [(r.ok, r.score_prefix, r.score_suffix, r.prefix_begin,
-                   r.prefix_end, r.suffix_begin, r.suffix_end) for r in rows]
-        live = [i for i in range(B) if rows[i].ok]
-        state["bounds"] = bounds
-        state["live"] = live
-        if live:
-            segs = [state["flt32s"][i][bounds[i][3]:bounds[i][6]] for i in live]
-            state["vit"] = self._viterbi_submit(tc.repeat_hmm, segs)
+        with trace.span("middle.wait"):
+            host = self._from_host(state["bounds_parts"])
+        with trace.span("middle.viterbi"):
+            rows = unpack_meta(host.numpy()[:B])
+            bounds = [(r.ok, r.score_prefix, r.score_suffix, r.prefix_begin,
+                       r.prefix_end, r.suffix_begin, r.suffix_end) for r in rows]
+            live = [i for i in range(B) if rows[i].ok]
+            state["bounds"] = bounds
+            state["live"] = live
+            if live:
+                segs = [state["flt32s"][i][bounds[i][3]:bounds[i][6]] for i in live]
+                state["vit"] = self._viterbi_submit(tc.repeat_hmm, segs)
         return state
 
     def detect_mod_submit(self, state: dict) -> dict:
@@ -653,10 +682,11 @@ class RepeatCounter:
                 return None
             return np.clip(rep_signal, mm["model_min"], mm["model_max"]).astype(np.float32)
 
-        rep_signals = list(self._prep_pool().map(_mod_input, range(B)))
-        mod_jobs = [(i, s) for i, s in enumerate(rep_signals) if s is not None]
-        handle = (self._viterbi_submit(tc.mod_hmm, [s for _, s in mod_jobs])
-                  if mod_jobs else None)
+        with trace.span("mod.prep"):
+            rep_signals = list(self._prep_pool().map(_mod_input, range(B)))
+            mod_jobs = [(i, s) for i, s in enumerate(rep_signals) if s is not None]
+            handle = (self._viterbi_submit(tc.mod_hmm, [s for _, s in mod_jobs])
+                      if mod_jobs else None)
         # the count rows decode on the host while the mod decode runs
         results = self._main_results(state)
         state["modsub"] = (results, [(i, len(s)) for i, s in mod_jobs], handle)
@@ -674,8 +704,9 @@ class RepeatCounter:
         tc = state["tc"]
         paths, seg_lens = {}, {}
         if "fused_parts" in state:
-            rows = unpack_results(self._from_host(state["fused_parts"]).numpy()[: state["B"]],
-                                  tc.repeat_hmm.n_states)
+            with trace.span("finish.wait"):
+                host = self._from_host(state["fused_parts"])
+            rows = unpack_results(host.numpy()[: state["B"]], tc.repeat_hmm.n_states)
             bounds = [(r.ok, r.score_prefix, r.score_suffix, r.prefix_begin, r.prefix_end,
                        r.suffix_begin, r.suffix_end) for r in rows]
             for i, r in enumerate(rows):
@@ -688,7 +719,9 @@ class RepeatCounter:
             if live:
                 segs = [state["flts"][i][bounds[i][3]:bounds[i][6]].astype(np.float32)
                         for i in live]
-                mat = self._viterbi_collect(self._viterbi_submit(tc.repeat_hmm, segs))
+                handle = self._viterbi_submit(tc.repeat_hmm, segs)
+                with trace.span("finish.wait"):
+                    mat = self._viterbi_collect(handle)
                 for k, i in enumerate(live):
                     paths[i] = mat[k]
                     seg_lens[i] = len(segs[k])
@@ -696,7 +729,8 @@ class RepeatCounter:
             state = self.detect_middle(state)
             bounds = state["bounds"]
             if state["live"]:
-                mat = self._viterbi_collect(state["vit"])
+                with trace.span("finish.wait"):
+                    mat = self._viterbi_collect(state["vit"])
                 for k, i in enumerate(state["live"]):
                     paths[i] = mat[k]
                     seg_lens[i] = bounds[i][6] - bounds[i][3]
@@ -710,17 +744,19 @@ class RepeatCounter:
         flts = state["flts"]
         bounds, paths, seg_lens = self.decode_bounds(state)
         results = []
-        for i in range(state["B"]):
-            ok, score_prefix, score_suffix, prefix_begin, prefix_end, suffix_begin, suffix_end = bounds[i]
-            n = 0
-            p = 0.0
-            if ok:
-                path = paths[i]
-                segment = flts[i][prefix_begin:suffix_end]
-                n = viterbi_ops.count_repeats(path, seg_lens[i], tc.repeat_hmm)
-                p = viterbi_ops.path_logp_f64(segment, path, tc.repeat_hmm)
-            results.append([n, score_prefix, score_suffix, p, prefix_end,
-                            max(suffix_begin - prefix_end, 0), "-"])
+        with trace.span("finish.decode"):
+            for i in range(state["B"]):
+                (ok, score_prefix, score_suffix, prefix_begin, prefix_end, suffix_begin,
+                 suffix_end) = bounds[i]
+                n = 0
+                p = 0.0
+                if ok:
+                    path = paths[i]
+                    segment = flts[i][prefix_begin:suffix_end]
+                    n = viterbi_ops.count_repeats(path, seg_lens[i], tc.repeat_hmm)
+                    p = viterbi_ops.path_logp_f64(segment, path, tc.repeat_hmm)
+                results.append([n, score_prefix, score_suffix, p, prefix_end,
+                                max(suffix_begin - prefix_end, 0), "-"])
         return results
 
     def detect_finish(self, state: dict):
@@ -732,7 +768,8 @@ class RepeatCounter:
         if "modsub" in state:
             results, mod_info, handle = state["modsub"]
             if handle is not None:
-                mpaths = self._viterbi_collect(handle)
+                with trace.span("mod.wait"):
+                    mpaths = self._viterbi_collect(handle)
                 for k, (ri, slen) in enumerate(mod_info):
                     results[ri][6] = viterbi_ops.mod_pattern(mpaths[k], slen, tc.mod_hmm)
             return [tuple(r) for r in results]
@@ -747,6 +784,9 @@ class RepeatCounter:
         lens_p = np.ones(Bp, dtype=np.int32)
         lens_p[:B] = lens
         tpad = max(-(-int(lens.max()) // CHUNK_T) * CHUNK_T, CHUNK_T)
+        if trace.enabled():
+            trace.count("viterbi.steps", int(lens.sum()))
+            trace.count("viterbi.padded", Bp * tpad)
         obs_host = self._host_buffer((Bp, tpad), torch.float32)
         obs = obs_host.numpy()
         for k, s in enumerate(segments):

@@ -33,6 +33,7 @@ import sys
 import traceback
 from collections import deque
 
+from ..utils import trace
 from ..utils.logging import LogLevel, log
 from .counter import signal_bucket
 
@@ -125,6 +126,7 @@ class StreamScheduler:
         # restores inline submits.
         self._async_submit = os.environ.get("STRIQUE_ASYNC_SUBMIT", "1") != "0"
         self._submit_pool = None
+        self._batches = 0  # batches flushed: each batch's number in its spans
 
     # -- submission ----------------------------------------------------------
     def add(self, ctx, target_name: str, strand: str, raw,
@@ -137,9 +139,9 @@ class StreamScheduler:
         self.queues.setdefault(key, []).append((ctx, raw, prep_token))
         self.n_queued += 1
         if len(self.queues[key]) >= self.batch_size:
-            self._flush(key)
+            self._flush(key, "stream.flush.full")
         elif self.n_queued > self.max_queued:
-            self._flush(max(self.queues, key=lambda k: len(self.queues[k])))
+            self._flush(max(self.queues, key=lambda k: len(self.queues[k])), "stream.flush.cap")
 
     def close(self) -> None:
         """Flush all partial queues (bucket-merged) and drain in-flight batches.
@@ -148,6 +150,10 @@ class StreamScheduler:
         when the cost model says padding short reads up to a longer
         bucket beats separate partial batches (:func:`plan_merged_batches`).
         """
+        with trace.span("stream.close"):
+            self._close()
+
+    def _close(self) -> None:
         by_ts: dict[tuple, list] = {}
         for (target_name, strand, bucket) in self.queues:
             by_ts.setdefault((target_name, strand), []).append(bucket)
@@ -160,7 +166,7 @@ class StreamScheduler:
                 for gi in batch_idxs:
                     items.extend(self.queues.pop(keys[gi]))
                 self.n_queued -= len(items)
-                self._submit(target_name, strand, items)
+                self._submit(target_name, strand, items, "stream.flush.close")
         while self.inflight:
             self._advance_one()
         while self.ready:
@@ -172,27 +178,37 @@ class StreamScheduler:
             self._submit_pool = None
 
     # -- internals -----------------------------------------------------------
-    def _flush(self, key) -> None:
+    def _flush(self, key, cause: str) -> None:
         target_name, strand, _bucket = key
         items = self.queues.pop(key)
         self.n_queued -= len(items)
-        self._submit(target_name, strand, items)
+        self._submit(target_name, strand, items, cause)
 
-    def _submit(self, target_name: str, strand: str, items: list) -> None:
+    def _detect_submit(self, batch: int, target_name, raws, strand, preps):
+        with trace.span("stream.submit", batch) as sp:
+            if sp:
+                sp.attrs["reads"] = len(raws)
+            return self.counter.detect_submit(target_name, raws, strand, preps=preps)
+
+    def _submit(self, target_name: str, strand: str, items: list, cause: str) -> None:
+        """Submit a flushed batch; ``cause``: the flush counter it adds to."""
         raws = [it[1] for it in items]
         toks = [it[2] for it in items]
         preps = toks if any(t is not None for t in toks) else None
+        batch = self._batches
+        self._batches += 1
+        trace.count(cause)
+        trace.count("stream.reads", len(items))
         if self._async_submit:
             if self._submit_pool is None:
                 from concurrent.futures import ThreadPoolExecutor
 
                 self._submit_pool = ThreadPoolExecutor(max_workers=1)
             state = self._submit_pool.submit(
-                self.counter.detect_submit, target_name, raws, strand, preps)
+                self._detect_submit, batch, target_name, raws, strand, preps)
         else:
             try:
-                state = self.counter.detect_submit(target_name, raws, strand,
-                                                   preps=preps)
+                state = self._detect_submit(batch, target_name, raws, strand, preps)
             except KeyboardInterrupt:
                 raise
             except Exception:
@@ -200,7 +216,7 @@ class StreamScheduler:
                     "individually.\n"
                     + "".join(traceback.format_exception(*sys.exc_info())), LogLevel.Warning)
                 state = None
-        self.inflight.append((target_name, strand, items, state))
+        self.inflight.append((target_name, strand, items, state, batch))
         while len(self.inflight) > self.depth:
             self._advance_one()
         while len(self.ready) > self.depth:
@@ -209,12 +225,14 @@ class StreamScheduler:
             self._drain_one()
 
     def _advance_one(self) -> None:
-        target_name, strand, items, state = self.inflight.popleft()
+        target_name, strand, items, state, batch = self.inflight.popleft()
         if state is not None:
             try:
                 if hasattr(state, "result"):  # async submit future
-                    state = state.result()
-                state = self.counter.detect_middle(state)
+                    with trace.span("stream.wait", batch):
+                        state = state.result()
+                with trace.span("stream.middle", batch):
+                    state = self.counter.detect_middle(state)
             except KeyboardInterrupt:
                 raise
             except Exception:
@@ -222,13 +240,14 @@ class StreamScheduler:
                     "reads individually.\n"
                     + "".join(traceback.format_exception(*sys.exc_info())), LogLevel.Warning)
                 state = None
-        self.ready.append((target_name, strand, items, state))
+        self.ready.append((target_name, strand, items, state, batch))
 
     def _mod_one(self) -> None:
-        target_name, strand, items, state = self.ready.popleft()
+        target_name, strand, items, state, batch = self.ready.popleft()
         if state is not None:
             try:
-                state = self.counter.detect_mod_submit(state)
+                with trace.span("stream.mod", batch):
+                    state = self.counter.detect_mod_submit(state)
             except KeyboardInterrupt:
                 raise
             except Exception:
@@ -236,10 +255,19 @@ class StreamScheduler:
                     "reads individually.\n"
                     + "".join(traceback.format_exception(*sys.exc_info())), LogLevel.Warning)
                 state = None
-        self.modq.append((target_name, strand, items, state))
+        self.modq.append((target_name, strand, items, state, batch))
 
     def _drain_one(self) -> None:
-        target_name, strand, items, state = self.modq.popleft()
+        target_name, strand, items, state, batch = self.modq.popleft()
+        with trace.span("stream.finish", batch):
+            if self._finish(state, items):
+                return
+        with trace.span("stream.retry", batch):
+            trace.count("stream.retries", len(items))
+            self._retry(target_name, strand, items)
+
+    def _finish(self, state, items) -> bool:
+        """Finish a batch and hand its results on; False if it failed."""
         outs = None
         if state is not None:
             try:
@@ -250,10 +278,13 @@ class StreamScheduler:
                 log("Factory: Unexpected error in batch, retrying reads "
                     "individually.\n"
                     + "".join(traceback.format_exception(*sys.exc_info())), LogLevel.Warning)
-        if outs is not None:
-            for i, it in enumerate(items):
-                self.on_result(it[0], outs[i])
-            return
+        if outs is None:
+            return False
+        for i, it in enumerate(items):
+            self.on_result(it[0], outs[i])
+        return True
+
+    def _retry(self, target_name: str, strand: str, items: list) -> None:
         # per-read retry: one poisoned read costs only itself, matching the
         # reference's fault-isolation contract (scripts/STRique.py:764-768)
         for ctx, raw, _tok in items:

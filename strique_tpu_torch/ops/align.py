@@ -78,6 +78,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 from .align_cuda import (BATCH_WAVE, CHUNK, NEG, _distinct_rows, _round_up, align_forward_ckpt,
                          align_forward_ckpt_morph, align_forward_col, align_forward_col_morph,
                          align_forward_wave, align_forward_wave_morph, align_forward_wave_multi,
@@ -721,12 +722,15 @@ def align_fused_pair(signals, n_actual, t_pre, t_suf, params, lut=None, devices=
     def rows2(x):
         return torch.from_numpy(np.repeat(x, B, axis=0)).to(dev)
 
-    if lut is None:
-        tmpl2 = rows2(tmpl_rows_np)
-    else:
-        lut2 = torch.cat([lut, lut])
+    # the first copies from pageable host memory block until the work
+    # queued on the stream ran (on the card, the previous batch's kernels)
+    with trace.span("align.h2d.wait"):
+        if lut is None:
+            tmpl2 = rows2(tmpl_rows_np)
+        else:
+            lut2 = torch.cat([lut, lut])
+        ms2 = torch.from_numpy(np.repeat(ms.astype(np.int32), B)).to(dev)
     forms = {}  # the row stream's (levels, lidx) by the CTAs a row of a call
-    ms2 = torch.from_numpy(np.repeat(ms.astype(np.int32), B)).to(dev)
     n_cols = sig2.shape[1] + mp
     outs = []
     b0 = 0

@@ -21,6 +21,7 @@ import sys
 import traceback
 from concurrent.futures import ThreadPoolExecutor
 
+from ..utils import trace
 from ..utils.logging import LogLevel, log
 
 
@@ -97,6 +98,12 @@ def run_pipeline(sam_lines, detector, writer, io_threads: int = 1,
                     + "".join(traceback.format_exception(*sys.exc_info())), LogLevel.Warning)
                 return None
 
+        def feed_decoded(lid, fut):
+            with trace.span("stream.read", annotate=False):
+                with trace.span("stream.decode.wait", annotate=False):
+                    job = fut.result()
+                feed(lid, job)
+
         if io_threads > 1:
             # bounded prefetch window overlaps fast5 IO with device batches
             pending = []
@@ -106,13 +113,21 @@ def run_pipeline(sam_lines, detector, writer, io_threads: int = 1,
                     pending.append((line_id, pool.submit(decode, line)))
                     line_id += 1
                     if len(pending) >= io_threads * 8:
-                        lid, fut = pending.pop(0)
-                        feed(lid, fut.result())
+                        feed_decoded(*pending.pop(0))
                 for lid, fut in pending:
-                    feed(lid, fut.result())
+                    feed_decoded(lid, fut)
         else:
-            for line_id, line in enumerate(sam_lines):
-                feed(line_id, decode(line))
+            # a stream.read span: taking the line, decoding it, queueing
+            # it, and any batch phases its flush runs
+            lines, end = iter(sam_lines), object()
+            line_id = 0
+            while True:
+                with trace.span("stream.read", annotate=False):
+                    line = next(lines, end)
+                    if line is end:
+                        break
+                    feed(line_id, decode(line))
+                line_id += 1
         sched.close()
         log_rate(n_processed)
         return n_processed
