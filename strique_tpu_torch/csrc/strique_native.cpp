@@ -5,7 +5,10 @@
 // preprocessing (median filter, uint8 quantization, greyscale open/close,
 // minmax tail statistics), the per-read host cost that feeds the device
 // pipeline.  tests/test_torch_copies.py pins preprocess_read_lut's outputs
-// byte-equal to the original's.
+// byte-equal to the original's.  Besides, the port's own batch decode of
+// Viterbi paths into repeat counts and float64 log_p (decode_paths), which
+// tests/test_torch_decode_native.py holds to the NumPy helpers of
+// ops/viterbi.py.
 //
 // Exposed as a plain C ABI consumed via ctypes (strique_tpu_torch/native.py).
 #include <algorithm>
@@ -297,5 +300,122 @@ void preprocess_read_lut(const double* raw, int64_t n, const double* model,
         flt64[i] = v;
         flt32[i] = (float)v;
     }
+}
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// batch decode of Viterbi paths: repeat counts and float64 log_p
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// NumPy's pairwise summation of a[0, n) (its pairwise_sum: PW_BLOCKSIZE
+// 128, eight accumulators), the same additions in the same order.  The
+// order is kept, and not a plain or compensated sum, because `count`
+// writes log_p in full and its TSV is held byte-equal to the JAX CLI's,
+// whose log_p is NumPy's sum (tests/test_torch_cli.py); an exactly rounded
+// sum differs from NumPy's in the last bit on about a third of such rows.
+// Checked bit-equal against NumPy 2.0.2 on every row tried; NumPy 2.3.5
+// gave one row of seven 1.6e-16 apart, so another release may reorder.
+double pairwise_sum(const double* a, int64_t n) {
+    if (n < 8) {
+        double res = 0.0;
+        for (int64_t i = 0; i < n; ++i) res += a[i];
+        return res;
+    }
+    if (n <= 128) {
+        double r[8];
+        for (int j = 0; j < 8; ++j) r[j] = a[j];
+        int64_t i = 8;
+        for (; i < n - (n % 8); i += 8)
+            for (int j = 0; j < 8; ++j) r[j] += a[i + j];
+        double res = ((r[0] + r[1]) + (r[2] + r[3])) + ((r[4] + r[5]) + (r[6] + r[7]));
+        for (; i < n; ++i) res += a[i];
+        return res;
+    }
+    int64_t n2 = n / 2;
+    n2 -= n2 % 8;
+    return pairwise_sum(a, n2) + pairwise_sum(a + n2, n - n2);
+}
+
+// ``ndarray.sum()`` of a contiguous float64 vector: the reduction runs in
+// blocks of NumPy's 8192-element buffer, each summed pairwise and added in
+// turn to an accumulator that starts at 0.0.
+double numpy_sum(const double* a, int64_t n) {
+    const int64_t block = 8192;
+    double acc = 0.0;
+    for (int64_t lo = 0; lo < n; lo += block) acc += pairwise_sum(a + lo, std::min(block, n - lo));
+    return acc;
+}
+
+// One row: count-state visits and log_p over its first n steps, its terms
+// staged in ``terms`` (n doubles) to be summed as NumPy sums them.
+// Returns false when a state lies outside [0, S).
+template <typename P>
+bool decode_row(const P* path, const double* x, int64_t n, int64_t S, const double* c,
+                const double* mu, const double* sigma, const uint8_t* is_uniform,
+                const double* log_uni, const double* log_start, const double* log_end,
+                const double* log_trans, const int64_t* count_states, double* terms,
+                int64_t* visits, double* log_p) {
+    uint64_t top = 0;
+    for (int64_t i = 0; i < n; ++i) top = std::max(top, (uint64_t)(int64_t)path[i]);
+    if (top >= (uint64_t)S) return false;
+    // path_logp_f64's emissions: np.where(is_uniform, log_uni, c - 0.5 * d**2)
+    // with d = (x - mu) / sigma, the choice a select of bits (a branch on
+    // is_uniform mispredicts wherever a path mixes both kinds of state)
+    int64_t v = 0;
+    for (int64_t i = 0; i < n; ++i) {
+        const int64_t s = path[i];
+        const double d = (x[i] - mu[s]) / sigma[s];
+        const double e = c[s] - 0.5 * (d * d);
+        const uint64_t take_uni = 0 - (uint64_t)is_uniform[s];
+        uint64_t ub, eb;
+        std::memcpy(&ub, &log_uni[s], 8);
+        std::memcpy(&eb, &e, 8);
+        const uint64_t bits = (ub & take_uni) | (eb & ~take_uni);
+        std::memcpy(&terms[i], &bits, 8);
+        v += count_states[s];
+    }
+    double lp = log_start[path[0]] + numpy_sum(terms, n) + log_end[path[n - 1]];
+    // and log_trans[path[:-1], path[1:]]
+    for (int64_t i = 0; i + 1 < n; ++i) terms[i] = log_trans[(int64_t)path[i] * S + path[i + 1]];
+    lp += numpy_sum(terms, n - 1);
+    *visits = v;
+    *log_p = lp;
+    return true;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Decode one batch's rows in one call: row r's path (uint8 when
+// path_itemsize is 1, int32 when 4) and float64 segment, each lens[r] >= 1
+// long, give visits[r] (the count states' visits) and log_p[r], the path's
+// log-probability as ops/viterbi.py's path_logp_f64 computes it, sum for
+// sum.  c[s] = -0.5 * log(2 * pi * sigma[s]**2), computed by the caller
+// once an HMM; log_trans is (S, S) row-major.  Serial.  Returns -1, or the
+// first row whose path holds a state outside [0, S).
+int64_t decode_paths(int64_t n_rows, const void* const* paths, int64_t path_itemsize,
+                     const double* const* segs, const int64_t* lens, int64_t S,
+                     const double* c, const double* mu, const double* sigma,
+                     const uint8_t* is_uniform, const double* log_uni,
+                     const double* log_start, const double* log_end,
+                     const double* log_trans, const int64_t* count_states,
+                     int64_t* visits, double* log_p) {
+    int64_t longest = 0;
+    for (int64_t r = 0; r < n_rows; ++r) longest = std::max(longest, lens[r]);
+    std::vector<double> terms(longest);
+    for (int64_t r = 0; r < n_rows; ++r) {
+        const bool ok = path_itemsize == 1
+            ? decode_row((const uint8_t*)paths[r], segs[r], lens[r], S, c, mu, sigma,
+                         is_uniform, log_uni, log_start, log_end, log_trans, count_states,
+                         terms.data(), visits + r, log_p + r)
+            : decode_row((const int32_t*)paths[r], segs[r], lens[r], S, c, mu, sigma,
+                         is_uniform, log_uni, log_start, log_end, log_trans, count_states,
+                         terms.data(), visits + r, log_p + r);
+        if (!ok) return r;
+    }
+    return -1;
 }
 }  // extern "C"

@@ -245,6 +245,7 @@ class RepeatCounter:
         self.hmm_config = hmm_config
         self.targets: dict[str, tuple[TargetClassifier, TargetClassifier]] = {}
         self._hmm_cache: dict = {}
+        self._decode_cache: dict = {}
         self._pool = None
         self._init_lock = threading.RLock()
         # fused: the single dispatch (bounds, segment shift and Viterbi on
@@ -737,26 +738,48 @@ class RepeatCounter:
         state["decoded"] = (bounds, paths, seg_lens)
         return state["decoded"]
 
+    def _decode_tables(self, chm) -> native_lib.DecodeTables:
+        """``chm``'s host tables for the native decode, built once an HMM."""
+        with self._init_lock:
+            key = id(chm)
+            if key not in self._decode_cache:
+                self._decode_cache[key] = native_lib.DecodeTables(chm)
+            return self._decode_cache[key]
+
     def _main_results(self, state: dict) -> list:
         """Result rows [n, scores, log_p, offset, ticks, '-'], as lists
-        the mod phase fills."""
-        tc = state["tc"]
+        the mod phase fills.
+
+        The gated-in reads' counts and float64 log_p come from one native
+        call a batch (``native.decode_paths``), or, without the native
+        library, from the NumPy ``count_repeats`` and ``path_logp_f64``
+        a read (on every route ``seg_lens[i]`` is the length of read i's
+        segment, which the native call decodes whole)."""
+        chm = state["tc"].repeat_hmm
         flts = state["flts"]
         bounds, paths, seg_lens = self.decode_bounds(state)
-        results = []
         with trace.span("finish.decode"):
-            for i in range(state["B"]):
-                (ok, score_prefix, score_suffix, prefix_begin, prefix_end, suffix_begin,
-                 suffix_end) = bounds[i]
-                n = 0
-                p = 0.0
-                if ok:
-                    path = paths[i]
-                    segment = flts[i][prefix_begin:suffix_end]
-                    n = viterbi_ops.count_repeats(path, seg_lens[i], tc.repeat_hmm)
-                    p = viterbi_ops.path_logp_f64(segment, path, tc.repeat_hmm)
-                results.append([n, score_prefix, score_suffix, p, prefix_end,
-                                max(suffix_begin - prefix_end, 0), "-"])
+            results = [[0, score_prefix, score_suffix, 0.0, prefix_end,
+                        max(suffix_begin - prefix_end, 0), "-"]
+                       for (_ok, score_prefix, score_suffix, _pb, prefix_end, suffix_begin,
+                            _se) in bounds[: state["B"]]]
+            live = [i for i in range(state["B"]) if bounds[i][0]]
+            if live and native_lib.available():
+                visits, log_p = native_lib.decode_paths(
+                    [paths[i] for i in live],
+                    [flts[i][bounds[i][3]:bounds[i][6]] for i in live],
+                    self._decode_tables(chm))
+                for k, i in enumerate(live):
+                    results[i][0] = (int(visits[k]) - chm.meta["repeat_offset"]
+                                     + chm.meta["flanking_count"])
+                    results[i][3] = float(log_p[k])
+                trace.count("decode.native", len(live))
+            elif live:
+                for i in live:
+                    segment = flts[i][bounds[i][3]:bounds[i][6]]
+                    results[i][0] = viterbi_ops.count_repeats(paths[i], seg_lens[i], chm)
+                    results[i][3] = viterbi_ops.path_logp_f64(segment, paths[i], chm)
+                trace.count("decode.numpy", len(live))
         return results
 
     def detect_finish(self, state: dict):
@@ -804,8 +827,9 @@ class RepeatCounter:
         return {"parts": parts, "B": B, "obs": obs_host, "lens": lens_p}
 
     def _viterbi_collect(self, handle) -> np.ndarray:
-        """Wait for a :meth:`_viterbi_submit` handle; (B, Tpad) int32 paths
-        (its host paths, rows in order, stay as ``handle["paths"]``)."""
+        """Wait for a :meth:`_viterbi_submit` handle; its (B, Tpad) paths
+        as the copy to the host left them, uint8 up to 256 states and
+        int32 beyond (a view of ``handle["paths"]``, rows in order)."""
         if "paths" not in handle:
             handle["paths"] = self._from_host(handle["parts"])
-        return handle["paths"].numpy()[: handle["B"]].astype(np.int32)
+        return handle["paths"].numpy()[: handle["B"]]

@@ -1,16 +1,22 @@
-"""ctypes binding of the port's native host prep (csrc/strique_native.cpp).
+"""ctypes binding of the port's native host library (csrc/strique_native.cpp).
 
 The port's own copy of ``strique_tpu/native.py``'s preprocessing
 binding, over its own copy of the C++ source (the preprocessing half of
-``native/strique_native.cpp``).  The library builds with ``g++`` at
+``native/strique_native.cpp``).  The library also holds the port's batch
+decode of Viterbi paths (:func:`decode_paths`: one call a batch gives
+each gated-in read's repeat count and float64 log_p, as the NumPy
+``ops.viterbi.count_repeats`` and ``path_logp_f64`` give them, sum for
+sum).  The library builds with ``g++`` at
 first use into ``build/strique_tpu_torch/`` (gitignored), with
 ``native/Makefile``'s flags: ``-ffp-contract=off`` keeps the f64
 affine ``x*scale + offset`` a separate multiply and add, as NumPy
 rounds it (an FMA moves the flt channel by ~1 ulp, and the reported
-log_p with it).  It is rebuilt when the source is newer.  Where no
-compiler exists, :func:`available` is False and the counter takes the
-NumPy host prep (``ops/signal.py``) -- host work either way, not a
-device path.
+log_p with it), and keeps the decode's emission terms NumPy's.  It is
+rebuilt when the source is newer.  Where no compiler exists,
+:func:`available` is False and the counter takes the NumPy host prep
+(``ops/signal.py``) and the NumPy decode -- host work either way, not a
+device path.  A ctypes call releases the interpreter lock, so the
+submit thread runs while the main thread decodes.
 """
 from __future__ import annotations
 
@@ -60,6 +66,10 @@ def _load():
                 up = ctypes.POINTER(ctypes.c_uint8)
                 lib.preprocess_read_lut.argtypes = [dp, ctypes.c_int64, dp, fp, dp, up, fp]
                 lib.preprocess_read_lut.restype = None
+                i64 = ctypes.c_int64
+                vp = ctypes.c_void_p
+                lib.decode_paths.argtypes = [i64, vp, i64, vp, vp, i64, *[vp] * 11]
+                lib.decode_paths.restype = i64
                 _lib = lib
     return _lib
 
@@ -98,3 +108,70 @@ def preprocess_read_lut(raw: np.ndarray, model_const: tuple,
         q_out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         lut_out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)))
     return flt64
+
+
+class DecodeTables:
+    """One HMM's contiguous host tables for :func:`decode_paths`, built
+    once an HMM (the counter caches them); ``log_trans`` is the HMM's own
+    float64 matrix, never copied."""
+
+    def __init__(self, chm):
+        f64 = lambda a: np.ascontiguousarray(a, dtype=np.float64)
+        self.n_states = chm.n_states
+        sigma = f64(chm.sigma)
+        # path_logp_f64's normal constant, by NumPy's own log, once a state
+        self.c = f64(-0.5 * np.log(2 * np.pi * sigma**2))
+        self.mu = f64(chm.mu)
+        self.sigma = sigma
+        self.is_uniform = np.ascontiguousarray(chm.is_uniform, dtype=np.uint8)
+        self.log_uni = f64(chm.log_uni)
+        self.log_start = f64(chm.log_start)
+        self.log_end = f64(chm.log_end)
+        self.log_trans = f64(chm.log_trans)
+        self.count_states = np.ascontiguousarray(chm.meta["count_states"], dtype=np.int64)
+        if self.log_trans.shape != (self.n_states, self.n_states):
+            raise ValueError(f"log_trans of shape {self.log_trans.shape} for "
+                             f"{self.n_states} states")
+
+    def pointers(self) -> list:
+        return [a.ctypes.data for a in (self.c, self.mu, self.sigma, self.is_uniform,
+                                        self.log_uni, self.log_start, self.log_end,
+                                        self.log_trans, self.count_states)]
+
+
+def decode_paths(paths, segments, tables: DecodeTables) -> tuple[np.ndarray, np.ndarray]:
+    """Count-state visits (int64) and float64 log_p of each row, in one call.
+
+    ``paths[r]``: row r's Viterbi path, at least as long as
+    ``segments[r]``, its float64 observations (a view into the read's flt
+    channel; every step of it is decoded).  The paths are read as uint8
+    where every one is uint8 (the copy to the host of an HMM of up to 256
+    states), else as int32.  ``visits[r]`` is ``count_repeats``' sum
+    before its offsets; ``log_p[r]`` is ``path_logp_f64(segments[r],
+    paths[r], chm)``.
+    """
+    lib = _load()
+    if lib is None:
+        raise RuntimeError("native library unavailable")
+    n_rows = len(paths)
+    if len(segments) != n_rows:
+        raise ValueError("decode_paths: one segment a path")
+    paths = [np.asarray(p) for p in paths]
+    dtype = np.uint8 if all(p.dtype == np.uint8 for p in paths) else np.int32
+    paths = [np.ascontiguousarray(p, dtype=dtype) for p in paths]
+    segments = [np.ascontiguousarray(s, dtype=np.float64) for s in segments]
+    lens = np.array([len(s) for s in segments], dtype=np.int64)
+    if n_rows and (lens.min() < 1 or any(len(p) < n for p, n in zip(paths, lens))):
+        raise ValueError("decode_paths: every row needs at least one step, and a path "
+                         "as long as its segment")
+    path_ptrs = np.array([p.ctypes.data for p in paths], dtype=np.uintp)
+    seg_ptrs = np.array([s.ctypes.data for s in segments], dtype=np.uintp)
+    visits = np.zeros(n_rows, np.int64)
+    log_p = np.zeros(n_rows, np.float64)
+    bad = lib.decode_paths(n_rows, path_ptrs.ctypes.data, np.dtype(dtype).itemsize,
+                           seg_ptrs.ctypes.data, lens.ctypes.data, tables.n_states,
+                           *tables.pointers(), visits.ctypes.data, log_p.ctypes.data)
+    if bad >= 0:
+        raise IndexError(f"decode_paths: row {bad}'s path holds a state outside "
+                         f"[0, {tables.n_states})")
+    return visits, log_p
