@@ -7,8 +7,18 @@ sits in a file of its own, found by its name:
     generator (``benchmark/traffic/<generator>.py``) and the generator's
     parameters, the batch size, the reads the check compares;
   * ``benchmark/configs/<config>.json``: the locus, alignment and HMM
-    parameters and the model's shape;
+    parameters and the model's shape, and optionally ``mod_model``,
+    ``{"shift_pA": <float>}``: the configuration calls methylation with a
+    5mC twin of the run's seeded model, the model with ``shift_pA`` added
+    to the level of every k-mer that contains ``CG`` (stdvs unchanged),
+    which the harness writes in set-up and hands to the generator, the
+    detector and the reference; an allele of such a cell may carry
+    ``"methylation"`` (``traffic/pool.py``);
   * ``benchmark/metrics/<metric>.py``: the reader of a per-layer metric.
+
+A traffic generator has ``write_model(path, seed, k)``,
+``write_mod_model(path, seed, k, shift_pA)``, ``methylation(params)``
+and ``make_pool(model_file, locus, params, seed, mod_model_file)``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,8 @@
+"""idle_main_busy_pct.card: ``idle_main_busy_pct`` in the cells that report the card's time a row,
+``card_us_per_read``, in place of ``reads_per_s``; read by ``idle_main_busy_pct.py``."""
+from harness import spec
+
+_base = spec.module("metrics", "idle_main_busy_pct")
+LAYER, UNIT, SOURCE, read = _base.LAYER, _base.UNIT, _base.SOURCE, _base.read
+KERNELS = getattr(_base, "KERNELS", ())
+MOVES = "card_us_per_read"

@@ -2,12 +2,12 @@
 
 A frozen copy of STRique's HMM construction as the package states it:
 the state graphs of the reference's pomegranate models -- ``profileHMM``
-(reference scripts/STRique.py:201-307), ``repeatHMM`` (:313-378) and
-``flankedRepeatHMM`` (:384-441) -- as plain data, compiled to a dense
+(reference scripts/STRique.py:201-307), ``repeatHMM`` (:313-378),
+``flankedRepeatHMM`` (:384-441) and the methylation caller
+``repeatModHMM`` (:447-490) -- as plain data, compiled to a dense
 log-transition matrix over the emitting states by eliminating the silent
 states exactly under max-product (which keeps the optimal emitting path
-and its log-probability).  NumPy only; the mod model's construction is not
-copied, since no cell runs a mod model.
+and its log-probability).  NumPy only.
 """
 from __future__ import annotations
 
@@ -395,5 +395,44 @@ def build_flanked_repeat(repeat: str, prefix: str, suffix: str, pm,
         # deltas (2019-era scipy/skimage preprocessing).  Opt-in via HMM
         # config {"pomegranate_compat": true}; see PARITY.md.
         chm.log_uni = np.where(chm.meta["count_states"],
+                               chm.log_uni + np.log(10.0), chm.log_uni)
+    return chm
+
+
+def build_repeat_mod(repeat: str, pm_base, pm_mod, config: dict | None = None) -> CompiledHMM:
+    """The methylation HMM of a repeat unit (reference STRique.py:447-490):
+    two no-silent profiles of the unit, on the base and on the mod model
+    (its stdvs scaled by ``scale2stdv``), entered from the uniform anchor
+    ``s0`` and left to the anchor ``e0``, which loops back to ``s0`` once a
+    unit.  Meta ``anchor_states`` (s0, e0) and ``mod_states`` (the mod
+    profile's) name what ``viterbi.mod_pattern`` reads; ``model_min`` and
+    ``model_max`` are the two models' joint range."""
+    tp = _merged(MOD_DEFAULTS, config)
+    seq, _ = _extend_repeat(repeat, pm_base.kmer)
+    model_min = min(pm_base.model_min, pm_mod.model_min)
+    model_max = max(pm_base.model_max, pm_mod.model_max)
+    g = HmmGraph()
+    s0 = g.add_uniform("s0", model_min, model_max)
+    e0 = g.add_uniform("e0", model_min, model_max)
+    base = build_profile(g, seq, pm_base, tp, state_prefix="base", no_silent=True,
+                         std_scale=tp["rep_std_scale"], std_offset=tp["rep_std_offset"])
+    mod = build_profile(g, seq, pm_mod, tp, state_prefix="mod", no_silent=True,
+                        std_scale=tp["rep_std_scale"] * pm_mod.scale2stdv(pm_base),
+                        std_offset=tp["rep_std_offset"])
+    g.add_edge(g.start, s0, 1)
+    for port in (base.s1, base.s2, mod.s1, mod.s2):
+        g.add_edge(s0, port, 0.25)
+    for port in (base.e1, base.e2, mod.e1, mod.e2):
+        g.add_edge(port, e0, 1)
+    g.add_edge(e0, g.end, tp["leave_repeat"])
+    g.add_edge(e0, s0, 1 - tp["leave_repeat"])
+    chm = g.compile(meta={"kind": "repeat_mod", "repeat": repeat,
+                          "model_min": model_min, "model_max": model_max})
+    chm.meta["anchor_states"] = np.array([n in ("s0", "e0") for n in chm.names], dtype=bool)
+    chm.meta["mod_states"] = np.array([n.startswith("mod") for n in chm.names], dtype=bool)
+    if tp.get("pomegranate_compat"):
+        # the same bake artifact as the counting HMM's dummies (above), on
+        # the uniform anchors
+        chm.log_uni = np.where(chm.meta["anchor_states"],
                                chm.log_uni + np.log(10.0), chm.log_uni)
     return chm

@@ -2,8 +2,8 @@
 
 A frozen copy of the parts of STRique's ``pore_model`` class that
 ``count`` uses (reference scripts/STRique.py:113-195): the model's
-statistics, the 'minmax' normalisation and ``generate_signal``.  NumPy
-in float64.
+statistics, ``scale2stdv`` (for the mod HMM), the 'minmax' normalisation
+and ``generate_signal``.  NumPy in float64.
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ class PoreModel:
         self.kmer = len(next(iter(model_dict)))
         means = np.array([v[0] for v in model_dict.values()], dtype=np.float64)
         stdvs = np.array([v[1] for v in model_dict.values()], dtype=np.float64)
+        self.stdvs = stdvs
         min_i = int(np.argmin(means))
         max_i = int(np.argmax(means))
         self.model_min = float(means[min_i] - 6.0 * stdvs[min_i])
@@ -55,6 +56,11 @@ class PoreModel:
         q5_mod, q95_mod = np.percentile(means, [1, 99])
         self._m5_mod = float(np.median(means[means < q5_mod]))
         self._m95_mod = float(np.median(means[means > q95_mod]))
+
+    def scale2stdv(self, other: "PoreModel") -> float:
+        """median(other's stdvs) / median(this model's) (reference
+        STRique.py:145-148)."""
+        return float(np.median(other.stdvs) / np.median(self.stdvs))
 
     def norm_minmax(self, signal: np.ndarray) -> AffineNorm:
         """The 'minmax' mapping of a signal onto the model (reference

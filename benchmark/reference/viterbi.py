@@ -18,7 +18,8 @@ given; on a card the steps run as replays of one CUDA graph.
 The count is the dummy-state visits of the path minus the repeat unit's
 offset plus the flanking count; log_p is the path's log-probability
 recomputed in float64 on the host (reference scripts/STRique.py:
-675-679).
+675-679).  A mod HMM's path gives the methylation pattern, one character
+a repeat unit (reference :492-500).
 """
 from __future__ import annotations
 
@@ -119,3 +120,12 @@ def path_logp(obs: np.ndarray, path: np.ndarray, chm) -> float:
     lp = chm.log_start[path[0]] + emit.sum() + chm.log_end[path[-1]]
     lp += chm.log_trans[path[:-1], path[1:]].sum()
     return float(lp)
+
+
+def mod_pattern(path: np.ndarray, chm) -> str:
+    """One character a repeat unit of a mod HMM's path, a unit being a run
+    of states between the anchors: '1' where its first state is on the
+    mod profile, '0' where on the base one."""
+    anchor = chm.meta["anchor_states"][path]
+    starts = ~anchor & np.concatenate(([True], anchor[:-1]))
+    return "".join(np.where(chm.meta["mod_states"][path][starts], "1", "0"))

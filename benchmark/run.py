@@ -26,6 +26,20 @@ After the window the program's state is freed and the plain reference
 printed beside its limit, last on standard error and last in the line.
 The last line of standard output is the result's JSON.
 
+An end-to-end metric whose source is ``device_trace`` (``card_us_per_read``:
+the card's busy time over the window, a union of every kernel, copy and
+memset, per row written) has the untraced window run under
+``torch.profiler`` with the card's activity alone; the profiler starts
+after ``setup_s`` is read and before the window opens.
+
+A configuration with ``mod_model`` (``harness/spec.py``) has set-up
+write the model's 5mC twin beside it, a stage of its own in the set-up
+note; the pool's methylated alleles take their levels from it, and the
+detector and the reference both call methylation with it, so the check
+holds each sampled row's mod string too.  A note after the check gives
+the share of '1' characters on methylated and on unmethylated units of
+the sampled rows: whether the seeded twin separates at that seed.
+
 The package's environment knobs (``STRIQUE_*``) are refused: the
 benchmark runs its default routes.
 """
@@ -125,10 +139,17 @@ def _num(x):
     return x if isinstance(x, int) or math.isfinite(x) else str(x)
 
 
-def _profiler():
+def _profiler(host: bool = True):
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]), record_function
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if host else [ProfilerActivity.CUDA]
+    return profile(activities=activities), record_function
+
+
+def card_metrics(bench: dict, cell_name: str) -> bool:
+    """Whether the cell reports an end-to-end metric read from the device trace."""
+    return any(m["source"] == "device_trace"
+               for m in spec.cell_metrics(bench, cell_name, "end_to_end"))
 
 
 def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
@@ -149,9 +170,15 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
     tmp = tempfile.mkdtemp(prefix="strique-bench-", dir=tmp_root)
     try:
         stages = [("start", process_age())]
-        model_file = traffic.write_model(os.path.join(tmp, "model.txt"), seed, cfg["model"]["k"])
-        pool = traffic.make_pool(model_file, locus, cell["params"], seed)
-        stages.append(("model and pool", process_age()))
+        k = cfg["model"]["k"]
+        model_file = traffic.write_model(os.path.join(tmp, "model.txt"), seed, k)
+        mod_file = None
+        if "mod_model" in cfg:
+            mod_file = traffic.write_mod_model(os.path.join(tmp, "mod_model.txt"), seed, k,
+                                               float(cfg["mod_model"]["shift_pA"]))
+            stages.append(("model and its 5mC twin", process_age()))
+        pool = traffic.make_pool(model_file, locus, cell["params"], seed, mod_file)
+        stages.append(("model and pool" if mod_file is None else "pool", process_age()))
         ulog.init(log_level="warning")
         on_card = device == "cuda"
         if on_card:
@@ -162,7 +189,8 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
         repeat = {locus["name"]: (locus["chrom"], locus["begin"], locus["end"], locus["repeat"],
                                   locus["prefix"], locus["suffix"])}
         detector = RepeatDetector(repeat, model_file, window.MemoryIndex(pool),
-                                  align_config=cfg["align"], hmm_config=cfg["hmm"], device=device)
+                                  mod_model_file=mod_file, align_config=cfg["align"],
+                                  hmm_config=cfg["hmm"], device=device)
         stages.append(("detector", process_age()))
         batch = int(cell["batch_size"])
         window.run(run_pipeline, detector, OutputWriter(os.path.join(tmp, "warm.tsv")), pool,
@@ -186,6 +214,10 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
         writer.write_line = timed_write
         _build.reset_launches()
         setup_s = process_age()
+        card_prof = None
+        if not trace and on_card and card_metrics(bench, cell["name"]):
+            card_prof = _profiler(host=False)[0]
+            card_prof.start()
         cpu0 = cpu_seconds()
         if prof is not None:
             prof.start()
@@ -198,6 +230,8 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
         if prof is not None:
             probe.on = False
             prof.stop()
+        if card_prof is not None:
+            card_prof.stop()
         window_s = end - start
         cpu1 = cpu_seconds()
         launches = {k: v for k, v in _build.LAUNCHES.items() if v}
@@ -223,18 +257,24 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
         if on_card:
             out["notes"].append("card at the window's end (sm clock, max, power, temperature, "
                                 "throttle reasons): " + gpu_state())
+        if card_prof is not None:
+            out.update(_card(card_prof, len(rows)))
+        if "card_us_per_read" in out:
+            out["notes"].append(f"card busy {out['card_busy_s']} s of the window's {window_s} s, "
+                                f"{len(rows)} rows: card_us_per_read {out['card_us_per_read']}")
         if trace:
-            traced = _traced(prof, probe, cell, bench, cfg, launches)
+            traced = _traced(prof, probe, cell, bench, cfg, launches, len(rows) / window_s)
             out["notes"] += traced.pop("notes")
             out.update(traced)
-        del detector, probe, prof, writer
+        del detector, probe, prof, card_prof, writer
         gc.collect()
         if on_card:
             torch.cuda.empty_cache()
         t_ref = time.perf_counter()
         written = {k for k, _r in rows}
         picked = check.sample(written, pool, seed, int(cell["check_reads"]))
-        ref = Reference(locus, model_file, cfg["align"], device, hmm_config=cfg["hmm"])
+        ref = Reference(locus, model_file, cfg["align"], device, hmm_config=cfg["hmm"],
+                        mod_model_file=mod_file)
         ref_rows = ref.rows([pool[i][2] for i in picked], [pool[i][1] for i in picked])
         out["numbers"] = check.compare(rows, feed.fed, dict(zip(picked, ref_rows)))
         out["limits"] = {n: cell["check"][n] for n in check.NUMBERS}
@@ -242,13 +282,58 @@ def run_cell(cell: dict, bench: dict, seed: int, seconds: float, trace: bool,
         out["notes"].append(f"reference: {len(picked)} pool reads, their longest "
                             f"{max((len(pool[i][2]) for i in picked), default=0)} samples, "
                             f"{time.perf_counter() - t_ref:.1f} s")
+        if mod_file is not None:
+            out["notes"].append(mod_note(traffic.methylation(cell["params"]), pool, picked, rows))
         return out
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def _traced(prof, probe, cell, bench, cfg, launches) -> dict:
-    """The traced window's per-layer metrics, device times and notes."""
+def mod_note(flags, pool, picked, rows) -> str:
+    """The share of '1' characters on methylated and on unmethylated units,
+    over the sampled reads' first rows.  A row's n characters stand for
+    the read's units in its strand's order, character j for unit
+    j * units // n (the decode may find a unit more or fewer)."""
+    first: dict = {}
+    for k, r in rows:
+        first.setdefault(k, r)
+    ones = {True: 0, False: 0}
+    chars = {True: 0, False: 0}
+    for i in picked:
+        mod = first.get(i, (None,) * 7)[6]
+        if not mod or mod == "-":
+            continue
+        units, strand = pool[i][0], pool[i][1]
+        on = flags[i] if flags[i] is not None else [False] * units
+        if strand == "-":
+            on = on[::-1]
+        for j, ch in enumerate(mod):
+            m = bool(on[j * units // len(mod)])
+            chars[m] += 1
+            ones[m] += ch == "1"
+    share = {m: f"{ones[m]}/{chars[m]}" + (f" = {ones[m] / chars[m]:.4f}" if chars[m] else "")
+             for m in (True, False)}
+    return (f"mod: '1' on methylated units {share[True]}, on unmethylated units "
+            f"{share[False]} (sampled rows' characters)")
+
+
+def _card(prof, rows: int) -> dict:
+    """The untraced window's card time: the union of every device event's
+    interval in the trace, in seconds, and in microseconds a row written
+    (absent where the trace holds no device event or no row was written)."""
+    from harness.trace import Timeline
+
+    tl = Timeline.from_profile(prof)
+    b = tl.bounds()
+    if b is None or rows == 0:
+        return {}
+    busy_us = tl.busy_us(*b)
+    return {"card_busy_s": busy_us / 1e6, "card_us_per_read": busy_us / rows}
+
+
+def _traced(prof, probe, cell, bench, cfg, launches, rate) -> dict:
+    """The traced window's per-layer metrics, device times and notes;
+    ``rate`` is the window's rows a second."""
     from harness.trace import Timeline
 
     tl = Timeline.from_profile(prof)
@@ -258,7 +343,7 @@ def _traced(prof, probe, cell, bench, cfg, launches) -> dict:
     # the two flank templates' lengths in samples: samples a k-mer of each flank
     flanks = (len(locus["prefix"]) - k + 1) + (len(locus["suffix"]) - k + 1)
     ctx = {"probe": probe, "timeline": tl, "batch_size": int(cell["batch_size"]),
-           "template_samples": flanks * samples}
+           "template_samples": flanks * samples, "reads_per_s": rate}
     layers, tables = {}, []
     for m in spec.cell_metrics(bench, cell["name"], "per_layer"):
         mod = spec.module("metrics", m["name"])
@@ -317,7 +402,8 @@ def main(argv=None) -> int:
     kind = torch.cuda.get_device_name(0)
     device = {"platform": "gpu", "kind": kind, "count": int(entry["chips"]),
               "memory_peak_bytes": int(out["peak"])}
-    e2e = {"reads_per_s": (out["reads_per_s"], "reads/s"), "setup_s": (out["setup_s"], "s")}
+    e2e = {"reads_per_s": (out["reads_per_s"], "reads/s"), "setup_s": (out["setup_s"], "s"),
+           "card_us_per_read": (out.get("card_us_per_read"), "us/read")}
     if args.trace:
         metrics = out["layers"]
         device["busy_s"] = out["busy_s"]
@@ -329,6 +415,10 @@ def main(argv=None) -> int:
                    for m in spec.cell_metrics(bench, args.workload, "end_to_end")}
     for note in out["notes"]:
         info(note)
+    unread = sorted(n for n, m in metrics.items() if m["value"] is None)
+    if unread:
+        info(f"no reading of {', '.join(unread)}: no result")
+        return 5
     numbers, limits = out["numbers"], out["limits"]
     result = {"correct": bool(out["correct"]), "attempted": len(out["fed"]),
               "failed": int(numbers["missing"]), "metrics": metrics, "device": device}

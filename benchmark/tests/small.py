@@ -15,3 +15,13 @@ def small_cell(name: str, reads: int = 3, batch: int = 2) -> dict:
     cell["batch_size"] = batch
     cell["check_reads"] = 2
     return cell
+
+
+def small_mod_cell(name: str, reads: int = 3, batch: int = 2, shift_pA: float = -4.0) -> dict:
+    """``small_cell`` with a 5mC twin in its configuration and half the
+    reads of each allele methylated in every unit."""
+    cell = small_cell(name, reads, batch)
+    cell["config_spec"] = dict(cell["config_spec"], mod_model={"shift_pA": shift_pA})
+    for a in cell["params"]["alleles"]:
+        a["methylation"] = {"reads": 0.5, "units": 1.0}
+    return cell

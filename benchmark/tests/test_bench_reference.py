@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 
 from harness import check, spec
-from small import small_cell
+from small import small_cell, small_mod_cell
 
 
 @pytest.mark.parametrize("name", ["c9orf72-cas9-carrier", "fmr1-cas9-carrier"])
@@ -23,6 +23,34 @@ def test_reference_equals_package_on_cpu(name, tmp_path):
                                                            [p[1] for p in pool])
     counter = RepeatCounter(model, align_config=cfg["align"], device="cpu")
     counter.add_target(locus["name"], locus["repeat"], locus["prefix"], locus["suffix"])
+    for (_units, strand, raw), row in zip(pool, want):
+        assert counter.detect_many(locus["name"], [raw], strand)[0] == row
+
+
+@pytest.mark.parametrize("name", ["c9orf72-cas9-carrier", "fmr1-cas9-carrier"])
+def test_reference_mod_equals_package_on_cpu(name, tmp_path):
+    """With a 5mC twin both sides call methylation: every row equal, mod
+    string included, and every gated-in row carries a '0'/'1' string."""
+    from reference.pipeline import Reference
+    from strique_tpu_torch.detect.counter import RepeatCounter
+
+    cell = small_mod_cell(name, reads=4)
+    cfg = cell["config_spec"]
+    locus = cfg["locus"]
+    traffic = spec.module("traffic", cell["generator"])
+    model = traffic.write_model(str(tmp_path / "m.txt"), 21)
+    twin = traffic.write_mod_model(str(tmp_path / "t.txt"), 21, 6,
+                                   cfg["mod_model"]["shift_pA"])
+    pool = traffic.make_pool(model, locus, cell["params"], 21, twin)
+    assert any(f is not None for f in traffic.methylation(cell["params"]))
+    want = Reference(locus, model, cfg["align"], "cpu", mod_model_file=twin).rows(
+        [p[2] for p in pool], [p[1] for p in pool])
+    counter = RepeatCounter(model, mod_model_file=twin, align_config=cfg["align"], device="cpu")
+    counter.add_target(locus["name"], locus["repeat"], locus["prefix"], locus["suffix"])
+    gated_in = [row for row in want if row[3] != 0.0]
+    assert gated_in
+    for row in gated_in:
+        assert row[6] and set(row[6]) <= {"0", "1"}, row
     for (_units, strand, raw), row in zip(pool, want):
         assert counter.detect_many(locus["name"], [raw], strand)[0] == row
 

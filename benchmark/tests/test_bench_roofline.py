@@ -63,3 +63,46 @@ def test_idle_ends_at_feed_end_and_gaps_are_named():
     gaps = tl.breakdown()["idle_gaps"]
     assert gaps[0][0] == "finish" or gaps[1][0] == "finish"
     assert union([(0, 2), (1, 3), (5, 6)]) == [[0, 3], [5, 6]]
+
+
+def test_card_family_reads_as_its_base():
+    """Each ``<m>.card`` is ``<m>``'s reader moving ``card_us_per_read``;
+    ``reads_per_s.card`` reads the window's rate."""
+    bench = spec.benchmark()
+    card = [m["name"] for m in bench["per_layer"] if m["name"].endswith(".card")]
+    assert "reads_per_s.card" in card and len(card) >= 2
+    wave = "void (anonymous namespace)::wave_align_kernel<1, 0, 1>(float const*)"
+    ctx = _ctx([(0.0, 100.0, wave, "kernel"), (300.0, 310.0, "Memcpy HtoD", "gpu_memcpy")],
+               submits=[[1000, 3000]], segments=[(500, 230)],
+               spans=[("submit", 0.0, 0.004), ("submit", 1.0, 1.002)])
+    ctx["reads_per_s"] = 812.5
+    for name in card:
+        mod = spec.module("metrics", name)
+        assert mod.MOVES == "card_us_per_read", name
+        base = name[: -len(".card")]
+        if base == "reads_per_s":
+            assert mod.read(ctx) == 812.5 and mod.read({}) is None
+            continue
+        ref = spec.module("metrics", base)
+        assert (mod.LAYER, mod.UNIT, mod.SOURCE, tuple(mod.KERNELS)) == (
+            ref.LAYER, ref.UNIT, ref.SOURCE, tuple(getattr(ref, "KERNELS", ()))), name
+        assert mod.read(ctx) == ref.read(ctx), name
+
+
+def test_card_time_a_row(monkeypatch):
+    """The card's busy time is a union over the window; per row written."""
+    import run
+
+    dev = [(0.0, 100.0, "k", "kernel"), (50.0, 150.0, "k", "kernel"),
+           (300.0, 310.0, "Memcpy HtoD", "gpu_memcpy")]
+    monkeypatch.setattr(Timeline, "from_profile", classmethod(lambda cls, prof: Timeline(dev, [])))
+    assert run._card(None, 4) == {"card_busy_s": pytest.approx(160e-6),
+                                  "card_us_per_read": pytest.approx(40.0)}
+    assert run._card(None, 0) == {}
+    monkeypatch.setattr(Timeline, "from_profile", classmethod(lambda cls, prof: Timeline([], [])))
+    assert run._card(None, 4) == {}
+    bench = spec.benchmark()
+    asks = {w["name"]: run.card_metrics(bench, w["name"]) for w in bench["workloads"]}
+    assert asks == {w: any(m["source"] == "device_trace"
+                           for m in spec.cell_metrics(bench, w, "end_to_end")) for w in asks}
+    assert asks["fmr1-cas9-carrier"] and not asks["c9orf72-cas9-carrier"]
