@@ -1,0 +1,8 @@
+"""mod_pad_pct.card: ``mod_pad_pct`` in the cells that report the card's time a row,
+``card_us_per_read``, in place of ``reads_per_s``; read by ``mod_pad_pct.py``."""
+from harness import spec
+
+_base = spec.module("metrics", "mod_pad_pct")
+LAYER, UNIT, SOURCE, read = _base.LAYER, _base.UNIT, _base.SOURCE, _base.read
+KERNELS = getattr(_base, "KERNELS", ())
+MOVES = "card_us_per_read"

@@ -686,8 +686,11 @@ class RepeatCounter:
         with trace.span("mod.prep"):
             rep_signals = list(self._prep_pool().map(_mod_input, range(B)))
             mod_jobs = [(i, s) for i, s in enumerate(rep_signals) if s is not None]
-            handle = (self._viterbi_submit(tc.mod_hmm, [s for _, s in mod_jobs])
-                      if mod_jobs else None)
+            trace.count("mod.reads", len(mod_jobs))
+            handle = None
+            if mod_jobs:
+                with trace.span("mod.viterbi"):
+                    handle = self._viterbi_submit(tc.mod_hmm, [s for _, s in mod_jobs])
         # the count rows decode on the host while the mod decode runs
         results = self._main_results(state)
         state["modsub"] = (results, [(i, len(s)) for i, s in mod_jobs], handle)
@@ -800,7 +803,10 @@ class RepeatCounter:
 
     def _viterbi_submit(self, chm, segments) -> dict:
         """Queue the Viterbi decode of ``segments`` (its rows split over
-        the devices); returns a collect handle."""
+        the devices); returns a collect handle.  Traced, the segments'
+        steps and the padded rows' steps add to ``viterbi.steps`` and
+        ``viterbi.padded``, or, for a mod HMM's decode, to ``mod.steps``
+        and ``mod.padded``."""
         lens = np.array([len(s) for s in segments], dtype=np.int32)
         B = len(segments)
         Bp = self._pad_rows(B)
@@ -808,8 +814,9 @@ class RepeatCounter:
         lens_p[:B] = lens
         tpad = max(-(-int(lens.max()) // CHUNK_T) * CHUNK_T, CHUNK_T)
         if trace.enabled():
-            trace.count("viterbi.steps", int(lens.sum()))
-            trace.count("viterbi.padded", Bp * tpad)
+            counter = "mod" if "mod_states" in chm.meta else "viterbi"
+            trace.count(counter + ".steps", int(lens.sum()))
+            trace.count(counter + ".padded", Bp * tpad)
         obs_host = self._host_buffer((Bp, tpad), torch.float32)
         obs = obs_host.numpy()
         for k, s in enumerate(segments):
