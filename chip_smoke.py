@@ -1286,21 +1286,15 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
     ms = cuda_ms(lambda: VC.viterbi_forward_factored(o_d, l_d, ph), 3)
     _build.LAUNCHES["viterbi_forward_factored"] = 0
     steps = int(l_d.max())  # the chain: one step a sample of the longest read
-    print(f"  viterbi_forward_factored [{shape_name} B={B} T={T} SP={ph.sp}]: "
-          f"max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), "
-          f"plain {plain_ms:.1f} ms", flush=True)
+    warps = VC.fwd_warps(ph.sp, ph.fwd_layout.code)
+    bb = factored_bound(ph, l_d, B, T)
+    print(f"  viterbi_forward_factored [{shape_name} B={B} T={T} SP={ph.sp}, W={warps}]: "
+          f"max_abs_err {err}; kernel {ms:.3f} ms ({ms * 1e3 / steps:.4f} us/step), bound "
+          f"{bb['bound_ms']:.4f} ms ({bb['bound_by']}), plain {plain_ms:.1f} ms", flush=True)
     if err != 0.0:
         fail(f"factored forward kernel disagrees with its plain twin at the {shape_name} shape")
-    sp = ph.sp
-    live_cells = float(l_d.double().sum()) * sp
-    diag_offs, chain_spec = ph.fspec
-    n_rolls = len(diag_offs) + sum(len(a) + len(b) for a, b in chain_spec)
-    # per (step, state): an add and a max per roll, 3 per chain (ramp in,
-    # cummax, ramp out), 8 for the emission and the row-max rescale
-    f32 = live_cells * (2 * n_rolls + 3 * len(chain_spec) + 8)
-    nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + len(chain_spec) + 5) * sp
     results["viterbi_forward_factored"] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                                           "us_per_step": ms * 1e3 / steps, **bound(nbytes, f32)}
+                                           "us_per_step": ms * 1e3 / steps, "warps": warps, **bb}
 
     last = torch.argmax(fin_k + ph.end, dim=1)
     run_k = lambda: VC.viterbi_backward_batch(sc_k, last, l_d, ph.transT)
@@ -1314,11 +1308,9 @@ def check_viterbi(pm, chm, shape_name, B, T, rng, results, repeats=REPEATS):
           flush=True)
     if perr != 0:
         fail(f"backward kernel disagrees with its plain twin at the {shape_name} shape")
-    # one score row and one transition row per visited step; 3 f32 ops a state
-    nbytes = 4 * (live_cells + sp * sp + B * T + 2 * B)
     results["viterbi_backward_batch"] = {"max_abs_err": float(perr), "ms": ms,
                                          "plain_ms": plain_ms, "us_per_step": ms * 1e3 / steps,
-                                         **bound(nbytes, 3 * live_cells)}
+                                         **backward_bound(ph.sp, l_d, B, T)}
 
 
 def check_viterbi_edges(pm, rng) -> None:
@@ -1461,11 +1453,13 @@ def check_viterbi_mod(pm, pm_mod, unit, shape_name, B, T, rng, results):
     for n in (*fwd, "viterbi_backward_batch"):
         _build.LAUNCHES[n] = before[n]
     steps = int(l_d.max())
-    print(f"  {name} [{shape_name} B={B} T={T} SP={ph.sp}, {chm.n_states} states, "
+    warps = VC.fwd_warps(ph.sp, ph.fwd_layout.code)
+    bb = factored_bound(ph, l_d, B, T)
+    print(f"  {name} [{shape_name} B={B} T={T} SP={ph.sp}, W={warps}, {chm.n_states} states, "
           f"{len(ph.fspec[0])} diagonals]: max_abs_err {err}; kernel {ms:.3f} ms "
-          f"({ms * 1e3 / steps:.4f} us/step), dense resident forward on the same inputs "
-          f"{dense_ms:.3f} ms (K={VC.dense_mode(ph.sp).ctas}), plain {plain_ms:.1f} ms",
-          flush=True)
+          f"({ms * 1e3 / steps:.4f} us/step), bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}), "
+          f"dense resident forward on the same inputs {dense_ms:.3f} ms "
+          f"(K={VC.dense_mode(ph.sp).ctas}), plain {plain_ms:.1f} ms", flush=True)
     print(f"  viterbi_backward_batch [{shape_name} mod HMM B={B} T={T} SP={ph.sp}]: max_abs_err "
           f"{perr}; kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.1f} ms; the dense forward's "
           f"paths {'equal' if same else 'DIFFER'}", flush=True)
@@ -1477,17 +1471,9 @@ def check_viterbi_mod(pm, pm_mod, unit, shape_name, B, T, rng, results):
         fail(f"the dense and factored forwards' paths differ on the {shape_name} mod HMM")
     if results is None:
         return
-    sp = ph.sp
-    live_cells = float(l_d.double().sum()) * sp
-    n_rolls = len(ph.fspec[0])
-    # per (step, state): an add and a max per roll, 8 for the emission and
-    # the row-max rescale
-    f32 = live_cells * (2 * n_rolls + 8)
-    nbytes = 4 * (B * T + live_cells + B * sp + B) + 4 * (n_rolls + 5) * sp
     results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "us_per_step": ms * 1e3 / steps, "dense_ms": dense_ms,
-                     "backward_ms": bwd_ms, "shape": f"B={B} T={T} SP={sp}",
-                     **bound(nbytes, f32)}
+                     "us_per_step": ms * 1e3 / steps, "warps": warps, "dense_ms": dense_ms,
+                     "backward_ms": bwd_ms, "shape": f"B={B} T={T} SP={ph.sp}", **bb}
 
 
 def factored_bound(ph, l_d, B: int, T: int) -> dict:

@@ -9,54 +9,69 @@
 // row st = val - m (stored to sc[t, read, :]) and acc += m.
 //
 // What bounds it on an H100: the serial time chain -- every step waits on
-// the previous row, and within a step on a block-wide prefix max per
-// chain and a block max; a step is a few hundred flops over 256 lanes.
+// the previous row, and within a step on a read-wide prefix max per chain
+// and a read-wide max; a step is a few hundred flops over 256 lanes.
 // The score-row stream (T x B x SP f32, ~0.4 GB for 64 reads of 6144
 // samples) is written once, coalesced, at far below the card's
 // bandwidth.
 //
-// Design: one CTA per read, one thread per state lane v (SP = 256 for
-// the c9orf72 HMM's 216 states, SP = 128 for its mod HMM's 26); a step
-// is three barriers (one with no chain) and independent shared loads:
+// Design: one CTA per read of W warps, S = SP / (32 W) consecutive states
+// a lane (lane l of the read holds states l S ... l S + S - 1; SP = 256
+// for the c9orf72 HMM's 216 states, SP = 128 for its mod HMM's 26; W by
+// SP and layout from FWD_STATES, the fastest of
+// tools/probe_viterbi_narrow.py's sweep: 4 warps at SP 128 and 256, 1 and
+// 2 states a lane, 4 states a lane at most).  Between the barriers a lane
+// works S independent states, so their gathers and maxes are in flight at
+// once; a step is three barriers over the read's warps (one with no
+// chain):
 //   * every roll's source lane u = (v - o) mod SP and weight w[u] are the
-//     same at every step: the host stages them per thread
+//     same at every step: the host stages them per state
 //     (viterbi_cuda.fwd_gather_tables: the layout's diagonal slots, then
 //     per chain ENTRY_SLOTS entry and EXIT_SLOTS exit slots; a slot the
 //     spec leaves empty has weight -inf, the identity of the max), and
-//     each thread holds every slot in registers: no predicate or branch
-//     in the step, so every gather's load is in flight at once.  Two
-//     slot layouts are compiled, picked by the host per HMM: CHAINED (8
+//     each lane holds every slot of its S states in registers: no
+//     predicate or branch in the step.  Rows live in shared memory in
+//     row_word order (u XOR its 32-word block's low bits), so a warp's
+//     gathers, S states apart a lane, take one wavefront.  Two slot
+//     layouts are compiled, picked by the host per HMM: CHAINED (8
 //     diagonals and 2 chains of 2 entries and 3 exits) fits the
 //     flanked-repeat HMMs (6 or 7 diagonals, chains of 2 entries and 3
 //     and 2 exits); DIAG (12 diagonals, no chain) fits the mod HMMs (11
 //     diagonals), whose step has no chain scan and so one barrier.  The
 //     wrapper sends a spec that fits neither to the dense forward;
-//   * the row is published as val (before the rescale) behind ONE
-//     barrier, and every warp then takes the row max itself (NV float4
-//     reads a lane, one __reduce_max_sync on an order-preserving int key;
-//     max is exact): a gather reads (val[u] - m) + w, the same f32 st[u]
-//     the reference rolls; rows alternate between two buffers, so no
-//     barrier guards only a reuse;
-//   * all chains scan together: interleaved warp shfl_up scans, one
-//     barrier for every chain's warp totals (each thread folds the totals
-//     of the warps below its own from broadcast float4 reads), one
-//     barrier to publish every h row;
+//   * the row is published as val (before the rescale) with each warp's
+//     max (a lane's S states, then one __reduce_max_sync on an
+//     order-preserving int key) behind ONE barrier, and every lane folds
+//     the W warp maxima (max is exact): a gather reads (val[u] - m) + w,
+//     the same f32 st[u] the reference rolls.  Rows alternate between two
+//     buffers, so no barrier guards only a reuse;
+//   * all chains scan together, h = cummax(inj - ramp) + ramp: a lane's
+//     inclusive max over its S states in state order, interleaved warp
+//     shfl_up scans of the lane totals, one barrier for every chain's warp
+//     totals (each lane folds the totals of the warps below its own from
+//     broadcast float4 reads), one barrier to publish every h row;
 //   * the emission is off the chain: obs is staged 32 steps at a time in
-//     shared memory by cp.async, one chunk ahead, and at each chunk's
-//     first step a thread computes its 32 emissions at once into its own
-//     column of a shared table; it keeps the reference's expression
-//     tree, lsig - (0.5*z)*z with z = (x - mu) / sigma in IEEE division
-//     (lsig from the host);
-//   * score rows are stored with streaming stores (__stcs).
+//     shared memory by cp.async, one chunk ahead, and a lane computes its
+//     states' emissions of step t + 1 after step t's last barrier, while
+//     the rescale and the next step's gathers go on.  It keeps the
+//     reference's expression tree, lsig - (0.5*z)*z with z = (x - mu) /
+//     sigma rounded as the IEEE division rounds it (lsig from the host),
+//     by a multiply with sigma's double reciprocal (quotient()), which
+//     takes no slow-path branch: that branch ends a basic block, so the
+//     division's latency could not overlap anything;
+//   * a lane's S entries of a score row go out in one vector streaming
+//     store (__stcs).
 // acc accumulates sequentially in f32, in step order.  A read stops at
 // its own length: later rows are frozen in the reference and never read.
+// (The one state a thread form, W = SP / 32 with every warp reading the
+// whole row for its max, is kept in tools/probe_viterbi_narrow.cu.)
 //
 // Past SP 1024 (up to 8192, the dense forward's cap) one thread a state
-// no longer fits a CTA, and neither does the emission table.  The cluster
-// form (viterbi_fwd_cluster_kernel, below) spreads a read over a
-// thread-block cluster of C CTAs, one state a thread again: each CTA
-// holds a copy of the whole previous row, received by st.async, and the
-// chains' CTA-local cummaxes cross the cluster the same way.  (The
+// no longer fits a CTA.  The cluster form (viterbi_fwd_cluster_kernel,
+// below) spreads a read over a thread-block cluster of C CTAs, one state
+// a thread again: each CTA holds a copy of the whole previous row,
+// received by st.async, and the chains' CTA-local cummaxes cross the
+// cluster the same way.  (The
 // one-CTA wide form it replaces, K states a thread with the slot tables
 // read through __ldg each step, is kept in tools/probe_viterbi_wide.cu,
 // which times the two side by side.)
@@ -132,10 +147,80 @@ __device__ __forceinline__ float lds(uint32_t addr) {
   return x;
 }
 
-// SP = 128 NV states, one thread each, every slot of layout L held in
-// registers
+// states a lane of the narrow kernel by slot layout (0 CHAINED, 1 DIAG)
+// and SP / 128 - 1, the fastest of tools/probe_viterbi_narrow.py's sweep
+// on an H100 (viterbi_cuda.FWD_STATES, held equal by a CPU test); W =
+// SP / (32 S) warps a read
+constexpr int FWD_STATES[2][8] = {{1, 2, 4, 4, 4, 4, 4, 4}, {1, 2, 2, 4, 2, 2, 4, 4}};
+
 template <int NV, class L>
-__global__ void __launch_bounds__(128 * NV)
+constexpr int fwd_warps() {
+  return 4 * NV / FWD_STATES[L::CHAIN > 0 ? 0 : 1][NV - 1];
+}
+
+// the shared word of state u in a row of the narrow kernel at S states a
+// lane: u XOR its 32-word block's low bits, so a warp's 32 lanes, S
+// states apart, fall in 32 distinct banks (S a power of two); a lane's S
+// states stay in one aligned group of S words
+template <int S>
+__host__ __device__ constexpr int row_word(int u) {
+  return u ^ ((u >> 5) & (S - 1));
+}
+
+// Clock hooks of the narrow kernel's step phases
+// (tools/probe_viterbi_narrow.cu compiles this file with FWD_HOOK set to a
+// counting hook): start, mark(i) at the end of phase i (0 the step's start
+// and an obs chunk's prefetch, 1 the gathers and scans, 2 the totals'
+// barrier, 3 the fold and h rows, 4 the h rows' barrier, 5 the exits and
+// the row's publication, 6 its barrier, 7 the rescale, the next step's
+// emissions and the score row), finish.  The kernels built here take
+// NoFwdHook, whose calls vanish.
+struct NoFwdHook {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void finish(int) {}
+};
+#ifndef FWD_HOOK
+#define FWD_HOOK NoFwdHook
+#endif
+
+// a / b in f32, rounded to nearest as the IEEE division rounds it, from rb
+// = 1.0 / (double)b: the double product is within 2^-52 (relative) of a /
+// b, which lies at least 2^-49 from the nearest midpoint of two floats
+// (a and b carry 24-bit significands), so rounding it to f32 rounds a / b
+// (tests/test_torch_viterbi_staging.py holds the identity over random
+// and edge operands).  Branch-free: the f32 division's slow-path branch
+// ends a basic block, so nothing else could overlap its latency.
+__device__ __forceinline__ float quotient(float a, double rb) {
+  return __double2float_rn((double)a * rb);
+}
+
+// dynamic shared bytes of the narrow kernel at SP with NC chains: the two
+// rows, the h rows, and each state's emission constants (mu, lsig, luni,
+// uni; 1 / sigma in double)
+constexpr size_t narrow_shmem(int SP, int NC) {
+  return (size_t)(2 + NC + 4 + 2) * SP * sizeof(float);
+}
+
+// a lane's S consecutive entries of a score row, one streaming store
+template <int S>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[S]) {
+  if constexpr (S == 1) {
+    __stcs(p, v[0]);
+  } else if constexpr (S == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+#pragma unroll
+    for (int q = 0; q < S / 4; ++q)
+      __stcs(reinterpret_cast<float4*>(p) + q,
+             make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]));
+  }
+}
+
+// SP = 128 NV states on W warps a read (one CTA), S = SP / (32 W)
+// consecutive states a lane, every slot of layout L held in registers
+template <int NV, class L, int W>
+__global__ void __launch_bounds__(32 * W, 1)
 viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
                    const float* __restrict__ start, const float* __restrict__ mu,
                    const float* __restrict__ sigma, const int* __restrict__ uni,
@@ -144,160 +229,242 @@ viterbi_fwd_kernel(const float* __restrict__ obs, const int* __restrict__ tact,
                    const float* __restrict__ ramp, int n_chain, float* __restrict__ sc,
                    float* __restrict__ fin, float* __restrict__ acc_out, int B, int T) {
   constexpr int SP = 128 * NV;
+  constexpr int NT = 32 * W;   // threads of the read
+  constexpr int S = SP / NT;   // states a lane
+  static_assert(S * NT == SP && (S & (S - 1)) == 0 && S <= 8, "S: 1, 2, 4 or 8");
   constexpr int ROW = SP * 4;  // bytes of a row
   constexpr int DIAG_SLOTS = L::DIAG;
   constexpr int NC = L::CHAIN;
   constexpr int NCA = L::CHAIN_ARR;
   extern __shared__ __align__(16) float smem[];
-  float* val_sh = smem;                     // 2 x SP: the rows, by step parity
-  float* h_sh = val_sh + 2 * SP;            // NC x SP
-  float* emit_sh = h_sh + NC * SP;          // OBS_CHUNK x SP: a column a thread
-  __shared__ __align__(16) float wtot[NCA][32];
-  __shared__ float obs_sh[2][OBS_CHUNK];
+  float* val_sh = smem;             // 2 x SP: the rows, by step parity, in row_word order
+  float* h_sh = val_sh + 2 * SP;    // NC x SP, in row_word order
+  // a state's emission constants, S x NT each: (mu, lsig, luni, uni as 0
+  // or 1), then 1 / sigma in double
+  float4* par_sh = reinterpret_cast<float4*>(h_sh + NC * SP);
+  double* rsig_sh = reinterpret_cast<double*>(par_sh + SP);
+  __shared__ __align__(16) float wtot[NCA][32];  // the chains' warp totals
+  __shared__ __align__(16) int wkey[2][32];      // the warps' row maxima, by parity
+  __shared__ __align__(16) float obs_sh[2][OBS_CHUNK];
 
   const int b = blockIdx.x;
-  const int v = threadIdx.x;
-  const int lane = v & 31;
-  const int warp = v >> 5;
+  const int x = threadIdx.x;
+  const int lane = x & 31;
+  const int warp = x >> 5;
+  const int v0 = x * S;            // the lane's first state
   const int ta = min(tact[b], T);  // lengths past T would read past the row
   const float* x_row = obs + (size_t)b * T;
 
   // shared byte addresses of every gather: a row (parity 0) and the h rows
   const uint32_t val0 = (uint32_t)__cvta_generic_to_shared(val_sh);
   const uint32_t h0 = (uint32_t)__cvta_generic_to_shared(h_sh);
-  uint32_t ad[DIAG_SLOTS], ae[NCA][ENTRY_SLOTS], ax[NCA][EXIT_SLOTS];
-  float wd[DIAG_SLOTS], we[NCA][ENTRY_SLOTS], wx[NCA][EXIT_SLOTS], rp[NCA];
+  uint32_t ad[S][DIAG_SLOTS], ae[S][NCA][ENTRY_SLOTS], ax[S][NCA][EXIT_SLOTS];
+  float wd[S][DIAG_SLOTS], we[S][NCA][ENTRY_SLOTS], wx[S][NCA][EXIT_SLOTS], rp[S][NCA];
+  int own[S];  // the lane's states' words
 #pragma unroll
-  for (int d = 0; d < DIAG_SLOTS; ++d) {
-    ad[d] = val0 + 4 * src[d * SP + v];
-    wd[d] = wts[d * SP + v];
-  }
+  for (int k = 0; k < S; ++k) {
+    const int v = v0 + k;
+    own[k] = row_word<S>(v);
+    par_sh[k * NT + x] = make_float4(mu[v], lsig[v], luni[v], uni[v] != 0 ? 1.0f : 0.0f);
+    rsig_sh[k * NT + x] = 1.0 / (double)sigma[v];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    rp[c] = ramp[c * SP + v];
-    const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
-#pragma unroll
-    for (int e = 0; e < ENTRY_SLOTS; ++e) {
-      ae[c][e] = val0 + 4 * src[(base + e) * SP + v];
-      we[c][e] = wts[(base + e) * SP + v];
+    for (int d = 0; d < DIAG_SLOTS; ++d) {
+      ad[k][d] = val0 + 4 * row_word<S>(src[d * SP + v]);
+      wd[k][d] = wts[d * SP + v];
     }
 #pragma unroll
-    for (int e = 0; e < EXIT_SLOTS; ++e) {
-      ax[c][e] = h0 + c * ROW + 4 * src[(base + ENTRY_SLOTS + e) * SP + v];
-      wx[c][e] = wts[(base + ENTRY_SLOTS + e) * SP + v];
+    for (int c = 0; c < NC; ++c) {
+      rp[k][c] = ramp[c * SP + v];
+      const int base = DIAG_SLOTS + c * CHAIN_SLOTS;
+#pragma unroll
+      for (int e = 0; e < ENTRY_SLOTS; ++e) {
+        ae[k][c][e] = val0 + 4 * row_word<S>(src[(base + e) * SP + v]);
+        we[k][c][e] = wts[(base + e) * SP + v];
+      }
+#pragma unroll
+      for (int e = 0; e < EXIT_SLOTS; ++e) {
+        ax[k][c][e] = h0 + c * ROW + 4 * row_word<S>(src[(base + ENTRY_SLOTS + e) * SP + v]);
+        wx[k][c][e] = wts[(base + ENTRY_SLOTS + e) * SP + v];
+      }
     }
   }
-  const float mu_v = mu[v], sig_v = sigma[v], luni_v = luni[v], lsig_v = lsig[v];
-  const float start_v = start[v];
-  const bool uni_v = uni[v] != 0;
 
   // obs chunk 0 now, chunk 1 in flight
-  if (v < OBS_CHUNK) {
-    if (v < ta) obs_sh[0][v] = x_row[v];
-    if (OBS_CHUNK + v < ta) cp_async4(&obs_sh[1][v], x_row + OBS_CHUNK + v);
+  if (x < OBS_CHUNK) {
+    if (x < ta) obs_sh[0][x] = x_row[x];
+    if (OBS_CHUNK + x < ta) cp_async4(&obs_sh[1][x], x_row + OBS_CHUNK + x);
     cp_async_commit();
   }
-  float fin_v = 0.0f, acc = 0.0f, m = 0.0f;
-  float* sc_v = sc + (size_t)b * SP + v;  // row t at sc_v + t * B * SP
+  float acc = 0.0f, m = 0.0f;
+  float* fin_b = fin + (size_t)b * SP + v0;
+  if (ta <= 0) {
+#pragma unroll
+    for (int k = 0; k < S; ++k) fin_b[k] = 0.0f;
+  }
+  float* sc_v = sc + (size_t)b * SP + v0;  // row t at sc_v + t * B * SP
   const size_t sc_step = (size_t)B * SP;
+  // state k's emission of sample xt: the reference's tree, lsig -
+  // (0.5*z)*z with z = (xt - mu) / sigma (quotient(): IEEE's rounding)
+  auto emission = [&](int k, float xt) {
+    const float4 q = par_sh[k * NT + x];
+    const float z = quotient(xt - q.x, rsig_sh[k * NT + x]);
+    return q.w != 0.0f ? q.z : q.y - (0.5f * z) * z;
+  };
+  FWD_HOOK hook;
   __syncthreads();
+  float emit[S];  // the step's emissions, computed during the step before
+#pragma unroll
+  for (int k = 0; k < S; ++k) emit[k] = emission(k, obs_sh[0][0]);
+  hook.start();
 
   // one step; parity P picks the row buffers at compile time
   auto step = [&](auto parity, int t) {
     constexpr int P = decltype(parity)::value;
     const int jc = t % OBS_CHUNK;
-    if (P == 0 && jc == 0) {  // a chunk starts on an even step
+    if (P == 0 && jc == 0 && t > 0 && x < OBS_CHUNK) {  // a chunk starts on an even step
+      // chunk+1's buffer last held chunk-1, read before the last barrier
       const int chunk = t / OBS_CHUNK;
-      if (chunk > 0 && v < OBS_CHUNK) {
-        // the buffer of chunk+1 last held chunk-1, read before the last barrier
-        const int tn = (chunk + 1) * OBS_CHUNK + v;
-        if (tn < ta) cp_async4(&obs_sh[(chunk + 1) & 1][v], x_row + tn);
-        cp_async_commit();
-      }
-      const float* x_chunk = obs_sh[chunk & 1];
-#pragma unroll 8
-      for (int j = 0; j < OBS_CHUNK; ++j) {
-        const float x = t + j < ta ? x_chunk[j] : mu_v;
-        const float z = (x - mu_v) / sig_v;
-        emit_sh[j * SP + v] = uni_v ? luni_v : (lsig_v - (0.5f * z) * z);
-      }
+      const int tn = (chunk + 1) * OBS_CHUNK + x;
+      if (tn < ta) cp_async4(&obs_sh[(chunk + 1) & 1][x], x_row + tn);
+      cp_async_commit();
     }
-    const float emit = emit_sh[jc * SP + v];
-    float val;
+    hook.mark(0);
+    float val[S];
     if (P == 0 && t == 0) {
-      val = start_v + emit;
+#pragma unroll
+      for (int k = 0; k < S; ++k) val[k] = start[v0 + k] + emit[k];
     } else {
-      constexpr int PREV = (P ^ 1) * ROW;  // the previous row: st = val - m
-      float out = NEGF;
-#pragma unroll
-      for (int d = 0; d < DIAG_SLOTS; ++d) out = fmaxf(out, (lds<PREV>(ad[d]) - m) + wd[d]);
+      constexpr int PREV = (P ^ 1) * ROW;  // the previous row
+      float out[S];
       if (NC > 0 && n_chain > 0) {
-        float xs[NCA];
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          float inj = NEGF;
-#pragma unroll
-          for (int e = 0; e < ENTRY_SLOTS; ++e) inj = fmaxf(inj, (lds<PREV>(ae[c][e]) - m) + we[c][e]);
-          xs[c] = inj - rp[c];
-        }
-        // inclusive scans; a lane below d gets its own value back
-#pragma unroll
-        for (int d = 1; d < 32; d <<= 1)
-#pragma unroll
-          for (int c = 0; c < NC; ++c)
-            xs[c] = fmaxf(xs[c], __shfl_up_sync(FULL, xs[c], d));
-        if (lane == 31) {
-#pragma unroll
-          for (int c = 0; c < NC; ++c) wtot[c][warp] = xs[c];
-        }
-        __syncthreads();
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          // the totals of the warps below this one: NV broadcast float4 reads
-          const float4* tot4 = reinterpret_cast<const float4*>(wtot[c]);
-          float below = -INFINITY;
-#pragma unroll
-          for (int k = 0; k < NV; ++k) {
-            const float4 q = tot4[k];
-            below = fmaxf(below, fmaxf(fmaxf(4 * k < warp ? q.x : -INFINITY,
-                                             4 * k + 1 < warp ? q.y : -INFINITY),
-                                       fmaxf(4 * k + 2 < warp ? q.z : -INFINITY,
-                                             4 * k + 3 < warp ? q.w : -INFINITY)));
-          }
-          h_sh[c * SP + v] = fmaxf(xs[c], below) + rp[c];
-        }
-        __syncthreads();
+        // chains first: their scans are the step's longest chain
+        float p[NCA][S];  // the lane's inclusive cummax of inj - ramp, state by state
 #pragma unroll
         for (int c = 0; c < NC; ++c)
 #pragma unroll
-          for (int e = 0; e < EXIT_SLOTS; ++e) out = fmaxf(out, lds<0>(ax[c][e]) + wx[c][e]);
-      }
-      val = out + emit;
-    }
-    val_sh[P * SP + v] = val;
-    if (P == 1 && jc == OBS_CHUNK - 1 && v < OBS_CHUNK) cp_async_wait_all();  // chunk+1 lands
-    __syncthreads();
-    const float4* row4 = reinterpret_cast<const float4*>(val_sh + P * SP) + lane;
-    float lm = -INFINITY;
+          for (int k = 0; k < S; ++k) {
+            float inj = NEGF;
 #pragma unroll
-    for (int k = 0; k < NV; ++k) {
-      const float4 q = row4[32 * k];
-      lm = fmaxf(lm, fmaxf(fmaxf(q.x, q.y), fmaxf(q.z, q.w)));
+            for (int e = 0; e < ENTRY_SLOTS; ++e)
+              inj = fmaxf(inj, (lds<PREV>(ae[k][c][e]) - m) + we[k][c][e]);
+            const float xs = inj - rp[k][c];
+            p[c][k] = k ? fmaxf(p[c][k - 1], xs) : xs;
+          }
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          out[k] = NEGF;
+#pragma unroll
+          for (int d = 0; d < DIAG_SLOTS; ++d)
+            out[k] = fmaxf(out[k], (lds<PREV>(ad[k][d]) - m) + wd[k][d]);
+        }
+        // cy: the cummax of the states below the lane's first in its warp
+        // (S > 1: an exclusive scan of lane totals) or through its state
+        // (S = 1: inclusive, as lanes below d get their own value back)
+        float cy[NCA];
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          cy[c] = p[c][S - 1];
+          if (S > 1) {
+            const float y = __shfl_up_sync(FULL, cy[c], 1);
+            cy[c] = lane ? y : -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int d = 1; d < 32; d <<= 1)
+#pragma unroll
+          for (int c = 0; c < NC; ++c) cy[c] = fmaxf(cy[c], __shfl_up_sync(FULL, cy[c], d));
+        hook.mark(1);
+        if (lane == 31) {
+#pragma unroll
+          for (int c = 0; c < NC; ++c) wtot[c][warp] = S > 1 ? fmaxf(cy[c], p[c][S - 1]) : cy[c];
+        }
+        __syncthreads();
+        hook.mark(2);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          // the totals of the warps below this one: broadcast float4 reads
+          const float4* tot4 = reinterpret_cast<const float4*>(wtot[c]);
+#pragma unroll
+          for (int q = 0; q < (W + 3) / 4; ++q) {
+            const float4 z = tot4[q];
+            cy[c] = fmaxf(cy[c], fmaxf(fmaxf(4 * q < warp ? z.x : -INFINITY,
+                                             4 * q + 1 < warp ? z.y : -INFINITY),
+                                       fmaxf(4 * q + 2 < warp ? z.z : -INFINITY,
+                                             4 * q + 3 < warp ? z.w : -INFINITY)));
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int k = 0; k < S; ++k)
+            h_sh[c * SP + own[k]] = (S > 1 ? fmaxf(p[c][k], cy[c]) : cy[c]) + rp[k][c];
+        hook.mark(3);
+        __syncthreads();
+        hook.mark(4);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+#pragma unroll
+          for (int e = 0; e < EXIT_SLOTS; ++e)
+#pragma unroll
+            for (int k = 0; k < S; ++k)
+              out[k] = fmaxf(out[k], lds<0>(ax[k][c][e]) + wx[k][c][e]);
+      } else {
+#pragma unroll
+        for (int k = 0; k < S; ++k) {
+          out[k] = NEGF;
+#pragma unroll
+          for (int d = 0; d < DIAG_SLOTS; ++d)
+            out[k] = fmaxf(out[k], (lds<PREV>(ad[k][d]) - m) + wd[k][d]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < S; ++k) val[k] = out[k] + emit[k];
     }
-    m = warp_max(lm);
-    const float stn = val - m;
+    // the row max: the lane's states, its warp (keyed: max is exact), then
+    // the read's W warps
+    float lm = val[0];
+#pragma unroll
+    for (int k = 1; k < S; ++k) lm = fmaxf(lm, val[k]);
+    int key = __reduce_max_sync(FULL, order_key(lm));
+#pragma unroll
+    for (int k = 0; k < S; ++k) val_sh[P * SP + own[k]] = val[k];
+    if (lane == 0) wkey[P][warp] = key;
+    if (P == 1 && jc == OBS_CHUNK - 1 && x < OBS_CHUNK) cp_async_wait_all();  // chunk+1 lands
+    hook.mark(5);
+    __syncthreads();
+    hook.mark(6);
+    const int4* key4 = reinterpret_cast<const int4*>(wkey[P]);
+#pragma unroll
+    for (int q = 0; q < (W + 3) / 4; ++q) {
+      const int4 z = key4[q];
+      key = max(key, max(max(z.x, 4 * q + 1 < W ? z.y : z.x),
+                         max(4 * q + 2 < W ? z.z : z.x, 4 * q + 3 < W ? z.w : z.x)));
+    }
+    m = key_value(key);
+    // the next step's emissions, off this step's chain (sample t + 1 landed
+    // before the barrier above)
+    const float xn = obs_sh[((t + 1) / OBS_CHUNK) & 1][(t + 1) % OBS_CHUNK];
+#pragma unroll
+    for (int k = 0; k < S; ++k) emit[k] = emission(k, xn);
+    float stn[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) stn[k] = val[k] - m;
     acc = acc + m;
-    if (t == ta - 1) fin_v = stn;
-    __stcs(sc_v, stn);
+    if (t == ta - 1) {
+#pragma unroll
+      for (int k = 0; k < S; ++k) fin_b[k] = stn[k];
+    }
+    store_row<S>(sc_v, stn);
     sc_v += sc_step;
+    hook.mark(7);
   };
   for (int t = 0; t < ta; t += 2) {
     step(std::integral_constant<int, 0>{}, t);
     if (t + 1 < ta) step(std::integral_constant<int, 1>{}, t + 1);
   }
-  if (v < OBS_CHUNK) cp_async_wait_all();
-  fin[(size_t)b * SP + v] = fin_v;
-  if (v == 0) acc_out[b] = acc;
+  if (x < OBS_CHUNK) cp_async_wait_all();
+  if (x == 0) acc_out[b] = acc;
+  hook.finish(b);
 }
 
 // Past SP 1024 (up to MAX_SP = 8192) one thread a state no longer fits a
@@ -611,12 +778,13 @@ int launch(const void* obs, const void* tact, const void* start, const void* mu,
            const void* src, const void* wts, const void* ramp, int n_chain, void* sc,
            void* fin, void* acc, int B, int T, cudaStream_t stream) {
   constexpr int SP = 128 * NV;
-  auto kernel = viterbi_fwd_kernel<NV, L>;
-  const size_t shmem = (size_t)(2 + L::CHAIN + OBS_CHUNK) * SP * sizeof(float);
+  constexpr int W = fwd_warps<NV, L>();
+  auto kernel = viterbi_fwd_kernel<NV, L, W>;
+  const size_t shmem = narrow_shmem(SP, L::CHAIN);
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<B, SP, shmem, stream>>>(
+  kernel<<<B, 32 * W, shmem, stream>>>(
       (const float*)obs, (const int*)tact, (const float*)start, (const float*)mu,
       (const float*)sigma, (const int*)uni, (const float*)luni, (const float*)lsig,
       (const int*)src, (const float*)wts, (const float*)ramp, n_chain, (float*)sc, (float*)fin,
@@ -678,6 +846,10 @@ int check_and_launch_cluster(const void* obs, const void* tact, const void* star
 }
 
 }  // namespace
+
+// A probe that includes this file for its kernels defines
+// VITERBI_FWD_KERNELS_ONLY and instantiates its own.
+#ifndef VITERBI_FWD_KERNELS_ONLY
 
 // src, wts: (slots, SP) per-thread slot tables of the layout (0: CHAINED,
 // DIAG + CHAIN * CHAIN_SLOTS slots; 1: DIAG_ONLY, its diagonal slots);
@@ -745,3 +917,5 @@ extern "C" int viterbi_fwd_cluster_capacity(int SP, int layout, int C) {
     return small ? cluster_capacity<Chained, 512>(SP, C) : cluster_capacity<Chained, 1024>(SP, C);
   return small ? cluster_capacity<DiagOnly, 512>(SP, C) : cluster_capacity<DiagOnly, 1024>(SP, C);
 }
+
+#endif  // VITERBI_FWD_KERNELS_ONLY

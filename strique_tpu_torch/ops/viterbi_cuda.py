@@ -14,7 +14,9 @@ Counterpart of ``strique_tpu/ops/viterbi_pallas.py`` on the split path:
     (launch counter ``viterbi_forward_factored``); DIAG_ONLY, at most
     ``FWD_DIAG_ONLY`` diagonals and no chain, the shape of every mod HMM
     (``viterbi_forward_factored_diag``).  Up to ``NARROW_MAX_SP`` padded
-    states one CTA a read holds them, one a thread; past it, up to
+    states one CTA a read holds them, on :func:`fwd_warps` warps of
+    consecutive states a lane (a rule on SP and layout; a traced launch
+    counts ``viterbi.fwd.w<W>``); past it, up to
     ``MAX_SP``, the cluster form spreads a read over a thread-block
     cluster of :func:`fwd_cluster_ctas` CTAs (a rule on SP, the call's
     reads and the clusters the card runs at once), one state a thread
@@ -77,6 +79,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..utils import trace
 from .viterbi import stage_factored
 
 NEG = -1e30
@@ -152,6 +155,15 @@ class FwdLayout(NamedTuple):
 
 FWD_LAYOUTS = (FwdLayout(0, "viterbi_forward_factored", FWD_MAX_DIAG, FWD_MAX_CHAIN),
                FwdLayout(1, "viterbi_forward_factored_diag", FWD_DIAG_ONLY, 0))
+# the narrow forward (SP up to NARROW_MAX_SP) runs a read on W warps of S
+# = SP / (32 W) consecutive states a lane, S a power of two: by layout
+# code, S at SP / 128 = 1 ... 8 (csrc/viterbi_fwd.cu FWD_STATES, the same
+# table), the fastest W of tools/probe_viterbi_narrow.py's sweep at 64
+# reads on an H100.  FWD_MAX_STATES: the most a lane holds without a
+# spill (the slot tables take 2 registers a slot and state; S = 8 spilled
+# in both layouts)
+FWD_STATES = {0: (1, 2, 4, 4, 4, 4, 4, 4), 1: (1, 2, 2, 4, 2, 2, 4, 4)}
+FWD_MAX_STATES = 4
 BWD_RING = 16  # score rows the backward kernel keeps in flight in shared memory
 # the wide backward (SP past NARROW_MAX_SP): states a thread, one CTA of
 # SP / BWD_WIDE_SPT threads a read (csrc/viterbi_bwd.cu WIDE_SPT)
@@ -377,6 +389,15 @@ def _fwd_plain(obs, t_actual, ph):
     return sc, fin, acc
 
 
+def fwd_warps(sp: int, layout: int = 0) -> int:
+    """Warps a read of the narrow factored forward at SP padded states (a
+    multiple of 128 up to ``NARROW_MAX_SP``) in slot layout code
+    ``layout``: SP / (32 S) with S from ``FWD_STATES``, the fastest of
+    every W the probe swept at 64 reads (S = 1, W = SP / 32, holds one
+    state a lane, as the form it replaced did)."""
+    return sp // 32 // FWD_STATES[layout][sp // LANE - 1]
+
+
 def fwd_cluster_lanes(sp: int, ctas: int) -> int:
     """Lanes (threads) a CTA of the factored forward's cluster form: SP
     over ``ctas`` CTAs in whole warps (csrc/viterbi_fwd.cu
@@ -445,6 +466,7 @@ def _fwd_cuda(obs, t_actual, ph):
     else:
         _build.launch("viterbi_fwd_launch", dev, *args)
         _build.LAUNCHES[ph.fwd_layout.name] += 1
+        trace.count(f"viterbi.fwd.w{fwd_warps(sp, ph.fwd_layout.code)}")
     return sc, fin, acc
 
 

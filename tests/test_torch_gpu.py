@@ -27,9 +27,9 @@ from strique_tpu_torch.ops.reference import AlignParams
 from strique_tpu_torch.pore_model import PoreModel
 from strique_tpu_torch.synthetic import (BWD_EDGES, MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX,
                                         VITERBI_EDGES, VITERBI_WIDE, bwd_edge_case,
-                                        make_mod_reads, make_reads, quantise, traceback_plane,
-                                        viterbi_edge_case, viterbi_wide_case, write_mod_model,
-                                        write_pore_model)
+                                        make_mod_reads, make_reads, quantise, random_unit,
+                                        traceback_plane, viterbi_edge_case, viterbi_wide_case,
+                                        write_mod_model, write_pore_model)
 
 PARAMS = [
     AlignParams(),
@@ -210,27 +210,43 @@ def test_gpu_fused_pair_one_128_row_launch(cuda_device, monkeypatch):
             assert torch.equal(got[k].cpu(), want[k]), k
 
 
-@pytest.mark.gpu
-def test_gpu_factored_viterbi_matches_plain(cuda_device, model_file):
-    pm = PoreModel(model_file)
-    chm = build_flanked_repeat(REPEAT, PREFIX[-25:], SUFFIX[:25], pm)
-    rng = np.random.default_rng(11)
-    T = 512
-    obs = np.zeros((8, T), np.float32)
-    lens = np.zeros(8, np.int32)
-    for i, k in enumerate([1, 2, 3, 5, 8, 2, 6, 4]):
-        x = pm.generate_signal(PREFIX[-25:] + REPEAT * k + SUFFIX[:25], samples=8, noise=True,
-                               rng=rng).astype(np.float32)[:T]
-        obs[i, : len(x)] = x
-        lens[i] = len(x)
-    ph = TVC.PaddedHMM(chm, cuda_device)
-    o = torch.from_numpy(obs).to(cuda_device)
-    n = torch.from_numpy(lens).to(cuda_device)
-    before = _build.LAUNCHES["viterbi_forward_factored"]
+# the narrow forward's HMM at each SP (a multiple of 128 up to
+# NARROW_MAX_SP) in each slot layout: chained, c9orf72's repeat between
+# flanks of 25 to 130 bases, or (past SP 640) a random unit of 90 to 130
+# bases between 50-base flanks -> (unit bases, flank); diagonal-only, the
+# mod HMM of GGCCCC or of a random unit of 60 to 250 bases -> unit bases
+NARROW_REPEAT = {128: (6, 25), 256: (6, 50), 384: (6, 75), 512: (6, 100), 640: (6, 130),
+                 768: (90, 50), 896: (110, 50), 1024: (130, 50)}
+NARROW_MOD = {128: 6, 256: 60, 384: 90, 512: 120, 640: 150, 768: 180, 896: 210, 1024: 250}
+
+
+def _narrow_hmm(pm, pm_mod, sp, layout):
+    """(CompiledHMM, a read's sequence) of the narrow forward at SP in
+    slot layout code ``layout`` (NARROW_REPEAT; NARROW_MOD, the mod HMM
+    of ``pm`` and its twin ``pm_mod``)."""
+    if layout == 0:
+        bases, flank = NARROW_REPEAT[sp]
+        unit = REPEAT if bases == 6 else random_unit(bases, bases)
+        return (build_flanked_repeat(unit, PREFIX[-flank:], SUFFIX[:flank], pm),
+                PREFIX[-flank:] + unit * (4096 // (8 * bases) + 2) + SUFFIX[:flank])
+    bases = NARROW_MOD[sp]
+    unit = REPEAT if bases == 6 else random_unit(bases, bases)
+    return build_repeat_mod(unit, pm, pm_mod), unit * (4096 // (8 * bases) + 2)
+
+
+def _check_narrow_forward(dev, ph, obs, lens):
+    """The narrow forward (its layout's launch counter alone, at the
+    rule's W) and the backward against their twins: rows below each
+    length, fin and acc bit-equal, paths equal."""
+    o = torch.from_numpy(obs).to(dev)
+    n = torch.from_numpy(lens).to(dev)
+    keys = [lay.name for lay in TVC.FWD_LAYOUTS]
+    before = {k: _build.LAUNCHES[k] for k in keys}
     sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
-    assert _build.LAUNCHES["viterbi_forward_factored"] == before + 1
+    assert {k: _build.LAUNCHES[k] - before[k] for k in keys} == {
+        k: int(k == ph.fwd_layout.name) for k in keys}
     sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
-    live = torch.arange(T, device=cuda_device)[:, None] < n[None, :]
+    live = torch.arange(obs.shape[1], device=dev)[:, None] < n[None, :]
     assert torch.equal(sc[live], sc_p[live])
     assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
     last = torch.argmax(fin + ph.end, dim=1)
@@ -238,6 +254,74 @@ def test_gpu_factored_viterbi_matches_plain(cuda_device, model_file):
     path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
     assert _build.LAUNCHES["viterbi_backward_batch"] == before + 1
     assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sp", list(NARROW_REPEAT))
+def test_gpu_factored_viterbi_matches_plain(cuda_device, model_file, sp):
+    """The chained layout at every SP / 128 from 1 to 8, on W =
+    ``fwd_warps`` warps a read: noisy reads of the repeat HMM, mixed
+    lengths in one launch down to 1."""
+    pm = PoreModel(model_file)
+    chm, seq = _narrow_hmm(pm, None, sp, 0)
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == sp and ph.fwd_layout.code == 0
+    rng = np.random.default_rng(11)
+    T = 512
+    lens = np.array([512, 500, 413, 300, 129, 65, 33, 1], np.int32)
+    obs = np.zeros((len(lens), T), np.float32)
+    for i, k in enumerate(lens):
+        obs[i, :k] = pm.generate_signal(seq, samples=8, noise=True, rng=rng)[:k]
+    _check_narrow_forward(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [0, 1])
+@pytest.mark.parametrize("sp", list(NARROW_REPEAT))
+def test_gpu_narrow_forward_edges_match_plain(cuda_device, model_file, mod_models, sp, layout):
+    """The narrow forward at every SP / 128 in both layouts at its edges:
+    T 1000 (not a multiple of the 32-step obs chunk), a read of length 1,
+    lengths ending mid-chunk and at T, mixed in one launch, and a read of
+    constant obs (ties in every row)."""
+    pm = PoreModel(mod_models[0] if layout else model_file)
+    pm_mod = PoreModel(mod_models[1])
+    chm, seq = _narrow_hmm(pm, pm_mod, sp, layout)
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    assert ph.sp == sp and ph.fwd_layout.code == layout
+    rng = np.random.default_rng(70 + sp + layout)
+    T = 1000
+    lens = np.array([1000, 999, 517, 100, 64, 33, 31, 1], np.int32)
+    obs = np.zeros((len(lens), T), np.float32)
+    for i, k in enumerate(lens):
+        x = (pm_mod if layout and i % 2 else pm).generate_signal(seq, samples=8, noise=True,
+                                                               rng=rng)
+        if layout:  # the counter clips a mod decode's samples to the HMM's levels
+            x = np.clip(x, chm.meta["model_min"], chm.meta["model_max"])
+        obs[i, :k] = x[:k]
+    obs[3, :lens[3]] = 100.0
+    _check_narrow_forward(cuda_device, ph, obs, lens)
+
+
+@pytest.mark.gpu
+def test_gpu_narrow_forward_traced_counts_its_warps(cuda_device, model_file):
+    """A traced narrow launch counts ``viterbi.fwd.w<W>`` once, W the
+    rule's (nothing untraced)."""
+    from strique_tpu_torch.utils import trace
+
+    pm = PoreModel(model_file)
+    chm, seq = _narrow_hmm(pm, None, 256, 0)
+    ph = TVC.PaddedHMM(chm, cuda_device)
+    x = pm.generate_signal(seq, samples=8, noise=True, rng=np.random.default_rng(5))[:300]
+    o = torch.from_numpy(np.stack([x, x]).astype(np.float32)).to(cuda_device)
+    n = torch.tensor([300, 200], dtype=torch.int32, device=cuda_device)
+    trace.reset()
+    TVC.viterbi_forward_factored(o, n, ph)
+    assert not trace.counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        trace.reset()
+        TVC.viterbi_forward_factored(o, n, ph)
+        counts = {k: v for k, v in trace.counts().items() if k.startswith("viterbi.fwd.")}
+    assert counts == {f"viterbi.fwd.w{TVC.fwd_warps(256, 0)}": 1}
 
 
 @pytest.mark.gpu
@@ -266,25 +350,6 @@ def test_gpu_viterbi_edges_match_plain(cuda_device, model_file, case):
     assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
 
 
-def _check_diag_forward(dev, ph, obs, lens):
-    """The diagonal-only forward (its launch counter alone) and the
-    backward against their twins: rows below each length, fin and acc
-    bit-equal, paths equal."""
-    o = torch.from_numpy(obs).to(dev)
-    n = torch.from_numpy(lens).to(dev)
-    keys = ("viterbi_forward_factored", "viterbi_forward_factored_diag")
-    before = {k: _build.LAUNCHES[k] for k in keys}
-    sc, fin, acc = TVC.viterbi_forward_factored(o, n, ph)
-    assert {k: _build.LAUNCHES[k] - before[k] for k in keys} == {keys[0]: 0, keys[1]: 1}
-    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
-    live = torch.arange(obs.shape[1], device=dev)[:, None] < n[None, :]
-    assert torch.equal(sc[live], sc_p[live])
-    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
-    last = torch.argmax(fin + ph.end, dim=1)
-    path = TVC.viterbi_backward_batch(sc, last, n, ph.transT)
-    assert torch.equal(path, TVC._bwd_plain(sc, last, n, ph.transT))
-
-
 @pytest.fixture(scope="module")
 def mod_models(tmp_path_factory):
     d = tmp_path_factory.mktemp("mod")
@@ -293,10 +358,12 @@ def mod_models(tmp_path_factory):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("unit_bases,sp", [(6, 128), (60, 256)])
+@pytest.mark.parametrize("unit_bases,sp", [(b, sp) for sp, b in NARROW_MOD.items()])
 def test_gpu_diag_forward_matches_plain(cuda_device, mod_models, unit_bases, sp):
     """The factored forward in its diagonal-only slot layout on a mod
-    HMM: GGCCCC's (26 states, SP 128) and a 60-base unit's (242, SP 256)."""
+    HMM at every SP / 128 from 1 to 8, on W = ``fwd_warps`` warps a read:
+    GGCCCC's (26 states, SP 128), a 60-base unit's (242, SP 256), up to a
+    250-base unit's (1002, SP 1024)."""
     pm, pm_mod = (PoreModel(m) for m in mod_models)
     rng = np.random.default_rng(20 + unit_bases)
     unit = REPEAT if unit_bases == 6 else "".join(rng.choice(list("ACGT"), unit_bases))
@@ -310,7 +377,7 @@ def test_gpu_diag_forward_matches_plain(cuda_device, mod_models, unit_bases, sp)
         x = (pm_mod if i % 2 else pm).generate_signal(unit * (T // (6 * len(unit)) + 2),
                                                       samples=8, noise=True, rng=rng)
         obs[i, :k] = np.clip(x, chm.meta["model_min"], chm.meta["model_max"])[:k]
-    _check_diag_forward(cuda_device, ph, obs, lens)
+    _check_narrow_forward(cuda_device, ph, obs, lens)
 
 
 @pytest.mark.gpu
@@ -322,7 +389,7 @@ def test_gpu_diag_forward_edges_match_plain(cuda_device, mod_models, case):
     pm, pm_mod = (PoreModel(m) for m in mod_models)
     _, obs, lens = viterbi_edge_case(pm, case, np.random.default_rng(80 + len(case)))
     ph = TVC.PaddedHMM(build_repeat_mod(REPEAT, pm, pm_mod), cuda_device)
-    _check_diag_forward(cuda_device, ph, obs, lens)
+    _check_narrow_forward(cuda_device, ph, obs, lens)
 
 
 @pytest.mark.gpu

@@ -8,6 +8,14 @@ card; what they compute is pinned here in plain tensor code on the CPU:
     them, bit-equal to ``_transition_plain``; and the kernel's whole
     step loop in that form (rows published before the rescale, a gather
     reading ``(val[u] - m) + w``), bit-equal to ``_fwd_plain``;
+  * the emission's quotient by a double reciprocal, bit-equal to the IEEE
+    f32 division;
+  * the narrow kernel's split of a read over W warps of S states a lane
+    at every W the probe sweeps (each chain's cummax from a lane's own
+    states, its warp's lanes below and the warps below; the row max from
+    the warps' maxima), bit-equal to ``_fwd_plain``, and its row layout
+    (``row_word``): a warp's 32 lanes, S states apart, in 32 distinct
+    banks;
   * the backward's selection (an order-preserving int key of the f32
     sums, its max converted back and compared ``>=`` in f32, the first
     lane holding a hit and its first hit) and its walk (the register ring of score
@@ -24,10 +32,11 @@ import pytest
 import torch
 
 from strique_tpu_torch.convert import padded_hmm_from_jax
-from strique_tpu_torch.hmm.models import build_flanked_repeat
+from strique_tpu_torch.hmm.models import build_flanked_repeat, build_repeat_mod
 from strique_tpu_torch.ops import viterbi_cuda as TVC
 from strique_tpu_torch.pore_model import PoreModel
-from strique_tpu_torch.synthetic import PREFIX, REPEAT, SUFFIX, write_pore_model
+from strique_tpu_torch.synthetic import (MOD_MODEL_SEED, PREFIX, REPEAT, SUFFIX, write_mod_model,
+                                        write_pore_model)
 
 # the port's CPU test files run torch on one thread (six pytest workers
 # share the machine's cores)
@@ -173,6 +182,151 @@ def test_kernel_form_forward_matches_plain(pm, flank, sp):
         acc = acc + torch.where(live[:, 0], m[:, 0], 0.0)
         fin = torch.where((tact - 1 == t)[:, None], stn, fin)
         sc[t] = stn
+    rows = torch.arange(T)[:, None] < n[None, :]
+    assert torch.equal(sc[rows], sc_p[rows])
+    assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)
+
+
+def row_word(u, s):
+    """Twin of csrc/viterbi_fwd.cu ``row_word<S>``: state u's word in a
+    row of the narrow kernel at S states a lane."""
+    return u ^ ((u >> 5) & (s - 1))
+
+
+@pytest.mark.parametrize("sp", [128, 256, 384, 1024])
+def test_row_word_puts_a_warp_in_distinct_banks(sp):
+    """At S = 1, 2, 4 (and 8 where 32 S divides SP): row_word permutes each
+    32-word block, keeps a lane's S states in its aligned group of S
+    words, and puts a warp's 32 lanes, S states apart from any first
+    state (a gather's u = (v - o) mod SP, wrapping past SP), in 32
+    distinct banks."""
+    u = np.arange(sp)
+    lanes = np.arange(32)
+    for s in (1, 2, 4, 8):
+        if sp % (32 * s):
+            continue
+        words = row_word(u, s)
+        assert (np.sort(words.reshape(-1, 32), axis=1) == u.reshape(-1, 32)).all()
+        assert (words // s == u // s).all()
+        banks = row_word((u[:, None] + s * lanes[None, :]) % sp, s) % 32
+        assert (np.sort(banks, axis=1) == lanes).all()
+
+
+def test_quotient_by_double_reciprocal_is_ieee_division():
+    """csrc/viterbi_fwd.cu ``quotient``: a / b in f32 as the product of a
+    and b's double reciprocal, rounded to f32, is the IEEE f32 quotient
+    bit for bit: over random bit patterns (subnormals, infinities and
+    NaNs among them), the emission's domain, and integer operands whose
+    quotients come closest to a midpoint of two floats."""
+    rng = np.random.default_rng(17)
+    n = 400_000
+    def bits():
+        return rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.float32)
+
+    cases = [(bits(), bits()),
+             (rng.uniform(-200, 200, n).astype(np.float32),
+              rng.uniform(0.5, 5, n).astype(np.float32)),
+             (rng.integers(1, 2**24, n).astype(np.float32),
+              (rng.integers(2**23, 2**24, n) | 1).astype(np.float32))]
+    with np.errstate(all="ignore"):
+        for a, b in cases:
+            want = a / b
+            got = (a.astype(np.float64) * (1.0 / b.astype(np.float64))).astype(np.float32)
+            same = (want.view(np.uint32) == got.view(np.uint32)) | (np.isnan(want) & np.isnan(got))
+            assert same.all()
+
+
+def _narrow_emulation(obs, t_actual, ph, warps):
+    """csrc/viterbi_fwd.cu ``viterbi_fwd_kernel<NV, L, W>`` in plain ops:
+    lane l of the read's 32 W holds states l S ... l S + S - 1.  A chain's
+    h = max(the lane's inclusive cummax, its warp's lanes below, the warps
+    below) + ramp; m from the warps' maxima; a gather reads (val[u] - m) +
+    w from the published row."""
+    B, T = obs.shape
+    sp = ph.sp
+    nt = 32 * warps
+    s = sp // nt
+    src, w, ramp, _ = _tables(ph)
+    lay = ph.fwd_layout
+    tact = t_actual.long()
+    sc = torch.zeros((T, B, sp))
+    fin = torch.zeros((B, sp))
+    acc = torch.zeros(B)
+    ninf = lambda *shape: torch.full(shape, -np.inf)  # noqa: E731
+    val = m = None
+    for t in range(int(tact.max())):
+        z = (obs[:, t : t + 1] - ph.mu) / ph.sigma
+        emit = torch.where(ph.uni != 0, ph.luni, ph.lsig - 0.5 * z * z)
+        if t == 0:
+            new = ph.start + emit
+        else:
+            st = val - m  # the same f32 ops a gather does
+            gather = lambda k: st[:, src[k]] + w[k]  # noqa: E731
+            out = torch.full((B, sp), float(NEG))
+            for d in range(lay.diag):
+                out = torch.maximum(out, gather(d))
+            for c in range(lay.chain):
+                base = lay.diag + c * TVC.FWD_CHAIN_SLOTS
+                inj = torch.full((B, sp), float(NEG))
+                for e in range(TVC.FWD_MAX_ENTRY):
+                    inj = torch.maximum(inj, gather(base + e))
+                p = torch.cummax((inj - ramp[c]).view(B, nt, s), dim=2).values
+                tot = p[:, :, -1].reshape(B, warps, 32)
+                below_lane = torch.cat([ninf(B, warps, 1), tot[:, :, :-1]], 2).cummax(2).values
+                wtot = torch.maximum(below_lane[:, :, -1], tot[:, :, -1])
+                below_warp = torch.cat([ninf(B, 1), wtot[:, :-1]], 1).cummax(1).values
+                cy = torch.maximum(below_lane, below_warp[:, :, None]).reshape(B, nt, 1)
+                h = torch.maximum(p, cy).reshape(B, sp) + ramp[c]
+                for e in range(TVC.FWD_MAX_EXIT):
+                    k = base + TVC.FWD_MAX_ENTRY + e
+                    out = torch.maximum(out, h[:, src[k]] + w[k])
+            new = out + emit
+        live = (t < tact)[:, None]
+        val = torch.where(live, new, val) if t else new  # a read stops at its length
+        m = val.view(B, warps, 32 * s).amax(dim=2).amax(dim=1, keepdim=True)
+        stn = val - m
+        acc = acc + torch.where(live[:, 0], m[:, 0], 0.0)
+        fin = torch.where((tact - 1 == t)[:, None], stn, fin)
+        sc[t] = stn
+    return sc, fin, acc
+
+
+# the narrow kernel's split cases: (HMM, SP); W at every S the probe sweeps
+NARROW_SPLITS = [(kind, sp, 4 * sp // 128 // s) for kind, sp in
+                 (("repeat", 128), ("repeat", 256), ("mod", 128), ("mod", 256))
+                 for s in (1, 2, 4, 8) if (4 * sp // 128) % s == 0]
+
+
+@pytest.mark.parametrize("kind,sp,warps", NARROW_SPLITS)
+def test_narrow_split_matches_plain(pm, tmp_path_factory, kind, sp, warps):
+    """The narrow kernel's step on W warps of S states a lane, emulated,
+    is bit-equal to ``_fwd_plain`` in both slot layouts (repeat HMMs of
+    25- and 50-base flanks, chained; mod HMMs of GGCCCC and a 60-base
+    unit, diagonal-only) at lengths 1, 2, around the obs chunks and
+    full, and on constant obs (ties in every row)."""
+    rng = np.random.default_rng(31 + sp + warps)
+    if kind == "repeat":
+        flank = 25 if sp == 128 else 50
+        unit = REPEAT
+        _, ph = _hmm(pm, flank)
+        seq = PREFIX[-flank:] + REPEAT * 3 + SUFFIX[:flank]
+    else:
+        twin = PoreModel(write_mod_model(str(tmp_path_factory.mktemp("mod") / "t.model"),
+                                         seed=MOD_MODEL_SEED))
+        unit = REPEAT if sp == 128 else "".join(rng.choice(list("ACGT"), 60))
+        ph = TVC.PaddedHMM(build_repeat_mod(unit, pm, twin), "cpu")
+        seq = unit * (200 // len(unit) + 2)
+    assert ph.sp == sp and ph.fwd_layout.code == (kind == "mod")
+    T = 100
+    lens = np.array([1, 2, 31, 33, 64, 100], np.int32)
+    obs = np.zeros((len(lens), T), np.float32)
+    for i, n in enumerate(lens):
+        x = pm.generate_signal(seq, samples=8, noise=True, rng=rng).astype(np.float32)[:n]
+        obs[i, : len(x)] = x
+    obs[4, :] = 100.0
+    o, n = torch.from_numpy(obs), torch.from_numpy(lens)
+    sc_p, fin_p, acc_p = TVC._fwd_plain(o, n, ph)
+    sc, fin, acc = _narrow_emulation(o, n, ph, warps)
     rows = torch.arange(T)[:, None] < n[None, :]
     assert torch.equal(sc[rows], sc_p[rows])
     assert torch.equal(fin, fin_p) and torch.equal(acc, acc_p)

@@ -33,6 +33,9 @@ plus 1e-6 relative.  That ulp moves a row entry by a few ulp of its
 magnitude: up to ~1e3 at the narrow widths, but ~1.3e4 at SP 2048,
 where 14 of 1.86M live entries part by up to 4 ulp (0.0039).
 """
+import os
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -285,6 +288,32 @@ def test_cluster_split_matches_jax_interpret(models):
     np.testing.assert_allclose(sc.numpy()[live], np.asarray(jsc)[live], rtol=1e-6, atol=2e-3)
     np.testing.assert_allclose(fin.numpy(), np.asarray(jfin), rtol=1e-6, atol=2e-3)
     np.testing.assert_allclose(acc.numpy(), np.asarray(jacc)[:, 0], rtol=1e-5)
+
+
+def test_fwd_warps_rule():
+    """The narrow forward's warps a read, at every SP / 128 from 1 to 8 in
+    both layouts: W divides SP / 32, its S = SP / (32 W) states a lane is
+    a power of two within the register cap the instances were built for
+    (``FWD_MAX_STATES``: S = 8 spilled), and at SP 128 and 256 W is
+    tools/probe_viterbi_narrow.py's fastest on an H100 at 64 reads (4
+    warps in both layouts: one state a lane at SP 128, two at SP 256)."""
+    for layout in (0, 1):
+        for sp in range(TVC.LANE, TVC.NARROW_MAX_SP + 1, TVC.LANE):
+            w = TVC.fwd_warps(sp, layout)
+            s = sp // (32 * w)
+            assert (sp // 32) % w == 0 and s * 32 * w == sp
+            assert s & (s - 1) == 0 and 1 <= s <= TVC.FWD_MAX_STATES
+    assert [TVC.fwd_warps(sp, layout) for layout in (0, 1) for sp in (128, 256)] == [4] * 4
+    assert [TVC.fwd_warps(sp, 0) for sp in (384, 512, 1024)] == [3, 4, 8]
+
+
+def test_fwd_states_table_matches_kernel():
+    """``FWD_STATES`` is the kernel's own table (csrc/viterbi_fwd.cu
+    FWD_STATES), so the rule names the W the library's instances run."""
+    src = open(os.path.join(os.path.dirname(TVC.__file__), "..", "csrc", "viterbi_fwd.cu")).read()
+    body = re.search(r"constexpr int FWD_STATES\[2\]\[8\] = \{(.*?)\};", src, re.S).group(1)
+    rows = [tuple(int(v) for v in r.split(",")) for r in re.findall(r"\{([^{}]*)\}", body)]
+    assert rows == [TVC.FWD_STATES[0], TVC.FWD_STATES[1]]
 
 
 def test_fwd_cluster_ctas_rule():
